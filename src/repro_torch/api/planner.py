@@ -1,0 +1,272 @@
+"""Query planner: (index stats, Query) -> QueryPlan.
+
+A plan is the resolved mode (``"auto"`` collapsed to exact/approx), the
+truncation config, the id-filter strategy and the ordered pipeline stages.
+It is computed from ``index.stats()`` and the query alone — deterministic
+for a fixed index — and ``explain()`` returns it as a plain dict, equal
+field for field to the JAX package's plan for the same index and query.
+
+Mode resolution:
+
+  * ``mode="exact"``  — the exact path.
+  * ``mode="approx"`` — the truncated-surrogate path; needs a truncation
+    dimension from the query, the index's ``QueryOptions`` or the build.
+  * ``mode="auto"``   — with a budget: exact when the static estimate
+    (``n_pivots`` pivot distances + ``max(k, 2% of n)`` rechecks) fits it,
+    else the truncated path (dims defaulting to ``n_pivots // 2``) with the
+    refine budget capped to fit; without a budget: approx iff the index was
+    built with ``apex_dims``.
+
+An ``allow`` list overrides all of this: the executor scans the listed
+rows directly, and the plan says so.  This package plans the plain
+``nsimplex`` kind; predicates (ROADMAP item 8) and sharded indexes (item 7)
+are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from repro_torch.api.query import DEFAULT_REFINE, Query, QueryOptions
+
+__all__ = ["PlanStage", "QueryPlan", "plan"]
+
+#: expected fraction of the table surviving the exact filter (auto-mode
+#: cost estimate only; ~2x the measured N_seq fraction for margin)
+_EXACT_CANDIDATE_FRACTION = 0.02
+
+
+@dataclass(frozen=True)
+class PlanStage:
+    """One pipeline stage: a name plus its sorted, JSON-able parameters."""
+
+    name: str
+    params: Tuple[Tuple[str, object], ...] = ()
+
+    def to_dict(self) -> dict:
+        return {"stage": self.name, **dict(self.params)}
+
+
+def _stage(name: str, **params) -> PlanStage:
+    return PlanStage(name=name, params=tuple(sorted(params.items())))
+
+
+@dataclass(frozen=True)
+class QueryPlan:
+    """The executor's contract for one (index, Query) pair."""
+
+    index_kind: str
+    mechanism: str
+    task: str
+    mode: str                          # "exact" | "approx" (auto resolved)
+    k: Optional[int]
+    threshold: Optional[object]
+    dims: Optional[int]
+    refine: Optional[int]
+    filter_strategy: str               # "none"|"allow_direct"|"deny_overfetch"|"postfilter"
+    stages: Tuple[PlanStage, ...]
+    reason: str
+    budget: Optional[int] = None
+    #: exact-path cost-estimate provenance as sorted (key, value) pairs
+    calibration: Optional[Tuple[Tuple[str, object], ...]] = None
+
+    @property
+    def approx_cfg(self) -> Optional[dict]:
+        """``{"dims", "refine"}`` for the approximate path, None when exact."""
+        if self.mode != "approx":
+            return None
+        return {"dims": int(self.dims), "refine": int(self.refine)}
+
+    def explain(self) -> dict:
+        """The plan as a deterministic, JSON-able dict."""
+        return {
+            "index_kind": self.index_kind,
+            "mechanism": self.mechanism,
+            "task": self.task,
+            "mode": self.mode,
+            "k": self.k,
+            "threshold": list(self.threshold) if isinstance(self.threshold, tuple) else self.threshold,
+            "dims": self.dims,
+            "refine": self.refine,
+            "budget": self.budget,
+            "filter": self.filter_strategy,
+            "reason": self.reason,
+            "calibration": dict(self.calibration) if self.calibration else None,
+            "stages": [s.to_dict() for s in self.stages],
+        }
+
+
+def _resolve_approx_fields(query: Query, options: Optional[QueryOptions], stats: dict):
+    """(dims, refine) after the Query > QueryOptions > build-config cascade."""
+    opt = options or QueryOptions()
+    dims = query.dims if query.dims is not None else opt.dims
+    if dims is None:
+        dims = stats.get("apex_dims")
+    refine = query.refine if query.refine is not None else opt.refine
+    if refine is None:
+        refine = stats.get("refine", None)
+    return (int(dims) if dims is not None else None,
+            int(refine) if refine is not None else None)
+
+
+def _exact_cost_estimate(stats: dict, query: Query) -> int:
+    """The static prior: true-metric evaluations of the exact path."""
+    n = int(stats.get("n_objects", 0))
+    n_pivots = int(stats.get("n_pivots", 0))
+    want = query.k if query.task == "knn" and query.k else 0
+    return n_pivots + max(int(want), int(_EXACT_CANDIDATE_FRACTION * n))
+
+
+def _cost_calibration(stats: dict, query: Query):
+    """(estimate, provenance pairs); no telemetry here, so always the prior."""
+    prior = _exact_cost_estimate(stats, query)
+    pairs = tuple(
+        sorted({"prior_evals": int(prior), "calibrated_evals": None, "source": "static_prior"}.items())
+    )
+    return float(prior), pairs
+
+
+def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict):
+    """(mode, dims, refine, reason, budget, calibration) with "auto" collapsed."""
+    dims, refine = _resolve_approx_fields(query, options, stats)
+    calibration = _cost_calibration(stats, query)[1]
+    mode = query.mode
+    if mode == "auto" and options and options.mode:
+        mode = options.mode
+    budget = query.budget if query.budget is not None else (options.budget if options else None)
+
+    if mode == "exact":
+        return "exact", None, None, "requested exact", budget, calibration
+    if mode == "approx":
+        if dims is None:
+            raise ValueError(
+                "approx mode needs a truncation dimension: build with "
+                "apex_dims=... or pass dims=... (Query/QueryOptions)"
+            )
+        return (
+            "approx", dims, refine if refine is not None else DEFAULT_REFINE,
+            "requested approx", budget, calibration,
+        )
+
+    if budget is not None:
+        if dims is None:
+            dims = max(2, int(stats["n_pivots"]) // 2)
+        est, calibration = _cost_calibration(stats, query)
+        source = dict(calibration)["source"]
+        if est > budget:
+            r = refine if refine is not None else DEFAULT_REFINE
+            r = max(0, min(r, budget - dims))
+            return (
+                "approx", dims, r,
+                f"auto: exact estimate {est:g} evals ({source}) exceeds budget {budget}",
+                budget, calibration,
+            )
+        return (
+            "exact", None, None,
+            f"auto: exact estimate {est:g} evals ({source}) fits budget {budget}",
+            budget, calibration,
+        )
+    if stats.get("apex_dims") is not None and dims is not None:
+        return (
+            "approx", dims, refine if refine is not None else DEFAULT_REFINE,
+            "auto: index built with apex_dims defaults to the truncated path",
+            budget, calibration,
+        )
+    return "exact", None, None, "auto: no truncation configured", budget, calibration
+
+
+def _filter_strategy(query: Query) -> str:
+    if query.deny:
+        return "deny_overfetch" if query.task == "knn" else "postfilter"
+    return "none"
+
+
+def _mechanism_stages(stats: dict, query: Query, mode: str, dims, refine):
+    """The n-simplex pipeline: pivot distances, projection, fused filter,
+    refinement."""
+    n = int(stats.get("n_objects", 0))
+    eff = dims if mode == "approx" else int(stats.get("n_pivots", 0))
+    stages = [_stage("pivot_distances", count=eff), _stage("project", dims=eff, space="apex")]
+    if mode == "approx":
+        stages.append(
+            _stage("filter", algorithm="truncated_surrogate_scan", rows=n, dims=eff,
+                   selection="fused_epilogue")
+        )
+        stages.append(
+            _stage(
+                "refine",
+                strategy="true_metric_rerank" if query.task == "knn" else "straddler_recheck",
+                budget=refine,
+            )
+        )
+        return stages
+    stages.append(_stage("filter", algorithm="two_sided_simplex", rows=n, selection="fused_epilogue"))
+    stages.append(
+        _stage("refine", strategy="shrinking_radius" if query.task == "knn" else "straddler_recheck")
+    )
+    return stages
+
+
+def plan(index, query: Query) -> QueryPlan:
+    """Plan one query against one index, from its ``stats()`` facts."""
+    if not isinstance(query, Query):
+        raise TypeError(f"expected a Query; got {type(query).__name__}")
+    stats = index.stats()
+    kind = stats["kind"]
+    if kind != "nsimplex":
+        raise NotImplementedError(
+            f"planning for index kind {kind!r} is not ported (sharded: ROADMAP item 7)"
+        )
+    if query.allow is not None:
+        return QueryPlan(
+            index_kind=kind,
+            mechanism=kind,
+            task=query.task,
+            mode="exact",
+            k=query.k,
+            threshold=query.threshold,
+            dims=None,
+            refine=None,
+            filter_strategy="allow_direct",
+            stages=(
+                _stage("allow_direct_scan", rows=len(query.allow)),
+                _stage(
+                    "id_filter",
+                    strategy="allow_direct",
+                    allow=len(query.allow),
+                    deny=len(query.deny) if query.deny else None,
+                ),
+            ),
+            reason="allowlist: direct exact scan of the listed rows",
+            budget=query.budget,
+        )
+
+    options = getattr(index, "query_options", None)
+    mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats)
+    stages = _mechanism_stages(stats, query, mode, dims, refine)
+    strategy = _filter_strategy(query)
+    if strategy != "none":
+        stages.append(
+            _stage(
+                "id_filter",
+                strategy=strategy,
+                allow=None,
+                deny=len(query.deny) if query.deny else None,
+            )
+        )
+    return QueryPlan(
+        index_kind=kind,
+        mechanism=kind,
+        task=query.task,
+        mode=mode,
+        k=query.k,
+        threshold=query.threshold,
+        dims=dims,
+        refine=refine,
+        filter_strategy=strategy,
+        stages=tuple(stages),
+        reason=reason,
+        budget=budget,
+        calibration=calibration,
+    )

@@ -1,0 +1,95 @@
+"""The ``Index`` protocol and the ``stats()`` key contract.
+
+``STATS_CONTRACT`` is the JAX package's, key for key: every index kind
+reports the ``common`` keys and its own extras.  This package implements
+the ``nsimplex`` kind; the others are listed so that the contract stays one
+table across both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Protocol, runtime_checkable
+
+import numpy as np
+
+from repro_torch.api.types import BatchQueryResult, QueryResult
+
+STATS_CONTRACT = {
+    "common": frozenset({"kind", "metric", "n_objects", "dim"}),
+    "nsimplex": frozenset({"n_pivots", "table_bytes"}),
+    "laesa": frozenset({"n_pivots", "table_bytes"}),
+    "tree": frozenset({"leaf_size", "build_calls"}),
+    "mutable": frozenset(
+        {
+            "base_kind",
+            "base_rows",
+            "delta_rows",
+            "tombstones",
+            "compact_threshold",
+            "pending_compaction",
+            "compactions",
+            "generation",
+        }
+    ),
+    "durable": frozenset(
+        {
+            "base_kind",
+            "wal_records",
+            "wal_bytes",
+            "wal_synced",
+            "refits",
+            "drift_stat",
+            "drift_pending",
+        }
+    ),
+    "sharded": frozenset(
+        {
+            "inner_kind",
+            "n_shards",
+            "mutable",
+            "shard_objects",
+            "device_filter",
+            "shared_projector",
+        }
+    ),
+}
+
+
+@runtime_checkable
+class Index(Protocol):
+    """Structural protocol for index mechanisms."""
+
+    kind: str
+
+    def fit(self, data: np.ndarray) -> "Index":
+        """Rebuild over new data, reusing the fitted configuration."""
+        ...
+
+    def query(self, q: np.ndarray, spec, *, plan=None):
+        """Answer one ``Query``: 1-D ``q`` -> ``QueryResult``, 2-D ->
+        ``BatchQueryResult``."""
+        ...
+
+    def plan(self, spec):
+        """The ``QueryPlan`` that ``query()`` would execute."""
+        ...
+
+    def search(self, q: np.ndarray, threshold: float) -> QueryResult:
+        ...
+
+    def search_batch(self, queries: np.ndarray, thresholds) -> BatchQueryResult:
+        ...
+
+    def knn(self, q: np.ndarray, k: int) -> QueryResult:
+        ...
+
+    def knn_batch(self, queries: np.ndarray, k: int) -> BatchQueryResult:
+        ...
+
+    def save(self, path) -> None:
+        """Persist to ``path`` (directory with manifest.json + arrays.npz)."""
+        ...
+
+    def stats(self) -> dict:
+        """Build-time facts per the ``STATS_CONTRACT`` key sets."""
+        ...

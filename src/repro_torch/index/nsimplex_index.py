@@ -1,0 +1,496 @@
+"""n-simplex apex-table index (the paper's N_seq mechanism), exact paths.
+
+Same table discipline as LAESA — n numbers per object — but each row holds
+the apex coordinates φ_n(s), and the filter is l2 in apex space with two
+sides: the lower bound excludes, the upper bound admits without touching
+the original space.
+
+The index holds on its device the corpus in its input dtype, the float64
+apex table, and the float32 twin the bound-scan kernels read.  There is one
+scan path, the JAX package's ``use_kernel=True`` algorithm: the f32 bounds
+come from the kernels (``repro_torch.kernels``) — CUDA on a card, their
+plain versions on the CPU — and every decision is widened by the f32 error
+bound ``_kernel_err_sq`` and re-taken exactly in float64 on the host, so
+the answers are exact.  ``use_kernel`` is accepted and persisted for
+manifest compatibility only.
+
+Per query the host runs the same small control flow as the reference (the
+shrinking-radius refinement, threshold re-filters, cost ledger), so ids,
+tie order and ``QueryStats`` follow it; original-space distances are
+evaluated on the device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import NSimplexProjector
+from repro_torch.device import resolve_device
+from repro_torch.index.knn import knn_refine, knn_refine_candidates
+from repro_torch.index.stats import QueryStats
+from repro_torch.kernels import (
+    MAX_SELECT_WIDTH,
+    SENTINEL_ID,
+    apex_bounds,
+    apex_bounds_batch,
+    apex_bounds_threshold,
+    apex_bounds_topk,
+)
+from repro_torch.metrics import Metric
+
+__all__ = ["NSimplexIndex"]
+
+#: candidate capacity of the range-search threshold epilogue
+_RANGE_CAP = 4096
+
+
+class NSimplexIndex:
+    """Apex table + fused two-sided bound filter on one device."""
+
+    def __init__(
+        self,
+        data,
+        pivots,
+        metric: Metric,
+        *,
+        eps: float = 1e-6,
+        use_kernel: bool = True,
+        projector: NSimplexProjector = None,
+        device="cuda",
+    ):
+        """``projector`` (optional) reuses an already-fitted simplex: no
+        inter-pivot distance is re-measured."""
+        self.device = resolve_device(device)
+        self.data = torch.tensor(np.asarray(data), device=self.device)
+        self.metric = metric
+        self.eps = float(eps)
+        self.use_kernel = bool(use_kernel)
+        if projector is None:
+            projector = NSimplexProjector(pivots, metric, device=self.device)
+        elif projector.device != self.device:
+            raise ValueError(f"projector lives on {projector.device}, index on {self.device}")
+        self.projector = projector
+        if self.data.shape[0]:
+            self.table = projector(self.data)
+        else:
+            self.table = torch.zeros((0, projector.n_pivots), dtype=torch.float64, device=self.device)
+        self._reset_caches()
+
+    def _reset_caches(self):
+        self._table_f32 = None      # float32 twin of the table (kernel operand)
+        self._row_sq_max = None     # max squared row norm (slack bound)
+        self._trunc = {}            # dims -> prefix projector
+        #: queries answered by the per-query K1 route (capacity overflow or
+        #: a selection wider than the kernels hold)
+        self.overflow_queries = 0
+
+    @property
+    def n_pivots(self) -> int:
+        return self.projector.n_pivots
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.data.shape[0])
+
+    # -- persistence ----------------------------------------------------------
+    def state_arrays(self) -> dict:
+        """Host numpy copies of everything needed to restore without
+        re-measuring: the same keys as the JAX package's ``state_arrays``."""
+        return {
+            "data": self.data.cpu().numpy(),
+            "pivots": self.projector.pivots,
+            "table": self.table.cpu().numpy(),
+            "sigma": self.projector.sigma,
+            "Linv": self.projector.Linv,
+            "sq_norms": self.projector.sq_norms,
+        }
+
+    @classmethod
+    def from_state(
+        cls, arrays: dict, metric: Metric, *, eps: float = 1e-6, use_kernel: bool = True, device="cuda"
+    ) -> "NSimplexIndex":
+        """Rebuild from a ``state_arrays`` dict (this package's or the JAX
+        package's): no distance is re-measured, so the table is bit-identical."""
+        index = object.__new__(cls)
+        index.device = resolve_device(device)
+        index.data = torch.tensor(np.asarray(arrays["data"]), device=index.device)
+        index.metric = metric
+        index.eps = float(eps)
+        index.use_kernel = bool(use_kernel)
+        index.projector = NSimplexProjector.from_fitted(
+            arrays["pivots"], metric, arrays["sigma"], arrays["Linv"], arrays["sq_norms"],
+            device=index.device,
+        )
+        index.table = torch.tensor(np.asarray(arrays["table"], dtype=np.float64), device=index.device)
+        index._reset_caches()
+        return index
+
+    # -- operands -------------------------------------------------------------
+    def _tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _kernel_table(self) -> torch.Tensor:
+        if self._table_f32 is None:
+            self._table_f32 = self.table.to(torch.float32).contiguous()
+        return self._table_f32
+
+    def _kernel_err_sq(self, apexes: np.ndarray) -> float:
+        """Absolute error bound on the kernels' SQUARED f32 bounds.
+
+        The kernels evaluate |x-y|² as |x|² + |y|² - 2<x,y> in float32; a
+        length-m dot product accumulates O(m · eps32 · (|x|² + |y|²)) error.
+        """
+        if self._row_sq_max is None:
+            self._row_sq_max = (
+                float((self.table * self.table).sum(dim=1).max()) if self.n_rows else 0.0
+            )
+        a = np.atleast_2d(apexes)
+        q_sq_max = float(np.max(np.einsum("qd,qd->q", a, a)))
+        c = 4.0 * (self.n_pivots + 8)
+        return c * np.finfo(np.float32).eps * (self._row_sq_max + q_sq_max)
+
+    def _kernel_slack(self, apexes: np.ndarray, thresholds: np.ndarray) -> np.ndarray:
+        """Per-query distance slack covering the f32 bound error near each
+        threshold t (~err_sq / 2t): decisions inside it are rechecked."""
+        err_sq = self._kernel_err_sq(apexes)
+        return err_sq / (2.0 * np.maximum(thresholds, 1e-12)) + 1e-12
+
+    def _prefix_projector(self, dims: int) -> NSimplexProjector:
+        dims = int(dims)
+        if not (2 <= dims <= self.n_pivots):
+            raise ValueError(f"dims must be in [2, {self.n_pivots}]; got {dims}")
+        proj = self._trunc.get(dims)
+        if proj is None:
+            proj = self._trunc[dims] = self.projector.truncate(dims)
+        return proj
+
+    def pivot_rows(self, dims: int = None) -> np.ndarray:
+        """The pivot objects a query measures against: all of them, or the
+        ``dims``-prefix (the contract behind precomputed ``qpd`` blocks)."""
+        return self.projector.pivots if dims is None else self._prefix_projector(dims).pivots
+
+    def query_apex(self, q, qpd=None) -> torch.Tensor:
+        """(n,) float64 apex of one query on the index's device."""
+        if qpd is None:
+            qpd = self.metric.cross(self._tensor(q)[None, :], self.projector.pivots_t)[0]
+        return self.projector.project_distances(qpd)
+
+    def query_apex_batch(self, queries, dims: int = None, qpd=None) -> torch.Tensor:
+        """(Q, n) float64 apexes of a query block (``dims=k``: (Q, k) from the
+        k-pivot prefix); ``qpd`` supplies measured query-pivot distances."""
+        proj = self.projector if dims is None else self._prefix_projector(dims)
+        if qpd is None:
+            qpd = self.metric.cross(torch.atleast_2d(self._tensor(queries)), proj.pivots_t)
+        return torch.atleast_2d(proj.project_distances(qpd))
+
+    def bounds(self, query_apex: torch.Tensor):
+        """(lwb, upb) of one query apex against every row, through K6 on the
+        f32 twin; float64 tensors on the index's device."""
+        lwb, upb = apex_bounds(self._kernel_table(), self._tensor(query_apex).to(torch.float32))
+        return lwb.to(torch.float64), upb.to(torch.float64)
+
+    def bounds_batch(self, query_apexes: torch.Tensor, dims: int = None):
+        """(lwb, upb), each (Q, N), of a query-apex block through K1 on the
+        f32 twin (``dims=k``: truncated k-prefix bounds; the apexes may be
+        n or k wide); float64 tensors on the index's device."""
+        qa = torch.atleast_2d(self._tensor(query_apexes)).to(torch.float32)
+        lwb, upb = apex_bounds_batch(self._kernel_table(), qa, dims=dims)
+        return lwb.to(torch.float64), upb.to(torch.float64)
+
+    def _mask_of(self, rowmask):
+        """A ``rowmask`` (bool mask or array of allowed positions) as an
+        (N,) bool numpy array, or None."""
+        if rowmask is None:
+            return None
+        m = np.asarray(rowmask)
+        if m.dtype == np.bool_:
+            if m.shape[0] != self.n_rows:
+                raise ValueError(f"rowmask length {m.shape[0]} != table rows {self.n_rows}")
+            return m
+        b = np.zeros(self.n_rows, dtype=bool)
+        b[m.astype(np.int64)] = True
+        return b
+
+    def _dist_fn(self, q: torch.Tensor):
+        """rows (numpy ids) -> host distances from ``q``, evaluated on the
+        device with the metric's own dtype rule."""
+
+        def dist(rows):
+            idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
+            return self.metric.one_to_many(q, self.data[idx]).cpu().numpy()
+
+        return dist
+
+    @staticmethod
+    def _host(*tensors):
+        return tuple(t.cpu().numpy() for t in tensors)
+
+    # -- range search ---------------------------------------------------------
+    def search(self, q, threshold: float, qpd=None, rowmask=None):
+        """Exact threshold search of one query: (sorted ids, QueryStats).
+
+        ``qpd``: precomputed (n,) query-pivot distances (charges 0 pivot
+        calls here); ``rowmask``: allowed-row restriction.
+        """
+        stats = QueryStats()
+        q_t = self._tensor(q)
+        apex = self.query_apex(q_t, qpd=qpd)
+        stats.original_calls += self.n_pivots if qpd is None else 0
+        stats.surrogate_calls += self.n_rows
+        lwb, upb = self._host(*self.bounds(apex))
+        t_hi = threshold * (1.0 + self.eps) + 1e-12
+        t_lo = threshold * (1.0 - self.eps) - 1e-12
+        # f32 slack guard: borderline rows are rechecked exactly
+        slack = float(self._kernel_slack(apex.cpu().numpy()[None, :], np.asarray([threshold]))[0])
+        t_hi = t_hi + slack
+        t_lo = t_lo - slack
+        accepted = np.where(upb <= t_lo)[0]
+        recheck = np.where((lwb <= t_hi) & (upb > t_lo))[0]
+        mask = self._mask_of(rowmask)
+        if mask is not None:
+            accepted = accepted[mask[accepted]]
+            recheck = recheck[mask[recheck]]
+        stats.accepted_no_check = len(accepted)
+        stats.candidates = len(accepted) + len(recheck)
+        if len(recheck):
+            d = self._dist_fn(q_t)(recheck)
+            stats.original_calls += len(recheck)
+            confirmed = recheck[d <= threshold]
+        else:
+            confirmed = np.empty(0, dtype=np.int64)
+        return np.sort(np.concatenate([accepted, confirmed])), stats
+
+    def _threshold_pairs_kernel(self, apexes: torch.Tensor, t_cand: np.ndarray, dims: int = None, mask=None):
+        """Per-query candidate (ids, lwb, upb) with ``lwb <= t_cand[q]``
+        through K3 — ids ascending, bounds float64.
+
+        The f32 threshold is raised one ulp (a superset), then the exact f64
+        comparison re-filters.  A query whose count overflows the capacity
+        takes per-query K1 instead.
+        """
+        N = self.n_rows
+        Q = apexes.shape[0]
+        t_cand = np.asarray(t_cand, dtype=np.float64)
+        t32 = np.nextafter(t_cand.astype(np.float32), np.float32(np.inf))
+        cap = int(min(N, _RANGE_CAP))
+        ids_k, lwb_k, upb_k, counts = self._host(
+            *apex_bounds_threshold(
+                self._kernel_table(), apexes.to(torch.float32), self._tensor(t32), cap,
+                dims=dims, rowmask=mask,
+            )
+        )
+        lwb_k = lwb_k.astype(np.float64)
+        upb_k = upb_k.astype(np.float64)
+        out = []
+        for qi in range(Q):
+            if counts[qi] > cap:
+                self.overflow_queries += 1
+                lwb, upb = self._host(*self.bounds_batch(apexes[qi][None, :], dims=dims))
+                cond = lwb[0] <= t_cand[qi]
+                if mask is not None:
+                    cond &= mask
+                cand = np.where(cond)[0]
+                out.append((cand.astype(np.int64), lwb[0][cand], upb[0][cand]))
+                continue
+            m = int(counts[qi])
+            idq, l, u = ids_k[qi, :m], lwb_k[qi, :m], upb_k[qi, :m]
+            live = idq != SENTINEL_ID
+            idq, l, u = idq[live], l[live], u[live]
+            keep = l <= t_cand[qi]
+            idq, l, u = idq[keep], l[keep], u[keep]
+            order = np.argsort(idq, kind="stable")   # ascending id, like np.where
+            out.append((idq[order].astype(np.int64), l[order], u[order]))
+        return out
+
+    def _threshold_candidates_kernel(self, apexes, t_admit: np.ndarray, t_cand: np.ndarray, dims: int = None, mask=None):
+        """Per-query (accepted, recheck) id sets: accepted by the upper bound,
+        recheck for the straddlers."""
+        out = []
+        for qi, (idq, _l, u) in enumerate(
+            self._threshold_pairs_kernel(apexes, t_cand, dims=dims, mask=mask)
+        ):
+            admit = u <= t_admit[qi]
+            out.append((idq[admit], idq[~admit]))
+        return out
+
+    def search_batch(self, queries, thresholds, qpd=None, rowmask=None):
+        """Exact threshold search for a query block: one pivot-distance call,
+        one projection and one fused K3 scan for the whole block; only the
+        per-query recheck sets touch the original metric.
+
+        Returns a list of Q (result_indices, QueryStats) pairs.
+        """
+        q_t = torch.atleast_2d(self._tensor(queries))
+        Q = q_t.shape[0]
+        thresholds = np.broadcast_to(np.asarray(thresholds, dtype=np.float64), (Q,))
+        apexes = self.query_apex_batch(q_t, qpd=qpd)
+        pivot_calls = self.n_pivots if qpd is None else 0
+        mask = self._mask_of(rowmask)
+        t_hi = thresholds * (1.0 + self.eps) + 1e-12
+        t_lo = thresholds * (1.0 - self.eps) - 1e-12
+        slack = self._kernel_slack(apexes.cpu().numpy(), thresholds)
+        per_query = self._threshold_candidates_kernel(apexes, t_lo - slack, t_hi + slack, mask=mask)
+        out = []
+        for qi in range(Q):
+            stats = QueryStats()
+            stats.original_calls += pivot_calls
+            stats.surrogate_calls += self.n_rows
+            accepted, recheck = per_query[qi]
+            stats.accepted_no_check = len(accepted)
+            stats.candidates = len(accepted) + len(recheck)
+            if len(recheck):
+                d = self._dist_fn(q_t[qi])(recheck)
+                stats.original_calls += len(recheck)
+                confirmed = recheck[d <= thresholds[qi]]
+            else:
+                confirmed = np.empty(0, dtype=np.int64)
+            out.append((np.sort(np.concatenate([accepted, confirmed])), stats))
+        return out
+
+    # -- k-NN -----------------------------------------------------------------
+    def _knn_one(self, q: torch.Tensor, apex: np.ndarray, lwb: np.ndarray, upb: np.ndarray, k: int,
+                 stats: QueryStats, radius_cap: float = None, sel: np.ndarray = None):
+        """Shrinking-radius refinement of one query given its (N,) f32-derived
+        bounds.  ``sel``: ascending allowed row positions (bounds are
+        compacted to them, so a masked row never seeds the radius)."""
+        if sel is not None:
+            if sel.size == 0:
+                return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float64), stats
+            lwb, upb = lwb[sel], upb[sel]
+        # widen in the SQUARED domain by the f32 error bound: sound bounds
+        err_sq = self._kernel_err_sq(apex[None, :])
+        lwb = np.sqrt(np.maximum(lwb**2 - err_sq, 0.0))
+        upb = np.sqrt(upb**2 + err_sq)
+        dist = self._dist_fn(q)
+        rows_of = (lambda rows: rows) if sel is None else (lambda rows: sel[rows])
+        ids, d, n_eval, n_cand = knn_refine(
+            lambda rows: dist(rows_of(rows)),
+            lwb,
+            upb,
+            k,
+            slack=1e-12,
+            rel_slack=self.eps,
+            radius_cap=radius_cap,
+        )
+        if sel is not None:
+            ids = sel[ids]
+        stats.original_calls += n_eval
+        stats.candidates = n_cand
+        return ids, d, stats
+
+    def knn(self, q, k: int, qpd=None, radius_hint: float = None, rowmask=None):
+        """Exact k nearest neighbours of one query through K6: (ids,
+        distances, QueryStats), ids sorted by (distance, id).
+
+        ``radius_hint``: external sound cap on any useful result distance;
+        ``rowmask``: the top-k over the allowed rows only.
+        """
+        stats = QueryStats()
+        q_t = self._tensor(q)
+        apex = self.query_apex(q_t, qpd=qpd)
+        stats.original_calls += self.n_pivots if qpd is None else 0
+        stats.surrogate_calls += self.n_rows
+        lwb, upb = self._host(*self.bounds(apex))
+        mask = self._mask_of(rowmask)
+        sel = None if mask is None else np.flatnonzero(mask)
+        return self._knn_one(q_t, apex.cpu().numpy(), lwb, upb, k, stats, radius_cap=radius_hint, sel=sel)
+
+    def knn_batch(self, queries, k: int, qpd=None, radius_hint=None, rowmask=None):
+        """Exact k-NN for a query block through the fused selection
+        epilogues: K2 seeds each query's radius from its k-th upper bound,
+        K3 compacts its candidate prefix, and the refinement touches the
+        original metric only inside it.  No (Q, N) bound matrix exists.
+
+        Returns a list of Q (ids, distances, QueryStats) triples.
+        """
+        q_t = torch.atleast_2d(self._tensor(queries))
+        apexes = self.query_apex_batch(q_t, qpd=qpd)
+        pivot_calls = self.n_pivots if qpd is None else 0
+        N = self.n_rows
+        mask = self._mask_of(rowmask)
+        n_live = N if mask is None else int(mask.sum())
+        if min(int(k), n_live) <= 0:
+            return [
+                (
+                    np.empty(0, dtype=np.int64),
+                    np.empty(0, dtype=np.float64),
+                    QueryStats(original_calls=pivot_calls, surrogate_calls=N),
+                )
+                for _ in range(q_t.shape[0])
+            ]
+        return self._knn_batch_kernel(q_t, apexes, k, pivot_calls, radius_hint, mask=mask)
+
+    def _knn_batch_kernel(self, q_t, apexes: torch.Tensor, k: int, pivot_calls: int, radius_hint=None, mask=None):
+        N = self.n_rows
+        Q = q_t.shape[0]
+        n_live = N if mask is None else int(mask.sum())
+        sel = None if mask is None else np.flatnonzero(mask)
+        k_eff = min(int(k), n_live)
+        hint = np.full(Q, np.inf) if radius_hint is None else np.asarray(radius_hint, dtype=np.float64)
+        apexes_np = apexes.cpu().numpy()
+        cap = int(min(N, max(512, 16 * k_eff)))
+        if max(k_eff, cap) > MAX_SELECT_WIDTH:
+            # wider than the kernels hold: every query takes the capacity-
+            # overflow route (per-query K1 plus exact refinement)
+            return [
+                self._knn_overflow(q_t[qi], apexes[qi], apexes_np[qi], k, pivot_calls, hint[qi], sel)
+                for qi in range(Q)
+            ]
+        tab = self._kernel_table()
+        ap32 = apexes.to(torch.float32)
+        err_sq = self._kernel_err_sq(apexes_np)
+        # pass A: the k-th smallest upper bound seeds each query's radius; the
+        # widening sqrt(x² + err) is monotone, so the k-th widened upb is the
+        # widened k-th raw upb.  Masked rows never enter the selection.
+        _, _, upb_k = apex_bounds_topk(tab, ap32, k_eff, key="upb", rowmask=mask)
+        kth = upb_k[:, -1].cpu().numpy().astype(np.float64)
+        # an external radius hint may only shrink the radius; the slack keeps
+        # the hint boundary (d == hint) inclusive
+        r0 = np.minimum(np.sqrt(kth**2 + err_sq), hint)
+        slack = 1e-12 + self.eps * r0
+        radius = r0 + slack
+        # candidate condition in the kernel's raw-f32 domain:
+        #   sqrt(max(lwb² - err, 0)) <= radius  <=>  lwb <= sqrt(radius² + err)
+        # rounded UP one ulp (a superset), re-filtered exactly below
+        t_cand = np.sqrt(radius**2 + err_sq)
+        t32 = np.nextafter(t_cand.astype(np.float32), np.float32(np.inf))
+        ids_k, lwb_k, _, counts = self._host(
+            *apex_bounds_threshold(tab, ap32, self._tensor(t32), cap, rowmask=mask)
+        )
+        lwb_k = lwb_k.astype(np.float64)
+
+        out = []
+        for qi in range(Q):
+            if counts[qi] > cap:
+                out.append(
+                    self._knn_overflow(q_t[qi], apexes[qi], apexes_np[qi], k, pivot_calls, hint[qi], sel)
+                )
+                continue
+            stats = QueryStats(original_calls=pivot_calls, surrogate_calls=N)
+            m = int(counts[qi])
+            idq, lwb_q = ids_k[qi, :m], lwb_k[qi, :m]
+            live = idq != SENTINEL_ID
+            idq, lwb_q = idq[live], lwb_q[live]
+            # exact widened-f64 re-filter; widening keeps the ascending order
+            lwb_w = np.sqrt(np.maximum(lwb_q**2 - err_sq, 0.0))
+            keep = lwb_w <= radius[qi]
+            idq, lwb_w = idq[keep], lwb_w[keep]
+            stats.candidates = int(idq.shape[0])
+            ids, d, n_eval = knn_refine_candidates(
+                self._dist_fn(q_t[qi]), idq, lwb_w, k_eff, float(radius[qi]), float(slack[qi])
+            )
+            stats.original_calls += n_eval
+            out.append((ids, d, stats))
+        return out
+
+    def _knn_overflow(self, q, apex: torch.Tensor, apex_np: np.ndarray, k: int, pivot_calls: int, hint: float, sel):
+        """Dense per-query route: K1 bounds for one query, then the exact
+        refinement of ``_knn_one``."""
+        self.overflow_queries += 1
+        stats = QueryStats(original_calls=pivot_calls, surrogate_calls=self.n_rows)
+        lwb, upb = self._host(*self.bounds_batch(apex[None, :]))
+        cap_q = float(hint) if np.isfinite(hint) else None
+        return self._knn_one(q, apex_np, lwb[0], upb[0], k, stats, radius_cap=cap_q, sel=sel)

@@ -1,0 +1,25 @@
+"""Hand-written CUDA bound-scan kernels for Hopper (``csrc/``), their plain
+PyTorch versions (``ref.py``) and the wrappers that pick between them by the
+device of their operands (``ops.py``)."""
+
+from repro_torch.kernels.ops import (
+    LAUNCHES,
+    MAX_SELECT_WIDTH,
+    SENTINEL_ID,
+    apex_bounds,
+    apex_bounds_batch,
+    apex_bounds_threshold,
+    apex_bounds_topk,
+    reset_launches,
+)
+
+__all__ = [
+    "LAUNCHES",
+    "MAX_SELECT_WIDTH",
+    "SENTINEL_ID",
+    "apex_bounds",
+    "apex_bounds_batch",
+    "apex_bounds_threshold",
+    "apex_bounds_topk",
+    "reset_launches",
+]

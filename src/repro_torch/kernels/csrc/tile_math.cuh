@@ -1,0 +1,56 @@
+// Shared per-pair bound math of the four bound-scan kernels (K1, K2, K3 use
+// the GEMM form of pair_bounds; K6 its own difference form).
+//
+// Every operation is an explicitly rounded intrinsic, so the compiler can
+// neither contract nor reorder it: K1, K2 and K3 produce the same bits for
+// the same (query, row), which is what lets the selection epilogues be
+// checked exactly against a host selection over K1's matrices.  Products
+// are IEEE (fused multiply-add on the CUDA cores, never TF32), which the
+// soundness slack of the f32 scan assumes.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ float op_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double op_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float op_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double op_sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float op_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double op_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float op_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double op_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float op_sqrt(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double op_sqrt(double a) { return __dsqrt_rn(a); }
+
+template <typename T>
+__device__ __forceinline__ T clamp0(T a) { return a < T(0) ? T(0) : a; }
+
+// Head and altitude terms of one apex row truncated to hd + 1 coordinates:
+// sq = |x[0:hd]|^2 and alt = sqrt(sum_{i >= hd} x_i^2) over a row `width`
+// wide (the k-pivot apex folded from a stored n-pivot row; the identity
+// fold when width == hd + 1).
+template <typename T>
+__device__ __forceinline__ void row_terms(const T* x, int hd, int width, T& sq, T& alt) {
+    T s = T(0);
+    for (int i = 0; i < hd; ++i) s = op_fma(x[i], x[i], s);
+    T t = T(0);
+    for (int i = hd; i < width; ++i) t = op_fma(x[i], x[i], t);
+    sq = s;
+    alt = op_sqrt(clamp0(t));
+}
+
+// GEMM-form two-sided bounds of one (query, row) pair:
+//   head = max(|q|^2 + |x|^2 - 2 q.x, 0)
+//   lwb  = sqrt(max(head + (qa - xa)^2, 0)),  upb = sqrt(max(head + (qa + xa)^2, 0))
+template <typename T>
+__device__ __forceinline__ void pair_bounds(const T* q, T q2, T qa, const T* x, T x2, T xa,
+                                            int hd, T& lwb, T& upb) {
+    T dot = T(0);
+    for (int i = 0; i < hd; ++i) dot = op_fma(q[i], x[i], dot);
+    T head = clamp0(op_sub(op_add(q2, x2), op_mul(T(2), dot)));
+    T dm = op_sub(qa, xa);
+    T dp = op_add(qa, xa);
+    lwb = op_sqrt(clamp0(op_add(head, op_mul(dm, dm))));
+    upb = op_sqrt(clamp0(op_add(head, op_mul(dp, dp))));
+}

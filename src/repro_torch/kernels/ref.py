@@ -1,0 +1,104 @@
+"""Plain PyTorch versions of the four bound-scan kernels.
+
+Each computes the same function as its CUDA kernel with ordinary tensor
+operations: the wrappers in ``ops.py`` run them for tensors on the CPU, and
+``chip_smoke.py`` holds each kernel against them on the card.  They
+materialise the (Q, N) bound matrices, which the kernels K2 and K3 never do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "SENTINEL_ID",
+    "TOPK_KEYS",
+    "apex_bounds_batch_ref",
+    "apex_bounds_ref",
+    "apex_threshold_ref",
+    "apex_topk_ref",
+    "pack_keys",
+    "split_trunc",
+]
+
+#: id of an empty selection slot (pad or masked rows): sorts after every id
+SENTINEL_ID = 2**31 - 1
+#: packed key of an empty slot: larger than every packed (key, id)
+_EMPTY_KEY = 2**63 - 1
+#: selection keys of the top-k epilogue
+TOPK_KEYS = ("lwb", "upb", "mid")
+
+
+def split_trunc(x: torch.Tensor, dims: int):
+    """(head, altitude) of apex rows truncated to ``dims`` coordinates: the
+    first ``dims - 1`` columns and ``sqrt(Σ_{i >= dims-1} x_i²)``."""
+    head = x[:, : dims - 1]
+    alt = torch.sqrt(torch.clamp_min((x[:, dims - 1:] ** 2).sum(dim=1), 0.0))
+    return head, alt
+
+
+def apex_bounds_ref(table: torch.Tensor, query: torch.Tensor):
+    """K6: (lwb, upb), each (N,), of one query apex, difference form."""
+    head = ((table[:, :-1] - query[None, :-1]) ** 2).sum(dim=1)
+    dm = (table[:, -1] - query[-1]) ** 2
+    dp = (table[:, -1] + query[-1]) ** 2
+    return torch.sqrt(torch.clamp_min(head + dm, 0.0)), torch.sqrt(torch.clamp_min(head + dp, 0.0))
+
+
+def apex_bounds_batch_ref(table: torch.Tensor, queries: torch.Tensor, dims: int):
+    """K1: (lwb, upb), each (Q, N), GEMM form, truncated to ``dims``."""
+    th, ta = split_trunc(table, dims)
+    qh, qa = split_trunc(queries, dims)
+    q2 = (qh * qh).sum(dim=1, keepdim=True)
+    x2 = (th * th).sum(dim=1)[None, :]
+    head = torch.clamp_min(q2 + x2 - 2.0 * (qh @ th.T), 0.0)
+    dm = (qa[:, None] - ta[None, :]) ** 2
+    dp = (qa[:, None] + ta[None, :]) ** 2
+    return torch.sqrt(torch.clamp_min(head + dm, 0.0)), torch.sqrt(torch.clamp_min(head + dp, 0.0))
+
+
+def pack_keys(keys: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """(Q, N) int64 keys ``(float_bits(key) << 32) | id`` (sign bit cleared,
+    so a -0.0 packs as 0); rows that are not ``live`` pack as empty."""
+    bits = keys.contiguous().view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    ids = torch.arange(keys.shape[1], dtype=torch.int64, device=keys.device)
+    return torch.where(live, (bits << 32) | ids[None, :], _EMPTY_KEY)
+
+
+def _take(packed: torch.Tensor, lwb: torch.Tensor, upb: torch.Tensor, width: int):
+    """The ``width`` smallest packed keys per row as (ids, lwb, upb)."""
+    top, pos = torch.sort(packed, dim=1)
+    top, pos = top[:, :width], pos[:, :width]
+    empty = top == _EMPTY_KEY
+    inf = torch.tensor(float("inf"), dtype=lwb.dtype, device=lwb.device)
+    ids = torch.where(empty, SENTINEL_ID, top & 0xFFFFFFFF).to(torch.int32)
+    return (
+        ids,
+        torch.where(empty, inf, torch.gather(lwb, 1, pos)),
+        torch.where(empty, inf, torch.gather(upb, 1, pos)),
+    )
+
+
+def _live(rowmask, N: int, device) -> torch.Tensor:
+    if rowmask is None:
+        return torch.ones((1, N), dtype=torch.bool, device=device)
+    return rowmask.to(torch.bool).reshape(1, N)
+
+
+def apex_topk_ref(table, queries, k: int, key: str, dims: int, rowmask=None):
+    """K2: per query the ``k`` rows with the smallest (key, id), sorted."""
+    lwb, upb = apex_bounds_batch_ref(table, queries, dims)
+    keys = {"lwb": lwb, "upb": upb}.get(key)
+    if keys is None:
+        keys = 0.5 * (lwb + upb)
+    live = _live(rowmask, table.shape[0], table.device).expand_as(lwb)
+    return _take(pack_keys(keys, live), lwb, upb, k)
+
+
+def apex_threshold_ref(table, queries, thresholds, cap: int, dims: int, rowmask=None):
+    """K3: per query the ``cap`` smallest (lwb, id) among rows with
+    ``lwb <= thresholds[q]``, plus the exact count of such rows."""
+    lwb, upb = apex_bounds_batch_ref(table, queries, dims)
+    hit = _live(rowmask, table.shape[0], table.device) & (lwb <= thresholds[:, None])
+    ids, l, u = _take(pack_keys(lwb, hit), lwb, upb, cap)
+    return ids, l, u, hit.sum(dim=1).to(torch.int32)

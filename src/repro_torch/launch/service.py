@@ -1,0 +1,351 @@
+"""SearchService — a micro-batched serving runtime over the Query plan API.
+
+Single-query arrivals waste the fused scan: one pivot-distance call, one
+projection and one bound-scan launch serve a whole block.  The runtime
+turns an open stream of independent requests into fused micro-batches:
+
+  * ``submit(q, spec)`` enqueues one request and returns a
+    ``concurrent.futures.Future`` resolving to its ``QueryResult``.
+  * One dispatcher thread pops the oldest request and keeps the batch open
+    until ``max_batch`` compatible (equal-``Query``) requests joined or
+    ``max_wait_s`` elapsed since it opened; incompatible arrivals keep
+    their FIFO place for the next batch.
+  * The batch runs through ``index.query(rows, spec, plan=plan)`` with the
+    plan computed once per spec, so per-request results are bit-identical
+    to a direct ``knn_batch``/``search_batch`` call under the same plan.
+  * Batches are padded to power-of-two buckets (capped at ``max_batch``),
+    so the kernels see log2(max_batch) batch shapes; ``warmup()`` builds
+    the kernels and runs one batch per bucket before traffic arrives.
+    Padded rows are discarded before futures resolve.
+  * Per-request deadlines (``deadline_s``) and ``close(drain=...)`` behave
+    as in the JAX package's service; ``stats()`` reports latency
+    percentiles, throughput, expiries and batch occupancy.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.api.planner import plan as make_plan
+from repro_torch.api.query import Query
+
+__all__ = ["DeadlineExceeded", "SearchService", "ServiceClosed"]
+
+
+class ServiceClosed(RuntimeError):
+    """The service is (being) closed; the request was not executed."""
+
+
+class DeadlineExceeded(TimeoutError):
+    """The request's deadline expired before a result could be returned."""
+
+
+@dataclass
+class _Request:
+    q: np.ndarray
+    spec: Query
+    future: Future
+    t_enqueue: float
+    #: absolute ``time.perf_counter()`` deadline, or None
+    t_deadline: Optional[float] = None
+
+
+#: retention of the latency/occupancy windows behind the percentiles
+STATS_WINDOW = 100_000
+
+
+@dataclass
+class _SpecStats:
+    n_batches: int = 0
+    n_requests: int = 0
+    max_occupancy: int = 0
+
+
+@dataclass
+class ServiceStats:
+    """Counters the dispatcher owns; snapshot via ``SearchService.stats``."""
+
+    n_requests: int = 0
+    n_batches: int = 0
+    occupancies: deque = field(default_factory=lambda: deque(maxlen=STATS_WINDOW))
+    latencies_s: deque = field(default_factory=lambda: deque(maxlen=STATS_WINDOW))
+    t_first: Optional[float] = None
+    t_last: Optional[float] = None
+    expired_queued: int = 0
+    expired_in_flight: int = 0
+    closed_rejects: int = 0
+    per_spec: Dict[Query, _SpecStats] = field(default_factory=dict)
+
+
+def _percentile(sorted_vals: List[float], p: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(round(p * (len(sorted_vals) - 1))))
+    return sorted_vals[i]
+
+
+class SearchService:
+    """Micro-batching request runtime over one index.
+
+    Args:
+      index:       a ``repro_torch.api`` index (only ``query``/``stats`` used).
+      max_batch:   flush a batch once this many compatible requests joined.
+      max_wait_s:  flush an open batch this long after its first request.
+      pad_batches: pad fused blocks to power-of-two bucket sizes.
+    """
+
+    def __init__(self, index, *, max_batch: int = 64, max_wait_s: float = 0.002,
+                 pad_batches: bool = True):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1; got {max_batch}")
+        self.index = index
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_s)
+        self.pad_batches = bool(pad_batches)
+        self._pending: deque[_Request] = deque()
+        self._lock = threading.Lock()
+        self._arrived = threading.Condition(self._lock)
+        self._closing = False
+        self._stats = ServiceStats()
+        self._plan_cache: dict = {}
+        self._worker = threading.Thread(target=self._run, name="search-service-dispatch", daemon=True)
+        self._worker.start()
+
+    # -- client side -----------------------------------------------------------
+    def submit(self, q: np.ndarray, spec: Query, *, deadline_s: Optional[float] = None) -> Future:
+        """Enqueue one single-query request; resolves to its ``QueryResult``.
+
+        ``deadline_s`` is the request's latency budget from now: expiring
+        while queued fails it with ``DeadlineExceeded`` before it takes a
+        batch slot; expiring while its batch runs discards its result.
+        """
+        if not isinstance(spec, Query):
+            raise TypeError(f"expected a Query; got {type(spec).__name__}")
+        q = np.asarray(q)
+        if q.ndim != 1:
+            raise ValueError(
+                f"submit() takes one query vector (1-D); got shape {q.shape} — "
+                "the service owns the batching"
+            )
+        if spec.task == "range" and isinstance(spec.threshold, tuple) and len(spec.threshold) > 1:
+            raise ValueError(
+                "per-query threshold tuples don't fit single-request "
+                "submission; use a scalar-threshold Query"
+            )
+        if deadline_s is not None and float(deadline_s) <= 0:
+            raise ValueError(f"deadline_s must be positive; got {deadline_s}")
+        now = time.perf_counter()
+        fut: Future = Future()
+        req = _Request(
+            q=q, spec=spec, future=fut, t_enqueue=now,
+            t_deadline=(now + float(deadline_s)) if deadline_s is not None else None,
+        )
+        with self._arrived:
+            if self._closing:
+                raise ServiceClosed("service is closed")
+            self._pending.append(req)
+            self._arrived.notify()
+        return fut
+
+    def close(self, *, drain: bool = True) -> None:
+        """Stop accepting requests; ``drain=True`` runs every queued request,
+        ``drain=False`` fails them with ``ServiceClosed``."""
+        with self._arrived:
+            self._closing = True
+            if not drain:
+                self._fail_pending_locked()
+            self._arrived.notify()
+        self._worker.join(timeout=30.0)
+        with self._arrived:
+            self._fail_pending_locked()
+
+    def _fail_pending_locked(self) -> None:
+        while self._pending:
+            req = self._pending.popleft()
+            self._stats.closed_rejects += 1
+            req.future.set_exception(ServiceClosed("service closed before this request was executed"))
+
+    def __enter__(self) -> "SearchService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- observability ---------------------------------------------------------
+    def stats(self) -> dict:
+        """Latency percentiles, throughput, queue/expiry counters and batch
+        occupancy (overall and per coalescing spec)."""
+        with self._lock:
+            st = self._stats
+            lat = sorted(st.latencies_s)
+            occ = list(st.occupancies)
+            span = (
+                (st.t_last - st.t_first)
+                if st.t_first is not None and st.t_last is not None and st.t_last > st.t_first
+                else 0.0
+            )
+            per_spec = {
+                json.dumps(spec.to_dict(), sort_keys=True): {
+                    "n_batches": ss.n_batches,
+                    "n_requests": ss.n_requests,
+                    "mean_occupancy": ss.n_requests / ss.n_batches if ss.n_batches else 0.0,
+                    "max_occupancy": ss.max_occupancy,
+                }
+                for spec, ss in st.per_spec.items()
+            }
+            return {
+                "n_requests": st.n_requests,
+                "n_batches": st.n_batches,
+                "latency_p50_ms": _percentile(lat, 0.50) * 1e3,
+                "latency_p99_ms": _percentile(lat, 0.99) * 1e3,
+                "qps": (st.n_requests / span) if span > 0 else 0.0,
+                "mean_batch_occupancy": float(np.mean(occ)) if occ else 0.0,
+                "max_batch_occupancy": int(max(occ)) if occ else 0,
+                "coalesced_fraction": float(np.mean([o > 1 for o in occ])) if occ else 0.0,
+                "queue_depth": len(self._pending),
+                "expired": st.expired_queued + st.expired_in_flight,
+                "expired_queued": st.expired_queued,
+                "expired_in_flight": st.expired_in_flight,
+                "closed_rejects": st.closed_rejects,
+                "per_spec": per_spec,
+            }
+
+    # -- dispatcher ------------------------------------------------------------
+    def _expire_locked(self, req: _Request, now: float) -> bool:
+        if req.t_deadline is None or now <= req.t_deadline:
+            return False
+        self._stats.expired_queued += 1
+        req.future.set_exception(
+            DeadlineExceeded(f"deadline expired after {now - req.t_enqueue:.3f}s in queue")
+        )
+        return True
+
+    def _take_batch(self) -> Optional[List[_Request]]:
+        """Block for the next batch: the oldest live request plus every
+        equal-spec request arriving before the flush deadline."""
+        with self._arrived:
+            while True:
+                while not self._pending and not self._closing:
+                    self._arrived.wait()
+                if not self._pending:
+                    return None
+                now = time.perf_counter()
+                head = self._pending.popleft()
+                if self._expire_locked(head, now):
+                    continue
+                break
+            batch = [head]
+            deadline = time.perf_counter() + self.max_wait_s
+            while len(batch) < self.max_batch:
+                kept = deque()
+                now = time.perf_counter()
+                while self._pending and len(batch) < self.max_batch:
+                    r = self._pending.popleft()
+                    if self._expire_locked(r, now):
+                        continue
+                    (batch if r.spec == head.spec else kept).append(r)
+                if kept:
+                    kept.extend(self._pending)
+                    self._pending = kept
+                    break
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0 or self._closing or len(batch) >= self.max_batch:
+                    break
+                self._arrived.wait(timeout=remaining)
+            return batch
+
+    def _run(self) -> None:
+        while True:
+            batch = self._take_batch()
+            if batch is None:
+                return
+            self._execute(batch)
+
+    def _bucket(self, n: int) -> int:
+        """Smallest power of two >= n, capped at ``max_batch``."""
+        if not self.pad_batches or n >= self.max_batch:
+            return n
+        return min(1 << (n - 1).bit_length(), self.max_batch)
+
+    def warmup(self, spec: Query, example_q: np.ndarray) -> None:
+        """Build the kernels (the first batch does) and run one batch of
+        every bucket size for ``spec``."""
+        q = np.asarray(example_q)
+        plan = self._plan_for(spec)
+        sizes = []
+        size = 1
+        while size < self.max_batch:
+            sizes.append(size)
+            size *= 2
+        sizes.append(self.max_batch)
+        if not self.pad_batches:
+            sizes = sizes[:1] + sizes[-1:]
+        for s in dict.fromkeys(sizes):
+            self.index.query(np.repeat(q[None, :], s, axis=0), spec, plan=plan)
+
+    def _plan_for(self, spec: Query):
+        with self._lock:
+            plan = self._plan_cache.get(spec)
+        if plan is None:
+            plan = make_plan(self.index, spec)
+            with self._lock:
+                self._plan_cache[spec] = plan
+        return plan
+
+    def _execute(self, batch: List[_Request]) -> None:
+        spec = batch[0].spec
+        try:
+            plan = self._plan_for(spec)
+            fused = np.stack([r.q for r in batch])
+            padded = self._bucket(len(batch))
+            if padded > len(batch):
+                # pad with copies of the last row: every path is row-independent
+                fused = np.concatenate([fused, np.repeat(fused[-1:], padded - len(batch), axis=0)])
+            result = self.index.query(fused, spec, plan=plan)
+            t_done = time.perf_counter()
+            expired = 0
+            for req, res in zip(batch, result.results):
+                if req.t_deadline is not None and t_done > req.t_deadline:
+                    expired += 1
+                    req.future.set_exception(
+                        DeadlineExceeded(
+                            f"deadline expired mid-batch after {t_done - req.t_enqueue:.3f}s"
+                        )
+                    )
+                else:
+                    req.future.set_result(res)
+        except Exception as e:  # noqa: BLE001 — the dispatcher must keep serving
+            t_done = time.perf_counter()
+            for req in batch:
+                if not req.future.done():
+                    req.future.set_exception(e)
+            with self._lock:
+                self._record(batch, t_done)
+            return
+        with self._lock:
+            self._stats.expired_in_flight += expired
+            self._record(batch, t_done)
+
+    def _record(self, batch: List[_Request], t_done: float) -> None:
+        st = self._stats
+        st.n_batches += 1
+        st.n_requests += len(batch)
+        st.occupancies.append(len(batch))
+        ss = st.per_spec.setdefault(batch[0].spec, _SpecStats())
+        ss.n_batches += 1
+        ss.n_requests += len(batch)
+        ss.max_occupancy = max(ss.max_occupancy, len(batch))
+        for req in batch:
+            st.latencies_s.append(t_done - req.t_enqueue)
+            if st.t_first is None or req.t_enqueue < st.t_first:
+                st.t_first = req.t_enqueue
+        if st.t_last is None or t_done > st.t_last:
+            st.t_last = t_done

@@ -1,0 +1,193 @@
+"""The port's unified API against the JAX package's, on the CPU: build and
+query, plans, id filters, persistence both ways, the serving runtime, the
+device policy, and the port's isolation from jax and ``repro``."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro import api as rapi
+from repro.compat import enable_x64
+from repro_torch.api import Query, build_index, load_index
+from repro_torch.launch.service import SearchService
+
+# small shapes: one intra-op thread keeps these tests from crowding the
+# other pytest workers
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _stats(s):
+    return (s.original_calls, s.surrogate_calls, s.accepted_no_check, s.candidates)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    from repro.data import colors_like
+
+    X = colors_like(n=1212, seed=31).astype(np.float64)
+    data, queries = X[:1200], X[1200:]
+    with enable_x64(True):
+        ref = rapi.build_index(data, "jensen_shannon", n_pivots=12, seed=3, use_kernel=True)
+    port = build_index(data, "jensen_shannon", n_pivots=12, seed=3, device="cpu")
+    return port, ref, data, queries
+
+
+def _same(got, want, dists=True):
+    assert len(got) == len(want)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    if dists:
+        np.testing.assert_allclose(got.distances, want.distances, rtol=1e-12, atol=1e-12)
+    assert _stats(got.stats) == _stats(want.stats)
+
+
+@pytest.mark.parametrize("spec", [Query.knn(1), Query.knn(10), Query.range(0.12)])
+def test_query_batch_and_single(pair, spec):
+    port, ref, _, queries = pair
+    rspec = rapi.Query(task=spec.task, k=spec.k, threshold=spec.threshold)
+    for g, w in zip(port.query(queries, spec), ref.query(queries, rspec)):
+        _same(g, w, dists=spec.task == "knn")
+    _same(port.query(queries[0], spec), ref.query(queries[0], rspec), dists=spec.task == "knn")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(task="knn", k=10),
+        dict(task="range", threshold=0.1),
+        dict(task="range", threshold=(0.1, 0.2)),
+        dict(task="knn", k=5, mode="exact"),
+        dict(task="knn", k=5, budget=10),
+        dict(task="knn", k=5, budget=10_000),
+        dict(task="knn", k=5, mode="approx", dims=4),
+        dict(task="range", threshold=0.1, mode="approx", dims=3, refine=7),
+        dict(task="knn", k=5, deny=(3, 1)),
+        dict(task="range", threshold=0.1, deny=(2,)),
+        dict(task="knn", k=5, allow=(1, 2, 3)),
+    ],
+)
+def test_explain_equals_reference(pair, kw):
+    port, ref, _, _ = pair
+    assert port.plan(Query(**kw)).explain() == ref.plan(rapi.Query(**kw)).explain()
+
+
+def test_allow_and_deny(pair):
+    port, ref, _, queries = pair
+    for kw in (dict(allow=(4, 9, 17, 1500)), dict(deny=(5, 6, 7))):
+        spec, rspec = Query.knn(4, **kw), rapi.Query.knn(4, **kw)
+        for g, w in zip(port.query(queries, spec), ref.query(queries, rspec)):
+            _same(g, w)
+        spec, rspec = Query.range(0.15, **kw), rapi.Query.range(0.15, **kw)
+        for g, w in zip(port.query(queries, spec), ref.query(queries, rspec)):
+            _same(g, w, dists="allow" in kw)
+
+
+def test_cross_load_both_ways(pair, tmp_path):
+    port, ref, _, queries = pair
+    ref.save(tmp_path / "ref")
+    port.save(tmp_path / "port")
+    from_ref = load_index(tmp_path / "ref", device="cpu")
+    with enable_x64(True):
+        from_port = rapi.load_index(tmp_path / "port")
+    np.testing.assert_array_equal(from_ref.table.numpy(), ref.table)
+    np.testing.assert_array_equal(from_port.table, port.table.numpy())
+    spec, rspec = Query.knn(10), rapi.Query.knn(10)
+    want = ref.query(queries, rspec)
+    for g, w in zip(from_ref.query(queries, spec), want):
+        _same(g, w)
+    for g, w in zip(from_port.query(queries, rspec), port.query(queries, spec)):
+        np.testing.assert_array_equal(g.ids, w.ids)
+        np.testing.assert_allclose(g.distances, w.distances, rtol=1e-12, atol=1e-12)
+    assert from_ref.stats() == ref.stats()
+
+
+def test_search_service_coalesces_bit_identically(pair):
+    port, _, _, queries = pair
+    spec = Query.knn(7)
+    direct = port._inner.knn_batch(queries, 7)
+    with SearchService(port, max_batch=8, max_wait_s=0.05) as svc:
+        svc.warmup(spec, queries[0])
+        futures = [svc.submit(q, spec) for q in queries]
+        results = [f.result(timeout=60) for f in futures]
+        st = svc.stats()
+    assert st["max_batch_occupancy"] >= 2
+    for r, (ids, d, s) in zip(results, direct):
+        np.testing.assert_array_equal(r.ids, ids)
+        np.testing.assert_array_equal(r.distances, d)
+        assert _stats(r.stats) == _stats(s)
+
+
+def test_search_service_deadlines_and_close(pair):
+    from repro_torch.launch.service import DeadlineExceeded, ServiceClosed
+
+    port, _, _, queries = pair
+    svc = SearchService(port, max_batch=4, max_wait_s=0.01)
+    late = svc.submit(queries[0], Query.knn(3), deadline_s=1e-9)
+    with pytest.raises(DeadlineExceeded):
+        late.result(timeout=60)
+    assert svc.submit(queries[1], Query.knn(3)).result(timeout=60).ids.shape == (3,)
+    svc.close()
+    with pytest.raises(ServiceClosed):
+        svc.submit(queries[2], Query.knn(3))
+    st = svc.stats()
+    assert st["expired"] == 1 and st["n_requests"] == 1
+
+
+def test_default_device_raises_without_a_card(pair):
+    _, _, data, _ = pair
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_index(data[:50], n_pivots=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_index(ROOT / "does-not-matter")
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(kind="laesa"), dict(kind="tree"), dict(mutable=True), dict(shards=2),
+           dict(durable=True), dict(apex_dims=4), dict(attributes=object())]
+)
+def test_unported_options_raise(pair, kw):
+    _, _, data, _ = pair
+    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        build_index(data[:50], n_pivots=4, device="cpu", **kw)
+
+
+def test_where_and_approx_raise(pair):
+    port, _, _, queries = pair
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        Query.knn(3, where={"eq": ["color", 1]})
+    with pytest.raises(NotImplementedError):
+        port.query(queries, Query.knn(3, mode="approx", dims=4))
+
+
+def test_port_imports_neither_jax_nor_repro(tmp_path):
+    code = (
+        "import sys, numpy as np\n"
+        "from repro_torch.api import build_index, Query\n"
+        "from repro_torch.launch.service import SearchService\n"
+        "x = np.random.default_rng(0).random((300, 8))\n"
+        "idx = build_index(x, n_pivots=5, device='cpu')\n"
+        "assert len(idx.query(x[:2], Query.knn(3))) == 2\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('isolated')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "isolated" in out.stdout, out.stderr
+
+
+def test_sources_name_no_jax_or_repro_import():
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro(\s|$|\.|,)|from repro(\s|\.))", re.M)
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        assert not pattern.search(f.read_text()), f

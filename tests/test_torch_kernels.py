@@ -1,0 +1,263 @@
+"""Plain versions of the port's bound-scan kernels (the CPU path of
+``repro_torch.kernels.ops``) against the JAX package's Pallas kernels (in
+interpret mode) and jnp oracles.
+
+Tolerances: rtol = atol = 2e-5 in float32 (``tests/test_kernels.py::_tol``:
+the GEMM-form head sums in another order than the oracle's difference
+form), 1e-12 in float64.  Selections are compared exactly: against a
+lexsort over the plain version's own bound matrices, and id for id against
+the Pallas kernels.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.compat import enable_x64
+from repro.core.surrogate import truncate_apexes_np
+from repro.index.select import topk_pairs_oracle
+from repro.kernels import ops as rops
+from repro.kernels import ref as rref
+from repro_torch.kernels import ops, ref
+
+# small shapes: one intra-op thread keeps these tests from crowding the
+# other pytest workers
+torch.set_num_threads(1)
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+F64 = dict(rtol=1e-12, atol=1e-12)
+BLOCKS = dict(block_q=8, block_n=256)
+SENTINEL = 2**31 - 1
+
+
+def _apexes(N, n, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(N, n)) * 0.3
+    a[:, -1] = np.abs(a[:, -1])  # altitudes are nonnegative
+    return a.astype(dtype)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _np(*ts):
+    return tuple(np.asarray(t) for t in ts)
+
+
+class TestApexBounds:
+    """K6: one query, difference form."""
+
+    @pytest.mark.parametrize("N", [1, 7, 1025])
+    def test_f32_against_pallas_and_oracle(self, N):
+        table, query = _apexes(N, 12, seed=N), _apexes(1, 12, seed=N + 1)[0]
+        lwb, upb = _np(*ops.apex_bounds(_t(table), _t(query)))
+        kl, ku = _np(*rops.apex_bounds(table, query))
+        ol, ou = _np(*rref.apex_bounds_ref(jnp.asarray(table), jnp.asarray(query)))
+        for got, want in ((lwb, kl), (upb, ku), (lwb, ol), (upb, ou)):
+            np.testing.assert_allclose(got, want, **F32)
+
+    def test_f64(self):
+        table, query = _apexes(600, 12, seed=3, dtype=np.float64), _apexes(1, 12, seed=4, dtype=np.float64)[0]
+        lwb, upb = _np(*ops.apex_bounds(_t(table), _t(query)))
+        with enable_x64(True):
+            kl, ku = _np(*rops.apex_bounds(table, query))
+        assert lwb.dtype == np.float64
+        np.testing.assert_allclose(lwb, kl, **F64)
+        np.testing.assert_allclose(upb, ku, **F64)
+
+
+class TestApexBoundsBatch:
+    """K1: a query block, GEMM form, dims truncation."""
+
+    @pytest.mark.parametrize("dims", [2, 3, 4, 5, 6, 7, 8])
+    @pytest.mark.parametrize("pretruncated", [False, True])
+    def test_every_dims_f32(self, dims, pretruncated):
+        n = 8
+        table, queries = _apexes(300, n, seed=dims), _apexes(5, n, seed=dims + 50)
+        if pretruncated:
+            queries = truncate_apexes_np(queries, dims).astype(np.float32)
+        lwb, upb = _np(*ops.apex_bounds_batch(_t(table), _t(queries), dims=dims))
+        ol, ou = _np(*rref.apex_bounds_batch_ref(jnp.asarray(table), jnp.asarray(queries), dims=dims))
+        np.testing.assert_allclose(lwb, ol, **F32)
+        np.testing.assert_allclose(upb, ou, **F32)
+
+    @pytest.mark.parametrize("dims", [None, 5])
+    def test_f32_against_pallas(self, dims):
+        table, queries = _apexes(700, 16, seed=21), _apexes(9, 16, seed=22)
+        lwb, upb = _np(*ops.apex_bounds_batch(_t(table), _t(queries), dims=dims))
+        kl, ku = _np(*rops.apex_bounds_batch(table, queries, dims=dims, **BLOCKS))
+        np.testing.assert_allclose(lwb, kl, **F32)
+        np.testing.assert_allclose(upb, ku, **F32)
+
+    @pytest.mark.parametrize("dims", [None, 2, 9])
+    def test_f64(self, dims):
+        table = _apexes(400, 12, seed=31, dtype=np.float64)
+        queries = _apexes(6, 12, seed=32, dtype=np.float64)
+        lwb, upb = _np(*ops.apex_bounds_batch(_t(table), _t(queries), dims=dims))
+        with enable_x64(True):
+            kl, ku = _np(*rops.apex_bounds_batch(table, queries, dims=dims, **BLOCKS))
+            ol, ou = _np(*rref.apex_bounds_batch_ref(jnp.asarray(table), jnp.asarray(queries), dims=dims))
+        for got, want in ((lwb, kl), (upb, ku), (lwb, ol), (upb, ou)):
+            np.testing.assert_allclose(got, want, **F64)
+
+    def test_bad_dims_raise(self):
+        table, queries = _t(_apexes(10, 6, seed=1)), _t(_apexes(2, 6, seed=2))
+        for dims in (1, 7):
+            with pytest.raises(ValueError):
+                ops.apex_bounds_batch(table, queries, dims=dims)
+        with pytest.raises(ValueError):
+            ops.apex_bounds_batch(table, queries[:, :4], dims=5)
+
+    def test_soundness_slack_contains_f64_bounds(self):
+        """f32 bounds widened by ``_kernel_err_sq`` contain the f64
+        difference-form bounds: the exactness of every index path rests on it."""
+        from repro_torch.api import build_index
+        from repro_torch.data import colors_like
+
+        X = colors_like(n=700, seed=23).astype(np.float64)
+        inner = build_index(X[:650], "euclidean", n_pivots=16, seed=2, device="cpu")._inner
+        apexes = inner.query_apex_batch(X[650:680])
+        true_l, true_u = _np(*rref.apex_bounds_batch_ref(inner.table.numpy(), apexes.numpy()))
+        kern_l, kern_u = (b.numpy() for b in inner.bounds_batch(apexes))
+        err_sq = inner._kernel_err_sq(apexes.numpy())
+        assert np.all(np.sqrt(np.maximum(kern_l**2 - err_sq, 0.0)) <= true_l + 1e-12)
+        assert np.all(np.sqrt(kern_u**2 + err_sq) >= true_u - 1e-12)
+
+
+def _host_topk(keys, k, live=None):
+    """Per-row ``np.lexsort((ids, keys))`` over the live rows, first k."""
+    out = []
+    for q in range(keys.shape[0]):
+        cand = np.arange(keys.shape[1]) if live is None else np.flatnonzero(live)
+        out.append(cand[np.lexsort((cand, keys[q, cand]))][:k])
+    return out
+
+
+class TestFusedTopK:
+    """K2: top-k by (key, id)."""
+
+    @pytest.mark.parametrize("key", ["lwb", "upb", "mid"])
+    @pytest.mark.parametrize("dims", [None, 6])
+    def test_equals_lexsort_and_pallas(self, key, dims):
+        table, queries = _apexes(700, 24, seed=1), _apexes(9, 24, seed=2)
+        k = 13
+        ids, lwb_k, upb_k = _np(*ops.apex_bounds_topk(_t(table), _t(queries), k, key=key, dims=dims))
+        lwb, upb = _np(*ops.apex_bounds_batch(_t(table), _t(queries), dims=dims))
+        keys = {"lwb": lwb, "upb": upb, "mid": np.float32(0.5) * (lwb + upb)}[key]
+        for q, order in enumerate(_host_topk(keys, k)):
+            np.testing.assert_array_equal(ids[q], order)
+            np.testing.assert_array_equal(lwb_k[q], lwb[q, order])
+            np.testing.assert_array_equal(upb_k[q], upb[q, order])
+        pids, plwb, pupb = _np(*rops.apex_bounds_topk(table, queries, k, key=key, dims=dims, **BLOCKS))
+        np.testing.assert_array_equal(ids, pids)
+        np.testing.assert_allclose(lwb_k, plwb, **F32)
+        np.testing.assert_allclose(upb_k, pupb, **F32)
+
+    def test_matches_select_oracle(self):
+        table, queries = _apexes(300, 16, seed=5), _apexes(6, 16, seed=6)
+        ids, lwb_k, _ = _np(*ops.apex_bounds_topk(_t(table), _t(queries), 7, key="lwb"))
+        lwb, _ = _np(*ops.apex_bounds_batch(_t(table), _t(queries)))
+        oid, ovals = topk_pairs_oracle(lwb, 7)
+        np.testing.assert_array_equal(ids, oid)
+        np.testing.assert_array_equal(lwb_k.astype(np.float64), ovals)
+
+    def test_duplicate_ties_break_by_ascending_id(self):
+        table = np.repeat(_apexes(64, 12, seed=7), 4, axis=0)  # every key 4x
+        queries = _apexes(5, 12, seed=8)
+        ids, _, _ = _np(*ops.apex_bounds_topk(_t(table), _t(queries), 10, key="mid"))
+        pids, _, _ = _np(*rops.apex_bounds_topk(table, queries, 10, key="mid", **BLOCKS))
+        np.testing.assert_array_equal(ids, pids)
+        lwb, upb = _np(*ops.apex_bounds_batch(_t(table), _t(queries)))
+        keys = np.float32(0.5) * (lwb + upb)
+        for q, order in enumerate(_host_topk(keys, 10)):
+            np.testing.assert_array_equal(ids[q], order)
+            same = np.diff(keys[q][ids[q]]) == 0
+            assert np.all(np.diff(ids[q])[same] > 0)
+
+    def test_k_at_least_n_clamps(self):
+        table, queries = _apexes(37, 10, seed=3), _apexes(4, 10, seed=4)
+        ids, _, _ = _np(*ops.apex_bounds_topk(_t(table), _t(queries), 100, key="lwb"))
+        assert ids.shape == (4, 37)
+        for q in range(4):
+            assert sorted(ids[q].tolist()) == list(range(37))
+
+    def test_rowmask_and_sentinel_padding(self):
+        table, queries = _apexes(200, 10, seed=9), _apexes(3, 10, seed=10)
+        mask = np.zeros(200, dtype=bool)
+        mask[[3, 50, 51, 199]] = True
+        ids, lwb_k, upb_k = _np(*ops.apex_bounds_topk(_t(table), _t(queries), 6, key="upb", rowmask=mask))
+        pids, _, _ = _np(*rops.apex_bounds_topk(table, queries, 6, key="upb", rowmask=mask, **BLOCKS))
+        np.testing.assert_array_equal(ids, pids)
+        lwb, upb = _np(*ops.apex_bounds_batch(_t(table), _t(queries)))
+        for q, order in enumerate(_host_topk(upb, 6, live=mask)):
+            np.testing.assert_array_equal(ids[q, :4], order)
+            assert np.all(ids[q, 4:] == SENTINEL)
+            assert np.all(np.isinf(lwb_k[q, 4:])) and np.all(np.isinf(upb_k[q, 4:]))
+
+    def test_f64_table_raises(self):
+        table = _t(_apexes(20, 6, seed=1, dtype=np.float64))
+        with pytest.raises(TypeError):
+            ops.apex_bounds_topk(table, table[:2], 3, key="lwb")
+        with pytest.raises(TypeError):
+            ops.apex_bounds_threshold(table, table[:2], np.ones(2), 3)
+
+    def test_negative_zero_key_packs_smallest(self):
+        keys = torch.tensor([[0.5, -0.0, 0.25]], dtype=torch.float32)
+        packed = ref.pack_keys(keys, torch.ones_like(keys, dtype=torch.bool))
+        assert torch.argsort(packed[0]).tolist() == [1, 2, 0]
+
+
+class TestFusedThreshold:
+    """K3: the cap smallest (lwb, id) under a per-query threshold + counts."""
+
+    @pytest.mark.parametrize("cap", [1, 16, 64, 513])
+    def test_counts_exact_and_selection_matches(self, cap):
+        table, queries = _apexes(513, 20, seed=11), _apexes(7, 20, seed=12)
+        lwb, _ = _np(*ops.apex_bounds_batch(_t(table), _t(queries)))
+        thresholds = np.quantile(lwb, 0.1, axis=1).astype(np.float32)
+        ids, lwb_t, _, counts = _np(*ops.apex_bounds_threshold(_t(table), _t(queries), thresholds, cap))
+        pids, plwb, _, pcounts = _np(*rops.apex_bounds_threshold(table, queries, thresholds, cap, **BLOCKS))
+        np.testing.assert_array_equal(counts, pcounts)
+        for q in range(queries.shape[0]):
+            hits = np.where(lwb[q] <= thresholds[q])[0]
+            assert counts[q] == len(hits)
+            want = hits[np.lexsort((hits, lwb[q, hits]))][:cap]
+            got = ids[q][ids[q] != SENTINEL]
+            np.testing.assert_array_equal(got, want)   # overflow keeps the cap smallest
+            np.testing.assert_array_equal(lwb_t[q][: len(want)], lwb[q, want])
+            np.testing.assert_array_equal(got, pids[q][pids[q] != SENTINEL])
+
+    def test_empty_results(self):
+        table, queries = _apexes(100, 12, seed=13), _apexes(3, 12, seed=14)
+        ids, lwb_t, upb_t, counts = _np(
+            *ops.apex_bounds_threshold(_t(table), _t(queries), np.full(3, -1.0, np.float32), 16)
+        )
+        assert np.all(counts == 0)
+        assert np.all(ids == SENTINEL)
+        assert np.all(np.isinf(lwb_t)) and np.all(np.isinf(upb_t))
+
+    def test_overflow_with_rowmask(self):
+        table, queries = _apexes(200, 12, seed=15), _apexes(2, 12, seed=16)
+        mask = np.arange(200) % 3 == 0
+        ids, _, _, counts = _np(
+            *ops.apex_bounds_threshold(_t(table), _t(queries), np.full(2, np.inf, np.float32), 8, rowmask=mask)
+        )
+        pids, _, _, pcounts = _np(
+            *rops.apex_bounds_threshold(table, queries, np.full(2, np.inf, np.float32), 8, rowmask=mask, **BLOCKS)
+        )
+        assert np.all(counts == mask.sum()) and np.array_equal(counts, pcounts)
+        np.testing.assert_array_equal(ids, pids)
+        assert np.all(mask[ids])
+
+
+def test_cpu_tensors_never_count_launches():
+    ops.reset_launches()
+    table = _t(_apexes(50, 6, seed=1))
+    ops.apex_bounds(table, table[0])
+    ops.apex_bounds_batch(table, table[:3])
+    ops.apex_bounds_topk(table, table[:3], 4, key="lwb")
+    ops.apex_bounds_threshold(table, table[:3], np.ones(3), 4)
+    assert set(ops.LAUNCHES.values()) == {0}
