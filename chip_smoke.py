@@ -8,31 +8,62 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
 0, no result line) on any fault.  One JSON line per phase:
 
   1. device   — ``nvidia-smi`` name and power limit, torch/CUDA versions,
-                kernel build time;
-  2. kernels  — each bound-scan kernel against its plain PyTorch version on
-                the card at the main path's shapes (Q = 64 query apexes,
-                N = 1,000,000 rows, n = 20 pivots, f32, k = 10, cap = 4096)
-                plus smaller calls with ``dims``, ``key="mid"``, ``rowmask``
-                and f64; K1/K6 within rtol = atol = 2e-5 (f32) or 1e-12
-                (f64), K2/K3 exactly equal to a host lexsort and count over
-                K1's own f32 matrices; CUDA-event times of kernel and plain;
-  3. e2e      — the main path through the public entry points:
+                kernel build time, and the FP64 instructions of one IEEE
+                ``log`` read from ``cuobjdump -sass`` of a probe kernel (on
+                the fast path that K5's positive normal arguments take, and
+                in all); K5's bound counts the fast path;
+  2. kernels  — each kernel against its plain PyTorch version on the card at
+                the main path's shapes: the bound scans at Q = 64 query
+                apexes, N = 1,000,000 rows, n = 20 pivots, f32, k = 10,
+                cap = 4096, plus smaller calls with ``dims``, ``key="mid"``,
+                ``rowmask`` and f64 (K1/K6 within rtol = atol = 2e-5 in f32
+                or 1e-12 in f64, K2/K3 exactly equal to a host lexsort and
+                count over K1's own f32 matrices); K4 on the table build's
+                1M x 20 f64 pivot distances at 1e-12, and in f32 at 3e-4;
+                K5 on the build's 1M x 112 rows against the 20 pivots in f64
+                at 1e-12, a 1 x 4096 refinement-shaped f64 call at 1e-12 and
+                a 64 x 4096 f32 call at 1e-4; both in f64 at 1e-12 at the
+                query shapes, 64 and 1 queries against the 20 pivots and
+                the approximate path's 10-pivot prefix.  K4's altitude and K5's output
+                are compared squared, before their final sqrt (see
+                ``max_err_sq``).  CUDA-event times of kernel and plain;
+  3. e2e      — the exact path through the public entry points:
                 ``build_index(colors_like(n=1_000_000, dim=112), metric,
                 n_pivots=20)`` on ``cuda`` for euclidean and jensen_shannon,
                 64-query k-NN and range batches, a range batch that overflows
                 K3's capacity, 1-D requests, and 256 requests through
                 ``SearchService(max_batch=64)``; answers of >= 8 queries per
-                task held to a brute-force f64 scan on the card;
-  4. kernels  — ``{"kernels": [...]}``: launches of each kernel during phase
-                3 (each must be > 0), error, times and bounds;
+                task held to a brute-force f64 scan on the card that uses
+                the plain JSD, not K5;
+  4. approx   — the approximate (truncated-surrogate) path on the same
+                corpus: euclidean on the e2e index with ``mode="approx",
+                dims=10, refine=64`` queries, jensen_shannon on a fresh
+                ``build_index(..., apex_dims=10, refine=64)`` queried in
+                ``auto`` mode; per metric 2 x 64-query k-NN and range
+                batches, 8 1-D k-NN requests and 256 k-NN requests through
+                ``SearchService(max_batch=64)`` (equal to a direct batch).
+                After the launch counts are read, >= 8 queries per task are
+                checked, with query apexes projected by the plain versions
+                (not K4 or K5): k-NN answers are the k smallest (f64 distance, id)
+                among the ``refine`` rows a host lexsort of K1's own f32
+                mid keys selects, with ``original_calls == dims + refine``;
+                range answers keep both sound sides (no row with truncated
+                lwb above t(1+eps) + slack, every row with truncated upb
+                below t(1-eps) - slack).  Recall@10 and range
+                precision/recall against the brute force are printed;
+  5. kernels  — ``{"kernels": [...]}``: launches of each of the six kernels
+                during phases 3 and 4 (each must be > 0), error, times and
+                bounds;
 then the card's ``nvidia-smi`` line, and last the device contract line.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,10 +72,14 @@ import numpy as np
 SEED = 20170726
 N_ROWS, DIM, N_PIVOTS = 1_000_000, 112, 20
 Q, K, CAP = 64, 10, 4096
-#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
+#: the approximate phase's truncation and re-rank budget
+APPROX_DIMS, REFINE = 10, 64
+#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 / f64
 #: FLOP/s outside the tensor cores
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
 F32_TOL, F64_TOL = 2e-5, 1e-12
+#: f32 tolerances of K4 and K5 (tests/test_kernels.py:79 and :111)
+K4_F32_TOL, K5_F32_TOL = 3e-4, 1e-4
 SENTINEL = 2**31 - 1
 KERNEL_INFO = {
     "apex_bounds_batch": ("K1", "src/repro_torch/kernels/csrc/apex_bounds_batch.cu",
@@ -53,6 +88,10 @@ KERNEL_INFO = {
                   "src/repro/kernels/select_epilogue.py:236"),
     "apex_threshold": ("K3", "src/repro_torch/kernels/csrc/select_epilogue.cu",
                        "src/repro/kernels/select_epilogue.py:293"),
+    "apex_project": ("K4", "src/repro_torch/kernels/csrc/apex_project.cu",
+                     "src/repro/kernels/apex_project.py:47"),
+    "jsd_pairwise": ("K5", "src/repro_torch/kernels/csrc/jsd_pairwise.cu",
+                     "src/repro/kernels/jsd_distance.py:46"),
     "apex_bounds": ("K6", "src/repro_torch/kernels/csrc/apex_bounds.cu",
                     "src/repro/kernels/apex_bounds.py:45"),
 }
@@ -88,13 +127,55 @@ def time_ms(torch, fn, reps=10) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(Q_, N_, n_, itemsize, out_bytes, flops_per_s):
-    """(bound_ms, bound_by): bytes moved (inputs read once, outputs written
-    once) over the HBM rate against ~2(n-1) + 12 operations per pair."""
-    bytes_ = (N_ * n_ + Q_ * n_) * itemsize + out_bytes
-    ops = Q_ * N_ * (2 * (n_ - 1) + 12)
+def roofline(bytes_, ops, flops_per_s):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate of their type."""
     t_bytes, t_ops = bytes_ / HBM_BPS * 1e3, ops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(Q_, N_, n_, itemsize, out_bytes, flops_per_s):
+    """Bound of a bound scan: bytes moved (inputs read once, outputs written
+    once) against ~2(n-1) + 12 operations per pair."""
+    return roofline((N_ * n_ + Q_ * n_) * itemsize + out_bytes, Q_ * N_ * (2 * (n_ - 1) + 12), flops_per_s)
+
+
+_FP64_FLOPS_OF = {"DFMA": 2, "DADD": 1, "DMUL": 1}
+_FP64_OPS = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")
+
+
+def log_cost(build) -> dict:
+    """FP64 instructions of one IEEE ``log(double)`` on this card, read from
+    ``cuobjdump -sass`` of a one-line probe compiled with the kernels' flags.
+    ``fast_path_*`` counts what a positive normal input (every ``log`` that
+    K5 takes: its argument is > 1e-12) executes: the FP64 instructions that
+    carry no predicate guard on the straight line from the entry to the
+    first ``EXIT``.  The guarded ones are the routine's special-value code
+    (the subnormal rescale, the result for 0, negatives, inf and NaN, and
+    the branch that then skips the polynomial).  ``static_*`` counts every
+    FP64 instruction of the probe.  Flops: DFMA 2, DADD and DMUL 1."""
+    nvcc = build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, cubin = Path(tmp) / "log_probe.cu", Path(tmp) / "log_probe.cubin"
+        src.write_text('extern "C" __global__ void log_probe(const double* x, double* y) '
+                       "{ y[threadIdx.x] = log(x[threadIdx.x]); }\n")
+        subprocess.run([nvcc, *build.NVCC_FLAGS, "-cubin", str(src), "-o", str(cubin)],
+                       check=True, capture_output=True, timeout=300)
+        sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                              check=True, capture_output=True, text=True, timeout=120).stdout
+    code = re.findall(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", sass)
+    fp64 = [op for _, op in code if op in _FP64_OPS]
+    fast = []
+    for guard, op in code:
+        if op == "EXIT" and not guard:
+            break
+        check(guard or op not in ("BRA", "JMP", "CALL", "RET"), "the log probe's fast path is not a straight line")
+        if op in _FP64_OPS and not guard:
+            fast.append(op)
+    check(len(fast) > 0, "no FP64 instruction found on the log probe's fast path")
+    return {"static_fp64_instructions": len(fp64), "static_flops": sum(_FP64_FLOPS_OF.get(op, 0) for op in fp64),
+            "fast_path_fp64_instructions": len(fast),
+            "fast_path_flops": sum(_FP64_FLOPS_OF.get(op, 0) for op in fast), "all_instructions": len(code)}
 
 
 def max_err(torch, got, want, tol):
@@ -102,6 +183,20 @@ def max_err(torch, got, want, tol):
     diff = (got - want).abs()
     check(bool((diff <= tol + tol * want.abs()).all()), f"kernel disagrees with plain beyond {tol}")
     return float(diff.max())
+
+
+def max_err_sq(torch, got, want, tol):
+    """``max_err`` of the squares: for outputs that end in a sqrt of a
+    clamped difference (K4's altitude, K5's distance).  Where that
+    difference is 0 up to rounding (a pivot row's altitude, a pivot against
+    itself), the sqrt turns the two versions' ~1e-16 rounding into ~1e-8,
+    so they are held to each other before the sqrt."""
+    return max_err(torch, got * got, want * want, tol)
+
+
+def check_k4(torch, got, want, tol):
+    """K4: the head coordinates directly, the altitude squared."""
+    return max(max_err(torch, got[:, :-1], want[:, :-1], tol), max_err_sq(torch, got[:, -1], want[:, -1], tol))
 
 
 def host_select(keys: np.ndarray, live, width: int) -> np.ndarray:
@@ -216,15 +311,107 @@ def phase_kernels(torch, ops, ref, tab32, ap32):
     return out
 
 
-class BruteForce:
-    """Float64 scan of the whole corpus on the card: the e2e reference."""
+def phase_kernels_k4_k5(torch, ops, ref, inner, data, queries, log):
+    """K4 and K5 against their plain versions at the table build's shapes
+    (the index's own 1M x 20 pivot distances, its corpus and pivots) and at
+    the query and refinement shapes."""
+    out = {}
+    proj = inner.projector
+    dist = proj.pivot_distances(data)                            # (1M, 20) f64
+    Linv, sq = proj._Linv_t, proj._sq_norms_t
+    B, n = dist.shape
+    err = check_k4(torch, ops.apex_project(dist, Linv, sq), ref.apex_project_ref(dist, Linv, sq), F64_TOL)
+    d32, L32, s32 = dist.float(), Linv.float(), sq.float()
+    err32 = check_k4(torch, ops.apex_project(d32, L32, s32), ref.apex_project_ref(d32, L32, s32), K4_F32_TOL)
+    ms = time_ms(torch, lambda: ops.apex_project(dist, Linv, sq))
+    plain_ms = time_ms(torch, lambda: ref.apex_project_ref(dist, Linv, sq))
+    h = n - 1
+    out["apex_project"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=[B, n],
+        bound=roofline(2 * B * n * 8 + (h * h + h) * 8, B * (2 * h * h + 4 * h + 4), F64_FLOPS),
+    )
+    emit(phase="kernels", kernel="K4", shape=[B, n], max_abs_err_f64=err, max_abs_err_f32=err32,
+         ms=ms, plain_ms=plain_ms)
+    del dist, d32
 
-    def __init__(self, torch, data, metric):
-        self.torch, self.metric = torch, metric
+    # K4 and K5 at the query shapes, f64: a 64-query block and one query,
+    # against the full projector and the approximate path's dims-prefix one
+    qs64 = queries[:Q].double()
+    for p in (proj, inner._prefix_projector(APPROX_DIMS)):
+        qd = p.pivot_distances(qs64)
+        piv = p.pivots_t.double()
+        for rows in (Q, 1):
+            blk = qd[:rows]
+            e4 = check_k4(torch, ops.apex_project(blk, p._Linv_t, p._sq_norms_t),
+                          ref.apex_project_ref(blk, p._Linv_t, p._sq_norms_t), F64_TOL)
+            a = qs64[:rows]
+            e5 = max_err_sq(torch, ops.jsd_pairwise(a, piv),
+                            ref.jsd_pairwise_ref(l1_normalise(torch, a), l1_normalise(torch, piv)), F64_TOL)
+            emit(phase="kernels", kernel="K4+K5", shape=list(blk.shape), dtype="torch.float64",
+                 max_abs_err_k4=e4, max_abs_err_k5=e5)
+
+    # K5 at the build shape: every corpus row against the 20 pivots, f64
+    X = data.double()
+    Y = proj.pivots_t.double()
+    Qx, d = X.shape
+    P = Y.shape[0]
+    Xn, Yn = l1_normalise(torch, X), l1_normalise(torch, Y)
+    err = max_err_sq(torch, ops.jsd_pairwise(X, Y), ref.jsd_pairwise_ref(Xn, Yn), F64_TOL)
+    ms = time_ms(torch, lambda: ops.jsd_pairwise(X, Y))
+    plain_ms = time_ms(torch, lambda: ref.jsd_pairwise_ref(Xn, Yn), reps=2)
+    # per (pair, coordinate): x + y, * 0.5, * log, + acc and one log; per
+    # (row, coordinate) of the entropy pass: one log, * and +
+    per_elem = 4 + log["fast_path_flops"]
+    ops_ = Qx * P * d * per_elem + (Qx + P) * d * (2 + log["fast_path_flops"])
+    out["jsd_pairwise"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=[Qx, P, d],
+        bound=roofline((Qx + P) * d * 8 + Qx * P * 8, ops_, F64_FLOPS),
+    )
+    emit(phase="kernels", kernel="K5", shape=[Qx, P, d], dtype="torch.float64", max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, flops_per_element=per_elem)
+    del X, Xn
+
+    # the refinement shape (one query against 4096 rows, f64) and a query
+    # block against 4096 rows in f32
+    rows = data[:4096]
+    for qs, tol, dtype in ((queries[:1], F64_TOL, torch.float64), (queries[:Q], K5_F32_TOL, torch.float32)):
+        a, b = qs.to(dtype), rows.to(dtype)
+        an, bn = l1_normalise(torch, a), l1_normalise(torch, b)
+        e = max_err_sq(torch, ops.jsd_pairwise(a, b), ref.jsd_pairwise_ref(an, bn), tol)
+        emit(phase="kernels", kernel="K5", shape=[a.shape[0], b.shape[0], d], dtype=str(dtype), max_abs_err=e,
+             ms=time_ms(torch, lambda: ops.jsd_pairwise(a, b)),
+             plain_ms=time_ms(torch, lambda: ref.jsd_pairwise_ref(an, bn)))
+    return out
+
+
+def l1_normalise(torch, X):
+    """Rows over ``max(sum, 1e-12)``: the JSD wrappers' normalisation."""
+    return X / torch.clamp_min(X.sum(dim=-1, keepdim=True), 1e-12)
+
+
+class BruteForce:
+    """Float64 scan of the whole corpus on the card: the e2e reference.  JSD
+    is the plain version (``ref.jsd_pairwise_ref``), never the kernel K5 the
+    index refines with."""
+
+    def __init__(self, torch, ref, data, metric):
+        self.torch, self.ref, self.metric = torch, ref, metric
         self.data64 = data.double()
+        if metric.name == "jensen_shannon":
+            self.data64 = l1_normalise(torch, self.data64)
 
     def dists(self, q):
-        return self.metric.one_to_many(self.torch.as_tensor(q, device=self.data64.device).double(), self.data64)
+        q = self.torch.as_tensor(q, device=self.data64.device).double()
+        if self.metric.name == "jensen_shannon":
+            return self.ref.jsd_pairwise_ref(l1_normalise(self.torch, q[None, :]), self.data64)[0]
+        return self.metric.one_to_many(q, self.data64)
+
+    def cross(self, qs, rows):
+        """(Q, M) float64 distances of query rows to ``rows``, JSD plain."""
+        qs = self.torch.as_tensor(qs, device=self.data64.device).double()
+        if self.metric.name == "jensen_shannon":
+            return self.ref.jsd_pairwise_ref(l1_normalise(self.torch, qs), l1_normalise(self.torch, rows.double()))
+        return self.metric.cross(qs, rows)
 
     def knn(self, q, k):
         d = self.dists(q)
@@ -234,6 +421,11 @@ class BruteForce:
     def range(self, q, t):
         d = self.dists(q)
         return self.torch.nonzero(d <= t).flatten().cpu().numpy(), d.cpu().numpy()
+
+
+def refine_tol(torch, metric_name, data):
+    """f32 corpus + Euclidean refines in f32: compare at f32 resolution."""
+    return 1e-5 if (metric_name == "euclidean" and data.dtype == torch.float32) else F64_TOL
 
 
 def agree_knn(res, want_ids, d64, tol):
@@ -254,7 +446,7 @@ def agree_range(res, want_ids, d64, t, tol):
     return int(diff.shape[0])
 
 
-def phase_e2e(torch, api, metrics_mod, service_mod, data_np, queries_np, metric_name, index=None):
+def phase_e2e(torch, api, metrics_mod, service_mod, ref, data_np, queries_np, metric_name, index=None):
     """The main path for one metric, through the public entry points."""
     report = lambda **f: emit(phase="e2e", metric=metric_name, **f)  # noqa: E731
     if index is None:
@@ -264,9 +456,8 @@ def phase_e2e(torch, api, metrics_mod, service_mod, data_np, queries_np, metric_
         report(task="build", rows=N_ROWS, wall_s=time.perf_counter() - t0)
     inner = index._inner
     data = inner.data
-    brute = BruteForce(torch, data, metrics_mod.get_metric(metric_name))
-    # f32 corpus + Euclidean refines in f32: compare at f32 resolution
-    tol = 1e-5 if (metric_name == "euclidean" and data.dtype == torch.float32) else F64_TOL
+    brute = BruteForce(torch, ref, data, metrics_mod.get_metric(metric_name))
+    tol = refine_tol(torch, metric_name, data)
     swaps = 0
 
     def run(task, spec, qs):
@@ -336,6 +527,122 @@ def phase_e2e(torch, api, metrics_mod, service_mod, data_np, queries_np, metric_
     return index
 
 
+def phase_approx(torch, api, metrics_mod, service_mod, ref, data_np, queries_np, metric_name, index=None):
+    """Drive the approximate path for one metric: on ``index`` with explicit
+    ``mode="approx"`` queries, or on a fresh ``apex_dims`` build queried in
+    ``auto`` mode.  Returns what ``verify_approx`` checks once the launch
+    counts are read (its checks launch K1, K4 and K5 themselves)."""
+    report = lambda **f: emit(phase="approx", metric=metric_name, **f)  # noqa: E731
+    api_q = api.Query
+    if index is None:
+        t0 = time.perf_counter()
+        index = api.build_index(data_np, metric_name, n_pivots=N_PIVOTS, seed=SEED % 1000,
+                                apex_dims=APPROX_DIMS, refine=REFINE, device="cuda")
+        torch.cuda.synchronize()
+        report(task="build", rows=N_ROWS, apex_dims=APPROX_DIMS, refine=REFINE, wall_s=time.perf_counter() - t0)
+        kw = {}
+    else:
+        kw = dict(mode="approx", dims=APPROX_DIMS, refine=REFINE)
+    inner = index._inner
+    brute = BruteForce(torch, ref, inner.data, metrics_mod.get_metric(metric_name))
+    t_range = float(np.sort(brute.dists(queries_np[0]).cpu().numpy())[99])   # ~100th-neighbour distance
+    knn_spec, range_spec = api_q.knn(K, **kw), api_q.range(t_range, **kw)
+    for spec in (knn_spec, range_spec):
+        check(index.plan(spec).approx_cfg == {"dims": APPROX_DIMS, "refine": REFINE},
+              "the plan must resolve to the approximate path")
+    tasks = []
+
+    def run(task, spec, qs):
+        before = inner.overflow_queries
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = index.query(qs, spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results = [res] if qs.ndim == 1 else list(res)
+        report(task=task, queries=len(results), wall_ms=wall * 1e3,
+               original_calls_per_query=float(np.mean([r.stats.original_calls for r in results])),
+               overflow_queries=inner.overflow_queries - before)
+        return results
+
+    for task, spec in (("knn_batch", knn_spec), ("range_batch", range_spec)):
+        for b in range(2):
+            qs = queries_np[b * Q:(b + 1) * Q]
+            tasks.append((task, spec, qs, run(task, spec, qs)))
+    qs = queries_np[:8]
+    tasks.append(("knn_1d", knn_spec, qs, [run("knn_1d", knn_spec, q)[0] for q in qs]))
+
+    served = queries_np[:256]
+    with service_mod.SearchService(index, max_batch=64, max_wait_s=0.005) as svc:
+        svc.warmup(knn_spec, served[0])
+        t0 = time.perf_counter()
+        futures = [svc.submit(q, knn_spec) for q in served]
+        results = [f.result(timeout=600) for f in futures]
+        wall = time.perf_counter() - t0
+        st = svc.stats()
+    direct = index.query(served, knn_spec)
+    for r, w in zip(results, direct):
+        check(np.array_equal(r.ids, w.ids) and np.array_equal(r.distances, w.distances),
+              "served approximate results differ from a direct batch")
+    tasks.append(("service_knn", knn_spec, served, results))
+    report(task="service_knn", requests=len(served), wall_ms=wall * 1e3,
+           latency_p50_ms=st["latency_p50_ms"], latency_p99_ms=st["latency_p99_ms"],
+           mean_batch_occupancy=st["mean_batch_occupancy"], n_batches=st["n_batches"],
+           original_calls_per_query=float(np.mean([r.stats.original_calls for r in results])))
+    return dict(metric=metric_name, index=index, brute=brute, tasks=tasks)
+
+
+def verify_approx(torch, ops, ref, rec):
+    """Check >= 8 queries per approximate task.  The query apexes are
+    projected by the plain versions (pivot distances of the brute force,
+    ``ref.apex_project_ref``), not by K4 or K5.  k-NN: the answer is the k
+    smallest (f64 distance, id) among the ``REFINE`` rows a host lexsort of
+    K1's own f32 truncated mid keys selects, and ``original_calls`` is
+    ``dims + refine``.  Range: both bound sides stay sound against K1's f32
+    truncated bounds, with the batch's own slack.  Prints recall@10 and range
+    precision/recall against the brute force (not gated on the card)."""
+    index, brute, metric = rec["index"], rec["brute"], rec["metric"]
+    inner = index._inner
+    tab = inner._kernel_table()
+    prefix = inner._prefix_projector(APPROX_DIMS)
+    tol = refine_tol(torch, metric, inner.data)
+    cfg = {"dims": APPROX_DIMS, "refine": REFINE}
+    for task, spec, qs, results in rec["tasks"]:
+        qpd = brute.cross(np.atleast_2d(qs), prefix.pivots_t)
+        apexes = ref.apex_project_ref(qpd, prefix._Linv_t, prefix._sq_norms_t)
+        L, U = (t.cpu().numpy() for t in ops.apex_bounds_batch(tab, apexes[:8].float(), dims=APPROX_DIMS))
+        scores, swaps = [], 0
+        for qi, (q, r) in enumerate(zip(qs[:8], results[:8])):
+            check(r.approx == cfg, "an approximate result must carry its config")
+            d64 = brute.dists(q).cpu().numpy()
+            if spec.task == "knn":
+                cand = host_select(np.float32(0.5) * (L[qi:qi + 1] + U[qi:qi + 1]), None, REFINE)[0]
+                check(bool(np.isin(r.ids, cand).all()), "approximate k-NN answered outside K2's candidates")
+                swaps += agree_knn(r, cand[np.lexsort((cand, d64[cand]))][:K], d64, tol)
+                check(r.stats.original_calls == APPROX_DIMS + REFINE, "original_calls must be dims + refine")
+                exact = host_select(d64[None, :], None, K)[0]
+                scores.append(len(np.intersect1d(r.ids, exact)) / K)
+            else:
+                t = float(spec.threshold)
+                slack = float(inner._kernel_slack(apexes.cpu().numpy(), np.full(len(qs), t))[0])
+                t_hi = t * (1.0 + inner.eps) + 1e-12 + slack
+                t_lo = t * (1.0 - inner.eps) - 1e-12 - slack
+                lwb, upb = L[qi].astype(np.float64), U[qi].astype(np.float64)
+                check(bool(np.all(lwb[r.ids] <= t_hi)), "approximate range returned a row its lower bound excludes")
+                check(bool(np.isin(np.flatnonzero(upb <= t_lo), r.ids).all()),
+                      "approximate range dropped a row its upper bound admits")
+                truth = np.flatnonzero(d64 <= t)
+                hit = len(np.intersect1d(r.ids, truth))
+                scores.append((hit / max(len(r.ids), 1), hit / max(len(truth), 1)))
+        if spec.task == "knn":
+            emit(phase="approx", metric=metric, task=task, checked=len(scores), recall_at_10=float(np.mean(scores)),
+                 near_tie_differences=swaps)
+        else:
+            emit(phase="approx", metric=metric, task=task, checked=len(scores),
+                 range_precision=float(np.mean([p for p, _ in scores])),
+                 range_recall=float(np.mean([r_ for _, r_ in scores])))
+
+
 def main() -> int:
     import torch
 
@@ -354,6 +661,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     emit(phase="build", seconds=time.perf_counter() - t0, nvcc_flags=list(build.NVCC_FLAGS))
+    log = log_cost(build)
+    emit(phase="build", log_fp64=log)
 
     t0 = time.perf_counter()
     X = colors_like(n=N_ROWS + 256, dim=DIM, seed=SEED)
@@ -368,18 +677,28 @@ def main() -> int:
     inner = euclid._inner
     ap32 = inner.query_apex_batch(queries_np[:Q]).float().contiguous()
     measured = phase_kernels(torch, ops, ref, inner._kernel_table(), ap32)
+    measured.update(phase_kernels_k4_k5(torch, ops, ref, inner, inner.data,
+                                        torch.as_tensor(queries_np, device="cuda"), log))
+    del inner
+    torch.cuda.empty_cache()
 
     ops.reset_launches()
-    phase_e2e(torch, api, metrics_mod, service_mod, data_np, queries_np, "euclidean", index=euclid)
-    del euclid, inner
+    mods = (torch, api, metrics_mod, service_mod, ref, data_np, queries_np)
+    phase_e2e(*mods, "euclidean", index=euclid)
+    approx_runs = [phase_approx(*mods, "euclidean", index=euclid)]
+    del euclid
+    jsd_exact = phase_e2e(*mods, "jensen_shannon")
+    del jsd_exact
     torch.cuda.empty_cache()
-    phase_e2e(torch, api, metrics_mod, service_mod, data_np, queries_np, "jensen_shannon")
+    approx_runs.append(phase_approx(*mods, "jensen_shannon"))
     launches = dict(ops.LAUNCHES)
+    for rec in approx_runs:
+        verify_approx(torch, ops, ref, rec)
 
     rows = []
     for name, (kid, source, replaces) in KERNEL_INFO.items():
         m = measured[name]
-        check(launches[name] > 0, f"{kid} ({name}) was not launched by the main path")
+        check(launches[name] > 0, f"{kid} ({name}) was not launched by the e2e and approx phases")
         rows.append({
             "name": f"{kid} {name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": m["max_abs_err"], "ms": m["ms"],

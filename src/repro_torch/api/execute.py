@@ -7,12 +7,11 @@ the id filters.  A 1-D input answers as a ``QueryResult``, a 2-D block as a
 ``plan`` plus the legacy ``search``/``search_batch``/``knn``/``knn_batch``
 shims over them.
 
-Id filters (all exact): ``allow`` is a direct true-metric scan of the listed
-rows; ``deny`` with k-NN over-fetches ``k + len(deny)`` and drops the denied
-ids; ``deny`` with range post-filters the verified set.
-
-This package executes exact plans only; a plan that resolves to the
-approximate path raises until the approximate slice is ported.
+The plan's approx config (``{"dims", "refine"}``, None for an exact plan)
+rides into every primitive, so exact and approximate plans take the same
+dispatch.  Id filters (all exact): ``allow`` is a direct true-metric scan of
+the listed rows; ``deny`` with k-NN over-fetches ``k + len(deny)`` and drops
+the denied ids; ``deny`` with range post-filters the verified set.
 """
 
 from __future__ import annotations
@@ -99,36 +98,32 @@ def execute(index, q, spec: Query, *, plan: Optional[QueryPlan] = None):
 
 def _dispatch(index, q, queries, single: bool, spec: Query, qp: QueryPlan):
     """The strategy dispatch behind ``execute`` (one return point per path)."""
+    cfg = qp.approx_cfg
     t0 = time.perf_counter()
     if qp.filter_strategy == "allow_direct":
         results = _allow_direct(index, queries, spec)
         if single:
             return results[0]
         return BatchQueryResult(results=results, elapsed_s=time.perf_counter() - t0)
-    if qp.mode != "exact":
-        raise NotImplementedError(
-            "the plan resolved to the approximate (truncated-surrogate) path, "
-            "which is not ported to repro_torch yet; pass mode='exact'"
-        )
 
     if spec.task == "knn":
         if qp.filter_strategy == "deny_overfetch":
             fetch = spec.k + len(spec.deny)
             if single:
-                return _drop_denied(index._exec_knn(q, fetch), spec.deny, spec.k)
-            b = index._exec_knn_batch(queries, fetch)
+                return _drop_denied(index._exec_knn(q, fetch, cfg), spec.deny, spec.k)
+            b = index._exec_knn_batch(queries, fetch, cfg)
             return BatchQueryResult(
                 results=[_drop_denied(r, spec.deny, spec.k) for r in b.results],
                 elapsed_s=b.elapsed_s,
             )
         if single:
-            return index._exec_knn(q, spec.k)
-        return index._exec_knn_batch(queries, spec.k)
+            return index._exec_knn(q, spec.k, cfg)
+        return index._exec_knn_batch(queries, spec.k, cfg)
 
     if single:
-        r = index._exec_search(q, _threshold_for(spec, 0))
+        r = index._exec_search(q, _threshold_for(spec, 0), cfg)
         return _drop_denied(r, spec.deny) if spec.deny else r
-    b = index._exec_search_batch(queries, _broadcast_thresholds(spec, queries.shape[0]))
+    b = index._exec_search_batch(queries, _broadcast_thresholds(spec, queries.shape[0]), cfg)
     if spec.deny:
         return BatchQueryResult(
             results=[_drop_denied(r, spec.deny) for r in b.results], elapsed_s=b.elapsed_s
@@ -140,7 +135,8 @@ class QuerySurface:
     """Declarative entry point plus the legacy method family as shims.
 
     A class mixing this in implements ``_exec_search``,
-    ``_exec_search_batch``, ``_exec_knn`` and ``_exec_knn_batch``.
+    ``_exec_search_batch``, ``_exec_knn`` and ``_exec_knn_batch``, each
+    taking the plan's approx config (None when exact).
     """
 
     #: per-index query defaults (set by ``build_index(query_options=...)``)

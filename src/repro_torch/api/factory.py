@@ -7,6 +7,10 @@
     idx.save("colors.idx")
     idx = load_index("colors.idx")      # identical results, nothing re-measured
 
+    # approximate by default: queries measure 10 pivot distances and
+    # re-rank the 64 best truncated-surrogate candidates with the metric
+    approx = build_index(data, "jensen_shannon", n_pivots=20, apex_dims=10, refine=64)
+
 Both default to ``device="cuda"`` and raise when no card is present, unless
 ``device="cpu"`` is passed.  This package builds the ``nsimplex`` kind; the
 other kinds and the composites of the JAX package raise
@@ -21,7 +25,7 @@ import numpy as np
 
 from repro_torch.api.indexes import SimplexTableIndex
 from repro_torch.api.persistence import read_index_dir
-from repro_torch.api.query import QueryOptions
+from repro_torch.api.query import DEFAULT_REFINE, QueryOptions
 from repro_torch.core import select_pivots
 from repro_torch.device import resolve_device
 from repro_torch.metrics import Metric, get_metric
@@ -53,6 +57,7 @@ def build_index(
     shards: Optional[int] = None,
     durable: bool = False,
     apex_dims: Optional[int] = None,
+    refine: int = DEFAULT_REFINE,
     attributes=None,
     query_options: Optional[QueryOptions] = None,
     device="cuda",
@@ -70,21 +75,36 @@ def build_index(
       eps:            relative threshold guard band.
       use_kernel:     persisted for manifest compatibility; the scan always
                       runs through the bound-scan kernels.
+      apex_dims:      truncate the per-query surrogate to this many of the
+                      ``n_pivots`` dimensions and default every query to the
+                      approximate path; results carry ``QueryResult.approx``
+                      and ``QueryStats.bound_width``.  None = exact.
+      refine:         true-metric re-rank budget of approximate queries
+                      (overridable per query with ``Query(refine=...)``).
       query_options:  per-index ``QueryOptions`` defaults (persisted).
       device:         "cuda" (default) or "cpu".
-      mutable, shards, durable, apex_dims, attributes: not ported yet; any
-                      non-default value raises ``NotImplementedError``.
+      mutable, shards, durable, attributes: not ported yet; any non-default
+                      value raises ``NotImplementedError``.
     """
     resolved = _KIND_ALIASES.get(kind, kind)
+    if resolved not in _NOT_PORTED_KINDS and resolved != "nsimplex":
+        raise ValueError(f"unknown index kind {kind!r}; this package builds 'nsimplex'")
+    approx = None
+    if apex_dims is not None:
+        if resolved not in ("nsimplex", "laesa", "L_seq"):
+            raise ValueError(
+                f"apex_dims applies to the table kinds (nsimplex/laesa); "
+                f"kind={resolved!r} has no truncatable surrogate"
+            )
+        if not (2 <= int(apex_dims) <= int(n_pivots)):
+            raise ValueError(f"apex_dims must be in [2, n_pivots={n_pivots}]; got {apex_dims}")
+        approx = {"dims": int(apex_dims), "refine": int(refine)}
     if resolved in _NOT_PORTED_KINDS:
         raise _not_ported(f"kind={kind!r}", _NOT_PORTED_KINDS[resolved])
-    if resolved != "nsimplex":
-        raise ValueError(f"unknown index kind {kind!r}; this package builds 'nsimplex'")
     for flag, value, item in (
         ("mutable", mutable, 7),
         ("shards", shards, 7),
         ("durable", durable, 9),
-        ("apex_dims", apex_dims, 4),
         ("attributes", attributes, 8),
     ):
         if value is not None and value is not False:
@@ -94,7 +114,7 @@ def build_index(
     metric = get_metric(metric) if isinstance(metric, str) else metric
     pivots = select_pivots(data, n_pivots, strategy=pivot_strategy, seed=seed, metric=metric)
     index = SimplexTableIndex.build(
-        data, metric, pivots=pivots, eps=eps, use_kernel=use_kernel, device=dev
+        data, metric, pivots=pivots, eps=eps, use_kernel=use_kernel, approx=approx, device=dev
     )
     index.query_options = query_options
     return index

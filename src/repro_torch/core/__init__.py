@@ -1,8 +1,7 @@
-"""The n-simplex technique: Algorithms 1/2, the GEMM projection, the projector."""
+"""The n-simplex technique: Algorithms 1/2, the host GEMM projection, the projector."""
 
 from repro_torch.core.simplex import (
     apex_addition_np,
-    apex_gemm,
     apex_gemm_np,
     base_lower_triangular,
     simplex_build_np,
@@ -11,7 +10,6 @@ from repro_torch.core.surrogate import NSimplexProjector, select_pivots, truncat
 
 __all__ = [
     "apex_addition_np",
-    "apex_gemm",
     "apex_gemm_np",
     "base_lower_triangular",
     "simplex_build_np",

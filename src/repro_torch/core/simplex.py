@@ -1,10 +1,11 @@
 """n-simplex construction (the paper's Algorithms 1 and 2) and the GEMM form.
 
-The fit is float64 numpy on the host: it touches n <= 64 pivots once.  The
-batch projection ``apex_gemm`` is float64 torch on the index's device: with
+The fit is float64 numpy on the host: it touches n <= 64 pivots once.  With
 pivot 1 at the origin and ``g_i = (δ_1² + ||v_i||² - δ_i²)/2`` the apex is
 ``w = g · L⁻ᵀ`` and its altitude ``sqrt(δ_1² - ||w||²)``, one
-(B, n-1) x (n-1, n-1) product for a whole batch.
+(B, n-1) x (n-1, n-1) product for a whole batch: ``apex_gemm_np`` here on
+the host, and on the index's device the kernel K4
+(``repro_torch.kernels.apex_project``).
 
 Conventions: ``n`` pivots give a base simplex ``Sigma`` of shape (n, n-1)
 (row ``i`` = vertex i, zero upper triangle); apexes live in ``R^n``.
@@ -13,11 +14,9 @@ Conventions: ``n`` pivots give a base simplex ``Sigma`` of shape (n, n-1)
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 __all__ = [
     "apex_addition_np",
-    "apex_gemm",
     "apex_gemm_np",
     "base_lower_triangular",
     "simplex_build_np",
@@ -88,13 +87,3 @@ def apex_gemm_np(Linv: np.ndarray, sq_norms: np.ndarray, distances: np.ndarray) 
     alt2 = np.maximum(d1sq[:, 0] - np.einsum("bi,bi->b", w, w), 0.0)
     return np.concatenate([w, np.sqrt(alt2)[:, None]], axis=-1)
 
-
-def apex_gemm(Linv: torch.Tensor, sq_norms: torch.Tensor, distances: torch.Tensor) -> torch.Tensor:
-    """Apexes of a (B, n) pivot-distance block in one product against the
-    fitted ``L⁻¹``; runs in the operands' dtype on their device."""
-    distances = torch.atleast_2d(distances)
-    d1sq = distances[:, :1] ** 2
-    g = 0.5 * (d1sq + sq_norms[None, :] - distances[:, 1:] ** 2)
-    w = g @ Linv.T
-    alt2 = torch.clamp_min(d1sq[:, 0] - (w * w).sum(dim=1), 0.0)
-    return torch.cat([w, torch.sqrt(alt2)[:, None]], dim=1)

@@ -2,8 +2,9 @@
 
 Fit once on ``n`` pivots (the n(n-1)/2 inter-pivot distances measured with
 the original metric in float64, the simplex built on the host), then
-project any batch of pivot distances into the apex space ``(R^n, l2)`` with
-one float64 product on the projector's device.
+project any batch of pivot distances into the apex space ``(R^n, l2)`` in
+float64 on the projector's device, through the kernel K4
+(``repro_torch.kernels.apex_project``; its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import simplex as _sx
+from repro_torch.kernels import apex_project
 from repro_torch.metrics import Metric
 
 __all__ = ["NSimplexProjector", "select_pivots", "truncate_apexes_np"]
@@ -86,7 +88,7 @@ class NSimplexProjector:
     def project_distances(self, distances: torch.Tensor) -> torch.Tensor:
         """Float64 apexes from (B, n) or (n,) pivot distances."""
         distances = torch.as_tensor(distances, dtype=torch.float64, device=self.device)
-        out = _sx.apex_gemm(self._Linv_t, self._sq_norms_t, distances)
+        out = apex_project(torch.atleast_2d(distances), self._Linv_t, self._sq_norms_t)
         return out[0] if distances.ndim == 1 else out
 
     def __call__(self, X: torch.Tensor) -> torch.Tensor:

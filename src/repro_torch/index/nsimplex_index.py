@@ -1,4 +1,5 @@
-"""n-simplex apex-table index (the paper's N_seq mechanism), exact paths.
+"""n-simplex apex-table index (the paper's N_seq mechanism), exact and
+approximate (truncated-surrogate) paths.
 
 Same table discipline as LAESA — n numbers per object — but each row holds
 the apex coordinates φ_n(s), and the filter is l2 in apex space with two
@@ -18,6 +19,13 @@ Per query the host runs the same small control flow as the reference (the
 shrinking-radius refinement, threshold re-filters, cost ledger), so ids,
 tie order and ``QueryStats`` follow it; original-space distances are
 evaluated on the device.
+
+The approximate paths measure only ``dims`` pivot distances per query,
+project them through the ``dims``-prefix projector (K4), and scan the table
+truncated to ``dims`` coordinates: k-NN ranks rows by the f32 mid-point key
+in K2 and re-ranks the best ``refine`` with the true metric; range search
+keeps both sound bound sides through K3 and decides the straddlers as
+``index.approx`` does.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from repro_torch.core import NSimplexProjector
 from repro_torch.device import resolve_device
+from repro_torch.index.approx import approx_knn_from_pairs, approx_search_decide
 from repro_torch.index.knn import knn_refine, knn_refine_candidates
 from repro_torch.index.stats import QueryStats
 from repro_torch.kernels import (
@@ -37,6 +46,7 @@ from repro_torch.kernels import (
     apex_bounds_threshold,
     apex_bounds_topk,
 )
+from repro_torch.kernels.ref import split_trunc
 from repro_torch.metrics import Metric
 
 __all__ = ["NSimplexIndex"]
@@ -82,7 +92,7 @@ class NSimplexIndex:
         self._row_sq_max = None     # max squared row norm (slack bound)
         self._trunc = {}            # dims -> prefix projector
         #: queries answered by the per-query K1 route (capacity overflow or
-        #: a selection wider than the kernels hold)
+        #: a selection wider than the kernels hold, exact or approximate)
         self.overflow_queries = 0
 
     @property
@@ -494,3 +504,130 @@ class NSimplexIndex:
         lwb, upb = self._host(*self.bounds_batch(apex[None, :]))
         cap_q = float(hint) if np.isfinite(hint) else None
         return self._knn_one(q, apex_np, lwb[0], upb[0], k, stats, radius_cap=cap_q, sel=sel)
+
+    # -- approximate paths (truncated-apex surrogate) --------------------------
+    def truncated_table(self, dims: int) -> torch.Tensor:
+        """The (N, dims) float64 truncated apex table (the approximate
+        surrogate): the first ``dims - 1`` coordinates, then the tail folded
+        into ``sqrt(Σ x_i²)``; the table itself at ``dims = n``."""
+        dims = self._prefix_projector(dims).n_pivots
+        if dims == self.n_pivots:
+            return self.table
+        head, alt = split_trunc(self.table, dims)
+        return torch.cat([head, alt[:, None]], dim=1)
+
+    def _qpd_row(self, qpd):
+        """One query's (dims,) pivot distances as the (1, dims) block."""
+        return None if qpd is None else self._tensor(qpd).reshape(1, -1)
+
+    def knn_approx(self, q, k: int, *, dims: int, refine: int, qpd=None, rowmask=None):
+        """Approximate k-NN of one query: (ids, true distances, QueryStats)
+        with ``stats.bound_width`` the achieved surrogate band width."""
+        return self.knn_approx_batch(
+            self._tensor(q)[None, :], k, dims=dims, refine=refine, qpd=self._qpd_row(qpd), rowmask=rowmask
+        )[0]
+
+    def knn_approx_batch(self, queries, k: int, *, dims: int, refine: int, qpd=None, rowmask=None):
+        """Batched approximate k-NN: ``dims`` pivot distances per query, the
+        ``m = min(max(refine, k), n_live)`` rows with the smallest truncated
+        mid-point key, then the exact top-k of those ``m`` by the true metric.
+        Masked rows never enter the candidates.
+
+        Returns a list of Q (ids, distances, QueryStats) triples.
+        """
+        q_t = torch.atleast_2d(self._tensor(queries))
+        dims = int(dims)
+        apexes = self.query_apex_batch(q_t, dims=dims, qpd=qpd)
+        pivot_calls = dims if qpd is None else 0
+        N = self.n_rows
+        mask = self._mask_of(rowmask)
+        n_live = N if mask is None else int(mask.sum())
+        k_eff = min(int(k), n_live)
+        if k_eff <= 0:
+            return [
+                (
+                    np.empty(0, dtype=np.int64),
+                    np.empty(0, dtype=np.float64),
+                    QueryStats(original_calls=pivot_calls, surrogate_calls=N),
+                )
+                for _ in range(q_t.shape[0])
+            ]
+        m = min(max(int(refine), k_eff), n_live)
+        out = []
+        for qi, (idq, lwb_q, upb_q) in enumerate(self._mid_candidates(apexes, m, dims, mask)):
+            ids, d, n_eval, width = approx_knn_from_pairs(self._dist_fn(q_t[qi]), idq, lwb_q, upb_q, k)
+            stats = QueryStats(
+                original_calls=pivot_calls + n_eval, surrogate_calls=N, candidates=n_eval, bound_width=width
+            )
+            out.append((ids, d, stats))
+        return out
+
+    def _mid_candidates(self, apexes: torch.Tensor, m: int, dims: int, mask):
+        """Per query the ``m`` rows with the smallest f32 ``(mid, id)`` key on
+        the ``dims``-truncated table, as (ids, lwb, upb) host arrays (bounds
+        float64), through K2.  A selection wider than K2 holds takes
+        per-query K1 and the same f32 ``(mid, id)`` selection on the host, so
+        its candidates equal K2's; those queries count in
+        ``overflow_queries``."""
+        tab = self._kernel_table()
+        ap32 = apexes.to(torch.float32)
+        if m <= MAX_SELECT_WIDTH:
+            ids_k, lwb_k, upb_k = self._host(*apex_bounds_topk(tab, ap32, m, key="mid", dims=dims, rowmask=mask))
+            out = []
+            for ids, lwb, upb in zip(ids_k, lwb_k, upb_k):
+                live = ids != SENTINEL_ID
+                out.append((ids[live].astype(np.int64), lwb[live].astype(np.float64), upb[live].astype(np.float64)))
+            return out
+        sel = np.arange(self.n_rows) if mask is None else np.flatnonzero(mask)
+        out = []
+        for qi in range(ap32.shape[0]):
+            self.overflow_queries += 1
+            lwb, upb = self._host(*apex_bounds_batch(tab, ap32[qi][None, :], dims=dims))
+            lwb, upb = lwb[0][sel], upb[0][sel]
+            mid = np.float32(0.5) * (lwb + upb)          # K2's f32 key, bit for bit
+            order = np.lexsort((sel, mid))[:m]
+            out.append((sel[order].astype(np.int64), lwb[order].astype(np.float64), upb[order].astype(np.float64)))
+        return out
+
+    def search_approx(self, q, threshold: float, *, dims: int, refine: int, qpd=None, rowmask=None):
+        """Approximate threshold search of one query: (ids, QueryStats)."""
+        return self.search_approx_batch(
+            self._tensor(q)[None, :], threshold, dims=dims, refine=refine, qpd=self._qpd_row(qpd), rowmask=rowmask
+        )[0]
+
+    def search_approx_batch(self, queries, thresholds, *, dims: int, refine: int, qpd=None, rowmask=None):
+        """Batched approximate threshold search: the truncated upper bound
+        still admits and the truncated lower bound still excludes, each
+        behind the exact path's guard bands (relative ``eps`` and the f32
+        slack), through K3; only the straddlers past the ``refine`` budget
+        are decided by the mean estimate.
+
+        Returns a list of Q (result_indices, QueryStats) pairs.
+        """
+        q_t = torch.atleast_2d(self._tensor(queries))
+        Q = q_t.shape[0]
+        dims = int(dims)
+        thresholds = np.broadcast_to(np.asarray(thresholds, dtype=np.float64), (Q,))
+        apexes = self.query_apex_batch(q_t, dims=dims, qpd=qpd)
+        pivot_calls = dims if qpd is None else 0
+        mask = self._mask_of(rowmask)
+        t_hi = thresholds * (1.0 + self.eps) + 1e-12
+        t_lo = thresholds * (1.0 - self.eps) - 1e-12
+        slack = self._kernel_slack(apexes.cpu().numpy(), thresholds)
+        pairs = self._threshold_pairs_kernel(apexes, t_hi + slack, dims=dims, mask=mask)
+        out = []
+        for qi, (idq, lwb_q, upb_q) in enumerate(pairs):
+            admit = upb_q <= t_lo[qi] - slack[qi]
+            ids, n_eval, n_bound_only, n_cand, width = approx_search_decide(
+                self._dist_fn(q_t[qi]), idq[admit], idq[~admit], lwb_q[~admit], upb_q[~admit],
+                thresholds[qi], refine,
+            )
+            stats = QueryStats(
+                original_calls=pivot_calls + n_eval,
+                surrogate_calls=self.n_rows,
+                accepted_no_check=n_bound_only,
+                candidates=n_cand,
+                bound_width=width,
+            )
+            out.append((ids, stats))
+        return out

@@ -1,4 +1,4 @@
-"""Hand-written CUDA bound-scan kernels for Hopper (``csrc/``), their plain
+"""Hand-written CUDA kernels for Hopper (``csrc/``), their plain
 PyTorch versions (``ref.py``) and the wrappers that pick between them by the
 device of their operands (``ops.py``)."""
 
@@ -10,6 +10,8 @@ from repro_torch.kernels.ops import (
     apex_bounds_batch,
     apex_bounds_threshold,
     apex_bounds_topk,
+    apex_project,
+    jsd_pairwise,
     reset_launches,
 )
 
@@ -21,5 +23,7 @@ __all__ = [
     "apex_bounds_batch",
     "apex_bounds_threshold",
     "apex_bounds_topk",
+    "apex_project",
+    "jsd_pairwise",
     "reset_launches",
 ]

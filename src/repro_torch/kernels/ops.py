@@ -1,4 +1,4 @@
-"""Wrappers of the four bound-scan kernels.
+"""Wrappers of the six kernels.
 
 Each wrapper checks its operands, then runs its CUDA kernel for tensors on
 a CUDA device, or its plain PyTorch version (``ref.py``) for tensors on the
@@ -14,6 +14,8 @@ through the kernels.
   K1    ``apex_bounds_batch``       ``apex_bounds_batch.py::apex_bounds_batch_pallas``
   K2    ``apex_bounds_topk``        ``select_epilogue.py::apex_topk_pallas``
   K3    ``apex_bounds_threshold``   ``select_epilogue.py::apex_threshold_pallas``
+  K4    ``apex_project``            ``apex_project.py::apex_project_pallas``
+  K5    ``jsd_pairwise``            ``jsd_distance.py::jsd_pairwise_pallas``
   ====  ==========================  ============================================
 """
 
@@ -35,6 +37,8 @@ __all__ = [
     "apex_bounds_batch",
     "apex_bounds_threshold",
     "apex_bounds_topk",
+    "apex_project",
+    "jsd_pairwise",
     "reset_launches",
 ]
 
@@ -43,7 +47,14 @@ __all__ = [
 MAX_SELECT_WIDTH = 4096
 
 #: kernel launches per wrapper since the last ``reset_launches``
-LAUNCHES = {"apex_bounds": 0, "apex_bounds_batch": 0, "apex_topk": 0, "apex_threshold": 0}
+LAUNCHES = {
+    "apex_bounds": 0,
+    "apex_bounds_batch": 0,
+    "apex_topk": 0,
+    "apex_threshold": 0,
+    "apex_project": 0,
+    "jsd_pairwise": 0,
+}
 _launch_lock = threading.Lock()
 
 _KEY_MODE = {"lwb": 0, "upb": 1, "mid": 2}
@@ -253,3 +264,66 @@ def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = N
     )
     _counted("apex_threshold")
     return ids, lwb, upb, counts
+
+
+def _check_float(*tensors, what: str):
+    dt = tensors[0].dtype
+    if dt not in (torch.float32, torch.float64) or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{what} operands must share float32 or float64; got {[t.dtype for t in tensors]}")
+
+
+def apex_project(distances: torch.Tensor, Linv: torch.Tensor, sq_norms: torch.Tensor) -> torch.Tensor:
+    """K4: (B, n) apexes of (B, n) pivot distances against the fitted
+    (n-1, n-1) ``Linv`` and (n-1,) ``sq_norms``, in the distances' dtype
+    (f64 accumulates in f64)."""
+    if distances.ndim != 2 or distances.shape[1] < 2:
+        raise ValueError(f"need (B, n) pivot distances with n >= 2; got {tuple(distances.shape)}")
+    h = distances.shape[1] - 1
+    if Linv.shape != (h, h) or sq_norms.shape != (h,):
+        raise ValueError(
+            f"need a ({h}, {h}) Linv and ({h},) sq_norms for n = {h + 1}; "
+            f"got {tuple(Linv.shape)}, {tuple(sq_norms.shape)}"
+        )
+    _check_float(distances, Linv, sq_norms, what="apex_project")
+    if not _on_cuda(distances, Linv, sq_norms):
+        return ref.apex_project_ref(distances, Linv, sq_norms)
+    from repro_torch.kernels.build import library
+
+    distances, Linv, sq_norms = distances.contiguous(), Linv.contiguous(), sq_norms.contiguous()
+    B, n = distances.shape
+    out = torch.empty_like(distances)
+    fn = library().repro_apex_project_f32 if distances.dtype == torch.float32 else library().repro_apex_project_f64
+    _check(
+        fn(distances.data_ptr(), B, n, Linv.data_ptr(), sq_norms.data_ptr(), out.data_ptr(), _stream(distances.device)),
+        "apex_project",
+    )
+    _counted("apex_project")
+    return out
+
+
+def jsd_pairwise(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """K5: (Q, P) sqrt-Jensen-Shannon distances in bits between the rows of
+    X (Q, d) and Y (P, d), in X's dtype; rows are L1-normalised here with
+    ``max(sum, 1e-12)``, as the JAX package's wrapper does."""
+    if X.ndim != 2 or Y.ndim != 2 or X.shape[1] != Y.shape[1]:
+        raise ValueError(f"need (Q, d) and (P, d) operands; got {tuple(X.shape)}, {tuple(Y.shape)}")
+    Y = Y.to(X.dtype)
+    _check_float(X, Y, what="jsd_pairwise")
+    X = X / torch.clamp_min(X.sum(dim=1, keepdim=True), ref._EPS)
+    Y = Y / torch.clamp_min(Y.sum(dim=1, keepdim=True), ref._EPS)
+    if not _on_cuda(X, Y):
+        return ref.jsd_pairwise_ref(X, Y)
+    from repro_torch.kernels.build import library
+
+    X, Y = X.contiguous(), Y.contiguous()
+    (Q, d), P = X.shape, Y.shape[0]
+    hx = torch.empty(Q, dtype=X.dtype, device=X.device)
+    hy = torch.empty(P, dtype=X.dtype, device=X.device)
+    out = torch.empty((Q, P), dtype=X.dtype, device=X.device)
+    fn = library().repro_jsd_pairwise_f32 if X.dtype == torch.float32 else library().repro_jsd_pairwise_f64
+    _check(
+        fn(X.data_ptr(), Q, Y.data_ptr(), P, d, hx.data_ptr(), hy.data_ptr(), out.data_ptr(), _stream(X.device)),
+        "jsd_pairwise",
+    )
+    _counted("jsd_pairwise")
+    return out

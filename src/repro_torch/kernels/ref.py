@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the four bound-scan kernels.
+"""Plain PyTorch versions of the six kernels.
 
 Each computes the same function as its CUDA kernel with ordinary tensor
 operations: the wrappers in ``ops.py`` run them for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card.  They
-materialise the (Q, N) bound matrices, which the kernels K2 and K3 never do.
+materialise the (Q, N) bound matrices, which the kernels K2 and K3 never do,
+and the (Q, P, d) tensor of JSD mid-points, which K5 never does.
 """
 
 from __future__ import annotations
@@ -15,10 +16,13 @@ __all__ = [
     "TOPK_KEYS",
     "apex_bounds_batch_ref",
     "apex_bounds_ref",
+    "apex_project_ref",
     "apex_threshold_ref",
     "apex_topk_ref",
+    "jsd_pairwise_ref",
     "pack_keys",
     "split_trunc",
+    "xlogx",
 ]
 
 #: id of an empty selection slot (pad or masked rows): sorts after every id
@@ -27,6 +31,9 @@ SENTINEL_ID = 2**31 - 1
 _EMPTY_KEY = 2**63 - 1
 #: selection keys of the top-k epilogue
 TOPK_KEYS = ("lwb", "upb", "mid")
+#: the xlogx cut-off of the JSD kernels: v log v for v > _EPS, else 0
+_EPS = 1e-12
+_LN2 = 0.6931471805599453
 
 
 def split_trunc(x: torch.Tensor, dims: int):
@@ -102,3 +109,38 @@ def apex_threshold_ref(table, queries, thresholds, cap: int, dims: int, rowmask=
     hit = _live(rowmask, table.shape[0], table.device) & (lwb <= thresholds[:, None])
     ids, l, u = _take(pack_keys(lwb, hit), lwb, upb, cap)
     return ids, l, u, hit.sum(dim=1).to(torch.int32)
+
+
+def apex_project_ref(distances: torch.Tensor, Linv: torch.Tensor, sq_norms: torch.Tensor) -> torch.Tensor:
+    """K4: (B, n) apexes of (B, n) pivot distances against the fitted
+    ``L⁻¹``: ``g = ½(δ₁² + ‖vᵢ‖² − δᵢ²)``, ``w = g·L⁻ᵀ``, altitude
+    ``sqrt(max(δ₁² − ‖w‖², 0))``; in the operands' dtype."""
+    d1sq = distances[:, :1] ** 2
+    g = 0.5 * (d1sq + sq_norms[None, :] - distances[:, 1:] ** 2)
+    w = g @ Linv.T
+    alt2 = torch.clamp_min(d1sq[:, 0] - (w * w).sum(dim=1), 0.0)
+    return torch.cat([w, torch.sqrt(alt2)[:, None]], dim=1)
+
+
+def xlogx(v: torch.Tensor) -> torch.Tensor:
+    """``v log v`` where ``v > 1e-12``, else 0 (the JSD summand)."""
+    return torch.where(v > _EPS, v * torch.log(torch.clamp_min(v, _EPS)), 0.0)
+
+
+#: element budget of the (rows, P, d) mid-point temporary of one chunk
+_JSD_CHUNK_ELEMS = 1 << 24
+
+
+def jsd_pairwise_ref(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """K5: (Q, P) sqrt-JSD in bits between L1-normalised rows of X (Q, d) and
+    Y (P, d), in the cross form ``½hx + ½hy − Σ xlogx((x + y)/2)``; X is
+    taken in row chunks so the mid-point temporary stays bounded."""
+    hx = xlogx(X).sum(dim=1)
+    hy = xlogx(Y).sum(dim=1)
+    out = torch.empty((X.shape[0], Y.shape[0]), dtype=X.dtype, device=X.device)
+    chunk = max(1, _JSD_CHUNK_ELEMS // max(1, Y.shape[0] * Y.shape[1]))
+    for lo in range(0, X.shape[0], chunk):
+        hi = min(lo + chunk, X.shape[0])
+        cross = xlogx(0.5 * (X[lo:hi, None, :] + Y[None, :, :])).sum(dim=-1)
+        out[lo:hi] = 0.5 * hx[lo:hi, None] + 0.5 * hy[None, :] - cross
+    return torch.sqrt(torch.clamp(out / _LN2, 0.0, 1.0))

@@ -16,12 +16,21 @@ Their dtypes follow the reference's host forms (``one_to_many_np`` /
   triangular and the quadratic form, but Euclidean keeps the operands'
   promoted dtype: a float32 corpus is refined in float32, exactly as the
   reference does.
+
+Jensen-Shannon goes through ``repro_torch.kernels.jsd_pairwise`` in
+float64: the kernel K5 on CUDA tensors, its plain version on the CPU.  That
+covers the index's pivot fit, table build, query pivot distances and
+refinement.  Only ``one_to_many`` on the CPU keeps the elementwise form of
+the JAX package's host ``one_to_many_np``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import jsd_pairwise
+from repro_torch.kernels.ref import xlogx as _xlogx
 
 __all__ = [
     "Metric",
@@ -129,10 +138,6 @@ def _l1_normalise(X: torch.Tensor) -> torch.Tensor:
     return X / torch.clamp_min(X.sum(dim=-1, keepdim=True), _EPS)
 
 
-def _xlogx(v: torch.Tensor) -> torch.Tensor:
-    return torch.where(v > _EPS, v * torch.log(torch.clamp_min(v, _EPS)), 0.0)
-
-
 class JensenShannonMetric(Metric):
     """sqrt of base-2 Jensen-Shannon divergence over probability vectors.
 
@@ -143,6 +148,8 @@ class JensenShannonMetric(Metric):
     requires_nonnegative = True
 
     def one_to_many(self, q, X):
+        if X.is_cuda:
+            return jsd_pairwise(q.to(torch.float64)[None, :], _f64(X))[0]
         p = _l1_normalise(q.to(torch.float64))[None, :]
         Q = _l1_normalise(_f64(X))
         m = 0.5 * (p + Q)
@@ -150,17 +157,7 @@ class JensenShannonMetric(Metric):
         return torch.sqrt(torch.clamp(jsd_nats / _LN2, 0.0, 1.0))
 
     def cross(self, X, Y):
-        P = _l1_normalise(_f64(X))
-        Q = _l1_normalise(_f64(Y))
-        hp = _xlogx(P).sum(dim=1)
-        hq = _xlogx(Q).sum(dim=1)
-        out = torch.empty((P.shape[0], Q.shape[0]), dtype=torch.float64, device=P.device)
-        chunk = self._cross_chunk_rows(Q.shape[0], Q.shape[1])
-        for lo in range(0, P.shape[0], chunk):
-            hi = min(lo + chunk, P.shape[0])
-            m = 0.5 * (P[lo:hi, None, :] + Q[None, :, :])
-            out[lo:hi] = 0.5 * hp[lo:hi, None] + 0.5 * hq[None, :] - _xlogx(m).sum(dim=-1)
-        return torch.sqrt(torch.clamp(out / _LN2, 0.0, 1.0))
+        return jsd_pairwise(_f64(X), _f64(Y))
 
     def cost_flops(self, dim: int) -> float:
         # three transcendental logs per component; ~30 flops-equivalent each

@@ -152,7 +152,7 @@ def test_default_device_raises_without_a_card(pair):
 
 @pytest.mark.parametrize(
     "kw", [dict(kind="laesa"), dict(kind="tree"), dict(mutable=True), dict(shards=2),
-           dict(durable=True), dict(apex_dims=4), dict(attributes=object())]
+           dict(durable=True), dict(kind="laesa", apex_dims=4), dict(attributes=object())]
 )
 def test_unported_options_raise(pair, kw):
     _, _, data, _ = pair
@@ -161,11 +161,13 @@ def test_unported_options_raise(pair, kw):
 
 
 def test_where_and_approx_raise(pair):
+    """``where=`` is not ported; an approx query needs a truncation
+    dimension from the query, the index's options or its build."""
     port, _, _, queries = pair
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
         Query.knn(3, where={"eq": ["color", 1]})
-    with pytest.raises(NotImplementedError):
-        port.query(queries, Query.knn(3, mode="approx", dims=4))
+    with pytest.raises(ValueError, match="truncation dimension"):
+        port.query(queries, Query.knn(3, mode="approx"))
 
 
 def test_port_imports_neither_jax_nor_repro(tmp_path):

@@ -7,7 +7,9 @@ tests).  Run on a card with:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: rtol = atol = 2e-5 in float32, 1e-12 in float64 for K1 and K6;
-K2 and K3 must equal a selection over K1's own float32 matrices exactly.
+K2 and K3 must equal a selection over K1's own float32 matrices exactly;
+K4 at 3e-4 in float32 (``tests/test_kernels.py::TestApexProject``) and K5 at
+1e-4 (``TestJsdPairwise``), both at 1e-12 in float64.
 """
 
 import numpy as np
@@ -110,22 +112,108 @@ def test_wider_than_kernel_refused(cuda):
         ops.apex_bounds_topk(table.double(), queries.double(), 3, key="lwb")
 
 
-def test_index_on_card_matches_brute_force(cuda):
-    """k-NN and range through the kernels equal a float64 scan on the card."""
-    from repro_torch.api import Query, build_index
-    from repro_torch.data import colors_like
+def _fitted(n, seed, device):
+    """(Linv, sq_norms, distances) of a Euclidean projector fitted on the CPU
+    and 5000 held-out points: altitudes well away from 0."""
+    from repro_torch.core import NSimplexProjector
     from repro_torch.metrics import get_metric
 
+    X = torch.as_tensor(np.random.default_rng(seed).normal(size=(n + 5000, n + 3)))
+    proj = NSimplexProjector(X[:n].numpy(), get_metric("euclidean"), device="cpu")
+    dists = proj.pivot_distances(X[n:])
+    return (torch.as_tensor(proj.Linv, device=device), torch.as_tensor(proj.sq_norms, device=device),
+            dists.to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [4, 20, 64])
+@pytest.mark.parametrize("B", [1, 1000, 5000])
+def test_k4_apex_project(cuda, dtype, n, B):
+    Linv, sq, dists = (t.to(dtype) for t in _fitted(n, n, cuda))
+    before = LAUNCHES["apex_project"]
+    got = ops.apex_project(dists[:B], Linv, sq)
+    assert LAUNCHES["apex_project"] == before + 1
+    tol = 3e-4 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, ref.apex_project_ref(dists[:B], Linv, sq), rtol=tol, atol=tol)
+
+
+def _histograms(rows, d, seed, dtype, device):
+    return torch.tensor(np.random.default_rng(seed).dirichlet(np.full(d, 0.5), size=rows), dtype=dtype,
+                        device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [112, 700])
+@pytest.mark.parametrize("Q,P", [(1, 1), (1, 4096), (64, 20), (3001, 20), (64, 333)])
+def test_k5_jsd_pairwise(cuda, dtype, d, Q, P):
+    X, Y = _histograms(Q, d, Q + d, dtype, cuda) * 3.0, _histograms(P, d, P + 1, dtype, cuda)
+    before = LAUNCHES["jsd_pairwise"]
+    got = ops.jsd_pairwise(X, Y)
+    assert LAUNCHES["jsd_pairwise"] == before + 1 and got.shape == (Q, P) and got.dtype == dtype
+    Xn, Yn = X / X.sum(dim=1, keepdim=True), Y / Y.sum(dim=1, keepdim=True)
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, ref.jsd_pairwise_ref(Xn, Yn), rtol=tol, atol=tol)
+
+
+def test_k5_row_against_itself_is_zero(cuda):
+    X = _histograms(300, 112, 9, torch.float64, cuda)
+    assert bool((torch.diagonal(ops.jsd_pairwise(X, X)) == 0).all())
+
+
+def _brute_jsd(q, data_t):
+    """Plain f64 JSD of one query against every row (not through K5)."""
+    q = torch.as_tensor(q, device=data_t.device, dtype=torch.float64)[None, :]
+    X = data_t.double()
+    return ref.jsd_pairwise_ref(q / q.sum(), X / X.sum(dim=1, keepdim=True))[0]
+
+
+@pytest.fixture(scope="module")
+def jsd_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with -m gpu")
+    from repro_torch.data import colors_like
+
     X = colors_like(n=60_000 + 16, seed=5).astype(np.float64)
-    data, queries = X[:60_000], X[60_000:]
+    return X[:60_000], X[60_000:]
+
+
+def test_index_on_card_matches_brute_force(cuda, jsd_card):
+    """k-NN and range through the kernels equal a plain float64 scan on the card."""
+    from repro_torch.api import Query, build_index
+
+    data, queries = jsd_card
     index = build_index(data, "jensen_shannon", n_pivots=16, seed=1)
-    metric, data_t = get_metric("jensen_shannon"), index.data
+    data_t = index.data
     for q, r in zip(queries, index.query(queries, Query.knn(10))):
-        d = metric.one_to_many(torch.tensor(q, device=cuda), data_t)
+        d = _brute_jsd(q, data_t)
         want = torch.sort(d, stable=True).indices[:10].cpu().numpy()
         np.testing.assert_array_equal(r.ids, want)
         np.testing.assert_allclose(r.distances, d[want].cpu().numpy(), rtol=1e-12, atol=1e-12)
     t = 0.5 * float(r.distances[-1] + r.distances[-2])
     for q, r in zip(queries, index.query(queries, Query.range(t))):
-        d = metric.one_to_many(torch.tensor(q, device=cuda), data_t)
+        d = _brute_jsd(q, data_t)
         np.testing.assert_array_equal(r.ids, torch.nonzero(d <= t).flatten().cpu().numpy())
+
+
+@pytest.mark.parametrize("refine", [64, 5000])
+def test_approx_knn_on_card_refines_k2_candidates(cuda, jsd_card, refine):
+    """Approximate k-NN returns the k smallest (f64 distance, id) among the
+    ``refine`` rows with the smallest K1 f32 mid key (the K2 route, and the
+    host route for a selection wider than K2 holds)."""
+    from repro_torch.api import Query, build_index
+
+    data, queries = jsd_card
+    index = build_index(data, "jensen_shannon", n_pivots=16, seed=1, apex_dims=8, refine=refine)
+    inner = index._inner
+    res = index.query(queries, Query.knn(10))
+    apexes = inner.query_apex_batch(queries, dims=8).float()
+    for qi, (q, r) in enumerate(zip(queries, res)):
+        assert r.approx == {"dims": 8, "refine": refine} and r.stats.original_calls == 8 + refine
+        L, U = ops.apex_bounds_batch(inner._kernel_table(), apexes[qi][None, :], dims=8)
+        mid = (0.5 * (L + U))[0].cpu().numpy()
+        ids = np.arange(mid.shape[0])
+        cand = np.lexsort((ids, mid))[:refine]
+        d = _brute_jsd(q, index.data).cpu().numpy()
+        want = cand[np.lexsort((cand, d[cand]))][:10]
+        np.testing.assert_array_equal(r.ids, want)
+        np.testing.assert_allclose(r.distances, d[want], rtol=1e-12, atol=1e-12)

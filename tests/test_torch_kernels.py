@@ -1,12 +1,14 @@
-"""Plain versions of the port's bound-scan kernels (the CPU path of
+"""Plain versions of the port's kernels (the CPU path of
 ``repro_torch.kernels.ops``) against the JAX package's Pallas kernels (in
-interpret mode) and jnp oracles.
+interpret mode) and host or jnp oracles.
 
-Tolerances: rtol = atol = 2e-5 in float32 (``tests/test_kernels.py::_tol``:
-the GEMM-form head sums in another order than the oracle's difference
-form), 1e-12 in float64.  Selections are compared exactly: against a
-lexsort over the plain version's own bound matrices, and id for id against
-the Pallas kernels.
+Tolerances: rtol = atol = 2e-5 in float32 for the bound scans
+(``tests/test_kernels.py::_tol``: the GEMM-form head sums in another order
+than the oracle's difference form), 3e-4 for the float32 projection K4 and
+1e-4 for the float32 JSD K5 (``TestApexProject``, ``TestJsdPairwise`` there),
+1e-12 in float64.  Selections are compared exactly: against a lexsort over
+the plain version's own bound matrices, and id for id against the Pallas
+kernels.
 """
 
 import numpy as np
@@ -16,11 +18,16 @@ import torch
 import jax.numpy as jnp
 
 from repro.compat import enable_x64
+from repro.core.simplex import apex_gemm_np
 from repro.core.surrogate import truncate_apexes_np
+from repro.data import colors_like
 from repro.index.select import topk_pairs_oracle
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
+from repro.metrics import get_metric as rget
+from repro_torch.core import NSimplexProjector, select_pivots
 from repro_torch.kernels import ops, ref
+from repro_torch.metrics import get_metric
 
 # small shapes: one intra-op thread keeps these tests from crowding the
 # other pytest workers
@@ -253,6 +260,101 @@ class TestFusedThreshold:
         assert np.all(mask[ids])
 
 
+def _projector(n, seed):
+    """A port projector fitted on colors pivots, and the float64 pivot
+    distances of 700 held-out colors rows."""
+    X = colors_like(n=800, seed=seed).astype(np.float64)
+    proj = NSimplexProjector(select_pivots(X[:100], n, seed=seed), get_metric("euclidean"), device="cpu")
+    return proj, proj.pivot_distances(_t(X[100:]))
+
+
+class TestApexProject:
+    """K4: (B, n) pivot distances -> (B, n) apexes."""
+
+    @pytest.mark.parametrize("B", [1, 33, 512])
+    @pytest.mark.parametrize("n", [4, 20])
+    def test_f32_against_pallas(self, B, n):
+        proj, dists = _projector(n, seed=B % 7)
+        d32 = dists[:B].float()
+        got = ops.apex_project(d32, _t(proj.Linv).float(), _t(proj.sq_norms).float())
+        want = rops.apex_project(d32.numpy(), proj.Linv, proj.sq_norms, block_b=128)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4, atol=3e-4)
+
+    @pytest.mark.parametrize("n", [4, 20, 33])
+    def test_f64_against_host_gemm(self, n):
+        proj, dists = _projector(n, seed=n)
+        got = ops.apex_project(dists, _t(proj.Linv), _t(proj.sq_norms))
+        want = apex_gemm_np(proj.Linv, proj.sq_norms, dists.numpy())
+        np.testing.assert_allclose(got.numpy(), want, **F64)
+        np.testing.assert_allclose(proj.project_distances(dists).numpy(), want, **F64)
+
+    @pytest.mark.parametrize("k", [2, 7, 20])
+    def test_prefix_projector(self, k):
+        """``truncate(k)`` projects the first k pivot distances through the
+        leading blocks of ``L⁻¹`` and the squared norms."""
+        proj, dists = _projector(20, seed=k)
+        got = proj.truncate(k).project_distances(dists[:, :k])
+        want = apex_gemm_np(proj.Linv[: k - 1, : k - 1], proj.sq_norms[: k - 1], dists[:, :k].numpy())
+        np.testing.assert_allclose(got.numpy(), want, **F64)
+        one = proj.truncate(k).project_distances(dists[0, :k])
+        assert one.shape == (k,)
+        np.testing.assert_allclose(one.numpy(), want[0], **F64)
+
+    def test_bad_operands_raise(self):
+        proj, dists = _projector(6, seed=1)
+        Linv, sq = _t(proj.Linv), _t(proj.sq_norms)
+        with pytest.raises(ValueError):
+            ops.apex_project(dists[:, :5], Linv, sq)
+        with pytest.raises(ValueError):
+            ops.apex_project(dists[0], Linv, sq)
+        with pytest.raises(TypeError):
+            ops.apex_project(dists.float(), Linv, sq)
+
+
+def _dirichlet(rows, d, seed, dtype=np.float32):
+    return np.random.default_rng(seed).dirichlet(np.full(d, 0.5), size=rows).astype(dtype)
+
+
+class TestJsdPairwise:
+    """K5: pairwise sqrt-JSD in bits, rows L1-normalised by the wrapper."""
+
+    @pytest.mark.parametrize("Q,P", [(1, 1), (5, 9), (33, 20)])
+    def test_f32_against_pallas(self, Q, P):
+        X, Y = _dirichlet(Q, 112, Q) * 2.5, _dirichlet(P, 112, P + 50)
+        got = ops.jsd_pairwise(_t(X), _t(Y))
+        want = rops.jsd_pairwise(X, Y, block_q=32, block_p=32)
+        assert got.dtype == torch.float32 and got.shape == (Q, P)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+    def test_f64_against_pallas(self):
+        X, Y = _dirichlet(17, 112, 1, np.float64) * 7.0, _dirichlet(11, 112, 2, np.float64)
+        got = ops.jsd_pairwise(_t(X), _t(Y))
+        with enable_x64(True):
+            want = np.asarray(rops.jsd_pairwise(X, Y, block_q=32, block_p=32))
+        assert want.dtype == np.float64
+        np.testing.assert_allclose(got.numpy(), want, **F64)
+
+    @pytest.mark.parametrize("Q,P", [(1, 40), (6, 3)])
+    def test_wide_rows_against_host_cross(self, Q, P):
+        """d = 700 lies beyond the TPU kernel's d <= 512; the host ``cross_np``
+        is the reference there."""
+        X, Y = _dirichlet(Q, 700, 3, np.float64), _dirichlet(P, 700, 4, np.float64)
+        got = ops.jsd_pairwise(_t(X), _t(Y))
+        np.testing.assert_allclose(got.numpy(), rget("jensen_shannon").cross_np(X, Y), **F64)
+
+    def test_metric_cross_and_one_to_many(self):
+        X = colors_like(n=60, seed=8).astype(np.float64)
+        m = get_metric("jensen_shannon")
+        got = ops.jsd_pairwise(_t(X[:20]), _t(X[20:]))
+        np.testing.assert_allclose(got.numpy(), m.cross(_t(X[:20]), _t(X[20:])).numpy(), **F64)
+        np.testing.assert_allclose(got[3].numpy(), m.one_to_many(_t(X[3]), _t(X[20:])).numpy(), **F64)
+
+    def test_shape_mismatch_raises(self):
+        with pytest.raises(ValueError):
+            ops.jsd_pairwise(_t(_dirichlet(2, 8, 1)), _t(_dirichlet(2, 9, 2)))
+
+
 def test_cpu_tensors_never_count_launches():
     ops.reset_launches()
     table = _t(_apexes(50, 6, seed=1))
@@ -260,4 +362,6 @@ def test_cpu_tensors_never_count_launches():
     ops.apex_bounds_batch(table, table[:3])
     ops.apex_bounds_topk(table, table[:3], 4, key="lwb")
     ops.apex_bounds_threshold(table, table[:3], np.ones(3), 4)
+    ops.apex_project(table.double(), torch.eye(5, dtype=torch.float64), torch.ones(5, dtype=torch.float64))
+    ops.jsd_pairwise(table.abs(), table.abs())
     assert set(ops.LAUNCHES.values()) == {0}
