@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-shapes '[["jsd_pairwise", [1, 256, 112, "float64"]], ...]'
+    python3 chip_smoke.py --approx-only
 
 It needs a CUDA device and the repository checkout around it, builds the
 CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
@@ -21,12 +23,13 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 count over K1's own f32 matrices); K4 on the table build's
                 1M x 20 f64 pivot distances at 1e-12, and in f32 at 3e-4;
                 K5 on the build's 1M x 112 rows against the 20 pivots in f64
-                at 1e-12, a 1 x 4096 refinement-shaped f64 call at 1e-12 and
-                a 64 x 4096 f32 call at 1e-4; both in f64 at 1e-12 at the
-                query shapes, 64 and 1 queries against the 20 pivots and
-                the approximate path's 10-pivot prefix.  K4's altitude and K5's output
-                are compared squared, before their final sqrt (see
-                ``max_err_sq``).  CUDA-event times of kernel and plain;
+                at 1e-12 (and exactly 0 for each pivot against itself), the
+                refinement shapes 1 x 256 and 1 x 4096 in f64 at 1e-12 and a
+                64 x 4096 f32 call at 1e-4; K4 and K5 in f64 at 1e-12 at the
+                query shapes, 64 and 1 queries against the 20 pivots and the
+                approximate path's 10-pivot prefix.  K4's altitude and K5's
+                output are compared squared, before their final sqrt (see
+                ``max_err_sq``);
   3. e2e      — the exact path through the public entry points:
                 ``build_index(colors_like(n=1_000_000, dim=112), metric,
                 n_pivots=20)`` on ``cuda`` for euclidean and jensen_shannon,
@@ -51,10 +54,24 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 lwb above t(1+eps) + slack, every row with truncated upb
                 below t(1-eps) - slack).  Recall@10 and range
                 precision/recall against the brute force are printed;
-  5. kernels  — ``{"kernels": [...]}``: launches of each of the six kernels
-                during phases 3 and 4 (each must be > 0), error, times and
-                bounds;
+  5. launch_shapes — per kernel, the launches of phases 3 and 4 by shape
+                class (``ops.SHAPE_LAUNCHES``; each kernel must have > 0);
+  6. kernel_shape — one row per (kernel, shape class) holding >= 10% of its
+                kernel's launches, plus the kernel's headline shape where the main
+                path launched it: the wrapper called as the main path calls
+                it, on operands made from the JSD approximate index, held to
+                its plain version (K2/K3 exactly, to a selection over K1's
+                own matrices), CUDA-event times of wrapper and plain
+                version, the bound at that shape and, for K1/K6, the time of
+                the one-call yardstick ``torch.cdist`` (``library_ms``);
+  7. ``{"kernels": [...]}`` — those rows with their launches;
 then the card's ``nvidia-smi`` line, and last the device contract line.
+
+``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
+and prints ``{"shape_times": [...]}`` for the given (kernel, shape class)
+pairs, so two checkouts can be timed in turns on one card.  ``--approx-only``
+runs phase 4 alone, with its checks, so two checkouts' approximate batch
+and service wall times can be taken in turns on one card.
 """
 
 from __future__ import annotations
@@ -234,7 +251,6 @@ def phase_kernels(torch, ops, ref, tab32, ap32):
     small = ap32[:16]
     mask_np = rng.random(N_) < 0.5
     mask = torch.as_tensor(mask_np, device=dev)
-    out = {}
 
     # K1: the main call, a dims call, an f64 call
     L_t, U_t = ops.apex_bounds_batch(tab32, ap32)
@@ -246,13 +262,7 @@ def phase_kernels(torch, ops, ref, tab32, ap32):
         want = ref.apex_bounds_batch_ref(*args, dims or n_)
         err_i = max(max_err(torch, got[0], want[0], tol), max_err(torch, got[1], want[1], tol))
         emit(phase="kernels", kernel="K1", dims=dims, dtype=str(args[0].dtype), max_abs_err=err_i)
-    ms = time_ms(torch, lambda: ops.apex_bounds_batch(tab32, ap32))
-    plain_ms = time_ms(torch, lambda: ref.apex_bounds_batch_ref(tab32, ap32, n_), reps=3)
-    out["apex_bounds_batch"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=[Q, N_, n_],
-        bound=bound(Q, N_, n_, 4, 2 * Q * N_ * 4, F32_FLOPS),
-    )
-    emit(phase="kernels", kernel="K1", dims=None, dtype="torch.float32", max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    emit(phase="kernels", kernel="K1", dims=None, dtype="torch.float32", max_abs_err=err)
 
     L, U = L_t.cpu().numpy(), U_t.cpu().numpy()
     del L_t, U_t
@@ -264,13 +274,7 @@ def phase_kernels(torch, ops, ref, tab32, ap32):
     mid = np.float32(0.5) * (Ls + Us)
     ids, lwb, upb = ops.apex_bounds_topk(tab32, small, 100, key="mid", dims=7, rowmask=mask)
     check_selection(ids, lwb, upb, host_select(mid, np.broadcast_to(mask_np, mid.shape), 100), Ls, Us)
-    ms = time_ms(torch, lambda: ops.apex_bounds_topk(tab32, ap32, K, key="upb"))
-    plain_ms = time_ms(torch, lambda: ref.apex_topk_ref(tab32, ap32, K, "upb", n_), reps=3)
-    out["apex_topk"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape=[Q, N_, n_, K],
-        bound=bound(Q, N_, n_, 4, Q * K * 12, F32_FLOPS),
-    )
-    emit(phase="kernels", kernel="K2", exact=True, ms=ms, plain_ms=plain_ms)
+    emit(phase="kernels", kernel="K2", exact=True)
 
     # K3: thresholds at per-query ranks below, at and above the capacity
     ranks = np.array([100, 2000, CAP, 20000])[np.arange(Q) % 4]
@@ -286,14 +290,7 @@ def phase_kernels(torch, ops, ref, tab32, ap32):
     hit_s = (Ls <= thr[:16, None]) & mask_np[None, :]
     check(np.array_equal(counts.cpu().numpy(), hit_s.sum(axis=1)), "K3 masked counts differ")
     check_selection(ids, lwb, upb, host_select(Ls, hit_s, 512), Ls, Us)
-    ms = time_ms(torch, lambda: ops.apex_bounds_threshold(tab32, ap32, thr_t, CAP))
-    plain_ms = time_ms(torch, lambda: ref.apex_threshold_ref(tab32, ap32, thr_t, CAP, n_), reps=3)
-    out["apex_threshold"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape=[Q, N_, n_, CAP],
-        bound=bound(Q, N_, n_, 4, Q * (CAP * 12 + 4), F32_FLOPS),
-    )
-    emit(phase="kernels", kernel="K3", exact=True, overflowing_queries=int((hit.sum(1) > CAP).sum()),
-         ms=ms, plain_ms=plain_ms)
+    emit(phase="kernels", kernel="K3", exact=True, overflowing_queries=int((hit.sum(1) > CAP).sum()))
     del L, U, Ls, Us
 
     # K6: one query, f32 and f64
@@ -301,21 +298,13 @@ def phase_kernels(torch, ops, ref, tab32, ap32):
     for t_, q_, tol in ((tab32, ap32[0], F32_TOL), (tab64, ap64[0], F64_TOL)):
         got, want = ops.apex_bounds(t_, q_), ref.apex_bounds_ref(t_, q_)
         errs.append(max(max_err(torch, got[0], want[0], tol), max_err(torch, got[1], want[1], tol)))
-    ms = time_ms(torch, lambda: ops.apex_bounds(tab32, ap32[0]))
-    plain_ms = time_ms(torch, lambda: ref.apex_bounds_ref(tab32, ap32[0]))
-    out["apex_bounds"] = dict(
-        max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, shape=[1, N_, n_],
-        bound=bound(1, N_, n_, 4, 2 * N_ * 4, F32_FLOPS),
-    )
-    emit(phase="kernels", kernel="K6", max_abs_err_f32=errs[0], max_abs_err_f64=errs[1], ms=ms, plain_ms=plain_ms)
-    return out
+    emit(phase="kernels", kernel="K6", max_abs_err_f32=errs[0], max_abs_err_f64=errs[1])
 
 
-def phase_kernels_k4_k5(torch, ops, ref, inner, data, queries, log):
+def phase_kernels_k4_k5(torch, ops, ref, inner, data, queries):
     """K4 and K5 against their plain versions at the table build's shapes
     (the index's own 1M x 20 pivot distances, its corpus and pivots) and at
     the query and refinement shapes."""
-    out = {}
     proj = inner.projector
     dist = proj.pivot_distances(data)                            # (1M, 20) f64
     Linv, sq = proj._Linv_t, proj._sq_norms_t
@@ -323,15 +312,7 @@ def phase_kernels_k4_k5(torch, ops, ref, inner, data, queries, log):
     err = check_k4(torch, ops.apex_project(dist, Linv, sq), ref.apex_project_ref(dist, Linv, sq), F64_TOL)
     d32, L32, s32 = dist.float(), Linv.float(), sq.float()
     err32 = check_k4(torch, ops.apex_project(d32, L32, s32), ref.apex_project_ref(d32, L32, s32), K4_F32_TOL)
-    ms = time_ms(torch, lambda: ops.apex_project(dist, Linv, sq))
-    plain_ms = time_ms(torch, lambda: ref.apex_project_ref(dist, Linv, sq))
-    h = n - 1
-    out["apex_project"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=[B, n],
-        bound=roofline(2 * B * n * 8 + (h * h + h) * 8, B * (2 * h * h + 4 * h + 4), F64_FLOPS),
-    )
-    emit(phase="kernels", kernel="K4", shape=[B, n], max_abs_err_f64=err, max_abs_err_f32=err32,
-         ms=ms, plain_ms=plain_ms)
+    emit(phase="kernels", kernel="K4", shape=[B, n], max_abs_err_f64=err, max_abs_err_f32=err32)
     del dist, d32
 
     # K4 and K5 at the query shapes, f64: a 64-query block and one query,
@@ -350,43 +331,233 @@ def phase_kernels_k4_k5(torch, ops, ref, inner, data, queries, log):
             emit(phase="kernels", kernel="K4+K5", shape=list(blk.shape), dtype="torch.float64",
                  max_abs_err_k4=e4, max_abs_err_k5=e5)
 
-    # K5 at the build shape: every corpus row against the 20 pivots, f64
+    # K5 at the build shape: every corpus row against the 20 pivots, f64;
+    # a pivot against itself is exactly 0
     X = data.double()
     Y = proj.pivots_t.double()
     Qx, d = X.shape
-    P = Y.shape[0]
-    Xn, Yn = l1_normalise(torch, X), l1_normalise(torch, Y)
-    err = max_err_sq(torch, ops.jsd_pairwise(X, Y), ref.jsd_pairwise_ref(Xn, Yn), F64_TOL)
-    ms = time_ms(torch, lambda: ops.jsd_pairwise(X, Y))
-    plain_ms = time_ms(torch, lambda: ref.jsd_pairwise_ref(Xn, Yn), reps=2)
-    # per (pair, coordinate): x + y, * 0.5, * log, + acc and one log; per
-    # (row, coordinate) of the entropy pass: one log, * and +
-    per_elem = 4 + log["fast_path_flops"]
-    ops_ = Qx * P * d * per_elem + (Qx + P) * d * (2 + log["fast_path_flops"])
-    out["jsd_pairwise"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=[Qx, P, d],
-        bound=roofline((Qx + P) * d * 8 + Qx * P * 8, ops_, F64_FLOPS),
-    )
-    emit(phase="kernels", kernel="K5", shape=[Qx, P, d], dtype="torch.float64", max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, flops_per_element=per_elem)
-    del X, Xn
+    err = max_err_sq(torch, ops.jsd_pairwise(X, Y), ref.jsd_pairwise_ref(l1_normalise(torch, X),
+                                                                          l1_normalise(torch, Y)), F64_TOL)
+    check(bool((torch.diagonal(ops.jsd_pairwise(Y, Y)) == 0).all()), "K5 of a pivot against itself is not 0")
+    emit(phase="kernels", kernel="K5", shape=[Qx, Y.shape[0], d], dtype="torch.float64", max_abs_err=err,
+         pivot_self_distance_zero=True)
+    del X
 
-    # the refinement shape (one query against 4096 rows, f64) and a query
-    # block against 4096 rows in f32
-    rows = data[:4096]
-    for qs, tol, dtype in ((queries[:1], F64_TOL, torch.float64), (queries[:Q], K5_F32_TOL, torch.float32)):
+    # the refinement shapes (one query against 256 and 4096 rows, f64) and a
+    # query block against 4096 rows in f32
+    for qs, rows, tol, dtype in ((queries[:1], data[:256], F64_TOL, torch.float64),
+                                 (queries[:1], data[:4096], F64_TOL, torch.float64),
+                                 (queries[:Q], data[:4096], K5_F32_TOL, torch.float32)):
         a, b = qs.to(dtype), rows.to(dtype)
-        an, bn = l1_normalise(torch, a), l1_normalise(torch, b)
-        e = max_err_sq(torch, ops.jsd_pairwise(a, b), ref.jsd_pairwise_ref(an, bn), tol)
-        emit(phase="kernels", kernel="K5", shape=[a.shape[0], b.shape[0], d], dtype=str(dtype), max_abs_err=e,
-             ms=time_ms(torch, lambda: ops.jsd_pairwise(a, b)),
-             plain_ms=time_ms(torch, lambda: ref.jsd_pairwise_ref(an, bn)))
-    return out
+        e = max_err_sq(torch, ops.jsd_pairwise(a, b),
+                       ref.jsd_pairwise_ref(l1_normalise(torch, a), l1_normalise(torch, b)), tol)
+        emit(phase="kernels", kernel="K5", shape=[a.shape[0], b.shape[0], d], dtype=str(dtype), max_abs_err=e)
 
 
 def l1_normalise(torch, X):
     """Rows over ``max(sum, 1e-12)``: the JSD wrappers' normalisation."""
     return X / torch.clamp_min(X.sum(dim=-1, keepdim=True), 1e-12)
+
+
+
+#: each kernel's headline shape (its main batch call), kept as a row whenever the
+#: main path launches it
+HEADLINE = {
+    "apex_bounds_batch": (Q, N_PIVOTS),
+    "apex_topk": (Q, K, "upb", N_PIVOTS),
+    "apex_threshold": (Q, CAP, N_PIVOTS),
+    "apex_project": (N_ROWS, N_PIVOTS, "float64"),
+    "jsd_pairwise": (N_ROWS, N_PIVOTS, DIM, "float64"),
+    "apex_bounds": (N_PIVOTS, "float32"),
+}
+#: a shape class holding at least this share of its kernel's launches gets a row
+ROW_SHARE = 0.10
+#: why K2-K5 have no one-call PyTorch counterpart (``library_ms`` null)
+NO_LIBRARY = {
+    "apex_topk": "no single PyTorch call scans bounds and keeps a per-query top-k by (key, id)",
+    "apex_threshold": "no single PyTorch call filters by a per-query threshold, counts and keeps the cap smallest",
+    "apex_project": "no single PyTorch call does the three steps (squares, triangular product, altitude)",
+    "jsd_pairwise": "PyTorch has no pairwise Jensen-Shannon call",
+}
+
+
+def launch_histogram(shape_launches) -> dict:
+    """Per kernel: [(shape class, launches, share)] by launches, largest first."""
+    out = {}
+    for name, by in shape_launches.items():
+        total = sum(by.values())
+        out[name] = [(cls, n, n / total) for cls, n in sorted(by.items(), key=lambda kv: (-kv[1], str(kv[0])))]
+    return out
+
+
+def rows_to_time(hist) -> list:
+    """(kernel, shape class) pairs with a row: every class with >= ROW_SHARE
+    of its kernel's launches, and its headline shape where the main path launched it."""
+    rows = []
+    for name in KERNEL_INFO:
+        classes = [cls for cls, _, share in hist.get(name, []) if share >= ROW_SHARE]
+        launched = {cls for cls, _, _ in hist.get(name, [])}
+        if HEADLINE[name] in launched and HEADLINE[name] not in classes:
+            classes.append(HEADLINE[name])
+        rows.extend((name, cls) for cls in classes)
+    return rows
+
+
+def truncated(torch, ref, a, dims):
+    """Apex rows folded to ``dims`` coordinates (the prefix's own width)."""
+    if dims == a.shape[1]:
+        return a.contiguous()
+    head, alt = ref.split_trunc(a, dims)
+    return torch.cat([head, alt[:, None]], dim=1).contiguous()
+
+
+class ShapeInputs:
+    """Operands of each kernel at a launch shape class, made from one index's
+    own state (table, corpus, projectors) and the query rows."""
+
+    def __init__(self, torch, ops, ref, index, queries_np, log):
+        self.torch, self.ops, self.ref, self.log = torch, ops, ref, log
+        inner = index._inner
+        self.inner = inner
+        self.tab = inner._kernel_table()
+        self.data = inner.data
+        self.queries = torch.as_tensor(queries_np, device=self.tab.device)
+        self.ap = inner.query_apex_batch(queries_np).float().contiguous()
+
+    def rows(self, count):
+        """``count`` raw corpus-shaped rows: the queries, or corpus rows."""
+        return self.queries[:count] if count <= self.queries.shape[0] else self.data[:count]
+
+    def apexes(self, Q_, dims):
+        check(Q_ <= self.ap.shape[0], f"no more than {self.ap.shape[0]} query apexes")
+        return truncated(self.torch, self.ref, self.ap[:Q_], dims)
+
+    def selection_want(self, L, U, keys, live, width):
+        return self.ref._take(self.ref.pack_keys(keys, live), L, U, width)
+
+    def time_row(self, name, cls) -> dict:
+        """The wrapper at ``cls`` as the main path calls it: max error against
+        the plain version (exact for K2/K3: a selection over K1's own f32
+        matrices), CUDA-event times of wrapper and plain version, the bound
+        and, for K1/K6, the one-call library yardstick."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        tab = self.tab
+        N_, n_ = tab.shape
+        lib_ms = None
+        if name == "apex_bounds":
+            q = self.ap[0]
+            got, want = ops.apex_bounds(tab, q), ref.apex_bounds_ref(tab, q)
+            err = max(max_err(torch, got[0], want[0], F32_TOL), max_err(torch, got[1], want[1], F32_TOL))
+            run, plain = (lambda: ops.apex_bounds(tab, q)), (lambda: ref.apex_bounds_ref(tab, q))
+            lib_ms = self.cdist_ms(q[None, :], n_)
+            b = bound(1, N_, n_, 4, 2 * N_ * 4, F32_FLOPS)
+        elif name == "apex_bounds_batch":
+            Q_, dims = cls
+            q = self.apexes(Q_, dims)
+            got, want = ops.apex_bounds_batch(tab, q, dims=dims), ref.apex_bounds_batch_ref(tab, q, dims)
+            err = max(max_err(torch, got[0], want[0], F32_TOL), max_err(torch, got[1], want[1], F32_TOL))
+            del got, want
+            run = lambda: ops.apex_bounds_batch(tab, q, dims=dims)  # noqa: E731
+            plain = lambda: ref.apex_bounds_batch_ref(tab, q, dims)  # noqa: E731
+            lib_ms = self.cdist_ms(q, dims)
+            b = roofline(N_ * n_ * 4 + q.numel() * 4 + 2 * Q_ * N_ * 4, Q_ * N_ * (2 * (dims - 1) + 12), F32_FLOPS)
+        elif name == "apex_topk":
+            Q_, k, key, dims = cls
+            q = self.apexes(Q_, dims)
+            L, U = ops.apex_bounds_batch(tab, q, dims=dims)
+            keys = {"lwb": L, "upb": U}.get(key)
+            keys = 0.5 * (L + U) if keys is None else keys
+            want = self.selection_want(L, U, keys, torch.ones_like(L, dtype=torch.bool), k)
+            got = ops.apex_bounds_topk(tab, q, k, key=key, dims=dims)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)), f"K2 at {cls} differs from the selection over K1")
+            del L, U, keys, want, got
+            err = 0.0
+            run = lambda: ops.apex_bounds_topk(tab, q, k, key=key, dims=dims)  # noqa: E731
+            plain = lambda: ref.apex_topk_ref(tab, q, k, key, dims)  # noqa: E731
+            b = roofline(N_ * n_ * 4 + q.numel() * 4 + Q_ * k * 12, Q_ * N_ * (2 * (dims - 1) + 12), F32_FLOPS)
+        elif name == "apex_threshold":
+            Q_, cap, dims = cls
+            q = self.apexes(Q_, dims)
+            L, U = ops.apex_bounds_batch(tab, q, dims=dims)
+            # each query's threshold at rank cap / 2: the selection fills half
+            thr = torch.kthvalue(L, max(1, cap // 2), dim=1).values.contiguous()
+            hit = L <= thr[:, None]
+            ids, lwb, upb, counts = ops.apex_bounds_threshold(tab, q, thr, cap, dims=dims)
+            want = self.selection_want(L, U, L, hit, cap)
+            check(torch.equal(counts, hit.sum(dim=1).to(torch.int32)), f"K3 counts at {cls} differ")
+            check(all(torch.equal(g, w) for g, w in zip((ids, lwb, upb), want)),
+                  f"K3 at {cls} differs from the selection over K1")
+            del L, U, hit, want
+            err = 0.0
+            run = lambda: ops.apex_bounds_threshold(tab, q, thr, cap, dims=dims)  # noqa: E731
+            plain = lambda: ref.apex_threshold_ref(tab, q, thr, cap, dims)  # noqa: E731
+            b = roofline(N_ * n_ * 4 + q.numel() * 4 + Q_ * (cap * 12 + 4), Q_ * N_ * (2 * (dims - 1) + 12),
+                         F32_FLOPS)
+        elif name == "apex_project":
+            B, n, dtype = cls
+            p = self.inner.projector if n == self.inner.n_pivots else self.inner._prefix_projector(n)
+            dt = getattr(torch, dtype)
+            dist = p.pivot_distances(self.rows(B)).to(dt).contiguous()
+            Linv, sq = p._Linv_t.to(dt), p._sq_norms_t.to(dt)
+            tol = F64_TOL if dt == torch.float64 else K4_F32_TOL
+            err = check_k4(torch, ops.apex_project(dist, Linv, sq), ref.apex_project_ref(dist, Linv, sq), tol)
+            run, plain = (lambda: ops.apex_project(dist, Linv, sq)), (lambda: ref.apex_project_ref(dist, Linv, sq))
+            h = n - 1
+            size = dist.element_size()
+            b = roofline(2 * B * n * size + (h * h + h) * size, B * (2 * h * h + 4 * h + 4),
+                         F64_FLOPS if dt == torch.float64 else F32_FLOPS)
+        elif name == "jsd_pairwise":
+            Q_, P, d, dtype = cls
+            dt = getattr(torch, dtype)
+            X = self.rows(Q_).to(dt).contiguous()
+            Y = (self.inner.projector.pivots_t if P == self.inner.n_pivots and Q_ > self.queries.shape[0]
+                 else self.data[1000:1000 + P]).to(dt).contiguous()
+            Xn, Yn = l1_normalise(torch, X), l1_normalise(torch, Y)
+            tol = F64_TOL if dt == torch.float64 else K5_F32_TOL
+            err = max_err_sq(torch, ops.jsd_pairwise(X, Y), ref.jsd_pairwise_ref(Xn, Yn), tol)
+            run, plain = (lambda: ops.jsd_pairwise(X, Y)), (lambda: ref.jsd_pairwise_ref(Xn, Yn))
+            # per (pair, coordinate): x + y, * 0.5, * log, + acc and one log;
+            # per (row, coordinate): the L1 sum and division, one log, * and +
+            lf = self.log["fast_path_flops"]
+            ops_ = Q_ * P * d * (4 + lf) + (Q_ + P) * d * (4 + lf)
+            size = X.element_size()
+            b = roofline((Q_ + P) * d * size + Q_ * P * size, ops_, F64_FLOPS if dt == torch.float64 else F32_FLOPS)
+        else:
+            raise KeyError(name)
+        big = b[0] > 1.0
+        ms = time_ms(torch, run, reps=10 if big else 50)
+        plain_ms = time_ms(torch, plain, reps=2 if big else 10)
+        return dict(shape=list(cls), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b, library_ms=lib_ms)
+
+    def cdist_ms(self, q, dims):
+        """K1/K6's one-call yardstick: ``torch.cdist(q, S)`` with S the
+        table truncated to ``dims`` stacked over its copy with the altitude
+        negated, so the first N columns are lwb and the last N upb.  S is
+        built outside the timing; the port never calls it."""
+        torch = self.torch
+        T = truncated(torch, self.ref, self.tab, dims)
+        S = torch.cat([T, torch.cat([T[:, :-1], -T[:, -1:]], dim=1)]).contiguous()
+        q = q.contiguous()
+        lwb, upb = self.ops.apex_bounds_batch(self.tab, q, dims=dims)
+        got = torch.cdist(q, S)
+        N_ = T.shape[0]
+        emit(phase="kernels", library="torch.cdist", shape=[q.shape[0], N_, dims],
+             max_abs_diff_to_kernel=float(max((got[:, :N_] - lwb).abs().max(), (got[:, N_:] - upb).abs().max())))
+        del lwb, upb, got
+        ms = time_ms(self.torch, lambda: torch.cdist(q, S), reps=20)
+        del S, T
+        return ms
+
+
+def time_shapes(torch, ops, ref, inputs, pairs) -> list:
+    """One timed row per (kernel, shape class)."""
+    out = []
+    for name, cls in pairs:
+        m = inputs.time_row(name, tuple(cls))
+        emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, **m)
+        out.append((name, m))
+        torch.cuda.empty_cache()
+    return out
 
 
 class BruteForce:
@@ -643,9 +814,31 @@ def verify_approx(torch, ops, ref, rec):
                  range_recall=float(np.mean([r_ for _, r_ in scores])))
 
 
-def main() -> int:
+def kernel_row(name, m, launches, share) -> dict:
+    kid, source, replaces = KERNEL_INFO[name]
+    row = {
+        "name": f"{kid} {name}", "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound"][0], "bound_by": m["bound"][1], "library_ms": m["library_ms"],
+        "shape": m["shape"], "launch_share": share,
+    }
+    if name in NO_LIBRARY:
+        row["library_none_because"] = NO_LIBRARY[name]
+    return row
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--time-shapes", metavar="JSON", default=None,
+                        help='only time the wrappers at these [[kernel, shape class], ...] on a fresh '
+                             'apex_dims=10 JSD build (no e2e phases); prints {"shape_times": [...]}')
+    parser.add_argument("--approx-only", action="store_true",
+                        help="only run the approximate phase (both metrics) and its checks")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -669,21 +862,36 @@ def main() -> int:
     data_np, queries_np = X[:N_ROWS], X[N_ROWS:]
     emit(phase="data", rows=N_ROWS, dim=DIM, dtype=str(X.dtype), wall_s=time.perf_counter() - t0)
 
+    if args.time_shapes is not None:
+        index = api.build_index(data_np, "jensen_shannon", n_pivots=N_PIVOTS, seed=SEED % 1000,
+                                apex_dims=APPROX_DIMS, refine=REFINE, device="cuda")
+        inputs = ShapeInputs(torch, ops, ref, index, queries_np, log)
+        timed = time_shapes(torch, ops, ref, inputs, json.loads(args.time_shapes))
+        print(json.dumps({"shape_times": [dict(name=name, **m) for name, m in timed]}), flush=True)
+        print(smi, flush=True)
+        return 0
+
     t0 = time.perf_counter()
     euclid = api.build_index(data_np, "euclidean", n_pivots=N_PIVOTS, seed=SEED % 1000, device="cuda")
     torch.cuda.synchronize()
     emit(phase="e2e", metric="euclidean", task="build", rows=N_ROWS, wall_s=time.perf_counter() - t0)
 
+    mods = (torch, api, metrics_mod, service_mod, ref, data_np, queries_np)
+    if args.approx_only:
+        approx_runs = [phase_approx(*mods, "euclidean", index=euclid), phase_approx(*mods, "jensen_shannon")]
+        for rec in approx_runs:
+            verify_approx(torch, ops, ref, rec)
+        print(smi, flush=True)
+        return 0
+
     inner = euclid._inner
     ap32 = inner.query_apex_batch(queries_np[:Q]).float().contiguous()
-    measured = phase_kernels(torch, ops, ref, inner._kernel_table(), ap32)
-    measured.update(phase_kernels_k4_k5(torch, ops, ref, inner, inner.data,
-                                        torch.as_tensor(queries_np, device="cuda"), log))
-    del inner
+    phase_kernels(torch, ops, ref, inner._kernel_table(), ap32)
+    phase_kernels_k4_k5(torch, ops, ref, inner, inner.data, torch.as_tensor(queries_np, device="cuda"))
+    del inner, ap32
     torch.cuda.empty_cache()
 
     ops.reset_launches()
-    mods = (torch, api, metrics_mod, service_mod, ref, data_np, queries_np)
     phase_e2e(*mods, "euclidean", index=euclid)
     approx_runs = [phase_approx(*mods, "euclidean", index=euclid)]
     del euclid
@@ -692,19 +900,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     approx_runs.append(phase_approx(*mods, "jensen_shannon"))
     launches = dict(ops.LAUNCHES)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name, (kid, _, _) in KERNEL_INFO.items():
+        check(launches[name] > 0, f"{kid} ({name}) was not launched by the e2e and approx phases")
+        emit(phase="launch_shapes", kernel=kid, name=name, launches=launches[name],
+             classes=[[list(cls), n, share] for cls, n, share in hist[name]])
     for rec in approx_runs:
         verify_approx(torch, ops, ref, rec)
 
+    inputs = ShapeInputs(torch, ops, ref, approx_runs[-1]["index"], queries_np, log)
     rows = []
-    for name, (kid, source, replaces) in KERNEL_INFO.items():
-        m = measured[name]
-        check(launches[name] > 0, f"{kid} ({name}) was not launched by the e2e and approx phases")
-        rows.append({
-            "name": f"{kid} {name}", "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
-            "library_ms": None, "shape": m["shape"],
-        })
+    for name, m in time_shapes(torch, ops, ref, inputs, rows_to_time(hist)):
+        n, share = next((n, share) for cls, n, share in hist[name] if list(cls) == m["shape"])
+        rows.append(kernel_row(name, m, n, share))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,14 +43,26 @@ __device__ __forceinline__ void row_terms(const T* x, int hd, int width, T& sq, 
 // GEMM-form two-sided bounds of one (query, row) pair:
 //   head = max(|q|^2 + |x|^2 - 2 q.x, 0)
 //   lwb  = sqrt(max(head + (qa - xa)^2, 0)),  upb = sqrt(max(head + (qa + xa)^2, 0))
+// The squared bounds (before the sqrt) from the head dot product
+// dot = sum_i q_i x_i, summed in ascending i by op_fma(q[i], x[i], dot): a
+// kernel that forms the dot itself (K2 for a group of queries) gets
+// pair_bounds' bits.
+template <typename T>
+__device__ __forceinline__ void bound_squares(T q2, T qa, T x2, T xa, T dot, T& lwb_sq, T& upb_sq) {
+    T head = clamp0(op_sub(op_add(q2, x2), op_mul(T(2), dot)));
+    T dm = op_sub(qa, xa);
+    T dp = op_add(qa, xa);
+    lwb_sq = clamp0(op_add(head, op_mul(dm, dm)));
+    upb_sq = clamp0(op_add(head, op_mul(dp, dp)));
+}
+
 template <typename T>
 __device__ __forceinline__ void pair_bounds(const T* q, T q2, T qa, const T* x, T x2, T xa,
                                             int hd, T& lwb, T& upb) {
     T dot = T(0);
     for (int i = 0; i < hd; ++i) dot = op_fma(q[i], x[i], dot);
-    T head = clamp0(op_sub(op_add(q2, x2), op_mul(T(2), dot)));
-    T dm = op_sub(qa, xa);
-    T dp = op_add(qa, xa);
-    lwb = op_sqrt(clamp0(op_add(head, op_mul(dm, dm))));
-    upb = op_sqrt(clamp0(op_add(head, op_mul(dp, dp))));
+    T lwb_sq, upb_sq;
+    bound_squares(q2, qa, x2, xa, dot, lwb_sq, upb_sq);
+    lwb = op_sqrt(lwb_sq);
+    upb = op_sqrt(upb_sq);
 }

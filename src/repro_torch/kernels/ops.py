@@ -5,7 +5,9 @@ a CUDA device, or its plain PyTorch version (``ref.py``) for tensors on the
 CPU.  A CUDA tensor is never sent to the plain version: the kernel launches
 or the wrapper raises.  ``LAUNCHES`` counts kernel launches per wrapper (one
 per call that reaches the card), so a run can show that its main path went
-through the kernels.
+through the kernels; ``SHAPE_LAUNCHES`` splits the same counts by shape class
+(``shape_class``), so each kernel can be timed at the shapes it is launched
+with.
 
   ====  ==========================  ============================================
   id    wrapper                     TPU kernel it replaces
@@ -21,6 +23,7 @@ through the kernels.
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
@@ -31,6 +34,7 @@ from repro_torch.kernels.ref import SENTINEL_ID, TOPK_KEYS
 __all__ = [
     "LAUNCHES",
     "MAX_SELECT_WIDTH",
+    "SHAPE_LAUNCHES",
     "SENTINEL_ID",
     "TOPK_KEYS",
     "apex_bounds",
@@ -39,7 +43,10 @@ __all__ = [
     "apex_bounds_topk",
     "apex_project",
     "jsd_pairwise",
+    "jsd_plan",
     "reset_launches",
+    "shape_class",
+    "topk_plan",
 ]
 
 #: widest selection (k of K2, cap of K3) the CUDA kernels hold in shared
@@ -55,6 +62,9 @@ LAUNCHES = {
     "apex_project": 0,
     "jsd_pairwise": 0,
 }
+#: kernel launches per wrapper and per shape class (a plain tuple, see
+#: ``shape_class``) since the last ``reset_launches``
+SHAPE_LAUNCHES = {name: {} for name in LAUNCHES}
 _launch_lock = threading.Lock()
 
 _KEY_MODE = {"lwb": 0, "upb": 1, "mid": 2}
@@ -64,11 +74,52 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+            SHAPE_LAUNCHES[name].clear()
 
 
-def _counted(name: str) -> None:
+def _p_bucket(P: int) -> int:
+    """K5's row-count class: P itself up to 32, else the next power of two
+    (refinement chunks of up to 256 rows share one class)."""
+    return P if P <= 32 else 1 << (P - 1).bit_length()
+
+
+def shape_class(name: str, **s) -> tuple:
+    """The shape class a launch of kernel ``name`` counts under:
+
+    ====================  =====================================
+    ``apex_bounds``       ``(n, dtype)``
+    ``apex_bounds_batch`` ``(Q, dims)``
+    ``apex_topk``         ``(Q, k, key, dims)``
+    ``apex_threshold``    ``(Q, cap, dims)``
+    ``apex_project``      ``(B, n, dtype)``
+    ``jsd_pairwise``      ``(Q, P bucket, d, dtype)``
+    ====================  =====================================
+    """
+    if name == "apex_bounds":
+        return (s["n"], s["dtype"])
+    if name == "apex_bounds_batch":
+        return (s["Q"], s["dims"])
+    if name == "apex_topk":
+        return (s["Q"], s["k"], s["key"], s["dims"])
+    if name == "apex_threshold":
+        return (s["Q"], s["cap"], s["dims"])
+    if name == "apex_project":
+        return (s["B"], s["n"], s["dtype"])
+    if name == "jsd_pairwise":
+        return (s["Q"], _p_bucket(s["P"]), s["d"], s["dtype"])
+    raise KeyError(name)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _counted(name: str, **shape) -> None:
+    cls = shape_class(name, **shape)
     with _launch_lock:
         LAUNCHES[name] += 1
+        by = SHAPE_LAUNCHES[name]
+        by[cls] = by.get(cls, 0) + 1
 
 
 def _on_cuda(*tensors) -> bool:
@@ -88,6 +139,11 @@ def _check(err: int, name: str) -> None:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_table(table: torch.Tensor, queries: torch.Tensor, dims):
@@ -118,12 +174,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _slices(device, Q: int, N: int) -> int:
-    """Row slices per query of the selection kernels: enough blocks for two
-    waves over the card, at least 8192 rows each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // max(Q, 1))
+def _slices(sms: int, blocks_per_slice: int, N: int) -> int:
+    """Row slices of the selection kernels, for ``blocks_per_slice`` blocks
+    over each slice (K3: one per query; K2: one per query group): enough
+    blocks for two waves over the card, at least 8192 rows each."""
+    want = -(-2 * sms // max(blocks_per_slice, 1))
     return int(max(1, min(want, -(-N // 8192), 64)))
+
+
+#: shared memory K2 gives the selection state (running selection and
+#: candidate buffer) of one query group, its largest group, and its
+#: candidate buffer length floor: ``kGroupBytes``, ``kMaxGroup`` and
+#: ``kMinCandGroup`` in select_epilogue.cu, which refuses a G outside them
+_TOPK_GROUP_BYTES = 64 * 1024
+_TOPK_MAX_GROUP = 32
+_TOPK_MIN_CAND = 512
+
+
+def topk_plan(k: int, Q: int, N: int, sms: int) -> tuple:
+    """K2's launch plan ``(G, S)``: G queries per block, each holding a
+    running selection of ``wp = next_pow2(k)`` keys and a candidate buffer of
+    ``max(wp, 512)``, as many as fit in 64 KiB (at most 32, at least 1),
+    balanced over the ``ceil(Q / G)`` groups; and S row slices so that groups
+    x slices fill the card.  The table is read once per group; G = 1 runs
+    the one-query-per-block kernel K3 also uses."""
+    wp = 1 << (k - 1).bit_length()
+    per_query = (wp + max(wp, _TOPK_MIN_CAND)) * 8
+    G = max(1, min(_TOPK_MAX_GROUP, _TOPK_GROUP_BYTES // per_query, Q))
+    groups = -(-Q // G)
+    G = -(-Q // groups)
+    return G, _slices(sms, groups, N)
 
 
 def apex_bounds(table: torch.Tensor, query: torch.Tensor):
@@ -142,7 +222,7 @@ def apex_bounds(table: torch.Tensor, query: torch.Tensor):
     upb = torch.empty_like(lwb)
     fn = library().repro_apex_bounds_f32 if table.dtype == torch.float32 else library().repro_apex_bounds_f64
     _check(fn(table.data_ptr(), N, n, query.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device)), "apex_bounds")
-    _counted("apex_bounds")
+    _counted("apex_bounds", n=n, dtype=_dtype_name(table))
     return lwb, upb
 
 
@@ -165,7 +245,7 @@ def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int =
         fn(table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, lwb.data_ptr(), upb.data_ptr(), _stream(table.device)),
         "apex_bounds_batch",
     )
-    _counted("apex_bounds_batch")
+    _counted("apex_bounds_batch", Q=Q, dims=dims)
     return lwb, upb
 
 
@@ -216,17 +296,17 @@ def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = No
 
     table, queries = table.contiguous(), queries.contiguous()
     (N, n), (Q, qw) = table.shape, queries.shape
-    S = _slices(table.device, Q, N)
+    G, S = topk_plan(k, Q, N, _sm_count(table.device.index or 0))
     part = _scratch(Q, S, k, table.device)
     ids, lwb, upb = _select_outputs(Q, k, table.device)
     _check(
         library().repro_apex_topk(
-            table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), _KEY_MODE[key], k, S,
+            table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), _KEY_MODE[key], k, G, S,
             part.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device),
         ),
         "apex_bounds_topk",
     )
-    _counted("apex_topk")
+    _counted("apex_topk", Q=Q, k=k, key=key, dims=dims)
     return ids, lwb, upb
 
 
@@ -249,7 +329,7 @@ def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = N
 
     table, queries, thresholds = table.contiguous(), queries.contiguous(), thresholds.contiguous()
     (N, n), (Q, qw) = table.shape, queries.shape
-    S = _slices(table.device, Q, N)
+    S = _slices(_sm_count(table.device.index or 0), Q, N)
     part = _scratch(Q, S, cap, table.device)
     part_counts = torch.empty((Q, S), dtype=torch.int32, device=table.device)
     ids, lwb, upb = _select_outputs(Q, cap, table.device)
@@ -262,7 +342,7 @@ def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = N
         ),
         "apex_bounds_threshold",
     )
-    _counted("apex_threshold")
+    _counted("apex_threshold", Q=Q, cap=cap, dims=dims)
     return ids, lwb, upb, counts
 
 
@@ -297,33 +377,61 @@ def apex_project(distances: torch.Tensor, Linv: torch.Tensor, sq_norms: torch.Te
         fn(distances.data_ptr(), B, n, Linv.data_ptr(), sq_norms.data_ptr(), out.data_ptr(), _stream(distances.device)),
         "apex_project",
     )
-    _counted("apex_project")
+    _counted("apex_project", B=B, n=n, dtype=_dtype_name(distances))
     return out
+
+
+#: K5's split plan serves a call whose pairs, ``lanes`` threads each, would
+#: take at most this many threads per SM (about a quarter of what an SM holds)
+_JSD_SPLIT_THREADS_PER_SM = 512
+#: pairs per block the tile plan aims at, and its largest bq and bp
+_JSD_BLOCK_PAIRS = 1024
+_JSD_MAX_TILE_ROWS = 128
+
+
+def jsd_plan(Q: int, P: int, d: int, sms: int) -> tuple:
+    """K5's launch plan for a (Q, P) call over d coordinates on ``sms`` SMs,
+    as ``(lanes, bq, bp)``.  ``lanes > 1``: the split plan, ``lanes`` (a power
+    of two <= 32, at most d) share each pair's coordinates, doubled while
+    the pairs still leave the card mostly idle.  ``lanes == 1``: the tile
+    plan, a block takes ``bq`` X rows x ``bp`` Y rows (each <= 128, at most
+    1024 pairs: up to 4 per thread)."""
+    lanes = 1
+    while lanes < 32 and 2 * lanes <= d and Q * P * lanes * 2 <= sms * _JSD_SPLIT_THREADS_PER_SM:
+        lanes *= 2
+    if lanes > 1:
+        return lanes, 0, 0
+    bp = min(P, _JSD_MAX_TILE_ROWS, max(32, _JSD_BLOCK_PAIRS // min(Q, 32)))
+    bq = min(Q, _JSD_MAX_TILE_ROWS, max(1, _JSD_BLOCK_PAIRS // bp))
+    return 1, bq, bp
 
 
 def jsd_pairwise(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """K5: (Q, P) sqrt-Jensen-Shannon distances in bits between the rows of
-    X (Q, d) and Y (P, d), in X's dtype; rows are L1-normalised here with
-    ``max(sum, 1e-12)``, as the JAX package's wrapper does."""
+    X (Q, d) and Y (P, d), in X's dtype; rows are L1-normalised with
+    ``max(sum, 1e-12)``, as the JAX package's wrapper does.  On the card the
+    kernel normalises inside its one launch: the wrapper only allocates the
+    output (for contiguous operands of one dtype, as the index passes)."""
     if X.ndim != 2 or Y.ndim != 2 or X.shape[1] != Y.shape[1]:
         raise ValueError(f"need (Q, d) and (P, d) operands; got {tuple(X.shape)}, {tuple(Y.shape)}")
-    Y = Y.to(X.dtype)
+    if Y.dtype != X.dtype:
+        Y = Y.to(X.dtype)
     _check_float(X, Y, what="jsd_pairwise")
-    X = X / torch.clamp_min(X.sum(dim=1, keepdim=True), ref._EPS)
-    Y = Y / torch.clamp_min(Y.sum(dim=1, keepdim=True), ref._EPS)
     if not _on_cuda(X, Y):
-        return ref.jsd_pairwise_ref(X, Y)
+        return ref.jsd_pairwise_ref(ref.l1_normalise(X), ref.l1_normalise(Y))
     from repro_torch.kernels.build import library
 
-    X, Y = X.contiguous(), Y.contiguous()
+    if not X.is_contiguous():
+        X = X.contiguous()
+    if not Y.is_contiguous():
+        Y = Y.contiguous()
     (Q, d), P = X.shape, Y.shape[0]
-    hx = torch.empty(Q, dtype=X.dtype, device=X.device)
-    hy = torch.empty(P, dtype=X.dtype, device=X.device)
     out = torch.empty((Q, P), dtype=X.dtype, device=X.device)
+    lanes, bq, bp = jsd_plan(Q, P, d, _sm_count(X.device.index or 0))
     fn = library().repro_jsd_pairwise_f32 if X.dtype == torch.float32 else library().repro_jsd_pairwise_f64
     _check(
-        fn(X.data_ptr(), Q, Y.data_ptr(), P, d, hx.data_ptr(), hy.data_ptr(), out.data_ptr(), _stream(X.device)),
+        fn(X.data_ptr(), Q, Y.data_ptr(), P, d, lanes, bq, bp, out.data_ptr(), _stream(X.device)),
         "jsd_pairwise",
     )
-    _counted("jsd_pairwise")
+    _counted("jsd_pairwise", Q=Q, P=P, d=d, dtype=_dtype_name(X))
     return out

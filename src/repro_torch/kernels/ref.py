@@ -20,6 +20,7 @@ __all__ = [
     "apex_threshold_ref",
     "apex_topk_ref",
     "jsd_pairwise_ref",
+    "l1_normalise",
     "pack_keys",
     "split_trunc",
     "xlogx",
@@ -125,6 +126,11 @@ def apex_project_ref(distances: torch.Tensor, Linv: torch.Tensor, sq_norms: torc
 def xlogx(v: torch.Tensor) -> torch.Tensor:
     """``v log v`` where ``v > 1e-12``, else 0 (the JSD summand)."""
     return torch.where(v > _EPS, v * torch.log(torch.clamp_min(v, _EPS)), 0.0)
+
+
+def l1_normalise(X: torch.Tensor) -> torch.Tensor:
+    """Rows over ``max(sum, 1e-12)``: K5's normalisation."""
+    return X / torch.clamp_min(X.sum(dim=1, keepdim=True), _EPS)
 
 
 #: element budget of the (rows, P, d) mid-point temporary of one chunk

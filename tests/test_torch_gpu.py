@@ -9,7 +9,8 @@ tests).  Run on a card with:
 Tolerances: rtol = atol = 2e-5 in float32, 1e-12 in float64 for K1 and K6;
 K2 and K3 must equal a selection over K1's own float32 matrices exactly;
 K4 at 3e-4 in float32 (``tests/test_kernels.py::TestApexProject``) and K5 at
-1e-4 (``TestJsdPairwise``), both at 1e-12 in float64.
+1e-4 (``TestJsdPairwise``, here squared, before the final sqrt), both at
+1e-12 in float64.
 """
 
 import numpy as np
@@ -69,17 +70,52 @@ def _selection(packed, L, U, width):
     return ref._take(packed, L, U, width)
 
 
+#: k on both sides of every group-size boundary of ops.topk_plan
+K2_WIDTHS = [1, 10, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024, 1025, 2048, 2049, 4096]
+
+
+@pytest.fixture(scope="module")
+def k2_table():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with -m gpu")
+    return _apexes(30_011, 20, 5, torch.float32, "cuda"), _apexes(257, 20, 6, torch.float32, "cuda")
+
+
 @pytest.mark.parametrize("key", ["lwb", "upb", "mid"])
-@pytest.mark.parametrize("k", [1, 10, 513, 4096])
+@pytest.mark.parametrize("k", K2_WIDTHS)
+@pytest.mark.parametrize("Q", [1, 19, 64, 257])
 @pytest.mark.parametrize("masked", [False, True])
-def test_k2_topk_equals_selection_over_k1(cuda, key, k, masked):
-    table, queries = _apexes(30_011, 20, 5, torch.float32, cuda), _apexes(19, 20, 6, torch.float32, cuda)
+@pytest.mark.parametrize("dims,narrow", [(None, False), (11, False), (11, True)])
+def test_k2_topk_equals_selection_over_k1(cuda, k2_table, key, k, Q, masked, dims, narrow):
+    """Bit-equal to a selection over K1's own matrices, with and without a
+    rowmask and dims = 11; with dims, the queries are sent full width (the
+    kernel folds their tail into the altitude) or ``narrow``, truncated to 11
+    wide."""
+    table, queries = k2_table[0], k2_table[1][:Q]
+    if narrow:
+        queries = ref.split_trunc(queries, dims)
+        queries = torch.cat([queries[0], queries[1][:, None]], dim=1).contiguous()
     mask = torch.rand(30_011, generator=torch.Generator().manual_seed(7)).lt(0.3).to(cuda) if masked else None
-    ids, lwb, upb = ops.apex_bounds_topk(table, queries, k, key=key, dims=11, rowmask=mask)
-    L, U = ops.apex_bounds_batch(table, queries, dims=11)
+    before = LAUNCHES["apex_topk"]
+    ids, lwb, upb = ops.apex_bounds_topk(table, queries, k, key=key, dims=dims, rowmask=mask)
+    assert LAUNCHES["apex_topk"] == before + 1
+    L, U = ops.apex_bounds_batch(table, queries, dims=dims)
     keys = {"lwb": L, "upb": U}.get(key, 0.5 * (L + U))
     live = torch.ones_like(L, dtype=torch.bool) if mask is None else mask[None].expand_as(L)
     want = _selection(ref.pack_keys(keys, live), L, U, k)
+    for g, w in zip((ids, lwb, upb), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [10, 64, 257])
+@pytest.mark.parametrize("Q", [19, 64])
+def test_k2_duplicate_keys_break_by_id(cuda, k, Q):
+    """Every row four times: equal keys leave the group kernel by id."""
+    table = _apexes(5003, 12, 11, torch.float32, cuda).repeat_interleave(4, dim=0).contiguous()
+    queries = _apexes(Q, 12, 12, torch.float32, cuda)
+    ids, lwb, upb = ops.apex_bounds_topk(table, queries, k, key="mid")
+    L, U = ops.apex_bounds_batch(table, queries)
+    want = _selection(ref.pack_keys(0.5 * (L + U), torch.ones_like(L, dtype=torch.bool)), L, U, k)
     for g, w in zip((ids, lwb, upb), want):
         assert torch.equal(g, w)
 
@@ -142,22 +178,62 @@ def _histograms(rows, d, seed, dtype, device):
                         device=device)
 
 
+#: (Q, P) that ops.jsd_plan serves with the split plan (lanes > 1) at d >= 2,
+#: and with the tile plan (one lane per pair, up to 4 pairs per thread)
+K5_SPLIT = [(1, 1), (1, 64), (1, 256), (1, 4097), (64, 20), (1000, 20)]
+K5_TILE = [(3001, 20), (64, 4096), (1000, 333)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("d", [112, 700])
-@pytest.mark.parametrize("Q,P", [(1, 1), (1, 4096), (64, 20), (3001, 20), (64, 333)])
+@pytest.mark.parametrize("d", [1, 17, 112, 600])
+@pytest.mark.parametrize("Q,P", K5_SPLIT + K5_TILE)
 def test_k5_jsd_pairwise(cuda, dtype, d, Q, P):
+    """Both launch plans against the plain version, one launch per call: the
+    split plan for few pairs, the tile plan for many pairs (multi-chunk
+    staging of d, partial tiles) and at d = 1, where a pair has one lane."""
+    lanes, _, _ = ops.jsd_plan(Q, P, d, ops._sm_count(0))
+    assert (lanes == 1) == (d == 1 or (Q, P) in K5_TILE), lanes
     X, Y = _histograms(Q, d, Q + d, dtype, cuda) * 3.0, _histograms(P, d, P + 1, dtype, cuda)
     before = LAUNCHES["jsd_pairwise"]
     got = ops.jsd_pairwise(X, Y)
     assert LAUNCHES["jsd_pairwise"] == before + 1 and got.shape == (Q, P) and got.dtype == dtype
     Xn, Yn = X / X.sum(dim=1, keepdim=True), Y / Y.sum(dim=1, keepdim=True)
     tol = 1e-4 if dtype == torch.float32 else 1e-12
-    torch.testing.assert_close(got, ref.jsd_pairwise_ref(Xn, Yn), rtol=tol, atol=tol)
+    # compared squared, before the final sqrt, like chip_smoke.py: where the
+    # divergence is 0 up to rounding (d = 1), the sqrt turns ~1e-16 into ~1e-8
+    torch.testing.assert_close(got * got, ref.jsd_pairwise_ref(Xn, Yn) ** 2, rtol=tol, atol=tol)
 
 
-def test_k5_row_against_itself_is_zero(cuda):
-    X = _histograms(300, 112, 9, torch.float64, cuda)
+@pytest.mark.parametrize("rows", [8, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_row_against_itself_is_zero(cuda, rows, dtype):
+    """Exactly 0 on the diagonal, under the split plan (8 rows: 64 pairs)
+    and the tile plan (300 rows: 90,000 pairs)."""
+    X = _histograms(rows, 112, 9, dtype, cuda) * 5.0
+    assert ops.jsd_plan(rows, rows, 112, ops._sm_count(0))[0] == (32 if rows == 8 else 1)
     assert bool((torch.diagonal(ops.jsd_pairwise(X, X)) == 0).all())
+    # the same row reached through another tensor
+    assert bool((ops.jsd_pairwise(X[3:4].clone(), X)[0, 3] == 0).all())
+
+
+def test_k5_wrapper_launches_one_kernel_and_no_tensor_op(cuda):
+    """On the card the wrapper allocates its output and launches one kernel:
+    no normalisation, cast or copy runs as a PyTorch operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    X = _histograms(1, 112, 1, torch.float64, cuda) * 2.0
+    Y = _histograms(256, 112, 2, torch.float64, cuda)
+    ops.jsd_pairwise(X, Y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.jsd_pairwise(X, Y)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    aten = {e.name for e in prof.events() if e.name.startswith("aten::")}
+    if not kernels:
+        pytest.skip("the profiler recorded no device activity on this machine")
+    assert len(kernels) == 1 and "jsd" in kernels[0], kernels
+    assert aten <= {"aten::empty"}, aten
 
 
 def _brute_jsd(q, data_t):

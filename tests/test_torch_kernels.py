@@ -11,6 +11,9 @@ the plain version's own bound matrices, and id for id against the Pallas
 kernels.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -365,3 +368,111 @@ def test_cpu_tensors_never_count_launches():
     ops.apex_project(table.double(), torch.eye(5, dtype=torch.float64), torch.ones(5, dtype=torch.float64))
     ops.jsd_pairwise(table.abs(), table.abs())
     assert set(ops.LAUNCHES.values()) == {0}
+
+
+class TestLaunchPlans:
+    """The launch planning the CUDA wrappers do in Python (the CPU runs no
+    kernel, so these are the tests that reach it here)."""
+
+    @pytest.mark.parametrize(
+        "k,G",
+        [(1, 15), (10, 15), (32, 15), (33, 14), (64, 14), (65, 12), (128, 12), (129, 10), (256, 10),
+         (257, 8), (512, 8), (513, 4), (1024, 4), (1025, 2), (2048, 2), (2049, 1), (4096, 1)],
+    )
+    def test_topk_group_size_from_k(self, k, G):
+        """G = min(32, 64 KiB / ((wp + max(wp, 512)) * 8)) before balancing:
+        a group's selection state fits its shared-memory budget."""
+        got, _ = ops.topk_plan(k, 10_000, 1_000_000, 132)
+        assert got == G
+        wp = 1 << (k - 1).bit_length()
+        assert got * (wp + max(wp, 512)) * 8 <= 64 * 1024
+
+    @pytest.mark.parametrize("Q", [1, 2, 19, 64, 65, 256, 257])
+    @pytest.mark.parametrize("k", [10, 64, 257, 4096])
+    def test_topk_groups_balanced_and_card_filled(self, Q, k):
+        G, S = ops.topk_plan(k, Q, 1_000_000, 132)
+        G_max, _ = ops.topk_plan(k, 10_000, 1_000_000, 132)
+        groups = -(-Q // G)
+        assert 1 <= G <= min(Q, G_max)
+        assert groups == -(-Q // min(Q, G_max))          # balancing adds no group
+        assert groups * G - Q < groups                   # groups differ by at most one query
+        assert 1 <= S <= 64 and -(-1_000_000 // S) >= 8192 - 1
+        assert groups * S >= min(2 * 132, groups * 64)   # two waves, unless capped at 64 slices
+
+    @pytest.mark.parametrize(
+        "name,cuda_name",
+        [("_TOPK_GROUP_BYTES", "kGroupBytes"), ("_TOPK_MAX_GROUP", "kMaxGroup"), ("_TOPK_MIN_CAND", "kMinCandGroup")],
+    )
+    def test_topk_plan_constants_match_the_kernel(self, name, cuda_name):
+        """topk_plan's budget is the one run_topk enforces in select_epilogue.cu."""
+        src = (Path(ops.__file__).parent / "csrc" / "select_epilogue.cu").read_text()
+        found = re.findall(rf"constexpr int {cuda_name} = (\d+);", src)
+        assert found == [str(getattr(ops, name))]
+
+    def test_topk_plan_small_table(self):
+        assert ops.topk_plan(10, 64, 5000, 132) == (13, 1)
+
+    def test_topk_plan_at_the_main_path_shape(self):
+        """(Q 64, k 10): 5 groups of 13 queries, 53 slices; the table is read
+        5 times, not 64."""
+        assert ops.topk_plan(10, 64, 1_000_000, 132) == (13, 53)
+        assert ops.topk_plan(64, 64, 1_000_000, 132) == (13, 53)
+
+    @pytest.mark.parametrize(
+        "shape,plan",
+        [
+            ((1, 256, 112), (32, 0, 0)),          # refinement chunk
+            ((1, 64, 112), (32, 0, 0)),           # approximate refine
+            ((64, 20, 112), (32, 0, 0)),          # query pivot distances
+            ((1, 4096, 112), (16, 0, 0)),
+            ((1, 1, 1), (1, 1, 1)),               # d = 1 cannot split
+            ((1000, 20, 17), (2, 0, 0)),
+            ((64, 4096, 112), (1, 32, 32)),
+            ((1_000_000, 20, 112), (1, 51, 20)),  # the table build
+        ],
+    )
+    def test_jsd_plan(self, shape, plan):
+        assert ops.jsd_plan(*shape, 132) == plan
+
+    @pytest.mark.parametrize("Q", [1, 3, 64, 1000, 10**6])
+    @pytest.mark.parametrize("P", [1, 20, 256, 4097, 10**5])
+    @pytest.mark.parametrize("d", [1, 2, 17, 112, 600])
+    def test_jsd_plan_limits(self, Q, P, d):
+        """lanes: a power of two <= min(32, d) and the split plan only
+        while pairs x lanes <= 512 threads per SM; tile: bq, bp <= 128 and at
+        most 4 pairs per thread of 256."""
+        lanes, bq, bp = ops.jsd_plan(Q, P, d, 132)
+        assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
+        if lanes > 1:
+            assert lanes <= d and Q * P * lanes <= 132 * 512 and (bq, bp) == (0, 0)
+        else:
+            assert 1 <= bq <= min(Q, 128) and 1 <= bp <= min(P, 128) and bq * bp <= 4 * 256
+            assert d < 4 or Q * P * 2 > 132 * 512
+
+    @pytest.mark.parametrize(
+        "name,shape,cls",
+        [
+            ("apex_bounds", dict(n=20, dtype="float32"), (20, "float32")),
+            ("apex_bounds_batch", dict(Q=1, dims=10), (1, 10)),
+            ("apex_topk", dict(Q=64, k=64, key="mid", dims=10), (64, 64, "mid", 10)),
+            ("apex_threshold", dict(Q=64, cap=512, dims=20), (64, 512, 20)),
+            ("apex_project", dict(B=1, n=20, dtype="float64"), (1, 20, "float64")),
+            ("jsd_pairwise", dict(Q=1, P=20, d=112, dtype="float64"), (1, 20, 112, "float64")),
+            ("jsd_pairwise", dict(Q=1, P=32, d=112, dtype="float64"), (1, 32, 112, "float64")),
+            ("jsd_pairwise", dict(Q=1, P=33, d=112, dtype="float64"), (1, 64, 112, "float64")),
+            ("jsd_pairwise", dict(Q=1, P=200, d=112, dtype="float64"), (1, 256, 112, "float64")),
+            ("jsd_pairwise", dict(Q=1, P=256, d=112, dtype="float64"), (1, 256, 112, "float64")),
+        ],
+    )
+    def test_shape_class(self, name, shape, cls):
+        assert ops.shape_class(name, **shape) == cls
+
+    def test_shape_class_unknown_kernel(self):
+        with pytest.raises(KeyError):
+            ops.shape_class("apex_nothing", Q=1)
+
+    def test_reset_clears_shape_counts(self):
+        ops.SHAPE_LAUNCHES["jsd_pairwise"][(1, 256, 112, "float64")] = 3
+        ops.reset_launches()
+        assert all(by == {} for by in ops.SHAPE_LAUNCHES.values())
+        assert set(ops.SHAPE_LAUNCHES) == set(ops.LAUNCHES)
