@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-shapes '[["jsd_pairwise", [1, 256, 112, "float64"]], ...]'
+    python3 chip_smoke.py --time-shapes '[["apex_threshold", [64, 512, 20], [0, 5]]]'
     python3 chip_smoke.py --approx-only
 
 It needs a CUDA device and the repository checkout around it, builds the
@@ -10,6 +11,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
 0, no result line) on any fault.  One JSON line per phase:
 
   1. device   — ``nvidia-smi`` name and power limit, torch/CUDA versions,
+                a host-only yardstick's seconds (``host_yardstick``; the
+                two single-phase modes below print it at their end too),
                 kernel build time, and the FP64 instructions of one IEEE
                 ``log`` read from ``cuobjdump -sass`` of a probe kernel (on
                 the fast path that K5's positive normal arguments take, and
@@ -62,14 +65,24 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 it, on operands made from the JSD approximate index, held to
                 its plain version (K2/K3 exactly, to a selection over K1's
                 own matrices), CUDA-event times of wrapper and plain
-                version, the bound at that shape and, for K1/K6, the time of
-                the one-call yardstick ``torch.cdist`` (``library_ms``);
-  7. ``{"kernels": [...]}`` — those rows with their launches;
+                version, each launched kernel's device time from
+                ``torch.profiler`` (``device_ms``: K3's scan and merge
+                apart), the bound at that shape and, for K1/K6, the time of
+                the one-call yardstick ``torch.cdist`` (``library_ms``).
+                K3 rows are also timed at k-NN pass B's thresholds (the
+                K-th smallest upb, ``pass_b_ms``: every query overflows at
+                1M rows).  K1 and K3 rows are timed again under the launch
+                plan that runs their previous design (``PREVIOUS_DESIGN``);
+  7. ``{"kernels": [...]}`` — those rows with their launches (K1 and K3 with
+                ``plan`` and ``previous_design_ms``);
 then the card's ``nvidia-smi`` line, and last the device contract line.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
 and prints ``{"shape_times": [...]}`` for the given (kernel, shape class)
-pairs, so two checkouts can be timed in turns on one card.  ``--approx-only``
+pairs, so two checkouts can be timed in turns on one card; an entry
+``[kernel, shape class, plan]`` forces K1's (``"stream"``, ``"tile"``) or
+K3's (``[G, S]``; G = 0 is the first design, one query per block) launch
+plan; a K1 or K3 class of more queries than the 256 query rows repeats them.  ``--approx-only``
 runs phase 4 alone, with its checks, so two checkouts' approximate batch
 and service wall times can be taken in turns on one card.
 """
@@ -131,6 +144,21 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def host_yardstick() -> float:
+    """Seconds of a fixed host-only workload (numpy sorts and a Python
+    loop).  Host-bound wall times (small wrapper calls, per-query routes)
+    move with the host the card shares; two A/B turns whose yardsticks
+    differ differ in the host, not only in the program."""
+    a = np.random.default_rng(0).random(200_000)
+    t0 = time.perf_counter()
+    for _ in range(40):
+        np.sort(a)
+    acc = 0
+    for i in range(2_000_000):
+        acc += i & 7
+    return time.perf_counter() - t0
+
+
 def time_ms(torch, fn, reps=10) -> float:
     """Mean CUDA-event time of ``fn`` after one warm-up call."""
     fn()
@@ -144,11 +172,45 @@ def time_ms(torch, fn, reps=10) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(torch, fn, reps=10) -> dict:
+    """Device time per call of each kernel ``fn`` launches, by kernel name,
+    from ``torch.profiler`` (empty where the profiler records no device
+    activity): it separates a kernel's own time from the wrapper's host
+    path, and the phases of a multi-kernel wrapper (scan, merge)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            bare = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", ""))[0]
+            name = re.sub(r"^(void )?.*::", "", bare).removeprefix("void ").strip() or e.name
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
 def roofline(bytes_, ops, flops_per_s):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the peak rate of their type."""
     t_bytes, t_ops = bytes_ / HBM_BPS * 1e3, ops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def select_bound(Q_, N_, n_, dims, q_numel, out_bytes, kept, squares=1):
+    """Bound of a fused f32 selection scan (K2, K3): the table and queries
+    read once and the selection written once, against the operations the
+    answer needs.  Per (query, row): the head dot product, 2(dims - 1), and
+    the squared bounds the key is decided on (3 for the head norm, 3 for each
+    square: ``squares`` is 2 for K2's mid key, else 1); no square root, since
+    a squared bound decides every row that does not enter.  Per kept row:
+    the other square and the two square roots, 6."""
+    return roofline(N_ * n_ * 4 + q_numel * 4 + out_bytes,
+                    Q_ * N_ * (2 * (dims - 1) + 3 + 3 * squares) + kept * 6, F32_FLOPS)
 
 
 def bound(Q_, N_, n_, itemsize, out_bytes, flops_per_s):
@@ -372,6 +434,13 @@ HEADLINE = {
 }
 #: a shape class holding at least this share of its kernel's launches gets a row
 ROW_SHARE = 0.10
+#: kernels redesigned last, with the launch plan of their wrapper that still
+#: runs the previous design (K1: the tile plan at every Q; K3: one query per
+#: block, with the current merge), timed beside the new one in each row
+PREVIOUS_DESIGN = {
+    "apex_bounds_batch": ("tile plan", lambda ops, cls, N_, sms: "tile"),
+    "apex_threshold": ("one query per block", lambda ops, cls, N_, sms: (0, ops._slices(sms, cls[0], N_))),
+}
 #: why K2-K5 have no one-call PyTorch counterpart (``library_ms`` null)
 NO_LIBRARY = {
     "apex_topk": "no single PyTorch call scans bounds and keeps a per-query top-k by (key, id)",
@@ -429,21 +498,27 @@ class ShapeInputs:
         return self.queries[:count] if count <= self.queries.shape[0] else self.data[:count]
 
     def apexes(self, Q_, dims):
-        check(Q_ <= self.ap.shape[0], f"no more than {self.ap.shape[0]} query apexes")
-        return truncated(self.torch, self.ref, self.ap[:Q_], dims)
+        """``Q_`` query apexes folded to ``dims``; above the query rows they
+        repeat (the same work per query)."""
+        ap = self.ap.repeat(-(-Q_ // self.ap.shape[0]), 1)
+        return truncated(self.torch, self.ref, ap[:Q_], dims)
 
     def selection_want(self, L, U, keys, live, width):
         return self.ref._take(self.ref.pack_keys(keys, live), L, U, width)
 
-    def time_row(self, name, cls) -> dict:
-        """The wrapper at ``cls`` as the main path calls it: max error against
-        the plain version (exact for K2/K3: a selection over K1's own f32
-        matrices), CUDA-event times of wrapper and plain version, the bound
-        and, for K1/K6, the one-call library yardstick."""
+    def time_row(self, name, cls, plan=None) -> dict:
+        """The wrapper at ``cls`` as the main path calls it (under launch
+        ``plan`` where given, for K1 and K3): max error against the plain
+        version (exact for K2/K3: a selection over K1's own f32 matrices),
+        CUDA-event times of wrapper and plain version, the bound and, for
+        K1/K6, the one-call library yardstick."""
         torch, ops, ref = self.torch, self.ops, self.ref
+        kw = {} if plan is None else {"_plan": tuple(plan) if isinstance(plan, list) else plan}
         tab = self.tab
         N_, n_ = tab.shape
         lib_ms = None
+        check(plan is None or name in ("apex_bounds_batch", "apex_threshold"), f"{name} takes no launch plan")
+        extra = {}
         if name == "apex_bounds":
             q = self.ap[0]
             got, want = ops.apex_bounds(tab, q), ref.apex_bounds_ref(tab, q)
@@ -454,10 +529,10 @@ class ShapeInputs:
         elif name == "apex_bounds_batch":
             Q_, dims = cls
             q = self.apexes(Q_, dims)
-            got, want = ops.apex_bounds_batch(tab, q, dims=dims), ref.apex_bounds_batch_ref(tab, q, dims)
+            got, want = ops.apex_bounds_batch(tab, q, dims=dims, **kw), ref.apex_bounds_batch_ref(tab, q, dims)
             err = max(max_err(torch, got[0], want[0], F32_TOL), max_err(torch, got[1], want[1], F32_TOL))
             del got, want
-            run = lambda: ops.apex_bounds_batch(tab, q, dims=dims)  # noqa: E731
+            run = lambda: ops.apex_bounds_batch(tab, q, dims=dims, **kw)  # noqa: E731
             plain = lambda: ref.apex_bounds_batch_ref(tab, q, dims)  # noqa: E731
             lib_ms = self.cdist_ms(q, dims)
             b = roofline(N_ * n_ * 4 + q.numel() * 4 + 2 * Q_ * N_ * 4, Q_ * N_ * (2 * (dims - 1) + 12), F32_FLOPS)
@@ -474,25 +549,33 @@ class ShapeInputs:
             err = 0.0
             run = lambda: ops.apex_bounds_topk(tab, q, k, key=key, dims=dims)  # noqa: E731
             plain = lambda: ref.apex_topk_ref(tab, q, k, key, dims)  # noqa: E731
-            b = roofline(N_ * n_ * 4 + q.numel() * 4 + Q_ * k * 12, Q_ * N_ * (2 * (dims - 1) + 12), F32_FLOPS)
+            b = select_bound(Q_, N_, n_, dims, q.numel(), Q_ * k * 12, Q_ * k, squares=2 if key == "mid" else 1)
         elif name == "apex_threshold":
             Q_, cap, dims = cls
             q = self.apexes(Q_, dims)
             L, U = ops.apex_bounds_batch(tab, q, dims=dims)
-            # each query's threshold at rank cap / 2: the selection fills half
+            # each query's threshold at rank cap / 2 (the selection fills
+            # half), and k-NN pass B's: the K-th smallest upb, which at 1M
+            # rows overflows the cap for every query
             thr = torch.kthvalue(L, max(1, cap // 2), dim=1).values.contiguous()
-            hit = L <= thr[:, None]
-            ids, lwb, upb, counts = ops.apex_bounds_threshold(tab, q, thr, cap, dims=dims)
-            want = self.selection_want(L, U, L, hit, cap)
-            check(torch.equal(counts, hit.sum(dim=1).to(torch.int32)), f"K3 counts at {cls} differ")
-            check(all(torch.equal(g, w) for g, w in zip((ids, lwb, upb), want)),
-                  f"K3 at {cls} differs from the selection over K1")
+            thr_b = torch.kthvalue(U, K, dim=1).values.contiguous()
+            for t_ in (thr_b, thr):
+                hit = L <= t_[:, None]
+                ids, lwb, upb, counts = ops.apex_bounds_threshold(tab, q, t_, cap, dims=dims, **kw)
+                want = self.selection_want(L, U, L, hit, cap)
+                check(torch.equal(counts, hit.sum(dim=1).to(torch.int32)), f"K3 counts at {cls} differ")
+                check(all(torch.equal(g, w) for g, w in zip((ids, lwb, upb), want)),
+                      f"K3 at {cls} differs from the selection over K1")
+                if t_ is thr_b:
+                    extra["pass_b_mean_count"] = float(counts.double().mean())
+            kept = int(counts.clamp(max=cap).sum())
             del L, U, hit, want
             err = 0.0
-            run = lambda: ops.apex_bounds_threshold(tab, q, thr, cap, dims=dims)  # noqa: E731
+            run = lambda: ops.apex_bounds_threshold(tab, q, thr, cap, dims=dims, **kw)  # noqa: E731
+            run_b = lambda: ops.apex_bounds_threshold(tab, q, thr_b, cap, dims=dims, **kw)  # noqa: E731
+            extra.update(pass_b_ms=time_ms(torch, run_b), pass_b_device_ms=device_ms(torch, run_b))
             plain = lambda: ref.apex_threshold_ref(tab, q, thr, cap, dims)  # noqa: E731
-            b = roofline(N_ * n_ * 4 + q.numel() * 4 + Q_ * (cap * 12 + 4), Q_ * N_ * (2 * (dims - 1) + 12),
-                         F32_FLOPS)
+            b = select_bound(Q_, N_, n_, dims, q.numel(), Q_ * (cap * 12 + 4), kept)
         elif name == "apex_project":
             B, n, dtype = cls
             p = self.inner.projector if n == self.inner.n_pivots else self.inner._prefix_projector(n)
@@ -527,7 +610,11 @@ class ShapeInputs:
         big = b[0] > 1.0
         ms = time_ms(torch, run, reps=10 if big else 50)
         plain_ms = time_ms(torch, plain, reps=2 if big else 10)
-        return dict(shape=list(cls), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b, library_ms=lib_ms)
+        row = dict(shape=list(cls), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b, library_ms=lib_ms,
+                   device_ms=device_ms(torch, run), **extra)
+        if plan is not None:
+            row["plan"] = plan
+        return row
 
     def cdist_ms(self, q, dims):
         """K1/K6's one-call yardstick: ``torch.cdist(q, S)`` with S the
@@ -550,10 +637,11 @@ class ShapeInputs:
 
 
 def time_shapes(torch, ops, ref, inputs, pairs) -> list:
-    """One timed row per (kernel, shape class)."""
+    """One timed row per (kernel, shape class) or (kernel, shape class,
+    launch plan)."""
     out = []
-    for name, cls in pairs:
-        m = inputs.time_row(name, tuple(cls))
+    for name, cls, *plan in pairs:
+        m = inputs.time_row(name, tuple(cls), *plan)
         emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, **m)
         out.append((name, m))
         torch.cuda.empty_cache()
@@ -820,7 +908,7 @@ def kernel_row(name, m, launches, share) -> dict:
         "name": f"{kid} {name}", "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
         "bound_ms": m["bound"][0], "bound_by": m["bound"][1], "library_ms": m["library_ms"],
-        "shape": m["shape"], "launch_share": share,
+        "shape": m["shape"], "launch_share": share, "device_ms": m["device_ms"],
     }
     if name in NO_LIBRARY:
         row["library_none_because"] = NO_LIBRARY[name]
@@ -850,7 +938,7 @@ def main(argv=None) -> int:
 
     smi = nvidia_smi()
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), host_yardstick_s=host_yardstick())
     t0 = time.perf_counter()
     build.library()
     emit(phase="build", seconds=time.perf_counter() - t0, nvcc_flags=list(build.NVCC_FLAGS))
@@ -868,6 +956,7 @@ def main(argv=None) -> int:
         inputs = ShapeInputs(torch, ops, ref, index, queries_np, log)
         timed = time_shapes(torch, ops, ref, inputs, json.loads(args.time_shapes))
         print(json.dumps({"shape_times": [dict(name=name, **m) for name, m in timed]}), flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
         print(smi, flush=True)
         return 0
 
@@ -881,6 +970,7 @@ def main(argv=None) -> int:
         approx_runs = [phase_approx(*mods, "euclidean", index=euclid), phase_approx(*mods, "jensen_shannon")]
         for rec in approx_runs:
             verify_approx(torch, ops, ref, rec)
+        emit(phase="host", host_yardstick_s=host_yardstick())
         print(smi, flush=True)
         return 0
 
@@ -910,9 +1000,21 @@ def main(argv=None) -> int:
 
     inputs = ShapeInputs(torch, ops, ref, approx_runs[-1]["index"], queries_np, log)
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, m in time_shapes(torch, ops, ref, inputs, rows_to_time(hist)):
         n, share = next((n, share) for cls, n, share in hist[name] if list(cls) == m["shape"])
-        rows.append(kernel_row(name, m, n, share))
+        row = kernel_row(name, m, n, share)
+        if name in PREVIOUS_DESIGN:
+            label, plan_of = PREVIOUS_DESIGN[name]
+            cls = tuple(m["shape"])
+            prev = inputs.time_row(name, cls, plan_of(ops, cls, inputs.tab.shape[0], sms))
+            emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, design=label, **prev)
+            row.update({key: m[key] for key in ("pass_b_ms", "pass_b_device_ms", "pass_b_mean_count") if key in m})
+            row.update({f"previous_design_{key}": prev[key] for key in ("pass_b_ms",) if key in prev})
+            row.update(previous_design=label, previous_design_ms=prev["ms"],
+                       plan="stream" if name == "apex_bounds_batch"
+                       else list(ops.threshold_plan(cls[1], cls[0], inputs.tab.shape[0], sms)))
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

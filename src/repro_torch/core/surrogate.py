@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import simplex as _sx
+from repro_torch.device import resolve_device
 from repro_torch.kernels import apex_project
 from repro_torch.metrics import Metric
 
@@ -32,11 +33,11 @@ class NSimplexProjector:
 
     mode = "gemm"
 
-    def __init__(self, pivots, metric: Metric, *, device="cpu"):
+    def __init__(self, pivots, metric: Metric, *, device="cuda"):
         pivots = np.asarray(pivots)
         if pivots.shape[0] < 2:
             raise ValueError("need at least 2 pivots")
-        device = torch.device(device)
+        device = resolve_device(device)
         pivots_t = torch.tensor(pivots, device=device)
         D = metric.cross(pivots_t, pivots_t).cpu().numpy().copy()
         np.fill_diagonal(D, 0.0)
@@ -52,7 +53,7 @@ class NSimplexProjector:
         self._set(pivots, metric, sigma, np.linalg.inv(L), np.sum(L**2, axis=1), device)
 
     @classmethod
-    def from_fitted(cls, pivots, metric: Metric, sigma, Linv, sq_norms, *, device="cpu"):
+    def from_fitted(cls, pivots, metric: Metric, sigma, Linv, sq_norms, *, device="cuda"):
         """Restore a fitted projector without measuring any distance."""
         proj = object.__new__(cls)
         proj._set(
@@ -61,7 +62,7 @@ class NSimplexProjector:
             np.asarray(sigma, dtype=np.float64),
             np.asarray(Linv, dtype=np.float64),
             np.asarray(sq_norms, dtype=np.float64),
-            torch.device(device),
+            resolve_device(device),
         )
         return proj
 

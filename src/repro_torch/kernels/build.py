@@ -39,11 +39,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repro_apex_bounds_f32": [_P, _I, _I, _P, _P, _P, _P],
     "repro_apex_bounds_f64": [_P, _I, _I, _P, _P, _P, _P],
-    "repro_apex_bounds_batch_f32": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
-    "repro_apex_bounds_batch_f64": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    "repro_apex_bounds_batch_f32": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "repro_apex_bounds_batch_f64": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "repro_apex_topk": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "repro_apex_threshold": [
-        _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+        _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
     ],
     "repro_apex_project_f32": [_P, _I, _I, _P, _P, _P, _P],
     "repro_apex_project_f64": [_P, _I, _I, _P, _P, _P, _P],

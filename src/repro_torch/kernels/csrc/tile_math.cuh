@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 __device__ __forceinline__ float op_add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double op_add(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float op_sub(float a, float b) { return __fsub_rn(a, b); }
@@ -65,4 +67,48 @@ __device__ __forceinline__ void pair_bounds(const T* q, T q2, T qa, const T* x, 
     bound_squares(q2, qa, x2, xa, dot, lwb_sq, upb_sq);
     lwb = op_sqrt(lwb_sq);
     upb = op_sqrt(upb_sq);
+}
+
+// A table row of compile-time width NW into registers: 16-byte loads
+// (float4 / double2) when NW * sizeof(T) is a multiple of 16 and `vec` says
+// the table's base is 16-byte aligned (so is every row), scalar loads
+// otherwise.
+template <typename T, int NW>
+__device__ __forceinline__ void load_row(const T* x, bool vec, T (&xr)[NW]) {
+    constexpr int kVec = 16 / sizeof(T);
+    if constexpr (NW % kVec == 0) {
+        if (vec) {
+            using V = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
+            const V* xv = reinterpret_cast<const V*>(x);
+#pragma unroll
+            for (int v = 0; v < NW / kVec; ++v) {
+                const V a = __ldg(xv + v);
+                if constexpr (sizeof(T) == 4) {
+                    xr[4 * v] = a.x;
+                    xr[4 * v + 1] = a.y;
+                    xr[4 * v + 2] = a.z;
+                    xr[4 * v + 3] = a.w;
+                } else {
+                    xr[2 * v] = a.x;
+                    xr[2 * v + 1] = a.y;
+                }
+            }
+            return;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) xr[i] = __ldg(x + i);
+}
+
+// row_terms() of a row held in registers, in its order.
+template <typename T, int NW>
+__device__ __forceinline__ void row_terms_reg(const T (&xr)[NW], int hd, T& sq, T& alt) {
+    T s = T(0), t = T(0);
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+        if (i < hd) s = op_fma(xr[i], xr[i], s);
+        else t = op_fma(xr[i], xr[i], t);
+    }
+    sq = s;
+    alt = op_sqrt(clamp0(t));
 }

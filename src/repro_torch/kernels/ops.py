@@ -46,6 +46,7 @@ __all__ = [
     "jsd_plan",
     "reset_launches",
     "shape_class",
+    "threshold_plan",
     "topk_plan",
 ]
 
@@ -176,8 +177,8 @@ def _ptr(t):
 
 def _slices(sms: int, blocks_per_slice: int, N: int) -> int:
     """Row slices of the selection kernels, for ``blocks_per_slice`` blocks
-    over each slice (K3: one per query; K2: one per query group): enough
-    blocks for two waves over the card, at least 8192 rows each."""
+    over each slice (one per query group): enough blocks for two waves over
+    the card, at least 8192 rows each."""
     want = -(-2 * sms // max(blocks_per_slice, 1))
     return int(max(1, min(want, -(-N // 8192), 64)))
 
@@ -206,6 +207,42 @@ def topk_plan(k: int, Q: int, N: int, sms: int) -> tuple:
     return G, _slices(sms, groups, N)
 
 
+#: K3's group budget, candidate buffer length and slices per gather block:
+#: ``kThrGroupBytes``, ``kThrCand`` and ``kGatherSlices`` in
+#: select_epilogue.cu, which refuses a G outside the budget
+_THR_GROUP_BYTES = 64 * 1024
+_THR_CAND = 512
+_THR_GATHER = 8
+
+
+def threshold_plan(cap: int, Q: int, N: int, sms: int) -> tuple:
+    """K3's launch plan ``(G, S)``: G queries per block, as many 512-key
+    candidate buffers as fit in 64 KiB (16; the keys a query keeps live in
+    its slot of the global scratch, so G does not depend on ``cap``),
+    balanced over the ``ceil(Q / G)`` groups; and S row slices so that
+    groups x slices fill the card.  One query is a group of one, which on
+    the H100 was faster than one query per block at half-cap thresholds and
+    slower by a tenth at k-NN pass B's at cap 512 (PERF.md).  G = 0, one
+    query per block (the first design), is never chosen here; a caller may
+    force it to time against it."""
+    G = max(1, min(_TOPK_MAX_GROUP, _THR_GROUP_BYTES // (_THR_CAND * 8), Q))
+    groups = -(-Q // G)
+    G = -(-Q // groups)
+    return G, _slices(sms, groups, N)
+
+
+#: K1's launch plans: ``"stream"`` (one thread per row, row in registers,
+#: 64-query chunks), which the wrapper runs at every Q, and ``"tile"`` (table
+#: tile x 16-query tile, the first design), which only a caller that forces
+#: it runs
+_K1_PLANS = {"tile": 0, "stream": 1}
+
+
+def _check_plan(plan, valid: bool, what: str):
+    if plan is not None and not valid:
+        raise ValueError(f"{what}: invalid launch plan {plan!r}")
+
+
 def apex_bounds(table: torch.Tensor, query: torch.Tensor):
     """K6: (lwb, upb), each (N,), of one (n,) query apex against an (N, n) table."""
     if table.ndim != 2 or query.shape != (table.shape[1],):
@@ -226,23 +263,28 @@ def apex_bounds(table: torch.Tensor, query: torch.Tensor):
     return lwb, upb
 
 
-def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int = None):
+def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int = None, _plan: str = None):
     """K1: (lwb, upb), each (Q, N), of a (Q, n or dims) query block against
-    an (N, n) table; ``dims=k`` gives the truncated k-prefix bounds."""
-    queries = torch.atleast_2d(queries)
+    an (N, n) table; ``dims=k`` gives the truncated k-prefix bounds.  The
+    private ``_plan`` forces ``"tile"``, the first design, on the card
+    (timing and tests; by default ``"stream"``); both give the same bits."""
+    if queries.ndim == 1:   # cheaper than torch.atleast_2d on this per-query path
+        queries = queries[None]
     dims = _check_table(table, queries, dims)
+    _check_plan(_plan, _plan in _K1_PLANS, "apex_bounds_batch")
     if not _on_cuda(table, queries):
         return ref.apex_bounds_batch_ref(table, queries, dims)
     from repro_torch.kernels.build import library
 
     table, queries = table.contiguous(), queries.contiguous()
     (N, n), (Q, qw) = table.shape, queries.shape
-    lwb = torch.empty((Q, N), dtype=table.dtype, device=table.device)
-    upb = torch.empty_like(lwb)
+    lwb, upb = torch.empty((2, Q, N), dtype=table.dtype, device=table.device)   # one allocation
     lib = library()
     fn = lib.repro_apex_bounds_batch_f32 if table.dtype == torch.float32 else lib.repro_apex_bounds_batch_f64
+    code = _K1_PLANS[_plan or "stream"]
     _check(
-        fn(table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, lwb.data_ptr(), upb.data_ptr(), _stream(table.device)),
+        fn(table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, code, lwb.data_ptr(), upb.data_ptr(),
+           _stream(table.device)),
         "apex_bounds_batch",
     )
     _counted("apex_bounds_batch", Q=Q, dims=dims)
@@ -261,6 +303,15 @@ def _check_select(table, queries, dims, width: int, what: str):
 def _scratch(Q: int, S: int, width: int, device):
     wp = 1 << (width - 1).bit_length()
     return torch.empty((Q, S, wp), dtype=torch.int64, device=device)
+
+
+def _threshold_scratch(Q: int, S: int, cap: int, device):
+    """K3's key scratch: per (query, slice) a slot of ``wp + max(wp, 512)``
+    keys, then per query ``ceil(S / 8)`` gathered selections of ``wp``
+    (``thr_slot`` and ``kGatherSlices`` in select_epilogue.cu)."""
+    wp = 1 << (cap - 1).bit_length()
+    slot = wp + max(wp, _THR_CAND)
+    return torch.empty(Q * S * slot + Q * -(-S // _THR_GATHER) * wp, dtype=torch.int64, device=device)
 
 
 def _select_outputs(Q: int, width: int, device):
@@ -310,12 +361,18 @@ def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = No
     return ids, lwb, upb
 
 
-def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = None, rowmask=None):
+def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = None, rowmask=None,
+                          _plan: tuple = None):
     """K3: per query the up-to-``cap`` smallest ``(lwb, id)`` among rows with
     ``lwb <= thresholds[q]`` (f32 compare), sorted, as (ids, lwb, upb), each
     (Q, cap), plus the exact per-query count of passing rows — a count above
-    ``cap`` flags overflow.  ``cap`` is clamped to N."""
+    ``cap`` flags overflow.  ``cap`` is clamped to N.  The private ``_plan``
+    forces a launch plan ``(G, S)`` on the card (timing and tests; by
+    default ``threshold_plan``; G = 0 is the first design, one query per
+    block); every plan gives the same result."""
     queries = torch.atleast_2d(queries)
+    _check_plan(_plan, _plan is None or (len(_plan) == 2 and 0 <= _plan[0] <= _TOPK_MAX_GROUP and _plan[1] >= 1),
+                "apex_bounds_threshold")
     cap = int(min(cap, table.shape[0]))
     dims = _check_select(table, queries, dims, cap, "apex_bounds_threshold")
     thresholds = torch.as_tensor(thresholds, dtype=torch.float32, device=table.device).reshape(-1)
@@ -329,14 +386,14 @@ def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = N
 
     table, queries, thresholds = table.contiguous(), queries.contiguous(), thresholds.contiguous()
     (N, n), (Q, qw) = table.shape, queries.shape
-    S = _slices(_sm_count(table.device.index or 0), Q, N)
-    part = _scratch(Q, S, cap, table.device)
+    G, S = _plan or threshold_plan(cap, Q, N, _sm_count(table.device.index or 0))
+    part = _threshold_scratch(Q, S, cap, table.device)
     part_counts = torch.empty((Q, S), dtype=torch.int32, device=table.device)
     ids, lwb, upb = _select_outputs(Q, cap, table.device)
     counts = torch.empty(Q, dtype=torch.int32, device=table.device)
     _check(
         library().repro_apex_threshold(
-            table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), thresholds.data_ptr(), cap, S,
+            table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), thresholds.data_ptr(), cap, G, S,
             part.data_ptr(), part_counts.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(),
             counts.data_ptr(), _stream(table.device),
         ),

@@ -144,3 +144,20 @@ def test_degenerate_pivots_raise():
         NSimplexProjector(P, get_metric("euclidean"), device="cpu")
     with pytest.raises(ValueError, match="degenerate"):
         RProjector(pivots=P, metric=rget("euclidean"), dtype=np.float64)
+
+
+def test_projector_default_device_raises_without_a_card(hist):
+    """Like ``build_index``: the projector runs on the card unless the caller
+    asks for the CPU, and raises when there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    P = select_pivots(hist[0], 6, seed=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NSimplexProjector(P, get_metric("euclidean"))
+    fitted = NSimplexProjector(P, get_metric("euclidean"), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NSimplexProjector.from_fitted(P, fitted.metric, fitted.sigma, fitted.Linv, fitted.sq_norms)
+    restored = NSimplexProjector.from_fitted(
+        P, fitted.metric, fitted.sigma, fitted.Linv, fitted.sq_norms, device="cpu"
+    )
+    assert restored.device == torch.device("cpu")

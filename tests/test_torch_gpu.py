@@ -6,8 +6,9 @@ tests).  Run on a card with:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: rtol = atol = 2e-5 in float32, 1e-12 in float64 for K1 and K6;
-K2 and K3 must equal a selection over K1's own float32 matrices exactly;
+Tolerances: rtol = atol = 2e-5 in float32, 1e-12 in float64 for K1 and K6
+(and K1's two launch plans bit-equal to each other); K2 and K3 must equal a
+selection over K1's own float32 matrices exactly;
 K4 at 3e-4 in float32 (``tests/test_kernels.py::TestApexProject``) and K5 at
 1e-4 (``TestJsdPairwise``, here squared, before the final sqrt), both at
 1e-12 in float64.
@@ -66,6 +67,82 @@ def test_k1_apex_bounds_batch(cuda, dtype, dims, pretruncated):
         _close(g, w, dtype)
 
 
+#: query blocks on both sides of the stream plan's 64-query chunks
+K1_Q = [1, 2, 3, 37, 64, 65, 130]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [9, 10, 11, 20])
+@pytest.mark.parametrize("N", [1, 127, 50_003])
+@pytest.mark.parametrize("Q", K1_Q)
+def test_k1_plans(cuda, dtype, n, N, Q):
+    """The default plan (the stream plan at every Q: 16-byte row loads at
+    n = 20 f32 and n = 10, 20 f64; scalar loads at n = 9, 11 and 10 f32;
+    one, two or three 64-query chunks) against the plain version, one launch
+    per call, and bit-equal to the stream plan forced and to the tile plan."""
+    table, queries = _apexes(N, n, N + n, dtype, cuda), _apexes(Q, n, Q + 1, dtype, cuda)
+    before = LAUNCHES["apex_bounds_batch"]
+    got = ops.apex_bounds_batch(table, queries)
+    assert LAUNCHES["apex_bounds_batch"] == before + 1
+    for g, w in zip(got, ref.apex_bounds_batch_ref(table, queries, n)):
+        _close(g, w, dtype)
+    for plan in ("stream", "tile"):
+        for g, w in zip(got, ops.apex_bounds_batch(table, queries, _plan=plan)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float64, 96), (torch.float64, 128), (torch.float32, 200)])
+@pytest.mark.parametrize("Q", [1, 64, 130])
+def test_k1_wide_table(cuda, dtype, n, Q):
+    """Tables wide enough that a block's queries take more than the default
+    48 KiB of shared memory (64 queries x 98 f64 values and up): both plans
+    launch, agree with the plain version and give the same bits."""
+    table, queries = _apexes(3001, n, 17, dtype, cuda), _apexes(Q, n, 18, dtype, cuda)
+    got = {plan: ops.apex_bounds_batch(table, queries, _plan=plan) for plan in ("stream", "tile")}
+    for g, w in zip(got["stream"], ref.apex_bounds_batch_ref(table, queries, n)):
+        _close(g, w, dtype)
+    for g, w in zip(got["stream"], got["tile"]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [10, 20])
+@pytest.mark.parametrize("dims,narrow", [(2, False), (7, False), (7, True), (9, True)])
+@pytest.mark.parametrize("Q", [1, 3, 37])
+def test_k1_plans_truncated(cuda, dtype, n, dims, narrow, Q):
+    """dims truncation under both plans, with full-width queries (the kernel
+    folds their tail) and with queries ``dims`` wide."""
+    table, queries = _apexes(50_003, n, 13, dtype, cuda), _apexes(Q, n, 14, dtype, cuda)
+    if narrow:
+        head, alt = ref.split_trunc(queries, dims)
+        queries = torch.cat([head, alt[:, None]], dim=1).contiguous()
+    got = ops.apex_bounds_batch(table, queries, dims=dims)
+    for g, w in zip(got, ref.apex_bounds_batch_ref(table, queries, dims)):
+        _close(g, w, dtype)
+    for g, w in zip(got, ops.apex_bounds_batch(table, queries, dims=dims, _plan="tile")):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", ["row", "element"])
+@pytest.mark.parametrize("Q", [1, 5, 37, 70])
+def test_k1_table_with_storage_offset(cuda, dtype, offset, Q):
+    """A contiguous table view that starts past its storage's base: one row
+    in (16-byte aligned at n = 20) or one element in (not aligned: the stream
+    plan takes scalar loads).  Same bits as the tile plan, which stages
+    through shared memory."""
+    N, n = 20_011, 20
+    flat = _apexes(N + 1, n, 15, dtype, cuda).reshape(-1)
+    table = flat[n:].view(N, n) if offset == "row" else flat[1:1 + N * n].view(N, n)
+    assert table.is_contiguous() and table.storage_offset() > 0
+    queries = _apexes(Q, n, 16, dtype, cuda)
+    got = ops.apex_bounds_batch(table, queries)
+    for g, w in zip(got, ref.apex_bounds_batch_ref(table, queries, n)):
+        _close(g, w, dtype)
+    for g, w in zip(got, ops.apex_bounds_batch(table, queries, _plan="tile")):
+        assert torch.equal(g, w)
+
+
 def _selection(packed, L, U, width):
     return ref._take(packed, L, U, width)
 
@@ -120,24 +197,131 @@ def test_k2_duplicate_keys_break_by_id(cuda, k, Q):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("cap", [1, 512, 4096])
+#: cap on both sides of powers of two up to 4096: every selection width
+#: (next_pow2(cap)) the kernels size their state by; K3's G does not depend
+#: on cap (the keys a query keeps live in global memory)
+K3_CAPS = [1, 2, 3, 16, 17, 128, 129, 256, 257, 512, 513, 1024, 1025, 2048, 2049, 4096]
+
+
+def _k3_thresholds(L, cap, seed):
+    """One threshold per query, of six kinds in turn: a rank below cap, an
+    f32 lwb value itself and one ulp below it (the pre-filter's edge), -1
+    (an empty query), +inf (every live row), and a rank above cap
+    (overflow)."""
+    Q, N = L.shape
+    srt = torch.sort(L, dim=1).values
+    r = torch.arange(Q, device=L.device)
+    below = srt[r, min(N - 1, max(0, cap // 2))]
+    at = srt[r, min(N - 1, cap - 1)]
+    over = srt[r, min(N - 1, 2 * cap + 100)]
+    kinds = [below, at, torch.nextafter(at, torch.full_like(at, -float("inf"))),
+             torch.full_like(at, -1.0), torch.full_like(at, float("inf")), over]
+    kind = (torch.arange(Q, device=L.device) + seed) % len(kinds)
+    return torch.stack(kinds)[kind, r].contiguous()
+
+
+@pytest.mark.parametrize("cap", K3_CAPS)
+@pytest.mark.parametrize("Q", [1, 19, 64, 257])
 @pytest.mark.parametrize("masked", [False, True])
-def test_k3_threshold_equals_selection_over_k1(cuda, cap, masked):
-    table, queries = _apexes(40_009, 20, 8, torch.float32, cuda), _apexes(23, 20, 9, torch.float32, cuda)
-    mask = torch.rand(40_009, generator=torch.Generator().manual_seed(3)).lt(0.6).to(cuda) if masked else None
-    L, U = ops.apex_bounds_batch(table, queries)
-    ranks = torch.linspace(1, 5000, queries.shape[0], device=cuda).long()
-    thr = torch.sort(L[:, :16384], dim=1).values[torch.arange(queries.shape[0], device=cuda), ranks]
-    thr[0] = -1.0                                         # an empty query
-    ids, lwb, upb, counts = ops.apex_bounds_threshold(table, queries, thr, cap, rowmask=mask)
+@pytest.mark.parametrize("dims,narrow", [(None, False), (10, False), (11, True)])
+def test_k3_threshold_equals_selection_over_k1(cuda, k2_table, cap, Q, masked, dims, narrow):
+    """Bit-equal to a selection over K1's own matrices with exact counts, at
+    every cap boundary of the plan, with and without a rowmask, with dims
+    None, dims 10 with full-width queries and dims 11 with 11-wide queries;
+    thresholds of every kind of ``_k3_thresholds``; the plan asserted."""
+    table, queries = k2_table[0], k2_table[1][:Q]
+    if narrow:
+        head, alt = ref.split_trunc(queries, dims)
+        queries = torch.cat([head, alt[:, None]], dim=1).contiguous()
+    N = table.shape[0]
+    G, S = ops.threshold_plan(cap, Q, N, ops._sm_count(0))
+    assert (G == 1) == (Q == 1)
+    assert G == min(Q, 16) or Q > 16 and G == -(-Q // -(-Q // 16))
+    assert G * ops._THR_CAND * 8 <= ops._THR_GROUP_BYTES
+    mask = torch.rand(N, generator=torch.Generator().manual_seed(3)).lt(0.6).to(cuda) if masked else None
+    L, U = ops.apex_bounds_batch(table, queries, dims=dims)
+    thr = _k3_thresholds(L, cap, Q + cap)
+    before = LAUNCHES["apex_threshold"]
+    ids, lwb, upb, counts = ops.apex_bounds_threshold(table, queries, thr, cap, dims=dims, rowmask=mask)
+    assert LAUNCHES["apex_threshold"] == before + 1
     live = torch.ones_like(L, dtype=torch.bool) if mask is None else mask[None].expand_as(L)
     hit = live & (L <= thr[:, None])
     assert torch.equal(counts, hit.sum(dim=1).to(torch.int32))
-    assert bool((counts > cap).any())                     # overflow keeps the cap smallest
-    assert int(counts[0]) == 0 and bool((ids[0] == SENTINEL).all())
+    assert bool((counts[thr < 0] == 0).all())             # t = -1 passes nothing
     want = _selection(ref.pack_keys(L, hit), L, U, cap)
     for g, w in zip((ids, lwb, upb), want):
         assert torch.equal(g, w)
+
+
+def test_k3_cases_include_every_threshold_kind(cuda, k2_table):
+    """The Q = 19 cases hold empty, full and overflowing queries, and
+    thresholds at an lwb value and one ulp below it."""
+    table, queries = k2_table[0], k2_table[1][:19]
+    L, _ = ops.apex_bounds_batch(table, queries)
+    thr = _k3_thresholds(L, 512, 19 + 512)
+    _, _, _, counts = ops.apex_bounds_threshold(table, queries, thr, 512)
+    assert bool((counts == 0).any()) and bool((counts == table.shape[0]).any())
+    assert bool(((counts > 512) & (counts < table.shape[0])).any())
+    assert bool((L == thr[:, None]).any(dim=1).sum() >= 3)
+
+
+@pytest.mark.parametrize("cap", [10, 512, 4096])
+@pytest.mark.parametrize("Q", [19, 64])
+def test_k3_duplicate_keys_break_by_id(cuda, cap, Q):
+    """Every row four times: equal keys leave the grouped scan by id, and
+    thresholds set to lwb values count every copy."""
+    table = _apexes(5003, 12, 11, torch.float32, cuda).repeat_interleave(4, dim=0).contiguous()
+    queries = _apexes(Q, 12, 12, torch.float32, cuda)
+    L, U = ops.apex_bounds_batch(table, queries)
+    thr = _k3_thresholds(L, cap, 1)
+    ids, lwb, upb, counts = ops.apex_bounds_threshold(table, queries, thr, cap)
+    hit = L <= thr[:, None]
+    assert torch.equal(counts, hit.sum(dim=1).to(torch.int32))
+    want = _selection(ref.pack_keys(L, hit), L, U, cap)
+    for g, w in zip((ids, lwb, upb), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cap", [10, 512, 4096])
+@pytest.mark.parametrize("Q", [8, 64])
+@pytest.mark.parametrize("dims", [None, 10])
+def test_k3_many_slices_heavy_overflow(cuda, cap, Q, dims):
+    """200,003 rows give 25 slices, so the gather runs several blocks per
+    query; thresholds at the 10th smallest upb (k-NN pass B) and, for every
+    other query, +inf, whose slots all overflow and select, as at 1M rows."""
+    table = _apexes(200_003, 20, 21, torch.float32, cuda)
+    queries = _apexes(Q, 20, 22, torch.float32, cuda)
+    G, S = ops.threshold_plan(cap, Q, table.shape[0], ops._sm_count(0))
+    assert S > 8
+    L, U = ops.apex_bounds_batch(table, queries, dims=dims)
+    thr = torch.kthvalue(U, 10, dim=1).values
+    thr[1::2] = float("inf")
+    ids, lwb, upb, counts = ops.apex_bounds_threshold(table, queries, thr, cap, dims=dims)
+    hit = L <= thr[:, None]
+    assert torch.equal(counts, hit.sum(dim=1).to(torch.int32)) and bool((counts[1::2] > cap).all())
+    want = _selection(ref.pack_keys(L, hit), L, U, cap)
+    for g, w in zip((ids, lwb, upb), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("plan", [(0, 3), (0, 64), (1, 3), (2, 5), (3, 1), (7, 4), (11, 2), (13, 9), (16, 3)])
+def test_k3_every_group_size_agrees(cuda, k2_table, plan):
+    """Forced plans, the first design (G = 0: one query per block) and
+    groups of one included, give the default plan's result, with partial
+    last groups (Q = 64 is no multiple of 3, 7, 11 or 13)."""
+    table, queries = k2_table[0], k2_table[1][:64]
+    L, _ = ops.apex_bounds_batch(table, queries)
+    thr = _k3_thresholds(L, 512, 5)
+    got = ops.apex_bounds_threshold(table, queries, thr, 512, _plan=plan)
+    for g, w in zip(got, ops.apex_bounds_threshold(table, queries, thr, 512)):
+        assert torch.equal(g, w)
+
+
+def test_k3_plan_outside_its_budget_is_refused(cuda, k2_table):
+    table, queries = k2_table[0], k2_table[1][:64]
+    thr = torch.ones(64, device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ops.apex_bounds_threshold(table, queries, thr, 4096, _plan=(17, 4))
 
 
 def test_wider_than_kernel_refused(cuda):

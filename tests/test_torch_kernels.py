@@ -419,6 +419,71 @@ class TestLaunchPlans:
         assert ops.topk_plan(64, 64, 1_000_000, 132) == (13, 53)
 
     @pytest.mark.parametrize(
+        "name,cuda_name,source",
+        [
+            ("_THR_GROUP_BYTES", "kThrGroupBytes", "select_epilogue.cu"),
+            ("_THR_CAND", "kThrCand", "select_epilogue.cu"),
+            ("_THR_GATHER", "kGatherSlices", "select_epilogue.cu"),
+        ],
+    )
+    def test_k3_and_k1_plan_constants_match_the_kernels(self, name, cuda_name, source):
+        """threshold_plan's budget is the one run_threshold enforces."""
+        src = (Path(ops.__file__).parent / "csrc" / source).read_text()
+        found = re.findall(rf"constexpr int {cuda_name} = (\d+);", src)
+        assert found == [str(getattr(ops, name))]
+
+    @pytest.mark.parametrize("cap", [1, 10, 257, 512, 513, 2048, 4096])
+    @pytest.mark.parametrize("Q", [1, 2, 16, 17, 19, 64, 65, 257])
+    def test_threshold_plan(self, cap, Q):
+        """G = min(Q, 16) candidate buffers of 512 keys in 64 KiB, balanced
+        over the groups, at any cap (the keys a query keeps live in global
+        memory); S fills the card; G = 1 only for one query."""
+        G, S = ops.threshold_plan(cap, Q, 1_000_000, 132)
+        groups = -(-Q // G)
+        assert 1 <= G <= min(Q, 16) and (G == 1) == (Q == 1)
+        assert G * 512 * 8 <= 64 * 1024
+        assert groups == -(-Q // 16) and groups * G - Q < groups
+        assert 1 <= S <= 64 and groups * S >= min(2 * 132, groups * 64)
+
+    def test_threshold_plan_at_the_main_path_shapes(self):
+        """(Q 64, cap 512 or 4096): 4 groups of 16 queries, 64 slices; the
+        table is read 4 times, not 64; one query is a group of one."""
+        assert ops.threshold_plan(512, 64, 1_000_000, 132) == (16, 64)
+        assert ops.threshold_plan(4096, 64, 1_000_000, 132) == (16, 64)
+        assert ops.threshold_plan(4096, 8, 1_000_000, 132) == (8, 64)
+        assert ops.threshold_plan(512, 1, 1_000_000, 132) == (1, 64)
+
+    @pytest.mark.parametrize("plan", ["tile", "stream"])
+    @pytest.mark.parametrize("Q", [1, 65, 130])
+    def test_k1_forced_plan_leaves_the_cpu_result(self, plan, Q):
+        """K1's private ``_plan`` (timing and tests; the card runs the stream
+        plan by default at every Q, in 64-query chunks) is checked, and the
+        CPU result stays the plain version's."""
+        table = _t(_apexes(200, 6, seed=1))
+        for a, b in zip(ops.apex_bounds_batch(table, table[:Q], _plan=plan), ops.apex_bounds_batch(table, table[:Q])):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("plan", [(3, 1), (0, 2), (1, 64)])
+    def test_k3_forced_plan_leaves_the_cpu_result(self, plan):
+        """K3's private ``_plan`` (G = 0: the first design, one query per
+        block) is checked, and the CPU result stays the plain version's."""
+        table = _t(_apexes(50, 6, seed=1))
+        for a, b in zip(ops.apex_bounds_threshold(table, table[:3], np.ones(3), 4, _plan=plan),
+                        ops.apex_bounds_threshold(table, table[:3], np.ones(3), 4)):
+            assert torch.equal(a, b)
+
+    def test_forced_plans_are_checked_on_the_cpu_too(self):
+        """A private ``_plan`` the kernels would refuse raises before any
+        dispatch."""
+        table = _t(_apexes(50, 6, seed=1))
+        for plan in ("wide", "Tile"):
+            with pytest.raises(ValueError, match="launch plan"):
+                ops.apex_bounds_batch(table, table[:3], _plan=plan)
+        for plan in ((-1, 2), (33, 2), (3, 0), (3,)):
+            with pytest.raises(ValueError, match="launch plan"):
+                ops.apex_bounds_threshold(table, table[:3], np.ones(3), 4, _plan=plan)
+
+    @pytest.mark.parametrize(
         "shape,plan",
         [
             ((1, 256, 112), (32, 0, 0)),          # refinement chunk
