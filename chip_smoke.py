@@ -5,6 +5,8 @@
     python3 chip_smoke.py --time-shapes '[["jsd_pairwise", [1, 256, 112, "float64"]], ...]'
     python3 chip_smoke.py --time-shapes '[["apex_threshold", [64, 512, 20], [0, 5]]]'
     python3 chip_smoke.py --approx-only
+    python3 chip_smoke.py --launch-path
+    python3 chip_smoke.py --ptxas
 
 It needs a CUDA device and the repository checkout around it, builds the
 CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
@@ -24,7 +26,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 ``rowmask`` and f64 (K1/K6 within rtol = atol = 2e-5 in f32
                 or 1e-12 in f64, K2/K3 exactly equal to a host lexsort and
                 count over K1's own f32 matrices); K4 on the table build's
-                1M x 20 f64 pivot distances at 1e-12, and in f32 at 3e-4;
+                1M x 20 f64 pivot distances at 1e-12, and in f32 at 3e-4,
+                each bit-equal to K4's first design (``_plan="row"``);
                 K5 on the build's 1M x 112 rows against the 20 pivots in f64
                 at 1e-12 (and exactly 0 for each pivot against itself), the
                 refinement shapes 1 x 256 and 1 x 4096 in f64 at 1e-12 and a
@@ -68,23 +71,36 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 version, each launched kernel's device time from
                 ``torch.profiler`` (``device_ms``: K3's scan and merge
                 apart), the bound at that shape and, for K1/K6, the time of
-                the one-call yardstick ``torch.cdist`` (``library_ms``).
+                the one-call yardstick ``torch.cdist`` (``library_ms``);
+                K4 rows also hold the wrapper bit-equal to the first design
+                and, where it runs the warp or row plan, carry
+                ``launch_floor_ms``, the CUDA-event time of back-to-back
+                launches of the library's empty kernel through ctypes.
                 K3 rows are also timed at k-NN pass B's thresholds (the
                 K-th smallest upb, ``pass_b_ms``: every query overflows at
-                1M rows).  K1 and K3 rows are timed again under the launch
-                plan that runs their previous design (``PREVIOUS_DESIGN``);
-  7. ``{"kernels": [...]}`` — those rows with their launches (K1 and K3 with
-                ``plan`` and ``previous_design_ms``);
+                1M rows).  K1, K3 and K4 rows are timed again under the
+                launch plan that runs their previous design
+                (``PREVIOUS_DESIGN``);
+  7. ``{"kernels": [...]}`` — those rows with their launches (K1, K3 and K4
+                with ``plan``, ``previous_design_ms`` and
+                ``previous_design_device_ms``);
 then the card's ``nvidia-smi`` line, and last the device contract line.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
 and prints ``{"shape_times": [...]}`` for the given (kernel, shape class)
 pairs, so two checkouts can be timed in turns on one card; an entry
-``[kernel, shape class, plan]`` forces K1's (``"stream"``, ``"tile"``) or
-K3's (``[G, S]``; G = 0 is the first design, one query per block) launch
-plan; a K1 or K3 class of more queries than the 256 query rows repeats them.  ``--approx-only``
-runs phase 4 alone, with its checks, so two checkouts' approximate batch
-and service wall times can be taken in turns on one card.
+``[kernel, shape class, plan]`` forces K1's (``"stream"``, ``"tile"``),
+K3's (``[G, S]``; G = 0 is the first design, one query per block) or K4's
+(``"row"``, the first design, ``"stream"``, ``"warp"``) launch plan; a K1
+or K3 class of more queries than the 256 query rows repeats them.
+``--approx-only`` runs phase 4 alone, with its checks, so two checkouts'
+approximate batch and service wall times can be taken in turns on one
+card.  ``--launch-path`` times each step of K4's query path at (1, 20,
+f64), and K1's and K5's small calls, alone on the host clock
+(``launch_path``; copied into an older checkout it times that checkout's
+path).  ``--ptxas`` prints the registers, spills and stack of
+apex_project.cu's kernels from ``nvcc -Xptxas -v`` and that compile's
+seconds.
 """
 
 from __future__ import annotations
@@ -257,6 +273,114 @@ def log_cost(build) -> dict:
             "fast_path_flops": sum(_FP64_FLOPS_OF.get(op, 0) for op in fast), "all_instructions": len(code)}
 
 
+def ptxas_report(build, source="apex_project.cu") -> dict:
+    """Registers, spills and stack of each kernel in one source, from
+    ``nvcc -Xptxas -v`` with the kernels' flags, and that compile's seconds.
+    Kernels are named (kernel, dtype, head width) from their mangled names."""
+    nvcc = build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = subprocess.run([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-cubin", str(build._CSRC / source),
+                              "-o", str(Path(tmp) / "k.cubin")], capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"nvcc -Xptxas -v failed on {source}: {res.stderr[-2000:]}")
+    kernels, name = {}, None
+    for line in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        info = kernels.setdefault(name, {}) if name else None
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and info is not None:
+            info.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and info is not None:
+            info["registers"] = int(m.group(1))
+    rows = []
+    for mangled, info in kernels.items():
+        m = re.search(r"(apex_project_(?:stream_|warp_)?kernel|empty_kernel)(?:I([fd])(?:Li(\d+)E)?)?", mangled)
+        if m and "registers" in info:
+            rows.append(dict(kernel=m.group(1), dtype={"f": "float32", "d": "float64"}.get(m.group(2)),
+                             head=int(m.group(3)) if m.group(3) else None, **info))
+    return {"source": source, "seconds": seconds, "kernels": sorted(rows, key=lambda r: (r["kernel"], str(r["dtype"]),
+                                                                                        r["head"] or 0))}
+
+
+def launch_path(torch, ops, build, proj, query, reps=10_000) -> list:
+    """Host-clock microseconds per call of each step of K4's query path at
+    (1, n, f64), each taken alone over ``reps`` back-to-back calls (then one
+    synchronise): the steps of the wrapper as it was before its launch path
+    was cut, the steps that replaced them, and the whole calls, K1's and
+    K5's small calls among them.  A step that launches enqueues ``reps``
+    kernels, so it reads the larger of the host cost and the kernel's
+    device time."""
+    dev = proj.pivots_t.device
+    d2 = proj.pivot_distances(query[None]).contiguous()
+    d1 = d2[0].clone()
+    L, s = proj._Linv_t, proj._sq_norms_t
+    B, n = d2.shape
+    h = n - 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = build.library().repro_apex_project_f64
+    out = torch.empty_like(d2)
+    args = [d2.data_ptr(), B, n, L.data_ptr(), s.data_ptr(), out.data_ptr()]
+    if len(fn.argtypes) == 9:       # plan and SM count
+        args += [ops._K4_PLANS[ops.apex_project_plan(B, n, sms)], sms]
+    args.append(ops._stream(dev))
+
+    def import_library():
+        from repro_torch.kernels.build import library  # noqa: F401
+
+    # the two other small wrappers that share ``_stream`` and the counters:
+    # K1 at Q = 1 against a 1M-row table (device-bound: ~0.03 ms on the card)
+    # and K5 at a refinement chunk (host-bound)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.rand((N_ROWS, n), generator=g, dtype=torch.float32, device=dev)
+    q32 = torch.rand((1, n), generator=g, dtype=torch.float32, device=dev)
+    xj = torch.rand((1, DIM), generator=g, dtype=torch.float64, device=dev)
+    yj = torch.rand((256, DIM), generator=g, dtype=torch.float64, device=dev)
+
+    steps = [
+        ("torch.as_tensor of f64 distances on the card", lambda: torch.as_tensor(d1, dtype=torch.float64, device=dev)),
+        ("torch.atleast_2d", lambda: torch.atleast_2d(d1)),
+        ("index d[None]", lambda: d1[None]),
+        ("index out[0]", lambda: d2[0]),
+        ("shape checks", lambda: d2.ndim != 2 or d2.shape[1] < 2 or L.shape != (h, h) or s.shape != (h,)),
+        ("ops._check_float", lambda: ops._check_float(d2, L, s, what="apex_project")),
+        ("dtype checks by identity", lambda: d2.dtype is torch.float64 and L.dtype is d2.dtype and s.dtype is d2.dtype),
+        ("ops._on_cuda", lambda: ops._on_cuda(d2, L, s)),
+        ("get_device x3", lambda: (d2.get_device(), L.get_device(), s.get_device())),
+        ("import of build.library", import_library),
+        ("contiguous x3", lambda: (d2.contiguous(), L.contiguous(), s.contiguous())),
+        ("is_contiguous x3", lambda: (d2.is_contiguous(), L.is_contiguous(), s.is_contiguous())),
+        ("torch.empty_like", lambda: torch.empty_like(d2)),
+        ("library() and function lookup", lambda: build.library().repro_apex_project_f64),
+        ("torch.cuda.current_stream().cuda_stream", lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("ops._stream", lambda: ops._stream(dev)),
+        ("data_ptr x4", lambda: (d2.data_ptr(), L.data_ptr(), s.data_ptr(), out.data_ptr())),
+        ("ctypes call (one launch)", lambda: fn(*args)),
+        ("ops._counted", lambda: ops._counted("apex_project", B=B, n=n, dtype="float64")),
+        ("ops.apex_project (1, n)", lambda: ops.apex_project(d2, L, s)),
+        ("project_distances (n,)", lambda: proj.project_distances(d1)),
+        ("project_distances (1, n)", lambda: proj.project_distances(d2)),
+        ("ops.apex_bounds_batch (1, n) against 1M rows", lambda: ops.apex_bounds_batch(table, q32)),
+        ("ops.jsd_pairwise (1, 256, 112) f64", lambda: ops.jsd_pairwise(xj, yj)),
+    ]
+    rows = []
+    for label, step in steps:
+        for _ in range(200):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        rows.append({"step": label, "us": (time.perf_counter() - t0) / reps * 1e6})
+    ops.reset_launches()
+    return rows
+
+
 def max_err(torch, got, want, tol):
     """max |got - want|, asserting |got - want| <= tol + tol * |want|."""
     diff = (got - want).abs()
@@ -371,10 +495,20 @@ def phase_kernels_k4_k5(torch, ops, ref, inner, data, queries):
     dist = proj.pivot_distances(data)                            # (1M, 20) f64
     Linv, sq = proj._Linv_t, proj._sq_norms_t
     B, n = dist.shape
-    err = check_k4(torch, ops.apex_project(dist, Linv, sq), ref.apex_project_ref(dist, Linv, sq), F64_TOL)
+    sms = torch.cuda.get_device_properties(dist.device).multi_processor_count
+    got = ops.apex_project(dist, Linv, sq)
+    check(torch.equal(got, ops.apex_project(dist, Linv, sq, _plan="row")),
+          "K4 at the build shape is not bit-equal to the first design (f64)")
+    err = check_k4(torch, got, ref.apex_project_ref(dist, Linv, sq), F64_TOL)
+    del got
     d32, L32, s32 = dist.float(), Linv.float(), sq.float()
-    err32 = check_k4(torch, ops.apex_project(d32, L32, s32), ref.apex_project_ref(d32, L32, s32), K4_F32_TOL)
-    emit(phase="kernels", kernel="K4", shape=[B, n], max_abs_err_f64=err, max_abs_err_f32=err32)
+    got = ops.apex_project(d32, L32, s32)
+    check(torch.equal(got, ops.apex_project(d32, L32, s32, _plan="row")),
+          "K4 at the build shape is not bit-equal to the first design (f32)")
+    err32 = check_k4(torch, got, ref.apex_project_ref(d32, L32, s32), K4_F32_TOL)
+    del got
+    emit(phase="kernels", kernel="K4", shape=[B, n], plan=ops.apex_project_plan(B, n, sms),
+         bit_equal_to_first_design=True, max_abs_err_f64=err, max_abs_err_f32=err32)
     del dist, d32
 
     # K4 and K5 at the query shapes, f64: a 64-query block and one query,
@@ -385,8 +519,10 @@ def phase_kernels_k4_k5(torch, ops, ref, inner, data, queries):
         piv = p.pivots_t.double()
         for rows in (Q, 1):
             blk = qd[:rows]
-            e4 = check_k4(torch, ops.apex_project(blk, p._Linv_t, p._sq_norms_t),
-                          ref.apex_project_ref(blk, p._Linv_t, p._sq_norms_t), F64_TOL)
+            got = ops.apex_project(blk, p._Linv_t, p._sq_norms_t)
+            check(torch.equal(got, ops.apex_project(blk, p._Linv_t, p._sq_norms_t, _plan="row")),
+                  "K4 at a query shape is not bit-equal to the first design")
+            e4 = check_k4(torch, got, ref.apex_project_ref(blk, p._Linv_t, p._sq_norms_t), F64_TOL)
             a = qs64[:rows]
             e5 = max_err_sq(torch, ops.jsd_pairwise(a, piv),
                             ref.jsd_pairwise_ref(l1_normalise(torch, a), l1_normalise(torch, piv)), F64_TOL)
@@ -440,7 +576,17 @@ ROW_SHARE = 0.10
 PREVIOUS_DESIGN = {
     "apex_bounds_batch": ("tile plan", lambda ops, cls, N_, sms: "tile"),
     "apex_threshold": ("one query per block", lambda ops, cls, N_, sms: (0, ops._slices(sms, cls[0], N_))),
+    "apex_project": ("one thread per row", lambda ops, cls, N_, sms: "row"),
 }
+
+
+def current_plan(ops, name, cls, N_, sms):
+    """The launch plan the wrapper picks at ``cls`` (K1, K3, K4)."""
+    if name == "apex_bounds_batch":
+        return "stream"
+    if name == "apex_threshold":
+        return list(ops.threshold_plan(cls[1], cls[0], N_, sms))
+    return ops.apex_project_plan(cls[0], cls[1], sms)
 #: why K2-K5 have no one-call PyTorch counterpart (``library_ms`` null)
 NO_LIBRARY = {
     "apex_topk": "no single PyTorch call scans bounds and keeps a per-query top-k by (key, id)",
@@ -492,6 +638,20 @@ class ShapeInputs:
         self.data = inner.data
         self.queries = torch.as_tensor(queries_np, device=self.tab.device)
         self.ap = inner.query_apex_batch(queries_np).float().contiguous()
+        self.sms = torch.cuda.get_device_properties(self.tab.device).multi_processor_count
+        self._floor = None
+
+    def launch_floor_ms(self):
+        """CUDA-event ms per launch of the library's empty kernel, called
+        back to back through ctypes with the current stream fetched per call
+        as the wrappers do: the floor under any small K4 call."""
+        if self._floor is None:
+            from repro_torch.kernels.build import library
+
+            fn, ops, dev = library().repro_launch_floor, self.ops, self.tab.device
+            check(fn(ops._stream(dev)) == 0, "the empty kernel did not launch")
+            self._floor = time_ms(self.torch, lambda: fn(ops._stream(dev)), reps=2000)
+        return self._floor
 
     def rows(self, count):
         """``count`` raw corpus-shaped rows: the queries, or corpus rows."""
@@ -517,7 +677,8 @@ class ShapeInputs:
         tab = self.tab
         N_, n_ = tab.shape
         lib_ms = None
-        check(plan is None or name in ("apex_bounds_batch", "apex_threshold"), f"{name} takes no launch plan")
+        check(plan is None or name in ("apex_bounds_batch", "apex_threshold", "apex_project"),
+              f"{name} takes no launch plan")
         extra = {}
         if name == "apex_bounds":
             q = self.ap[0]
@@ -583,12 +744,19 @@ class ShapeInputs:
             dist = p.pivot_distances(self.rows(B)).to(dt).contiguous()
             Linv, sq = p._Linv_t.to(dt), p._sq_norms_t.to(dt)
             tol = F64_TOL if dt == torch.float64 else K4_F32_TOL
-            err = check_k4(torch, ops.apex_project(dist, Linv, sq), ref.apex_project_ref(dist, Linv, sq), tol)
-            run, plain = (lambda: ops.apex_project(dist, Linv, sq)), (lambda: ref.apex_project_ref(dist, Linv, sq))
+            got = ops.apex_project(dist, Linv, sq, **kw)
+            check(torch.equal(got, ops.apex_project(dist, Linv, sq, _plan="row")),
+                  f"K4 at {cls} is not bit-equal to the first design")
+            err = check_k4(torch, got, ref.apex_project_ref(dist, Linv, sq), tol)
+            del got
+            run = lambda: ops.apex_project(dist, Linv, sq, **kw)  # noqa: E731
+            plain = lambda: ref.apex_project_ref(dist, Linv, sq)  # noqa: E731
             h = n - 1
             size = dist.element_size()
             b = roofline(2 * B * n * size + (h * h + h) * size, B * (2 * h * h + 4 * h + 4),
                          F64_FLOPS if dt == torch.float64 else F32_FLOPS)
+            if (plan or ops.apex_project_plan(B, n, self.sms)) != "stream":
+                extra["launch_floor_ms"] = self.launch_floor_ms()
         elif name == "jsd_pairwise":
             Q_, P, d, dtype = cls
             dt = getattr(torch, dtype)
@@ -926,6 +1094,10 @@ def main(argv=None) -> int:
                              'apex_dims=10 JSD build (no e2e phases); prints {"shape_times": [...]}')
     parser.add_argument("--approx-only", action="store_true",
                         help="only run the approximate phase (both metrics) and its checks")
+    parser.add_argument("--launch-path", action="store_true",
+                        help="only time each step of K4's query path at (1, 20, f64), three rounds")
+    parser.add_argument("--ptxas", action="store_true",
+                        help="only print registers and spills of apex_project.cu's kernels (nvcc -Xptxas -v)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -939,9 +1111,26 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), host_yardstick_s=host_yardstick())
+    if args.ptxas:
+        emit(phase="ptxas", **ptxas_report(build))
+        print(smi, flush=True)
+        return 0
     t0 = time.perf_counter()
     build.library()
     emit(phase="build", seconds=time.perf_counter() - t0, nvcc_flags=list(build.NVCC_FLAGS))
+    if args.launch_path:
+        from repro_torch.core import NSimplexProjector, select_pivots
+
+        X = colors_like(n=4096, dim=DIM, seed=SEED)
+        proj = NSimplexProjector(select_pivots(X[:4000], N_PIVOTS, seed=SEED % 1000),
+                                 metrics_mod.get_metric("euclidean"), device="cuda")
+        q = torch.as_tensor(X[4000], device="cuda")
+        for round_ in range(3):
+            emit(phase="launch_path", round=round_, shape=[1, N_PIVOTS, "float64"],
+                 steps=launch_path(torch, ops, build, proj, q))
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
     log = log_cost(build)
     emit(phase="build", log_fp64=log)
 
@@ -1009,11 +1198,11 @@ def main(argv=None) -> int:
             cls = tuple(m["shape"])
             prev = inputs.time_row(name, cls, plan_of(ops, cls, inputs.tab.shape[0], sms))
             emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, design=label, **prev)
-            row.update({key: m[key] for key in ("pass_b_ms", "pass_b_device_ms", "pass_b_mean_count") if key in m})
-            row.update({f"previous_design_{key}": prev[key] for key in ("pass_b_ms",) if key in prev})
+            row.update({key: m[key] for key in ("pass_b_ms", "pass_b_device_ms", "pass_b_mean_count",
+                                                "launch_floor_ms") if key in m})
+            row.update({f"previous_design_{key}": prev[key] for key in ("pass_b_ms", "device_ms") if key in prev})
             row.update(previous_design=label, previous_design_ms=prev["ms"],
-                       plan="stream" if name == "apex_bounds_batch"
-                       else list(ops.threshold_plan(cls[1], cls[0], inputs.tab.shape[0], sms)))
+                       plan=current_plan(ops, name, cls, inputs.tab.shape[0], sms))
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

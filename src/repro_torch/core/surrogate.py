@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import simplex as _sx
 from repro_torch.device import resolve_device
 from repro_torch.kernels import apex_project
+from repro_torch.kernels.ops import _apex_project_vector
 from repro_torch.metrics import Metric
 
 __all__ = ["NSimplexProjector", "select_pivots", "truncate_apexes_np"]
@@ -77,6 +78,7 @@ class NSimplexProjector:
         self.pivots_t = torch.tensor(pivots, device=device)
         self._Linv_t = torch.as_tensor(Linv, dtype=torch.float64, device=device)
         self._sq_norms_t = torch.as_tensor(sq_norms, dtype=torch.float64, device=device)
+        self._device_index = self._Linv_t.get_device()   # -1 on the CPU
 
     @property
     def n_pivots(self) -> int:
@@ -87,10 +89,15 @@ class NSimplexProjector:
         return self.metric.cross(X, self.pivots_t)
 
     def project_distances(self, distances: torch.Tensor) -> torch.Tensor:
-        """Float64 apexes from (B, n) or (n,) pivot distances."""
-        distances = torch.as_tensor(distances, dtype=torch.float64, device=self.device)
-        out = apex_project(torch.atleast_2d(distances), self._Linv_t, self._sq_norms_t)
-        return out[0] if distances.ndim == 1 else out
+        """Float64 apexes from (B, n) or (n,) pivot distances.  Distances that
+        already are float64 on the projector's device go to K4 as they are
+        (this runs once per query)."""
+        if not (isinstance(distances, torch.Tensor) and distances.dtype is torch.float64
+                and distances.get_device() == self._device_index):
+            distances = torch.as_tensor(distances, dtype=torch.float64, device=self.device)
+        if distances.ndim == 1:
+            return _apex_project_vector(distances, self._Linv_t, self._sq_norms_t)
+        return apex_project(distances, self._Linv_t, self._sq_norms_t)
 
     def __call__(self, X: torch.Tensor) -> torch.Tensor:
         return self.project_distances(self.pivot_distances(X))

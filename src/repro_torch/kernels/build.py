@@ -45,8 +45,9 @@ _SIGNATURES = {
     "repro_apex_threshold": [
         _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
     ],
-    "repro_apex_project_f32": [_P, _I, _I, _P, _P, _P, _P],
-    "repro_apex_project_f64": [_P, _I, _I, _P, _P, _P, _P],
+    "repro_apex_project_f32": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
+    "repro_apex_project_f64": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
+    "repro_launch_floor": [_P],
     "repro_jsd_pairwise_f32": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
     "repro_jsd_pairwise_f64": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
 }

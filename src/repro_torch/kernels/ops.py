@@ -42,6 +42,7 @@ __all__ = [
     "apex_bounds_threshold",
     "apex_bounds_topk",
     "apex_project",
+    "apex_project_plan",
     "jsd_pairwise",
     "jsd_plan",
     "reset_launches",
@@ -111,16 +112,22 @@ def shape_class(name: str, **s) -> tuple:
     raise KeyError(name)
 
 
+_DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
+
+
 def _dtype_name(t: torch.Tensor) -> str:
-    return str(t.dtype).replace("torch.", "")
+    return _DTYPE_NAMES[t.dtype]
 
 
-def _counted(name: str, **shape) -> None:
-    cls = shape_class(name, **shape)
+def _count(name: str, cls: tuple) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
         by = SHAPE_LAUNCHES[name]
         by[cls] = by.get(cls, 0) + 1
+
+
+def _counted(name: str, **shape) -> None:
+    _count(name, shape_class(name, **shape))
 
 
 def _on_cuda(*tensors) -> bool:
@@ -138,8 +145,17 @@ def _check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+#: the current stream's raw handle without building a ``torch.cuda.Stream``
+#: (absent from CPU-only builds, which never launch)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream's handle on ``device`` (a device or its index)."""
+    index = device if isinstance(device, int) else device.index
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -409,32 +425,104 @@ def _check_float(*tensors, what: str):
         raise TypeError(f"{what} operands must share float32 or float64; got {[t.dtype for t in tensors]}")
 
 
-def apex_project(distances: torch.Tensor, Linv: torch.Tensor, sq_norms: torch.Tensor) -> torch.Tensor:
-    """K4: (B, n) apexes of (B, n) pivot distances against the fitted
-    (n-1, n-1) ``Linv`` and (n-1,) ``sq_norms``, in the distances' dtype
-    (f64 accumulates in f64)."""
-    if distances.ndim != 2 or distances.shape[1] < 2:
-        raise ValueError(f"need (B, n) pivot distances with n >= 2; got {tuple(distances.shape)}")
-    h = distances.shape[1] - 1
-    if Linv.shape != (h, h) or sq_norms.shape != (h,):
-        raise ValueError(
-            f"need a ({h}, {h}) Linv and ({h},) sq_norms for n = {h + 1}; "
-            f"got {tuple(Linv.shape)}, {tuple(sq_norms.shape)}"
-        )
-    _check_float(distances, Linv, sq_norms, what="apex_project")
-    if not _on_cuda(distances, Linv, sq_norms):
-        return ref.apex_project_ref(distances, Linv, sq_norms)
+#: K4's launch plans (``kPlanRow``, ``kPlanStream``, ``kPlanWarp`` in
+#: apex_project.cu): ``"row"``, one thread per row (the first design, every
+#: n); ``"stream"``, rows streamed through a cp.async ring by persistent
+#: blocks; ``"warp"``, one warp per row
+_K4_PLANS = {"row": 0, "stream": 1, "warp": 2}
+#: widest head n - 1 of the stream and warp plans: ``kMaxHead`` in
+#: apex_project.cu, which refuses either plan above it
+_K4_MAX_HEAD = 32
+#: the warp plan serves calls of at most this many rows per SM (one
+#: 32-thread block per row; on the H100 it beat the stream plan up to 1024
+#: rows and tied or lost from 4096, PERF.md)
+_K4_WARP_ROWS_PER_SM = 16
+#: K4's ctypes functions by dtype, looked up at the first launch
+_K4_FN = {}
+
+
+def apex_project_plan(B: int, n: int, sms: int) -> str:
+    """K4's launch plan for B rows of n pivot distances on ``sms`` SMs: the
+    first design (``"row"``) where n - 1 exceeds the templated widths, else
+    one warp per row while the rows are few (the query shapes), else the
+    stream plan (table builds).  Every plan gives the same bits."""
+    if n - 1 > _K4_MAX_HEAD:
+        return "row"
+    return "warp" if B <= _K4_WARP_ROWS_PER_SM * sms else "stream"
+
+
+def _k4_fn(dtype):
     from repro_torch.kernels.build import library
 
-    distances, Linv, sq_norms = distances.contiguous(), Linv.contiguous(), sq_norms.contiguous()
+    lib = library()
+    fn = _K4_FN[dtype] = lib.repro_apex_project_f32 if dtype is torch.float32 else lib.repro_apex_project_f64
+    return fn
+
+
+def apex_project(distances: torch.Tensor, Linv: torch.Tensor, sq_norms: torch.Tensor, *,
+                 _plan: str = None) -> torch.Tensor:
+    """K4: (B, n) apexes of (B, n) pivot distances against the fitted
+    (n-1, n-1) ``Linv`` and (n-1,) ``sq_norms``, in the distances' dtype
+    (f64 accumulates in f64).  The private ``_plan`` forces a launch plan on
+    the card (timing and tests; by default ``apex_project_plan``; ``"row"``
+    is the first design); every plan gives the same bits."""
+    if distances.ndim != 2 or distances.shape[1] < 2:
+        raise ValueError(f"need (B, n) pivot distances with n >= 2; got {tuple(distances.shape)}")
     B, n = distances.shape
+    return _project(distances, B, n, Linv, sq_norms, _plan)
+
+
+def _apex_project_vector(distances: torch.Tensor, Linv: torch.Tensor, sq_norms: torch.Tensor) -> torch.Tensor:
+    """K4 on one (n,) row of pivot distances: its (n,) apex, with the checks
+    of ``apex_project`` and no view in or out (the projector's per-query
+    path)."""
+    if distances.ndim != 1 or distances.shape[0] < 2:
+        raise ValueError(f"need (n,) pivot distances with n >= 2; got {tuple(distances.shape)}")
+    return _project(distances, 1, distances.shape[0], Linv, sq_norms, None)
+
+
+def _project(distances, B: int, n: int, Linv, sq_norms, plan):
+    """``apex_project`` on ``distances`` read as (B, n) rows; the output
+    takes the distances' shape.  Its checks read attributes directly rather
+    than through the shared helpers: this runs once per query."""
+    h = n - 1
+    if Linv.shape != (h, h) or sq_norms.shape != (h,):
+        raise ValueError(
+            f"need a ({h}, {h}) Linv and ({h},) sq_norms for n = {n}; "
+            f"got {tuple(Linv.shape)}, {tuple(sq_norms.shape)}"
+        )
+    dt = distances.dtype
+    if dt not in _DTYPE_NAMES or Linv.dtype is not dt or sq_norms.dtype is not dt:
+        raise TypeError(
+            f"apex_project operands must share float32 or float64; got {[dt, Linv.dtype, sq_norms.dtype]}"
+        )
+    if plan is not None:
+        _check_plan(plan, plan in _K4_PLANS and (plan == "row" or h <= _K4_MAX_HEAD), "apex_project")
+    dev = distances.get_device()
+    if Linv.get_device() != dev or sq_norms.get_device() != dev:
+        raise ValueError(
+            "operands must all lie on one CPU or CUDA device; got "
+            f"{[str(t.device) for t in (distances, Linv, sq_norms)]}"
+        )
+    if dev < 0:
+        return ref.apex_project_ref(distances.reshape(B, n), Linv, sq_norms).reshape(distances.shape)
+    if not distances.is_contiguous():
+        distances = distances.contiguous()
+    if not Linv.is_contiguous():
+        Linv = Linv.contiguous()
+    if not sq_norms.is_contiguous():
+        sq_norms = sq_norms.contiguous()
     out = torch.empty_like(distances)
-    fn = library().repro_apex_project_f32 if distances.dtype == torch.float32 else library().repro_apex_project_f64
+    if B == 0:
+        return out
+    sms = _sm_count(dev)
+    fn = _K4_FN.get(dt) or _k4_fn(dt)
     _check(
-        fn(distances.data_ptr(), B, n, Linv.data_ptr(), sq_norms.data_ptr(), out.data_ptr(), _stream(distances.device)),
+        fn(distances.data_ptr(), B, n, Linv.data_ptr(), sq_norms.data_ptr(), out.data_ptr(),
+           _K4_PLANS[plan or apex_project_plan(B, n, sms)], sms, _stream(dev)),
         "apex_project",
     )
-    _counted("apex_project", B=B, n=n, dtype=_dtype_name(distances))
+    _count("apex_project", (B, n, _DTYPE_NAMES[dt]))
     return out
 
 

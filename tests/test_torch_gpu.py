@@ -9,7 +9,7 @@ tests).  Run on a card with:
 Tolerances: rtol = atol = 2e-5 in float32, 1e-12 in float64 for K1 and K6
 (and K1's two launch plans bit-equal to each other); K2 and K3 must equal a
 selection over K1's own float32 matrices exactly;
-K4 at 3e-4 in float32 (``tests/test_kernels.py::TestApexProject``) and K5 at
+K4's plans bit-equal to its first design, and at 3e-4 in float32 (``tests/test_kernels.py::TestApexProject``) and K5 at
 1e-4 (``TestJsdPairwise``, here squared, before the final sqrt), both at
 1e-12 in float64.
 """
@@ -345,16 +345,90 @@ def _fitted(n, seed, device):
             dists.to(device))
 
 
+#: K4 widths: the warp and stream plans' templated heads (n - 1 <= 32) at
+#: the main path's n = 10, 20 and both edges, and wider n, which only the
+#: first design serves
+K4_N = [2, 3, 10, 20, 21, 33, 64, 65, 100]
+#: K4 row counts: empty, the warp plan's query shapes around warp-size edges,
+#: and the stream plan's partial tiles of 128 rows; 300,001 rows give most
+#: persistent blocks several tiles, so the ring wraps
+K4_B = [0, 1, 2, 31, 32, 33, 63, 64, 65, 1000, 5000, 300_001]
+
+
+def _k4_plans(n):
+    return ("row", "stream", "warp") if n - 1 <= ops._K4_MAX_HEAD else ("row",)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [4, 20, 64])
-@pytest.mark.parametrize("B", [1, 1000, 5000])
+@pytest.mark.parametrize("n", K4_N)
+@pytest.mark.parametrize("B", K4_B)
 def test_k4_apex_project(cuda, dtype, n, B):
+    """The default plan and every plan K4 serves at n, forced, bit-equal to
+    the first design (``"row"``); the default within 3e-4 (f32) or 1e-12
+    (f64) of the plain version; one launch per call that has rows (an empty
+    call launches nothing)."""
     Linv, sq, dists = (t.to(dtype) for t in _fitted(n, n, cuda))
+    dists = dists.repeat(-(-B // dists.shape[0]), 1)[:B]
     before = LAUNCHES["apex_project"]
-    got = ops.apex_project(dists[:B], Linv, sq)
-    assert LAUNCHES["apex_project"] == before + 1
+    got = ops.apex_project(dists, Linv, sq)
+    assert LAUNCHES["apex_project"] == before + (B > 0)
+    assert got.shape == (B, n) and got.dtype == dtype
+    for plan in _k4_plans(n):
+        before = LAUNCHES["apex_project"]
+        assert torch.equal(ops.apex_project(dists, Linv, sq, _plan=plan), got), plan
+        assert LAUNCHES["apex_project"] == before + (B > 0)
     tol = 3e-4 if dtype == torch.float32 else 1e-12
-    torch.testing.assert_close(got, ref.apex_project_ref(dists[:B], Linv, sq), rtol=tol, atol=tol)
+    torch.testing.assert_close(got, ref.apex_project_ref(dists, Linv, sq), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [10, 20, 65])
+@pytest.mark.parametrize("B", [1, 64, 5000])
+def test_k4_non_contiguous_distances(cuda, dtype, n, B):
+    """A strided view of the distances (every other row, and one row of a
+    transposed block) gives the bits of its contiguous copy under every plan."""
+    Linv, sq, dists = (t.to(dtype) for t in _fitted(n, n, cuda))
+    view = dists.repeat(2, 1)[: 2 * B : 2]
+    assert not view.is_contiguous() or B == 1
+    want = ops.apex_project(view.contiguous(), Linv, sq, _plan="row")
+    for plan in (None,) + _k4_plans(n):
+        assert torch.equal(ops.apex_project(view, Linv, sq, _plan=plan), want), plan
+    column = dists[:n].T.contiguous().T[:1]          # (1, n) with strides (1, n)
+    assert torch.equal(ops.apex_project(column, Linv, sq), ops.apex_project(column.contiguous(), Linv, sq))
+
+
+def test_k4_plan_and_shape_class(cuda):
+    """The wrapper's plan at the main path's shapes and the shape class its
+    launch counts under; the templated plans refuse n - 1 > 32."""
+    sms = ops._sm_count(0)
+    assert [ops.apex_project_plan(B, n, sms) for B, n in ((1, 20), (64, 10), (10**6, 20), (64, 65))] == [
+        "warp", "warp", "stream", "row"]
+    Linv, sq, dists = _fitted(20, 20, cuda)
+    ops.reset_launches()
+    ops.apex_project(dists[:64], Linv, sq)
+    assert ops.SHAPE_LAUNCHES["apex_project"] == {ops.shape_class("apex_project", B=64, n=20, dtype="float64"): 1}
+    Linv, sq, dists = _fitted(34, 34, cuda)
+    for plan in ("stream", "warp"):
+        with pytest.raises(ValueError, match="launch plan"):
+            ops.apex_project(dists[:3], Linv, sq, _plan=plan)
+    assert torch.equal(ops.apex_project(dists[:3], Linv, sq), ops.apex_project(dists[:3], Linv, sq, _plan="row"))
+
+
+@pytest.mark.parametrize("n", [10, 20, 40])
+def test_k4_projector_vector_path(cuda, n):
+    """A projector on the card projects an (n,) vector through one launch,
+    to the bits of the (1, n) call, counted under the (1, n) class."""
+    from repro_torch.core import NSimplexProjector
+    from repro_torch.metrics import get_metric
+
+    X = np.random.default_rng(n).normal(size=(n + 8, n + 3))
+    proj = NSimplexProjector(X[:n], get_metric("euclidean"), device="cuda")
+    d = proj.pivot_distances(torch.as_tensor(X[n:], device=cuda))
+    ops.reset_launches()
+    one = proj.project_distances(d[3])
+    assert ops.SHAPE_LAUNCHES["apex_project"] == {(1, n, "float64"): 1}
+    assert one.shape == (n,) and torch.equal(one, ops.apex_project(d[3:4], proj._Linv_t, proj._sq_norms_t)[0])
+    assert torch.equal(proj.project_distances(d), ops.apex_project(d, proj._Linv_t, proj._sq_norms_t, _plan="row"))
 
 
 def _histograms(rows, d, seed, dtype, device):

@@ -314,6 +314,74 @@ class TestApexProject:
         with pytest.raises(TypeError):
             ops.apex_project(dists.float(), Linv, sq)
 
+    @pytest.mark.parametrize(
+        "case,error",
+        [
+            ("1-D distances", ValueError),
+            ("3-D distances", ValueError),
+            ("one pivot", ValueError),
+            ("Linv too narrow", ValueError),
+            ("Linv not square", ValueError),
+            ("sq_norms too long", ValueError),
+            ("f32 distances, f64 Linv", TypeError),
+            ("f64 distances, f32 sq_norms", TypeError),
+            ("f16 operands", TypeError),
+            ("int64 distances", TypeError),
+            ("unknown plan", ValueError),
+        ],
+    )
+    def test_refused_operands_still_raise(self, case, error):
+        """Every operand the wrapper refused before its launch path was cut
+        is still refused, on the CPU too."""
+        proj, dists = _projector(6, seed=1)
+        d, L, s = dists[:4], _t(proj.Linv), _t(proj.sq_norms)
+        args, kw = {
+            "1-D distances": ((d[0], L, s), {}),
+            "3-D distances": ((d[None], L, s), {}),
+            "one pivot": ((d[:, :1], L[:0, :0], s[:0]), {}),
+            "Linv too narrow": ((d, L[:, :4], s), {}),
+            "Linv not square": ((d, L[:4], s), {}),
+            "sq_norms too long": ((d, L, torch.cat([s, s[:1]])), {}),
+            "f32 distances, f64 Linv": ((d.float(), L, s), {}),
+            "f64 distances, f32 sq_norms": ((d, L, s.float()), {}),
+            "f16 operands": ((d.half(), L.half(), s.half()), {}),
+            "int64 distances": ((d.long(), L.long(), s.long()), {}),
+            "unknown plan": ((d, L, s), {"_plan": "tile"}),
+        }[case]
+        with pytest.raises(error):
+            ops.apex_project(*args, **kw)
+
+    def test_vector_path_refuses_what_the_wrapper_refuses(self):
+        """The projector's (n,) entry takes one row only and checks its
+        operands as ``apex_project`` does."""
+        proj, dists = _projector(6, seed=1)
+        Linv, sq = _t(proj.Linv), _t(proj.sq_norms)
+        for bad in (dists[:2], dists[0, :1], dists[0, :5]):
+            with pytest.raises(ValueError):
+                ops._apex_project_vector(bad, Linv, sq)
+        with pytest.raises(TypeError):
+            ops._apex_project_vector(dists[0].float(), Linv, sq)
+        assert torch.equal(ops._apex_project_vector(dists[0], Linv, sq), ops.apex_project(dists[:1], Linv, sq)[0])
+
+    @pytest.mark.parametrize("form", ["(n,) f64", "(B, n) f64", "(n,) f32", "(B, n) f32", "(B, n) numpy f64",
+                                      "(n,) numpy f32", "(B, n) strided", "(B, n) prefix"])
+    def test_project_distances_unchanged(self, form):
+        """The projector's lean path (no conversion of f64 distances already on
+        its device, no atleast_2d) gives the bits of the plain projection of
+        the same distances as f64 (B, n) rows."""
+        proj, dists = _projector(20, seed=3)
+        p, d = (proj.truncate(7), dists[:9, :7]) if form.endswith("prefix") else (proj, dists[:9])
+        if form.endswith("strided"):
+            d = dists[:18:2]
+        inp = {"(n,) f64": d[0], "(B, n) f64": d, "(n,) f32": d[0].float(), "(B, n) f32": d.float(),
+               "(B, n) numpy f64": d.numpy(), "(n,) numpy f32": d[0].float().numpy(),
+               "(B, n) strided": d, "(B, n) prefix": d}[form]
+        rows = torch.atleast_2d(torch.as_tensor(inp, dtype=torch.float64))
+        want = ref.apex_project_ref(rows.contiguous(), p._Linv_t, p._sq_norms_t)
+        got = p.project_distances(inp)
+        assert got.dtype == torch.float64 and got.shape == (want.shape[1:] if form.startswith("(n,)") else want.shape)
+        assert torch.equal(got, want[0] if form.startswith("(n,)") else want)
+
 
 def _dirichlet(rows, d, seed, dtype=np.float32):
     return np.random.default_rng(seed).dirichlet(np.full(d, 0.5), size=rows).astype(dtype)
@@ -424,6 +492,7 @@ class TestLaunchPlans:
             ("_THR_GROUP_BYTES", "kThrGroupBytes", "select_epilogue.cu"),
             ("_THR_CAND", "kThrCand", "select_epilogue.cu"),
             ("_THR_GATHER", "kGatherSlices", "select_epilogue.cu"),
+            ("_K4_MAX_HEAD", "kMaxHead", "apex_project.cu"),
         ],
     )
     def test_k3_and_k1_plan_constants_match_the_kernels(self, name, cuda_name, source):
@@ -431,6 +500,48 @@ class TestLaunchPlans:
         src = (Path(ops.__file__).parent / "csrc" / source).read_text()
         found = re.findall(rf"constexpr int {cuda_name} = (\d+);", src)
         assert found == [str(getattr(ops, name))]
+
+    @pytest.mark.parametrize("name,plan", [("kPlanRow", "row"), ("kPlanStream", "stream"), ("kPlanWarp", "warp")])
+    def test_k4_plan_codes_match_the_kernel(self, name, plan):
+        """The plan codes the wrapper passes are the ones apex_project.cu
+        dispatches on."""
+        src = (Path(ops.__file__).parent / "csrc" / "apex_project.cu").read_text()
+        assert re.findall(rf"constexpr int {name} = (\d+);", src) == [str(ops._K4_PLANS[plan])]
+
+    @pytest.mark.parametrize(
+        "shape,plan",
+        [
+            ((1, 20), "warp"),             # a 1-D query's apex
+            ((1, 10), "warp"),             # the approximate path's 10-pivot prefix
+            ((64, 10), "warp"),
+            ((64, 20), "warp"),            # a query block
+            ((1_000_000, 20), "stream"),   # the table build
+            ((1_000_000, 10), "stream"),
+            ((64, 34), "row"),             # wider than the templated heads
+        ],
+    )
+    def test_apex_project_plan_at_the_main_path_shapes(self, shape, plan):
+        assert ops.apex_project_plan(*shape, 132) == plan
+
+    @pytest.mark.parametrize("B", [0, 1, 264, 2111, 2112, 2113, 5000, 10**6])
+    @pytest.mark.parametrize("n", [2, 3, 20, 33, 34, 65, 100])
+    def test_apex_project_plan_limits(self, B, n):
+        """The first design only for heads wider than 32; otherwise one warp
+        per row up to 16 rows per SM, the stream plan above."""
+        plan = ops.apex_project_plan(B, n, 132)
+        if n - 1 > 32:
+            assert plan == "row"
+        else:
+            assert plan == ("warp" if B <= 2112 else "stream")
+
+    @pytest.mark.parametrize("plan", ["row", "stream", "warp"])
+    @pytest.mark.parametrize("B", [1, 300])
+    def test_k4_forced_plan_leaves_the_cpu_result(self, plan, B):
+        """K4's private ``_plan`` is checked, and the CPU result stays the
+        plain version's."""
+        proj, dists = _projector(20, seed=2)
+        Linv, sq = _t(proj.Linv), _t(proj.sq_norms)
+        assert torch.equal(ops.apex_project(dists[:B], Linv, sq, _plan=plan), ops.apex_project(dists[:B], Linv, sq))
 
     @pytest.mark.parametrize("cap", [1, 10, 257, 512, 513, 2048, 4096])
     @pytest.mark.parametrize("Q", [1, 2, 16, 17, 19, 64, 65, 257])
@@ -482,6 +593,10 @@ class TestLaunchPlans:
         for plan in ((-1, 2), (33, 2), (3, 0), (3,)):
             with pytest.raises(ValueError, match="launch plan"):
                 ops.apex_bounds_threshold(table, table[:3], np.ones(3), 4, _plan=plan)
+        for n, plan in ((20, "Row"), (20, "tile"), (34, "stream"), (34, "warp")):
+            proj, dists = _projector(n, seed=1)
+            with pytest.raises(ValueError, match="launch plan"):
+                ops.apex_project(dists[:3], _t(proj.Linv), _t(proj.sq_norms), _plan=plan)
 
     @pytest.mark.parametrize(
         "shape,plan",
