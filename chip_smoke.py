@@ -5,6 +5,7 @@
     python3 chip_smoke.py --time-shapes '[["jsd_pairwise", [1, 256, 112, "float64"]], ...]'
     python3 chip_smoke.py --time-shapes '[["apex_threshold", [64, 512, 20], [0, 5]]]'
     python3 chip_smoke.py --approx-only
+    python3 chip_smoke.py --mechanisms-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -62,6 +63,26 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 precision/recall against the brute force are printed;
   5. launch_shapes — per kernel, the launches of phases 3 and 4 by shape
                 class (``ops.SHAPE_LAUNCHES``; each kernel must have > 0);
+  5b. mechanisms — the paper's other mechanisms, with the launch counts set
+                to 0 before and read after (its own ``launch_shapes`` lines,
+                ``launch_phase="mechanisms"``; each kernel must have > 0):
+                LAESA at colors-1M (``build_index(kind="laesa",
+                n_pivots=20)`` on ``cuda``, euclidean and jensen_shannon),
+                one 64-query batch each of exact k-NN (k=10) and range and
+                of approximate k-NN and range (``mode="approx", dims=10,
+                refine=64``) and 8 timed 1-D exact k-NN requests; then
+                ``ExactSearchEngine`` over the first 112,682 rows (the
+                paper's colors size) with all five mechanisms, per
+                mechanism a 16-query range batch (query 0's 1e-3 distance
+                quantile), a 16-query k-NN batch and two 1-D requests of
+                each, printing calls per query (the paper's Table 3), wall
+                ms per query (batched and 1-D) and build seconds.  After
+                the counts are read: the card's LAESA ``bounds_batch`` bit-equal
+                to a host numpy scan for 8 queries (full and dims=10),
+                exact answers equal to the brute force (all engine answers,
+                8 LAESA queries per task), approximate LAESA answers from
+                their own candidates (as ``verify_approx``), and
+                recall@10 and range precision/recall printed;
   6. kernel_shape — one row per (kernel, shape class) holding >= 10% of its
                 kernel's launches, plus the kernel's headline shape where the main
                 path launched it: the wrapper called as the main path calls
@@ -80,10 +101,19 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 K-th smallest upb, ``pass_b_ms``: every query overflows at
                 1M rows).  K1, K3 and K4 rows are timed again under the
                 launch plan that runs their previous design
-                (``PREVIOUS_DESIGN``);
-  7. ``{"kernels": [...]}`` — those rows with their launches (K1, K3 and K4
-                with ``plan``, ``previous_design_ms`` and
-                ``previous_design_device_ms``);
+                (``PREVIOUS_DESIGN``).  Then the same for the mechanisms
+                phase's launch counts (``launch_phase="mechanisms"``): each
+                of its classes of every kernel, K1-K6, timed and held to its
+                plain version on operands made from that phase's
+                jensen_shannon engine (its 112,682-row N_seq table and
+                projector; raw rows from the 1M-row corpus, which the
+                LAESA build's K5 class needs);
+  7. ``{"kernels": [...]}`` — those rows with their launches and
+                ``table_rows`` (K1, K3 and K4 with ``plan``,
+                ``previous_design_ms`` and ``previous_design_device_ms``):
+                first the main path's, then the mechanisms phase's, tagged
+                ``launch_phase="mechanisms"`` and carrying that phase's
+                launches and shares;
 then the card's ``nvidia-smi`` line, and last the device contract line.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
@@ -95,12 +125,13 @@ K3's (``[G, S]``; G = 0 is the first design, one query per block) or K4's
 or K3 class of more queries than the 256 query rows repeats them.
 ``--approx-only`` runs phase 4 alone, with its checks, so two checkouts'
 approximate batch and service wall times can be taken in turns on one
-card.  ``--launch-path`` times each step of K4's query path at (1, 20,
-f64), and K1's and K5's small calls, alone on the host clock
-(``launch_path``; copied into an older checkout it times that checkout's
-path).  ``--ptxas`` prints the registers, spills and stack of
-apex_project.cu's kernels from ``nvcc -Xptxas -v`` and that compile's
-seconds.
+card; ``--mechanisms-only`` runs phase 5b alone, with its checks, and
+prints its kernel rows as ``{"mechanisms_kernels": [...]}``.
+``--launch-path`` times each step of K4's query path at (1, 20, f64),
+and K1's and K5's small calls, alone on the host clock (``launch_path``;
+copied into an older checkout it times that checkout's path).  ``--ptxas``
+prints the registers, spills and stack of apex_project.cu's kernels from
+``nvcc -Xptxas -v`` and that compile's seconds.
 """
 
 from __future__ import annotations
@@ -112,6 +143,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -120,6 +152,9 @@ N_ROWS, DIM, N_PIVOTS = 1_000_000, 112, 20
 Q, K, CAP = 64, 10, 4096
 #: the approximate phase's truncation and re-rank budget
 APPROX_DIMS, REFINE = 10, 64
+#: the mechanisms phase's engine: the paper's colors size (SISAP colors,
+#: 112,682 rows), 16 queries per task, range at a 1e-3 selectivity
+ENGINE_ROWS, ENGINE_Q, ENGINE_SELECTIVITY = 112_682, 16, 1e-3
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 / f64
 #: FLOP/s outside the tensor cores
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
@@ -628,14 +663,17 @@ def truncated(torch, ref, a, dims):
 
 class ShapeInputs:
     """Operands of each kernel at a launch shape class, made from one index's
-    own state (table, corpus, projectors) and the query rows."""
+    own state (table, corpus, projectors) and the query rows; ``corpus``
+    (default: the index's) supplies raw rows where a class needs more rows
+    than the index holds (the mechanisms phase's 1M-row LAESA table build
+    beside its 112,682-row engine)."""
 
-    def __init__(self, torch, ops, ref, index, queries_np, log):
+    def __init__(self, torch, ops, ref, index, queries_np, log, corpus=None):
         self.torch, self.ops, self.ref, self.log = torch, ops, ref, log
         inner = index._inner
         self.inner = inner
         self.tab = inner._kernel_table()
-        self.data = inner.data
+        self.data = inner.data if corpus is None else corpus
         self.queries = torch.as_tensor(queries_np, device=self.tab.device)
         self.ap = inner.query_apex_batch(queries_np).float().contiguous()
         self.sms = torch.cuda.get_device_properties(self.tab.device).multi_processor_count
@@ -655,6 +693,7 @@ class ShapeInputs:
 
     def rows(self, count):
         """``count`` raw corpus-shaped rows: the queries, or corpus rows."""
+        check(count <= self.data.shape[0], f"a class of {count} rows needs a larger corpus")
         return self.queries[:count] if count <= self.queries.shape[0] else self.data[:count]
 
     def apexes(self, Q_, dims):
@@ -804,13 +843,13 @@ class ShapeInputs:
         return ms
 
 
-def time_shapes(torch, ops, ref, inputs, pairs) -> list:
+def time_shapes(torch, ops, ref, inputs, pairs, **tag) -> list:
     """One timed row per (kernel, shape class) or (kernel, shape class,
     launch plan)."""
     out = []
     for name, cls, *plan in pairs:
         m = inputs.time_row(name, tuple(cls), *plan)
-        emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, **m)
+        emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, **tag, **m)
         out.append((name, m))
         torch.cuda.empty_cache()
     return out
@@ -1070,6 +1109,213 @@ def verify_approx(torch, ops, ref, rec):
                  range_recall=float(np.mean([r_ for _, r_ in scores])))
 
 
+def host_laesa_bounds(table: np.ndarray, qd: np.ndarray, dims=None):
+    """The JAX package's numpy LAESA scan (``repro/index/laesa.py``,
+    ``bounds_batch``) restated: a running max of ``|qd_j - T[:, j]|`` and a
+    running min of ``qd_j + T[:, j]`` over the first ``dims`` columns."""
+    n = table.shape[1] if dims is None else dims
+    T = np.ascontiguousarray(table[:, :n].T)
+    lwb = np.abs(qd[:, :1] - T[0][None, :])
+    upb = qd[:, :1] + T[0][None, :]
+    for j in range(1, n):
+        np.maximum(lwb, np.abs(qd[:, j:j + 1] - T[j][None, :]), out=lwb)
+        np.minimum(upb, qd[:, j:j + 1] + T[j][None, :], out=upb)
+    return lwb, upb
+
+
+def timed(torch, fn):
+    """(result, wall seconds) of ``fn`` between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_laesa(torch, api, metrics_mod, ref, data_np, queries_np, metric_name):
+    """LAESA at colors-1M through ``build_index(kind="laesa")``: one 64-query
+    batch per task, exact and approximate.  Returns what ``verify_laesa``
+    checks once the launch counts are read."""
+    report = lambda **f: emit(phase="mechanisms", part="laesa", metric=metric_name, **f)  # noqa: E731
+    index, wall = timed(torch, lambda: api.build_index(data_np, metric_name, kind="laesa", n_pivots=N_PIVOTS,
+                                                       seed=SEED % 1000, device="cuda"))
+    report(task="build", rows=N_ROWS, wall_s=wall)
+    brute = BruteForce(torch, ref, index.data, metrics_mod.get_metric(metric_name))
+    t_range = float(np.sort(brute.dists(queries_np[0]).cpu().numpy())[99])   # ~100th-neighbour distance
+    approx = dict(mode="approx", dims=APPROX_DIMS, refine=REFINE)
+    qs = queries_np[:Q]
+    tasks = []
+    for task, spec in (("knn_batch", api.Query.knn(K)), ("range_batch", api.Query.range(t_range)),
+                       ("approx_knn_batch", api.Query.knn(K, **approx)),
+                       ("approx_range_batch", api.Query.range(t_range, **approx))):
+        res, wall = timed(torch, lambda: list(index.query(qs, spec)))
+        report(task=task, queries=len(res), wall_ms=wall * 1e3,
+               original_calls_per_query=float(np.mean([r.stats.original_calls for r in res])),
+               candidates_per_query=float(np.mean([r.stats.candidates for r in res])))
+        tasks.append((task, spec, res))
+    # 1-D requests: the one-query exact k-NN, its selection on the card
+    spec = api.Query.knn(K)
+    res, wall = timed(torch, lambda: [index.query(q, spec) for q in qs[:8]])
+    report(task="knn_1d", queries=len(res), wall_ms_per_query=wall * 1e3 / len(res),
+           original_calls_per_query=float(np.mean([r.stats.original_calls for r in res])),
+           candidates_per_query=float(np.mean([r.stats.candidates for r in res])))
+    tasks.append(("knn_1d", spec, res))
+    return dict(metric=metric_name, index=index, brute=brute, qs=qs, tasks=tasks)
+
+
+def verify_laesa(torch, rec):
+    """The card's ``bounds_batch`` bit-equal to ``host_laesa_bounds`` for 8
+    queries (full and truncated to ``APPROX_DIMS``); exact answers equal to
+    the brute force; approximate k-NN answers are the k smallest (f64
+    distance, id) among the ``REFINE`` rows of smallest host mean estimate
+    (ties by id) with ``original_calls == dims + refine``; approximate range
+    answers keep both sound sides of the host bounds.  The host bounds use
+    the pivot distances the index measured for the same 64-query block."""
+    index, brute, metric, qs = rec["index"], rec["brute"], rec["metric"], rec["qs"]
+    inner = index._inner
+    table = inner.table.cpu().numpy()
+    tol = refine_tol(torch, metric, inner.data)
+    qd = inner.query_distances_batch(qs[:8])
+    for dims in (None, APPROX_DIMS):
+        got = [t.cpu().numpy() for t in inner.bounds_batch(qd, dims=dims)]
+        want = host_laesa_bounds(table, qd.cpu().numpy(), dims)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"LAESA bounds on the card differ from the host scan (dims={dims})")
+    qd_approx = inner.query_distances_batch(qs, dims=APPROX_DIMS)[:8].cpu().numpy()
+    L, U = host_laesa_bounds(table, qd_approx, APPROX_DIMS)
+    swaps, scores = 0, {"knn": [], "range": []}
+    for task, spec, results in rec["tasks"]:
+        for qi, (q, r) in enumerate(zip(qs[:8], results[:8])):
+            d64 = brute.dists(q).cpu().numpy()
+            if spec.mode != "approx":
+                if spec.task == "knn":
+                    ids, _ = brute.knn(q, K)
+                    swaps += agree_knn(r, ids, d64, tol)
+                else:
+                    ids, _ = brute.range(q, float(spec.threshold))
+                    swaps += agree_range(r, ids, d64, float(spec.threshold), tol)
+            elif spec.task == "knn":
+                est = 0.5 * (L[qi] + U[qi])
+                cand = np.lexsort((np.arange(est.shape[0]), est))[:REFINE]
+                check(bool(np.isin(r.ids, cand).all()), "approximate LAESA k-NN answered outside its candidates")
+                swaps += agree_knn(r, cand[np.lexsort((cand, d64[cand]))][:K], d64, tol)
+                check(r.stats.original_calls == APPROX_DIMS + REFINE, "original_calls must be dims + refine")
+                scores["knn"].append(len(np.intersect1d(r.ids, host_select(d64[None, :], None, K)[0])) / K)
+            else:
+                t = float(spec.threshold)
+                check(bool(np.all(L[qi][r.ids] <= t)),
+                      "approximate LAESA range returned a row its lower bound excludes")
+                check(bool(np.isin(np.flatnonzero(U[qi] <= t), r.ids).all()),
+                      "approximate LAESA range dropped a row its upper bound admits")
+                truth = np.flatnonzero(d64 <= t)
+                hit = len(np.intersect1d(r.ids, truth))
+                scores["range"].append((hit / max(len(r.ids), 1), hit / max(len(truth), 1)))
+    emit(phase="mechanisms", part="laesa", metric=metric, checked_per_task=8, bounds_bit_equal=True,
+         near_tie_differences=swaps, approx_recall_at_10=float(np.mean(scores["knn"])),
+         approx_range_precision=float(np.mean([p for p, _ in scores["range"]])),
+         approx_range_recall=float(np.mean([r_ for _, r_ in scores["range"]])))
+
+
+def phase_engine(torch, search_mod, metrics_mod, ref, data_np, queries_np, metric_name):
+    """``ExactSearchEngine`` over the paper's colors size with all five
+    mechanisms: per mechanism a 16-query range batch at the 1e-3 selectivity
+    of ``benchmarks/bench_batch_search.py`` (query 0's distance quantile),
+    a 16-query k-NN batch and two 1-D requests of each, every answer held to
+    the brute force.  Prints the paper's Table 3 per mechanism: calls per
+    query, wall ms per query and the build seconds."""
+    data, qs = data_np[:ENGINE_ROWS], queries_np[:ENGINE_Q]
+    eng, wall = timed(torch, lambda: search_mod.ExactSearchEngine(data, metric_name, n_pivots=N_PIVOTS,
+                                                                  seed=SEED % 1000, device="cuda"))
+    emit(phase="mechanisms", part="engine", metric=metric_name, task="build", rows=ENGINE_ROWS, wall_s=wall,
+         build_s=eng.build_s, tree_build_calls={m: t.build_calls for m, t in eng.trees.items()})
+    brute = BruteForce(torch, ref, eng.data, metrics_mod.get_metric(metric_name))
+    d0 = np.sort(brute.dists(qs[0]).cpu().numpy())
+    t = float(d0[int(ENGINE_SELECTIVITY * ENGINE_ROWS)])
+    tol = refine_tol(torch, metric_name, eng.data)
+    swaps = 0
+    for mech in search_mod.MECHANISMS:
+        row = {}
+        for task in ("range", "knn"):
+            if task == "range":
+                reps, wall = timed(torch, lambda: eng.search_batch(mech, qs, t))
+                singles, wall_1d = timed(torch, lambda: [eng.search(mech, q, t) for q in qs[:2]])
+            else:
+                reps, wall = timed(torch, lambda: eng.knn_batch(mech, qs, K))
+                singles, wall_1d = timed(torch, lambda: [eng.knn(mech, q, K) for q in qs[:2]])
+            for q, rep in zip(list(qs) + list(qs[:2]), reps + singles):
+                got = SimpleNamespace(ids=rep.results, distances=rep.distances)
+                if task == "range":
+                    ids, d64 = brute.range(q, t)
+                    swaps += agree_range(got, ids, d64, t, tol)
+                else:
+                    ids, d64 = brute.knn(q, K)
+                    swaps += agree_knn(got, ids, d64, tol)
+            row[task] = dict(
+                wall_ms_per_query=wall * 1e3 / len(reps),
+                wall_ms_per_1d_request=wall_1d * 1e3 / len(singles),
+                original_calls_per_query=float(np.mean([r.original_calls for r in reps])),
+                surrogate_calls_per_query=float(np.mean([r.surrogate_calls for r in reps])),
+                accepted_no_check_per_query=float(np.mean([r.accepted_no_check for r in reps])),
+            )
+        emit(phase="mechanisms", part="engine", metric=metric_name, mechanism=mech, threshold=t, k=K,
+             queries=len(qs), build_s=eng.build_s[mech], **row)
+    emit(phase="mechanisms", part="engine", metric=metric_name, checked=f"{len(qs) + 2} range + {len(qs) + 2} k-NN "
+         "per mechanism", near_tie_differences=swaps)
+    return eng
+
+
+def phase_mechanisms(ops, torch, api, metrics_mod, search_mod, ref, data_np, queries_np) -> dict:
+    """The mechanisms phase: LAESA at colors-1M and the five-mechanism engine
+    at the paper's colors size, for euclidean and jensen_shannon, with the
+    launch counts set to 0 before and read after (every kernel must have
+    launched), then the checks.  Returns the phase's launch histogram and
+    the jensen_shannon engine's N_seq index, on whose 112,682-row table the
+    phase's kernel rows are timed."""
+    ops.reset_launches()
+    laesa_runs = [phase_laesa(torch, api, metrics_mod, ref, data_np, queries_np, m)
+                  for m in ("euclidean", "jensen_shannon")]
+    for m in ("euclidean", "jensen_shannon"):
+        eng = phase_engine(torch, search_mod, metrics_mod, ref, data_np, queries_np, m)
+        torch.cuda.empty_cache()
+    launches = dict(ops.LAUNCHES)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name, (kid, _, _) in KERNEL_INFO.items():
+        check(launches[name] > 0, f"{kid} ({name}) was not launched by the mechanisms phase")
+        emit(phase="launch_shapes", launch_phase="mechanisms", kernel=kid, name=name, launches=launches[name],
+             classes=[[list(cls), n, share] for cls, n, share in hist[name]])
+    for rec in laesa_runs:
+        verify_laesa(torch, rec)
+    del laesa_runs
+    torch.cuda.empty_cache()
+    return hist, eng.indexes["N_seq"]
+
+
+def kernel_rows(torch, ops, inputs, hist, launch_phase=None) -> list:
+    """The kernels line's rows of one launch histogram: each (kernel, shape
+    class) of ``rows_to_time(hist)`` timed on ``inputs`` (held to its plain
+    version there), with that histogram's launches and share, and for K1,
+    K3 and K4 the previous design timed beside it.  ``launch_phase`` tags
+    the rows of a phase other than the main path's."""
+    tag = {} if launch_phase is None else {"launch_phase": launch_phase}
+    N_ = inputs.tab.shape[0]
+    rows = []
+    for name, m in time_shapes(torch, ops, inputs.ref, inputs, rows_to_time(hist), **tag):
+        n, share = next((n, share) for cls, n, share in hist[name] if list(cls) == m["shape"])
+        row = kernel_row(name, m, n, share)
+        if name in PREVIOUS_DESIGN:
+            label, plan_of = PREVIOUS_DESIGN[name]
+            cls = tuple(m["shape"])
+            prev = inputs.time_row(name, cls, plan_of(ops, cls, N_, inputs.sms))
+            emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, design=label, **tag, **prev)
+            row.update({key: m[key] for key in ("pass_b_ms", "pass_b_device_ms", "pass_b_mean_count",
+                                                "launch_floor_ms") if key in m})
+            row.update({f"previous_design_{key}": prev[key] for key in ("pass_b_ms", "device_ms") if key in prev})
+            row.update(previous_design=label, previous_design_ms=prev["ms"],
+                       plan=current_plan(ops, name, cls, N_, inputs.sms))
+        rows.append(dict(row, table_rows=N_, **tag))
+    return rows
+
+
 def kernel_row(name, m, launches, share) -> dict:
     kid, source, replaces = KERNEL_INFO[name]
     row = {
@@ -1094,6 +1340,9 @@ def main(argv=None) -> int:
                              'apex_dims=10 JSD build (no e2e phases); prints {"shape_times": [...]}')
     parser.add_argument("--approx-only", action="store_true",
                         help="only run the approximate phase (both metrics) and its checks")
+    parser.add_argument("--mechanisms-only", action="store_true",
+                        help="only run the mechanisms phase (LAESA at 1M rows, the five-mechanism engine) "
+                             "and its checks")
     parser.add_argument("--launch-path", action="store_true",
                         help="only time each step of K4's query path at (1, 20, f64), three rounds")
     parser.add_argument("--ptxas", action="store_true",
@@ -1107,6 +1356,7 @@ def main(argv=None) -> int:
     from repro_torch.data import colors_like
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import service as service_mod
+    from repro_torch import search as search_mod
 
     smi = nvidia_smi()
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1143,8 +1393,19 @@ def main(argv=None) -> int:
         index = api.build_index(data_np, "jensen_shannon", n_pivots=N_PIVOTS, seed=SEED % 1000,
                                 apex_dims=APPROX_DIMS, refine=REFINE, device="cuda")
         inputs = ShapeInputs(torch, ops, ref, index, queries_np, log)
-        timed = time_shapes(torch, ops, ref, inputs, json.loads(args.time_shapes))
-        print(json.dumps({"shape_times": [dict(name=name, **m) for name, m in timed]}), flush=True)
+        shape_rows = time_shapes(torch, ops, ref, inputs, json.loads(args.time_shapes))
+        print(json.dumps({"shape_times": [dict(name=name, **m) for name, m in shape_rows]}), flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
+
+    mech_mods = (torch, api, metrics_mod, search_mod, ref, data_np, queries_np)
+    if args.mechanisms_only:
+        mech_hist, mech_index = phase_mechanisms(ops, *mech_mods)
+        corpus = torch.as_tensor(data_np, device="cuda")
+        inputs = ShapeInputs(torch, ops, ref, mech_index, queries_np, log, corpus)
+        print(json.dumps({"mechanisms_kernels": kernel_rows(torch, ops, inputs, mech_hist, "mechanisms")}),
+              flush=True)
         emit(phase="host", host_yardstick_s=host_yardstick())
         print(smi, flush=True)
         return 0
@@ -1186,24 +1447,16 @@ def main(argv=None) -> int:
              classes=[[list(cls), n, share] for cls, n, share in hist[name]])
     for rec in approx_runs:
         verify_approx(torch, ops, ref, rec)
+    mech_hist, mech_index = phase_mechanisms(ops, *mech_mods)
 
-    inputs = ShapeInputs(torch, ops, ref, approx_runs[-1]["index"], queries_np, log)
-    rows = []
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, m in time_shapes(torch, ops, ref, inputs, rows_to_time(hist)):
-        n, share = next((n, share) for cls, n, share in hist[name] if list(cls) == m["shape"])
-        row = kernel_row(name, m, n, share)
-        if name in PREVIOUS_DESIGN:
-            label, plan_of = PREVIOUS_DESIGN[name]
-            cls = tuple(m["shape"])
-            prev = inputs.time_row(name, cls, plan_of(ops, cls, inputs.tab.shape[0], sms))
-            emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, design=label, **prev)
-            row.update({key: m[key] for key in ("pass_b_ms", "pass_b_device_ms", "pass_b_mean_count",
-                                                "launch_floor_ms") if key in m})
-            row.update({f"previous_design_{key}": prev[key] for key in ("pass_b_ms", "device_ms") if key in prev})
-            row.update(previous_design=label, previous_design_ms=prev["ms"],
-                       plan=current_plan(ops, name, cls, inputs.tab.shape[0], sms))
-        rows.append(row)
+    rows = kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, approx_runs[-1]["index"], queries_np, log), hist)
+    del approx_runs
+    torch.cuda.empty_cache()
+    # the mechanisms phase's own shape classes, timed on its engine's
+    # 112,682-row N_seq table and corpus, with that phase's launches
+    corpus = torch.as_tensor(data_np, device="cuda")
+    rows += kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, mech_index, queries_np, log, corpus), mech_hist,
+                        "mechanisms")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

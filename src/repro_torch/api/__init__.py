@@ -9,7 +9,7 @@ carriers with the paper's per-query cost ledger.
 
 from repro_torch.api.execute import QuerySurface, execute
 from repro_torch.api.factory import build_index, load_index
-from repro_torch.api.indexes import SimplexTableIndex
+from repro_torch.api.indexes import MetricTreeIndex, PivotTableIndex, SimplexTableIndex
 from repro_torch.api.persistence import FORMAT_VERSION
 from repro_torch.api.planner import PlanStage, QueryPlan, plan
 from repro_torch.api.protocol import STATS_CONTRACT, Index
@@ -21,6 +21,8 @@ __all__ = [
     "DEFAULT_REFINE",
     "FORMAT_VERSION",
     "Index",
+    "MetricTreeIndex",
+    "PivotTableIndex",
     "PlanStage",
     "Query",
     "QueryOptions",

@@ -11,9 +11,13 @@
     # re-rank the 64 best truncated-surrogate candidates with the metric
     approx = build_index(data, "jensen_shannon", n_pivots=20, apex_dims=10, refine=64)
 
+    laesa = build_index(data, "jensen_shannon", kind="laesa", n_pivots=20)
+    tree = build_index(data, "jensen_shannon", kind="tree", leaf_size=32)
+
 Both default to ``device="cuda"`` and raise when no card is present, unless
-``device="cpu"`` is passed.  This package builds the ``nsimplex`` kind; the
-other kinds and the composites of the JAX package raise
+``device="cpu"`` is passed.  This package builds the three single-structure
+kinds (``nsimplex``, ``laesa``, ``tree``); the composites of the JAX package
+(mutable, sharded, durable) and attribute stores raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -23,24 +27,53 @@ from typing import Optional, Union
 
 import numpy as np
 
-from repro_torch.api.indexes import SimplexTableIndex
+from repro_torch.api.indexes import MetricTreeIndex, PivotTableIndex, SimplexTableIndex
 from repro_torch.api.persistence import read_index_dir
 from repro_torch.api.query import DEFAULT_REFINE, QueryOptions
 from repro_torch.core import select_pivots
 from repro_torch.device import resolve_device
 from repro_torch.metrics import Metric, get_metric
 
-__all__ = ["build_index", "load_index"]
+__all__ = ["INDEX_KINDS", "build_index", "load_index"]
 
-_KIND_ALIASES = {"N_seq": "nsimplex", "simplex": "nsimplex"}
+#: kind -> implementation; also the manifest dispatch table of load_index
+INDEX_KINDS = {
+    SimplexTableIndex.kind: SimplexTableIndex,
+    PivotTableIndex.kind: PivotTableIndex,
+    MetricTreeIndex.kind: MetricTreeIndex,
+}
 
-#: kinds and options of the JAX package's ``build_index`` that are not
-#: ported yet, with the ROADMAP item that ports them
-_NOT_PORTED_KINDS = {"laesa": 5, "L_seq": 5, "tree": 5}
+#: engine-mechanism spellings accepted as aliases
+_KIND_ALIASES = {"N_seq": "nsimplex", "L_seq": "laesa", "simplex": "nsimplex"}
+
+#: composite kinds of the JAX package's manifests, with the ROADMAP item
+#: that ports them
+_NOT_PORTED_COMPOSITES = {"mutable": 7, "sharded": 7, "durable": 9}
 
 
 def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP item {item})")
+
+
+def _resolve_kind(kind: str) -> str:
+    resolved = _KIND_ALIASES.get(kind, kind)
+    if resolved not in INDEX_KINDS:
+        raise ValueError(
+            f"unknown index kind {kind!r}; known kinds: {sorted(INDEX_KINDS)} "
+            f"(aliases: {sorted(_KIND_ALIASES)})"
+        )
+    return resolved
+
+
+def _build_segment(data, metric: Metric, kind: str, *, pivots, leaf_size: int, seed: int, eps: float,
+                   use_kernel: bool, approx: Optional[dict], device):
+    if kind == "nsimplex":
+        return SimplexTableIndex.build(
+            data, metric, pivots=pivots, eps=eps, use_kernel=use_kernel, approx=approx, device=device
+        )
+    if kind == "laesa":
+        return PivotTableIndex.build(data, metric, pivots=pivots, approx=approx, device=device)
+    return MetricTreeIndex.build(data, metric, leaf_size=leaf_size, seed=seed, device=device)
 
 
 def build_index(
@@ -50,6 +83,7 @@ def build_index(
     kind: str = "nsimplex",
     n_pivots: int = 20,
     pivot_strategy: str = "random",
+    leaf_size: int = 32,
     seed: int = 0,
     eps: float = 1e-6,
     use_kernel: bool = True,
@@ -61,24 +95,29 @@ def build_index(
     attributes=None,
     query_options: Optional[QueryOptions] = None,
     device="cuda",
-) -> SimplexTableIndex:
-    """Build an n-simplex index over (data, metric) on ``device``.
+) -> Union[SimplexTableIndex, PivotTableIndex, MetricTreeIndex]:
+    """Build one index of the requested kind over (data, metric) on ``device``.
 
     Args:
       data:           (N, dim) corpus (kept on the device in its dtype).
       metric:         a ``Metric`` or a registry name.
-      kind:           "nsimplex" (aliases "N_seq", "simplex").
-      n_pivots:       reference objects of the apex table.
+      kind:           "nsimplex" (apex table, the paper's mechanism; aliases
+                      "N_seq", "simplex"), "laesa" (pivot-distance baseline;
+                      alias "L_seq") or "tree" (hyperplane tree with Hilbert
+                      exclusion).
+      n_pivots:       reference objects of the table kinds.
       pivot_strategy: "random" | "pca" | "maxmin" (see ``select_pivots``);
                       "random" draws the same rows as the JAX package.
-      seed:           pivot randomness.
-      eps:            relative threshold guard band.
-      use_kernel:     persisted for manifest compatibility; the scan always
-                      runs through the bound-scan kernels.
-      apex_dims:      truncate the per-query surrogate to this many of the
-                      ``n_pivots`` dimensions and default every query to the
-                      approximate path; results carry ``QueryResult.approx``
-                      and ``QueryStats.bound_width``.  None = exact.
+      leaf_size:      tree leaf capacity (tree kind only).
+      seed:           pivot / tree randomness.
+      eps:            relative threshold guard band (nsimplex kind).
+      use_kernel:     persisted for manifest compatibility; the n-simplex
+                      scan always runs through the bound-scan kernels.
+      apex_dims:      table kinds only: truncate the per-query surrogate to
+                      this many of the ``n_pivots`` dimensions and default
+                      every query to the approximate path; results carry
+                      ``QueryResult.approx`` and ``QueryStats.bound_width``.
+                      None = exact.
       refine:         true-metric re-rank budget of approximate queries
                       (overridable per query with ``Query(refine=...)``).
       query_options:  per-index ``QueryOptions`` defaults (persisted).
@@ -86,21 +125,17 @@ def build_index(
       mutable, shards, durable, attributes: not ported yet; any non-default
                       value raises ``NotImplementedError``.
     """
-    resolved = _KIND_ALIASES.get(kind, kind)
-    if resolved not in _NOT_PORTED_KINDS and resolved != "nsimplex":
-        raise ValueError(f"unknown index kind {kind!r}; this package builds 'nsimplex'")
+    kind = _resolve_kind(kind)
     approx = None
     if apex_dims is not None:
-        if resolved not in ("nsimplex", "laesa", "L_seq"):
+        if kind not in ("nsimplex", "laesa"):
             raise ValueError(
                 f"apex_dims applies to the table kinds (nsimplex/laesa); "
-                f"kind={resolved!r} has no truncatable surrogate"
+                f"kind={kind!r} has no truncatable surrogate"
             )
         if not (2 <= int(apex_dims) <= int(n_pivots)):
             raise ValueError(f"apex_dims must be in [2, n_pivots={n_pivots}]; got {apex_dims}")
         approx = {"dims": int(apex_dims), "refine": int(refine)}
-    if resolved in _NOT_PORTED_KINDS:
-        raise _not_ported(f"kind={kind!r}", _NOT_PORTED_KINDS[resolved])
     for flag, value, item in (
         ("mutable", mutable, 7),
         ("shards", shards, 7),
@@ -112,23 +147,25 @@ def build_index(
     dev = resolve_device(device)
     data = np.asarray(data)
     metric = get_metric(metric) if isinstance(metric, str) else metric
-    pivots = select_pivots(data, n_pivots, strategy=pivot_strategy, seed=seed, metric=metric)
-    index = SimplexTableIndex.build(
-        data, metric, pivots=pivots, eps=eps, use_kernel=use_kernel, approx=approx, device=dev
+    pivots = None
+    if kind in ("nsimplex", "laesa"):
+        pivots = select_pivots(data, n_pivots, strategy=pivot_strategy, seed=seed, metric=metric)
+    index = _build_segment(
+        data, metric, kind, pivots=pivots, leaf_size=leaf_size, seed=seed, eps=eps,
+        use_kernel=use_kernel, approx=approx, device=dev,
     )
     index.query_options = query_options
     return index
 
 
-def load_index(path, *, device="cuda") -> SimplexTableIndex:
-    """Load an n-simplex index saved by either package onto ``device``;
-    nothing is re-measured."""
+def load_index(path, *, device="cuda"):
+    """Load an index saved by either package onto ``device``; the
+    manifest's ``kind`` selects the class and nothing is re-measured."""
     dev = resolve_device(device)
     manifest, arrays = read_index_dir(path)
     kind = manifest["kind"]
-    if kind != SimplexTableIndex.kind:
-        raise NotImplementedError(
-            f"index at {path!r} has kind {kind!r}; repro_torch loads 'nsimplex' only "
-            "(the other kinds and composites are ROADMAP items 5, 7 and 9)"
-        )
-    return SimplexTableIndex._load(manifest, arrays, device=dev)
+    if kind in _NOT_PORTED_COMPOSITES:
+        raise _not_ported(f"loading a {kind!r} index", _NOT_PORTED_COMPOSITES[kind])
+    if kind not in INDEX_KINDS:
+        raise ValueError(f"index at {path!r} has unknown kind {kind!r}; one of {sorted(INDEX_KINDS)}")
+    return INDEX_KINDS[kind]._load(manifest, arrays, device=dev)

@@ -17,10 +17,12 @@ Mode resolution:
     refine budget capped to fit; without a budget: approx iff the index was
     built with ``apex_dims``.
 
-An ``allow`` list overrides all of this: the executor scans the listed
-rows directly, and the plan says so.  This package plans the plain
-``nsimplex`` kind; predicates (ROADMAP item 8) and sharded indexes (item 7)
-are not ported.
+The ``tree`` kind has no truncatable surrogate: it is always exact, and
+``mode="approx"`` on it raises.  An ``allow`` list overrides all of this:
+the executor scans the listed rows directly, and the plan says so.  This
+package plans the three single-structure kinds (``nsimplex``, ``laesa``,
+``tree``); predicates (ROADMAP item 8) and composites (item 7) are not
+ported.
 """
 
 from __future__ import annotations
@@ -129,8 +131,9 @@ def _cost_calibration(stats: dict, query: Query):
 
 def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict):
     """(mode, dims, refine, reason, budget, calibration) with "auto" collapsed."""
+    table_kind = "n_pivots" in stats  # the truncatable (table) mechanisms
     dims, refine = _resolve_approx_fields(query, options, stats)
-    calibration = _cost_calibration(stats, query)[1]
+    calibration = _cost_calibration(stats, query)[1] if table_kind else None
     mode = query.mode
     if mode == "auto" and options and options.mode:
         mode = options.mode
@@ -139,6 +142,11 @@ def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict):
     if mode == "exact":
         return "exact", None, None, "requested exact", budget, calibration
     if mode == "approx":
+        if not table_kind:
+            raise ValueError(
+                f"mode='approx' needs a truncatable surrogate table; "
+                f"kind {stats.get('kind')!r} (mechanism {stats.get('kind')!r}) has none"
+            )
         if dims is None:
             raise ValueError(
                 "approx mode needs a truncation dimension: build with "
@@ -149,7 +157,7 @@ def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict):
             "requested approx", budget, calibration,
         )
 
-    if budget is not None:
+    if budget is not None and table_kind:
         if dims is None:
             dims = max(2, int(stats["n_pivots"]) // 2)
         est, calibration = _cost_calibration(stats, query)
@@ -183,15 +191,29 @@ def _filter_strategy(query: Query) -> str:
 
 
 def _mechanism_stages(stats: dict, query: Query, mode: str, dims, refine):
-    """The n-simplex pipeline: pivot distances, projection, fused filter,
-    refinement."""
+    """The index's pipeline stages."""
+    mech = stats["kind"]
     n = int(stats.get("n_objects", 0))
+    if mech == "tree":
+        algo = "best_first_branch_and_bound" if query.task == "knn" else "hyperplane_exclusion"
+        return [_stage("tree_traverse", algorithm=algo, n=n)]
     eff = dims if mode == "approx" else int(stats.get("n_pivots", 0))
-    stages = [_stage("pivot_distances", count=eff), _stage("project", dims=eff, space="apex")]
+    stages = [_stage("pivot_distances", count=eff)]
+    if mech == "nsimplex":
+        stages.append(_stage("project", dims=eff, space="apex"))
+    # how the bound scan's output reaches the refine stage, in the JAX
+    # package's words: the n-simplex paths and LAESA exact k-NN select
+    # inside the scan; LAESA exact range keeps a boolean mask and its
+    # approximate paths dense bounds
+    if mech == "nsimplex" or (mode == "exact" and query.task == "knn"):
+        selection = "fused_epilogue"
+    elif mode == "exact":
+        selection = "masked_scan"
+    else:
+        selection = "dense_bounds"
     if mode == "approx":
         stages.append(
-            _stage("filter", algorithm="truncated_surrogate_scan", rows=n, dims=eff,
-                   selection="fused_epilogue")
+            _stage("filter", algorithm="truncated_surrogate_scan", rows=n, dims=eff, selection=selection)
         )
         stages.append(
             _stage(
@@ -201,7 +223,8 @@ def _mechanism_stages(stats: dict, query: Query, mode: str, dims, refine):
             )
         )
         return stages
-    stages.append(_stage("filter", algorithm="two_sided_simplex", rows=n, selection="fused_epilogue"))
+    algo = "two_sided_simplex" if mech == "nsimplex" else "chebyshev_triangle"
+    stages.append(_stage("filter", algorithm=algo, rows=n, selection=selection))
     stages.append(
         _stage("refine", strategy="shrinking_radius" if query.task == "knn" else "straddler_recheck")
     )
@@ -214,10 +237,6 @@ def plan(index, query: Query) -> QueryPlan:
         raise TypeError(f"expected a Query; got {type(query).__name__}")
     stats = index.stats()
     kind = stats["kind"]
-    if kind != "nsimplex":
-        raise NotImplementedError(
-            f"planning for index kind {kind!r} is not ported (sharded: ROADMAP item 7)"
-        )
     if query.allow is not None:
         return QueryPlan(
             index_kind=kind,

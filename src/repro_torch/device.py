@@ -1,9 +1,10 @@
 """Device policy of the port.
 
 Every entry point (``build_index``, ``load_index``, ``NSimplexIndex(...)``,
-``NSimplexIndex.from_state``, ``NSimplexProjector(...)``,
-``NSimplexProjector.from_fitted``) takes ``device=`` and defaults to
-``"cuda"``.
+``NSimplexIndex.from_state``, ``LaesaIndex(...)``, ``LaesaIndex.from_state``,
+``NSimplexProjector(...)``, ``NSimplexProjector.from_fitted``,
+``ExactSearchEngine(...)``, ``NSimplexRetriever(...)``) takes ``device=``
+and defaults to ``"cuda"``.
 With no card and no explicit ``device="cpu"`` it raises instead of quietly
 running on the host: the CPU path exists for the parity tests, and a
 silent fallback would make every speed figure a CPU figure.

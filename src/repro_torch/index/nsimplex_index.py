@@ -37,6 +37,7 @@ from repro_torch.core import NSimplexProjector
 from repro_torch.device import resolve_device
 from repro_torch.index.approx import approx_knn_from_pairs, approx_search_decide
 from repro_torch.index.knn import knn_refine, knn_refine_candidates
+from repro_torch.index.rows import DeviceRows
 from repro_torch.index.stats import QueryStats
 from repro_torch.kernels import (
     MAX_SELECT_WIDTH,
@@ -55,7 +56,7 @@ __all__ = ["NSimplexIndex"]
 _RANGE_CAP = 4096
 
 
-class NSimplexIndex:
+class NSimplexIndex(DeviceRows):
     """Apex table + fused two-sided bound filter on one device."""
 
     def __init__(
@@ -99,10 +100,6 @@ class NSimplexIndex:
     def n_pivots(self) -> int:
         return self.projector.n_pivots
 
-    @property
-    def n_rows(self) -> int:
-        return int(self.data.shape[0])
-
     # -- persistence ----------------------------------------------------------
     def state_arrays(self) -> dict:
         """Host numpy copies of everything needed to restore without
@@ -137,11 +134,6 @@ class NSimplexIndex:
         return index
 
     # -- operands -------------------------------------------------------------
-    def _tensor(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.as_tensor(np.asarray(x), device=self.device)
-
     def _kernel_table(self) -> torch.Tensor:
         if self._table_f32 is None:
             self._table_f32 = self.table.to(torch.float32).contiguous()
@@ -209,30 +201,6 @@ class NSimplexIndex:
         qa = torch.atleast_2d(self._tensor(query_apexes)).to(torch.float32)
         lwb, upb = apex_bounds_batch(self._kernel_table(), qa, dims=dims)
         return lwb.to(torch.float64), upb.to(torch.float64)
-
-    def _mask_of(self, rowmask):
-        """A ``rowmask`` (bool mask or array of allowed positions) as an
-        (N,) bool numpy array, or None."""
-        if rowmask is None:
-            return None
-        m = np.asarray(rowmask)
-        if m.dtype == np.bool_:
-            if m.shape[0] != self.n_rows:
-                raise ValueError(f"rowmask length {m.shape[0]} != table rows {self.n_rows}")
-            return m
-        b = np.zeros(self.n_rows, dtype=bool)
-        b[m.astype(np.int64)] = True
-        return b
-
-    def _dist_fn(self, q: torch.Tensor):
-        """rows (numpy ids) -> host distances from ``q``, evaluated on the
-        device with the metric's own dtype rule."""
-
-        def dist(rows):
-            idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
-            return self.metric.one_to_many(q, self.data[idx]).cpu().numpy()
-
-        return dist
 
     @staticmethod
     def _host(*tensors):

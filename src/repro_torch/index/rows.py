@@ -1,0 +1,54 @@
+"""What the table indexes share: operands moved to the index's device, row
+masks, and the distance oracle their host refinement loops call."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = ["DeviceRows", "row_mask"]
+
+
+def row_mask(rowmask, n: int) -> Optional[np.ndarray]:
+    """A ``rowmask`` (bool mask or array of allowed positions) as an (n,)
+    bool numpy array, or None: masked rows neither appear in results nor
+    influence radii or tie order among the allowed rows."""
+    if rowmask is None:
+        return None
+    m = np.asarray(rowmask)
+    if m.dtype == np.bool_:
+        if m.shape[0] != n:
+            raise ValueError(f"rowmask length {m.shape[0]} != table rows {n}")
+        return m
+    b = np.zeros(n, dtype=bool)
+    b[m.astype(np.int64)] = True
+    return b
+
+
+class DeviceRows:
+    """Mixin of an index holding ``device``, the corpus ``data`` (a tensor on
+    it) and a ``metric``."""
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.data.shape[0])
+
+    def _tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _mask_of(self, rowmask) -> Optional[np.ndarray]:
+        return row_mask(rowmask, self.n_rows)
+
+    def _dist_fn(self, q: torch.Tensor):
+        """rows (numpy ids) -> host distances from ``q``, evaluated on the
+        device with the metric's own dtype rule."""
+
+        def dist(rows):
+            idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
+            return self.metric.one_to_many(q, self.data[idx]).cpu().numpy()
+
+        return dist

@@ -151,8 +151,7 @@ def test_default_device_raises_without_a_card(pair):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(kind="laesa"), dict(kind="tree"), dict(mutable=True), dict(shards=2),
-           dict(durable=True), dict(kind="laesa", apex_dims=4), dict(attributes=object())]
+    "kw", [dict(mutable=True), dict(shards=2), dict(durable=True), dict(attributes=object())]
 )
 def test_unported_options_raise(pair, kw):
     _, _, data, _ = pair
