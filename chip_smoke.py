@@ -6,6 +6,8 @@
     python3 chip_smoke.py --time-shapes '[["apex_threshold", [64, 512, 20], [0, 5]]]'
     python3 chip_smoke.py --approx-only
     python3 chip_smoke.py --mechanisms-only
+    python3 chip_smoke.py --filtered-only
+    python3 chip_smoke.py --online-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -62,8 +64,41 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 below t(1-eps) - slack).  Recall@10 and range
                 precision/recall against the brute force are printed;
   5. launch_shapes — per kernel, the launches of phases 3 and 4 by shape
-                class (``ops.SHAPE_LAUNCHES``; each kernel must have > 0);
-  5b. mechanisms — the paper's other mechanisms, with the launch counts set
+                class (``ops.SHAPE_LAUNCHES``, a K2/K3 launch under a row
+                mask in its own ``"masked"`` class; each kernel must have
+                > 0);
+  5a. filtered — filtered search on phase 3's two 1M-row exact indexes with
+                a 1M-row ``AttributeStore`` made from ``--seed`` (``shop``
+                categorical over 1000 values, Zipf s = 1.1; ``year`` int
+                2000-2024; ``price`` lognormal; ``in_stock`` 90% true), the
+                launch counts set to 0 before and read after (its own
+                ``launch_shapes`` lines, ``launch_phase="filtered"``; each
+                kernel must have > 0): per metric and predicate (the most
+                common shop, recent years in stock, in stock, the ten
+                rarest shops) a 64-query k-NN (k=10) and range batch under
+                the planner's choice (its strategy printed; the CPU tests
+                hold it to the JAX package's plan at these stats) and under
+                each forced strategy, one approximate pushdown batch (dims 10, refine
+                64) and 8 1-D pushdown requests; walls, ``original_calls``
+                and overflows printed.  After the counts are read every
+                exact answer is held to an f64 brute force over the
+                matching rows and the approximate ones to their own
+                candidates (the matching rows read from the generated
+                columns, not from the ``AttributeStore``);
+  5b. online — ``build_index(colors-1M, metric, mutable=True,
+                compact_threshold=None, attributes=store)``, counts set to
+                0 before and read after (``launch_phase="online"``): rounds
+                of 2,048 adds with attributes (rows from ``colors_like``
+                with another seed), 1,024 removes and 256 upserts, then a
+                64-query exact k-NN, range and filtered k-NN batch (the
+                filtered one forced to pushdown and under the planner's
+                choice); euclidean 6 rounds, jensen_shannon 2, then
+                ``compact()`` and one more round with 8 1-D k-NN requests.
+                Mutation, materialise and compaction ms, overflowed queries
+                and ``original_calls`` printed; every answer held to an f64
+                brute force over an oracle's live rows and their generated
+                attribute columns, kept apart from the index and its store;
+  5c. mechanisms — the paper's other mechanisms, with the launch counts set
                 to 0 before and read after (its own ``launch_shapes`` lines,
                 ``launch_phase="mechanisms"``; each kernel must have > 0):
                 LAESA at colors-1M (``build_index(kind="laesa",
@@ -111,9 +146,15 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
   7. ``{"kernels": [...]}`` — those rows with their launches and
                 ``table_rows`` (K1, K3 and K4 with ``plan``,
                 ``previous_design_ms`` and ``previous_design_device_ms``):
-                first the main path's, then the mechanisms phase's, tagged
-                ``launch_phase="mechanisms"`` and carrying that phase's
-                launches and shares;
+                first the main path's, then the filtered, online and
+                mechanisms phases', tagged with ``launch_phase`` and carrying
+                that phase's launches and shares.  The filtered rows are
+                timed on the 1M-row JSD index with the most common shop's
+                row mask (masked K2 (64, 10, upb, 20) and K3 (64, 512, 20)
+                always among them); the online rows on the JSD online
+                index's 1M-row base, its K2/K3 rows narrower than 4,096 on
+                its delta segment with the predicate's mask, and K4 at the
+                add-burst class (2,304, 20, f64) always among them;
 then the card's ``nvidia-smi`` line, and last the device contract line.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
@@ -125,8 +166,11 @@ K3's (``[G, S]``; G = 0 is the first design, one query per block) or K4's
 or K3 class of more queries than the 256 query rows repeats them.
 ``--approx-only`` runs phase 4 alone, with its checks, so two checkouts'
 approximate batch and service wall times can be taken in turns on one
-card; ``--mechanisms-only`` runs phase 5b alone, with its checks, and
-prints its kernel rows as ``{"mechanisms_kernels": [...]}``.
+card; ``--mechanisms-only`` runs phase 5c alone, with its checks, and
+prints its kernel rows as ``{"mechanisms_kernels": [...]}``;
+``--filtered-only`` and ``--online-only`` run phase 5a or 5b alone, with
+their checks, and print ``{"filtered_kernels": [...]}`` or
+``{"online_kernels": [...]}``.
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -162,6 +206,8 @@ F32_TOL, F64_TOL = 2e-5, 1e-12
 #: f32 tolerances of K4 and K5 (tests/test_kernels.py:79 and :111)
 K4_F32_TOL, K5_F32_TOL = 3e-4, 1e-4
 SENTINEL = 2**31 - 1
+#: the device the phases build their indexes on
+DEVICE = "cuda"
 KERNEL_INFO = {
     "apex_bounds_batch": ("K1", "src/repro_torch/kernels/csrc/apex_bounds_batch.cu",
                           "src/repro/kernels/apex_bounds_batch.py:205"),
@@ -252,16 +298,18 @@ def roofline(bytes_, ops, flops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def select_bound(Q_, N_, n_, dims, q_numel, out_bytes, kept, squares=1):
-    """Bound of a fused f32 selection scan (K2, K3): the table and queries
-    read once and the selection written once, against the operations the
-    answer needs.  Per (query, row): the head dot product, 2(dims - 1), and
-    the squared bounds the key is decided on (3 for the head norm, 3 for each
-    square: ``squares`` is 2 for K2's mid key, else 1); no square root, since
-    a squared bound decides every row that does not enter.  Per kept row:
-    the other square and the two square roots, 6."""
-    return roofline(N_ * n_ * 4 + q_numel * 4 + out_bytes,
-                    Q_ * N_ * (2 * (dims - 1) + 3 + 3 * squares) + kept * 6, F32_FLOPS)
+def select_bound(Q_, rows, n_, dims, q_numel, out_bytes, kept, squares=1, mask_bytes=0):
+    """Bound of a fused f32 selection scan (K2, K3): the ``rows`` table rows
+    the answer needs (every row, or a row mask's allowed rows), the queries
+    and the ``mask_bytes`` of a uint8 row mask read once and the selection
+    written once, against the operations the answer needs.  Per (query,
+    needed row): the head dot product, 2(dims - 1), and the squared bounds
+    the key is decided on (3 for the head norm, 3 for each square:
+    ``squares`` is 2 for K2's mid key, else 1); no square root, since a
+    squared bound decides every row that does not enter.  Per kept row: the
+    other square and the two square roots, 6."""
+    return roofline(rows * n_ * 4 + q_numel * 4 + mask_bytes + out_bytes,
+                    Q_ * rows * (2 * (dims - 1) + 3 + 3 * squares) + kept * 6, F32_FLOPS)
 
 
 def bound(Q_, N_, n_, itemsize, out_bytes, flops_per_s):
@@ -640,15 +688,17 @@ def launch_histogram(shape_launches) -> dict:
     return out
 
 
-def rows_to_time(hist) -> list:
+def rows_to_time(hist, must=()) -> list:
     """(kernel, shape class) pairs with a row: every class with >= ROW_SHARE
-    of its kernel's launches, and its headline shape where the main path launched it."""
+    of its kernel's launches, its headline shape where the main path
+    launched it, and each (kernel, class) of ``must`` that was launched."""
     rows = []
     for name in KERNEL_INFO:
         classes = [cls for cls, _, share in hist.get(name, []) if share >= ROW_SHARE]
         launched = {cls for cls, _, _ in hist.get(name, [])}
-        if HEADLINE[name] in launched and HEADLINE[name] not in classes:
-            classes.append(HEADLINE[name])
+        for cls in [HEADLINE[name]] + [c for n, c in must if n == name]:
+            if cls in launched and cls not in classes:
+                classes.append(cls)
         rows.extend((name, cls) for cls in classes)
     return rows
 
@@ -666,10 +716,12 @@ class ShapeInputs:
     own state (table, corpus, projectors) and the query rows; ``corpus``
     (default: the index's) supplies raw rows where a class needs more rows
     than the index holds (the mechanisms phase's 1M-row LAESA table build
-    beside its 112,682-row engine)."""
+    beside its 112,682-row engine); ``mask`` (a uint8 row mask over the
+    table, on the card) is the row mask of K2's and K3's masked classes."""
 
-    def __init__(self, torch, ops, ref, index, queries_np, log, corpus=None):
+    def __init__(self, torch, ops, ref, index, queries_np, log, corpus=None, mask=None):
         self.torch, self.ops, self.ref, self.log = torch, ops, ref, log
+        self.mask = mask
         inner = index._inner
         self.inner = inner
         self.tab = inner._kernel_table()
@@ -737,31 +789,36 @@ class ShapeInputs:
             lib_ms = self.cdist_ms(q, dims)
             b = roofline(N_ * n_ * 4 + q.numel() * 4 + 2 * Q_ * N_ * 4, Q_ * N_ * (2 * (dims - 1) + 12), F32_FLOPS)
         elif name == "apex_topk":
-            Q_, k, key, dims = cls
+            Q_, k, key, dims = cls[:4]
+            mask, allowed = self.class_mask(cls, 4)
             q = self.apexes(Q_, dims)
             L, U = ops.apex_bounds_batch(tab, q, dims=dims)
             keys = {"lwb": L, "upb": U}.get(key)
             keys = 0.5 * (L + U) if keys is None else keys
-            want = self.selection_want(L, U, keys, torch.ones_like(L, dtype=torch.bool), k)
-            got = ops.apex_bounds_topk(tab, q, k, key=key, dims=dims)
+            want = self.selection_want(L, U, keys, allowed[None, :].expand_as(L), k)
+            got = ops.apex_bounds_topk(tab, q, k, key=key, dims=dims, rowmask=mask)
             check(all(torch.equal(g, w) for g, w in zip(got, want)), f"K2 at {cls} differs from the selection over K1")
             del L, U, keys, want, got
             err = 0.0
-            run = lambda: ops.apex_bounds_topk(tab, q, k, key=key, dims=dims)  # noqa: E731
-            plain = lambda: ref.apex_topk_ref(tab, q, k, key, dims)  # noqa: E731
-            b = select_bound(Q_, N_, n_, dims, q.numel(), Q_ * k * 12, Q_ * k, squares=2 if key == "mid" else 1)
+            run = lambda: ops.apex_bounds_topk(tab, q, k, key=key, dims=dims, rowmask=mask)  # noqa: E731
+            plain = lambda: ref.apex_topk_ref(tab, q, k, key, dims, mask)  # noqa: E731
+            b = select_bound(Q_, int(allowed.sum()), n_, dims, q.numel(), Q_ * k * 12, Q_ * k,
+                             squares=2 if key == "mid" else 1, mask_bytes=0 if mask is None else N_)
         elif name == "apex_threshold":
-            Q_, cap, dims = cls
+            Q_, cap, dims = cls[:3]
+            mask, allowed = self.class_mask(cls, 3)
             q = self.apexes(Q_, dims)
             L, U = ops.apex_bounds_batch(tab, q, dims=dims)
-            # each query's threshold at rank cap / 2 (the selection fills
-            # half), and k-NN pass B's: the K-th smallest upb, which at 1M
-            # rows overflows the cap for every query
-            thr = torch.kthvalue(L, max(1, cap // 2), dim=1).values.contiguous()
-            thr_b = torch.kthvalue(U, K, dim=1).values.contiguous()
+            # each query's threshold at rank cap / 2 among the allowed rows
+            # (the selection fills half), and k-NN pass B's: the K-th
+            # smallest allowed upb, which at 1M rows overflows the cap for
+            # every query (+inf where fewer rows are allowed)
+            inf = float("inf")
+            thr = torch.kthvalue(L.masked_fill(~allowed, inf), min(max(1, cap // 2), N_), dim=1).values.contiguous()
+            thr_b = torch.kthvalue(U.masked_fill(~allowed, inf), min(K, N_), dim=1).values.contiguous()
             for t_ in (thr_b, thr):
-                hit = L <= t_[:, None]
-                ids, lwb, upb, counts = ops.apex_bounds_threshold(tab, q, t_, cap, dims=dims, **kw)
+                hit = allowed[None, :] & (L <= t_[:, None])
+                ids, lwb, upb, counts = ops.apex_bounds_threshold(tab, q, t_, cap, dims=dims, rowmask=mask, **kw)
                 want = self.selection_want(L, U, L, hit, cap)
                 check(torch.equal(counts, hit.sum(dim=1).to(torch.int32)), f"K3 counts at {cls} differ")
                 check(all(torch.equal(g, w) for g, w in zip((ids, lwb, upb), want)),
@@ -769,13 +826,15 @@ class ShapeInputs:
                 if t_ is thr_b:
                     extra["pass_b_mean_count"] = float(counts.double().mean())
             kept = int(counts.clamp(max=cap).sum())
+            n_allowed = int(allowed.sum())
             del L, U, hit, want
             err = 0.0
-            run = lambda: ops.apex_bounds_threshold(tab, q, thr, cap, dims=dims, **kw)  # noqa: E731
-            run_b = lambda: ops.apex_bounds_threshold(tab, q, thr_b, cap, dims=dims, **kw)  # noqa: E731
+            run = lambda: ops.apex_bounds_threshold(tab, q, thr, cap, dims=dims, rowmask=mask, **kw)  # noqa: E731
+            run_b = lambda: ops.apex_bounds_threshold(tab, q, thr_b, cap, dims=dims, rowmask=mask, **kw)  # noqa: E731
             extra.update(pass_b_ms=time_ms(torch, run_b), pass_b_device_ms=device_ms(torch, run_b))
-            plain = lambda: ref.apex_threshold_ref(tab, q, thr, cap, dims)  # noqa: E731
-            b = select_bound(Q_, N_, n_, dims, q.numel(), Q_ * (cap * 12 + 4), kept)
+            plain = lambda: ref.apex_threshold_ref(tab, q, thr, cap, dims, mask)  # noqa: E731
+            b = select_bound(Q_, n_allowed, n_, dims, q.numel(), Q_ * (cap * 12 + 4), kept,
+                             mask_bytes=0 if mask is None else N_)
         elif name == "apex_project":
             B, n, dtype = cls
             p = self.inner.projector if n == self.inner.n_pivots else self.inner._prefix_projector(n)
@@ -822,6 +881,16 @@ class ShapeInputs:
         if plan is not None:
             row["plan"] = plan
         return row
+
+    def class_mask(self, cls, width):
+        """(uint8 row mask or None, (N,) bool allowed rows) of a K2/K3 class:
+        a class longer than ``width`` is a masked one."""
+        N_ = self.tab.shape[0]
+        if len(cls) == width:
+            return None, self.torch.ones(N_, dtype=self.torch.bool, device=self.tab.device)
+        check(cls[width] == "masked" and self.mask is not None and self.mask.shape[0] == N_,
+              f"a masked class {cls} needs the phase's row mask over the {N_}-row table")
+        return self.mask, self.mask.bool()
 
     def cdist_ms(self, q, dims):
         """K1/K6's one-call yardstick: ``torch.cdist(q, S)`` with S the
@@ -1290,30 +1359,470 @@ def phase_mechanisms(ops, torch, api, metrics_mod, search_mod, ref, data_np, que
     return hist, eng.indexes["N_seq"]
 
 
-def kernel_rows(torch, ops, inputs, hist, launch_phase=None) -> list:
+#: the filtered phase's attribute columns, made from the seed: ``shop``
+#: categorical over 1000 values with Zipf s = 1.1 frequencies, ``year`` an
+#: int in 2000-2024, ``price`` lognormal, ``in_stock`` true for 90% of rows
+SHOPS, ZIPF_S, IN_STOCK_P = 1000, 1.1, 0.9
+ATTR_SCHEMA = {"shop": "categorical", "year": "int", "price": "float", "in_stock": "bool"}
+FILTER_MODES = (None, "prefilter", "pushdown", "postfilter")
+#: the online phase: per round 2,048 rows added, 1,024 ids removed and 256
+#: upserted, then the query batches; rounds before the compaction per metric
+ONLINE_ADD, ONLINE_REMOVE, ONLINE_UPSERT = 2048, 1024, 256
+ONLINE_ROUNDS = {"euclidean": 6, "jensen_shannon": 2}
+
+
+def make_attributes(n: int, seed: int) -> dict:
+    """``n`` rows of the four attribute columns, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, SHOPS + 1, dtype=np.float64) ** -ZIPF_S
+    names = np.array([f"shop{r:04d}" for r in range(SHOPS)])
+    return {
+        "shop": names[rng.choice(SHOPS, size=n, p=p / p.sum())],
+        "year": rng.integers(2000, 2025, size=n),
+        "price": rng.lognormal(3.0, 1.0, size=n),
+        "in_stock": rng.random(n) < IN_STOCK_P,
+    }
+
+
+def take_attributes(attrs: dict, rows) -> dict:
+    return {name: col[rows] for name, col in attrs.items()}
+
+
+def filter_predicates(filter_mod, attrs) -> dict:
+    """The four predicates over the generated columns ``attrs``: the most
+    common shop (~18% of rows at Zipf 1.1 over 1000 values), recent years in
+    stock (~18%), in stock (~90%), and the ten rarest shops (~0.1%).  Each
+    name maps to (``Predicate``, the same test in numpy over a dict of
+    columns): the checks' reference match sets come from the columns, never
+    from the ``AttributeStore`` under test."""
+    P = filter_mod.Predicate
+    shops, counts = np.unique(attrs["shop"], return_counts=True)
+    order = np.lexsort((shops, counts))
+    top, rare = str(shops[order[-1]]), [str(s) for s in shops[order[:10]]]
+    return {
+        "shop_top": (P.eq("shop", top), lambda a: a["shop"] == top),
+        "recent_in_stock": (P.between("year", 2020, 2024) & P.eq("in_stock", True),
+                            lambda a: (a["year"] >= 2020) & (a["year"] <= 2024) & a["in_stock"]),
+        "in_stock": (P.eq("in_stock", True), lambda a: a["in_stock"].copy()),
+        "shop_rare10": (P.isin("shop", rare), lambda a: np.isin(a["shop"], rare)),
+    }
+
+
+def segments_of(index):
+    """The table segments a query of ``index`` scans (base and delta of a
+    mutable index)."""
+    if hasattr(index, "_base"):
+        return [s for s in (index._base, index._delta_seg) if s is not None]
+    return [index]
+
+
+def overflow_count(index) -> int:
+    return sum(s._inner.overflow_queries for s in segments_of(index))
+
+
+def run_batch(torch, index, qs, spec):
+    """(results, wall s, overflowed queries) of one query call."""
+    before = overflow_count(index)
+    res, wall = timed(torch, lambda: index.query(qs, spec))
+    return ([res] if qs.ndim == 1 else list(res)), wall, overflow_count(index) - before
+
+
+def calls_per_query(results) -> float:
+    return float(np.mean([r.stats.original_calls for r in results]))
+
+
+def phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod, indexes, queries_np, store, attrs) -> dict:
+    """Filtered search on the colors-1M exact indexes (euclidean and
+    jensen_shannon) with the 1M-row attribute store attached, the launch
+    counts set to 0 before and read after: per metric and predicate a
+    64-query exact k-NN (k=10) and range batch under the planner's choice
+    and under each forced strategy, one approximate k-NN batch (dims 10,
+    refine 64) under pushdown and 8 1-D k-NN requests under pushdown.
+    ``store`` holds ``attrs``, the generated columns.  Returns what
+    ``verify_filtered`` checks."""
+    Query = api.Query
+    tests = filter_predicates(filter_mod, attrs)
+    preds = {name: pred for name, (pred, _) in tests.items()}
+    qs = queries_np[:Q]
+    ops.reset_launches()
+    runs = []
+    for metric, index in indexes.items():
+        index.attach_attributes(store)
+        brute = BruteForce(torch, ref, index.data, metrics_mod.get_metric(metric))
+        t_range = float(np.sort(brute.dists(queries_np[0]).cpu().numpy())[99])
+        tasks = []
+        for pname, pred in preds.items():
+            sel = store.selectivity(pred)
+            for mode in FILTER_MODES:
+                for task, spec in (("knn_batch", Query.knn(K, where=pred, filter_mode=mode)),
+                                   ("range_batch", Query.range(t_range, where=pred, filter_mode=mode))):
+                    strategy = index.plan(spec).filter_strategy
+                    res, wall, over = run_batch(torch, index, qs, spec)
+                    emit(phase="filtered", metric=metric, predicate=pname, selectivity=sel, mode=mode or "auto",
+                         strategy=strategy, task=task, queries=len(res), wall_ms=wall * 1e3,
+                         original_calls_per_query=calls_per_query(res), overflow_queries=over)
+                    tasks.append((pname, task, spec, qs, res))
+        pred = preds["shop_top"]
+        spec = Query.knn(K, mode="approx", dims=APPROX_DIMS, refine=REFINE, where=pred, filter_mode="pushdown")
+        res, wall, over = run_batch(torch, index, qs, spec)
+        emit(phase="filtered", metric=metric, predicate="shop_top", mode="pushdown", task="approx_knn_batch",
+             strategy=index.plan(spec).filter_strategy, queries=len(res), wall_ms=wall * 1e3,
+             original_calls_per_query=calls_per_query(res), overflow_queries=over)
+        tasks.append(("shop_top", "approx_knn_batch", spec, qs, res))
+        spec = Query.knn(K, where=pred, filter_mode="pushdown")
+        res, wall, over = [], 0.0, 0
+        for q in qs[:8]:
+            r, w, o = run_batch(torch, index, q, spec)
+            res += r
+            wall, over = wall + w, over + o
+        emit(phase="filtered", metric=metric, predicate="shop_top", mode="pushdown", task="knn_1d", queries=len(res),
+             wall_ms_per_query=wall * 1e3 / len(res), original_calls_per_query=calls_per_query(res),
+             overflow_queries=over)
+        tasks.append(("shop_top", "knn_1d", spec, qs[:8], res))
+        runs.append(dict(metric=metric, index=index, brute=brute, t=t_range, tasks=tasks))
+    launches = dict(ops.LAUNCHES)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name, (kid, _, _) in KERNEL_INFO.items():
+        check(launches[name] > 0, f"{kid} ({name}) was not launched by the filtered phase")
+        emit(phase="launch_shapes", launch_phase="filtered", kernel=kid, name=name, launches=launches[name],
+             classes=[[list(cls), n, share] for cls, n, share in hist[name]])
+    return dict(runs=runs, tests=tests, attrs=attrs, hist=hist)
+
+
+def allowed_rows(torch, ids: np.ndarray, n: int, device):
+    """(allowed row positions as a device tensor, (n,) device bool mask)."""
+    pos = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
+    mask = torch.zeros(n, dtype=torch.bool, device=device)
+    mask[pos] = True
+    return pos, mask
+
+
+def expect_knn(torch, D, pos, k):
+    """Per query the k smallest (f64 distance, id) among rows ``pos``
+    (ascending ids), on the card."""
+    order = torch.sort(D[:, pos], dim=1, stable=True).indices[:, :k]
+    return pos[order].cpu().numpy()
+
+
+def check_exact(torch, D_row, res, want_ids, allowed, t, tol, what):
+    """One exact answer against the brute force: k-NN (``t`` None) ids and
+    tie order equal (f32-refined Euclidean may swap rows whose f64
+    distances agree within ``tol``), distances within ``tol``; range ids
+    equal up to rows within ``tol`` of t; every id a matching row.
+    Returns the near-tie swaps."""
+    got = np.asarray(res.ids, dtype=np.int64)
+    got_t = torch.as_tensor(got, device=D_row.device)
+    check(bool(allowed[got_t].all()), f"{what}: answered a row the predicate or a remove excludes")
+    if t is None:
+        check(len(got) == len(want_ids), f"{what}: k-NN result has the wrong length")
+        dg = D_row[got_t].cpu().numpy()
+        dw = D_row[torch.as_tensor(want_ids, device=D_row.device)].cpu().numpy()
+        check(bool(np.allclose(res.distances, dg, rtol=tol, atol=tol)), f"{what}: k-NN distances differ")
+        check(bool(np.allclose(dg, dw, rtol=tol, atol=tol)), f"{what}: k-NN ids differ from brute force")
+        return int((got != want_ids).sum())
+    diff = np.setxor1d(got, want_ids)
+    dd = D_row[torch.as_tensor(diff, device=D_row.device)].cpu().numpy()
+    check(bool(np.all(np.abs(dd - t) <= tol * max(t, 1.0))), f"{what}: range ids differ from brute force")
+    return int(diff.shape[0])
+
+
+def brute_matrix(torch, brute, qs):
+    return torch.stack([brute.dists(q) for q in qs])
+
+
+def verify_filtered(torch, ops, ref, rec):
+    """Every exact filtered answer against an f64 brute force over the
+    matching rows on the card (JSD plain, not K5); the approximate answers
+    from their own candidates: the ``REFINE`` smallest f32 truncated mid
+    keys of K1 over the matching rows (query apexes projected by the plain
+    versions), the k smallest (f64 distance, id) among them, every id
+    matching, ``original_calls == dims + refine``.  The matching rows are
+    the generated columns' (logical id = row position on a plain index)."""
+    for run in rec["runs"]:
+        index, brute, metric = run["index"], run["brute"], run["metric"]
+        inner = index._inner
+        N = inner.n_rows
+        tol = refine_tol(torch, metric, inner.data)
+        D = brute_matrix(torch, brute, run["tasks"][0][3])
+        allowed = {name: allowed_rows(torch, np.flatnonzero(test(rec["attrs"])), N, D.device)
+                   for name, (_, test) in rec["tests"].items()}
+        want = {name: expect_knn(torch, D, pos, K) for name, (pos, _) in allowed.items()}
+        checked, swaps = 0, 0
+        for pname, task, spec, qs, results in run["tasks"]:
+            pos, mask = allowed[pname]
+            if task == "approx_knn_batch":
+                verify_filtered_approx(torch, ops, ref, inner, brute, D, mask, qs, results)
+                continue
+            for qi, r in enumerate(results):
+                what = f"filtered {metric} {pname} {task} mode={spec.filter_mode} q{qi}"
+                if spec.task == "knn":
+                    swaps += check_exact(torch, D[qi], r, want[pname][qi], mask, None, tol, what)
+                else:
+                    t = float(spec.threshold)
+                    ids = pos[D[qi, pos] <= t].cpu().numpy()
+                    swaps += check_exact(torch, D[qi], r, ids, mask, t, tol, what)
+                checked += 1
+        emit(phase="filtered", metric=metric, checked_exact_answers=checked, near_tie_differences=swaps)
+        del D
+        torch.cuda.empty_cache()
+
+
+def verify_filtered_approx(torch, ops, ref, inner, brute, D, mask, qs, results):
+    prefix = inner._prefix_projector(APPROX_DIMS)
+    apexes = ref.apex_project_ref(brute.cross(qs[:8], prefix.pivots_t), prefix._Linv_t, prefix._sq_norms_t)
+    L, U = (t.cpu().numpy() for t in ops.apex_bounds_batch(inner._kernel_table(), apexes.float(),
+                                                            dims=APPROX_DIMS))
+    live = mask.cpu().numpy()
+    for qi, r in enumerate(results[:8]):
+        cand = host_select(np.float32(0.5) * (L[qi:qi + 1] + U[qi:qi + 1]), live[None, :], REFINE)[0]
+        check(bool(live[r.ids].all()), "filtered approximate k-NN answered a row the predicate excludes")
+        check(bool(np.isin(r.ids, cand).all()), "filtered approximate k-NN answered outside its candidates")
+        d64 = D[qi].cpu().numpy()
+        check(np.array_equal(r.ids, cand[np.lexsort((cand, d64[cand]))][:K]),
+              "filtered approximate k-NN is not the k nearest of its candidates")
+        check(r.stats.original_calls == APPROX_DIMS + REFINE, "original_calls must be dims + refine")
+
+
+class Oracle:
+    """The online phase's reference corpus, kept apart from the index and
+    its attribute store: every row ever added on the card and its generated
+    attribute row (both append only), each slot's logical id, and which
+    slots are live."""
+
+    def __init__(self, torch, rows, ids, attrs):
+        self.torch = torch
+        self.rows = rows
+        self.attrs = dict(attrs)
+        self.slot_id = np.asarray(ids, dtype=np.int64)
+        self.live = np.ones(len(ids), dtype=bool)
+        self.slot_of = np.full(int(self.slot_id.max()) + 1, -1, dtype=np.int64)
+        self.slot_of[self.slot_id] = np.arange(len(ids))
+
+    def add(self, ids, rows_np, attrs):
+        start = self.rows.shape[0]
+        self.rows = self.torch.cat([self.rows, self.torch.as_tensor(rows_np, device=self.rows.device)])
+        self.attrs = {name: np.concatenate([col, attrs[name]]) for name, col in self.attrs.items()}
+        self.slot_id = np.concatenate([self.slot_id, ids])
+        self.live = np.concatenate([self.live, np.ones(len(ids), dtype=bool)])
+        if int(ids.max()) >= self.slot_of.shape[0]:
+            self.slot_of = np.concatenate([self.slot_of, np.full(int(ids.max()) + 1 - self.slot_of.shape[0], -1)])
+        self.slot_of[ids] = np.arange(start, start + len(ids))
+
+    def remove(self, ids):
+        slots = self.slot_of[ids]
+        check(bool((slots >= 0).all()), "the oracle removes an id it does not hold")
+        self.live[slots] = False
+        self.slot_of[ids] = -1
+
+    def live_ids(self) -> np.ndarray:
+        return np.sort(self.slot_id[self.live])
+
+    def snapshot(self) -> np.ndarray:
+        """The live slots in ascending logical-id order."""
+        slots = np.flatnonzero(self.live)
+        return slots[np.argsort(self.slot_id[slots], kind="stable")]
+
+
+def phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries_np, attrs, seed) -> dict:
+    """The online mutable index, the launch counts set to 0 before and read
+    after: ``build_index(colors-1M, metric, mutable=True,
+    compact_threshold=None, attributes=store)``, then rounds of 2,048 adds
+    (new rows from ``colors_like`` with another seed, with attributes),
+    1,024 removes and 256 upserts, each followed by a 64-query exact k-NN
+    (k=10), range and filtered k-NN (``shop`` = the most common) batch, the
+    filtered one forced to pushdown and under the planner's choice; then ``compact()`` and one more round with 8 1-D k-NN requests.
+    Euclidean takes 6 rounds before the compaction, jensen_shannon 2.
+    Returns what ``verify_online`` checks."""
+    from repro_torch.data import colors_like
+
+    Query = api.Query
+    qs = queries_np[:Q]
+    ops.reset_launches()
+    runs = []
+    for mi, (metric, rounds) in enumerate(ONLINE_ROUNDS.items()):
+        report = lambda **f: emit(phase="online", metric=metric, **f)  # noqa: E731
+        store = filter_mod.AttributeStore(ATTR_SCHEMA)
+        store.put(np.arange(N_ROWS), attrs)
+        pred, test = filter_predicates(filter_mod, attrs)["shop_top"]
+        index, wall = timed(torch, lambda: api.build_index(
+            data_np, metric, n_pivots=N_PIVOTS, seed=SEED % 1000, mutable=True, compact_threshold=None,
+            attributes=store, device=DEVICE))
+        report(task="build", rows=N_ROWS, wall_s=wall)
+        per_round = ONLINE_ADD + ONLINE_UPSERT
+        pool = colors_like(n=(rounds + 1) * per_round, dim=DIM, seed=seed + 1 + mi)
+        pool_attrs = make_attributes(len(pool), seed + 11 + mi)
+        rng = np.random.default_rng(seed + 21 + mi)
+        oracle = Oracle(torch, torch.as_tensor(data_np, device=DEVICE), np.arange(N_ROWS), attrs)
+        brute = BruteForce(torch, ref, oracle.rows, metrics_mod.get_metric(metric))
+        t_range = float(np.sort(brute.dists(queries_np[0]).cpu().numpy())[99])   # ~100th-neighbour distance
+        del brute
+        rounds_out = []
+        for r in range(rounds + 1):
+            out = {"round": r}
+            if r == rounds:
+                _, wall = timed(torch, index.compact)
+                check(index.stats()["delta_rows"] == 0 and index.stats()["tombstones"] == 0,
+                      "compact() left a delta or tombstones")
+                out["compact_ms"] = wall * 1e3
+            block = slice(r * per_round, r * per_round + ONLINE_ADD)
+            ids, wall = timed(torch, lambda: index.add(pool[block], attrs=take_attributes(pool_attrs, block)))
+            oracle.add(ids, pool[block], take_attributes(pool_attrs, block))
+            out["add_ms"] = wall * 1e3
+            victims = rng.choice(oracle.live_ids(), size=ONLINE_REMOVE, replace=False)
+            _, wall = timed(torch, lambda: index.remove(victims))
+            oracle.remove(victims)
+            out["remove_ms"] = wall * 1e3
+            targets = rng.choice(oracle.live_ids(), size=ONLINE_UPSERT, replace=False)
+            block = slice(r * per_round + ONLINE_ADD, (r + 1) * per_round)
+            _, wall = timed(torch, lambda: index.upsert(targets, pool[block], attrs=take_attributes(pool_attrs, block)))
+            oracle.remove(targets)
+            oracle.add(targets, pool[block], take_attributes(pool_attrs, block))
+            out["upsert_ms"] = wall * 1e3
+            _, wall = timed(torch, index._materialize)
+            out["materialize_ms"] = wall * 1e3
+            st = index.stats()
+            out.update(delta_rows=st["delta_rows"], tombstones=st["tombstones"], live_rows=st["n_objects"])
+            snap = oracle.snapshot()
+            tasks = []
+            specs = [("knn_batch", Query.knn(K)), ("range_batch", Query.range(t_range)),
+                     ("filtered_knn_batch", Query.knn(K, where=pred, filter_mode="pushdown")),
+                     ("filtered_auto_knn_batch", Query.knn(K, where=pred))]
+            for task, spec in specs:
+                res, wall, over = run_batch(torch, index, qs, spec)
+                out[task] = dict(wall_ms=wall * 1e3, original_calls_per_query=calls_per_query(res),
+                                 overflow_queries=over)
+                tasks.append((task, spec, qs, res))
+            out["filtered_auto_strategy"] = index.plan(Query.knn(K, where=pred)).filter_strategy
+            if r == rounds:
+                res, wall, over = [], 0.0, 0
+                for q in qs[:8]:
+                    rr, w, o = run_batch(torch, index, q, Query.knn(K))
+                    res += rr
+                    wall, over = wall + w, over + o
+                out["knn_1d"] = dict(wall_ms_per_query=wall * 1e3 / len(res),
+                                     original_calls_per_query=calls_per_query(res), overflow_queries=over)
+                tasks.append(("knn_1d", Query.knn(K), qs[:8], res))
+            report(**out)
+            rounds_out.append(dict(snap=snap, tasks=tasks, store_match=index.attributes.match(pred)))
+        check(np.array_equal(index.ids(), oracle.live_ids()), "the index's live ids differ from the oracle's")
+        runs.append(dict(metric=metric, index=index, oracle=oracle, rounds=rounds_out, t=t_range))
+    launches = dict(ops.LAUNCHES)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name, (kid, _, _) in KERNEL_INFO.items():
+        check(launches[name] > 0, f"{kid} ({name}) was not launched by the online phase")
+        emit(phase="launch_shapes", launch_phase="online", kernel=kid, name=name, launches=launches[name],
+             classes=[[list(cls), n, share] for cls, n, share in hist[name]])
+    return dict(runs=runs, hist=hist, pred=pred, test=test)
+
+
+def verify_online(torch, ref, metrics_mod, rec):
+    """Every online answer against an f64 brute force over the round's live
+    rows (the oracle's, not the index's; JSD plain, not K5): k-NN ids and
+    tie order, range ids, and the filtered k-NN over the live rows whose
+    generated attribute rows (the oracle's) match the predicate; and the
+    index's own store matching exactly those live ids."""
+    for run in rec["runs"]:
+        metric, oracle = run["metric"], run["oracle"]
+        m = metrics_mod.get_metric(metric)
+        checked, swaps = 0, 0
+        for ri, rnd in enumerate(run["rounds"]):
+            snap = rnd["snap"]
+            ids = oracle.slot_id[snap]
+            rows = oracle.rows[torch.as_tensor(snap, device=oracle.rows.device)]
+            tol = refine_tol(torch, metric, rows)
+            brute = BruteForce(torch, ref, rows, m)
+            D = brute_matrix(torch, brute, rnd["tasks"][0][2])
+            everyone = torch.arange(len(ids), device=D.device)
+            matching = np.flatnonzero(rec["test"](take_attributes(oracle.attrs, snap)))
+            check(np.array_equal(rnd["store_match"], ids[matching]),
+                  f"online {metric} round {ri}: the index's attribute store matches other ids than the oracle")
+            matching = torch.as_tensor(matching, device=D.device)
+            masks = {"all": torch.ones(len(ids), dtype=torch.bool, device=D.device),
+                     "match": torch.zeros(len(ids), dtype=torch.bool, device=D.device)}
+            masks["match"][matching] = True
+            want = {"all": expect_knn(torch, D, everyone, K), "match": expect_knn(torch, D, matching, K)}
+            for task, spec, qs, results in rnd["tasks"]:
+                key = "match" if spec.where is not None else "all"
+                for qi, r in enumerate(results):
+                    # logical ids -> positions among the live rows
+                    local = SimpleNamespace(ids=np.searchsorted(ids, r.ids), distances=r.distances)
+                    check(np.array_equal(ids[np.minimum(local.ids, len(ids) - 1)], r.ids),
+                          f"online {metric} {task}: answered an id that is not live")
+                    what = f"online {metric} round {ri} {task} q{qi}"
+                    if spec.task == "knn":
+                        swaps += check_exact(torch, D[qi], local, want[key][qi], masks[key], None, tol, what)
+                    else:
+                        t = float(spec.threshold)
+                        exp = everyone[D[qi] <= t].cpu().numpy()
+                        swaps += check_exact(torch, D[qi], local, exp, masks[key], t, tol, what)
+                    checked += 1
+            del D, brute, rows
+            torch.cuda.empty_cache()
+        emit(phase="online", metric=metric, checked_answers=checked, near_tie_differences=swaps)
+
+
+def kernel_rows(torch, ops, inputs, hist, launch_phase=None, selection_inputs=None, must=()) -> list:
     """The kernels line's rows of one launch histogram: each (kernel, shape
-    class) of ``rows_to_time(hist)`` timed on ``inputs`` (held to its plain
-    version there), with that histogram's launches and share, and for K1,
-    K3 and K4 the previous design timed beside it.  ``launch_phase`` tags
-    the rows of a phase other than the main path's."""
+    class) of ``rows_to_time(hist, must)`` timed on ``inputs`` (held to its
+    plain version there), with that histogram's launches and share, and for
+    K1, K3 and K4 the previous design timed beside it.  ``launch_phase``
+    tags the rows of a phase other than the main path's;
+    ``selection_inputs`` (default ``inputs``) are the operands of K2's and
+    K3's rows narrower than the kernels' 4,096 cap, where a phase launches
+    those on another table (the online phase's delta)."""
     tag = {} if launch_phase is None else {"launch_phase": launch_phase}
-    N_ = inputs.tab.shape[0]
     rows = []
-    for name, m in time_shapes(torch, ops, inputs.ref, inputs, rows_to_time(hist), **tag):
+    for pair in rows_to_time(hist, must):
+        narrow = pair[0] in ("apex_topk", "apex_threshold") and pair[1][1] < ops.MAX_SELECT_WIDTH
+        inp = selection_inputs if selection_inputs and narrow else inputs
+        N_ = inp.tab.shape[0]
+        (name, m), = time_shapes(torch, ops, inp.ref, inp, [pair], **tag)
         n, share = next((n, share) for cls, n, share in hist[name] if list(cls) == m["shape"])
         row = kernel_row(name, m, n, share)
         if name in PREVIOUS_DESIGN:
             label, plan_of = PREVIOUS_DESIGN[name]
             cls = tuple(m["shape"])
-            prev = inputs.time_row(name, cls, plan_of(ops, cls, N_, inputs.sms))
+            prev = inp.time_row(name, cls, plan_of(ops, cls, N_, inp.sms))
             emit(phase="kernel_shape", kernel=KERNEL_INFO[name][0], name=name, design=label, **tag, **prev)
             row.update({key: m[key] for key in ("pass_b_ms", "pass_b_device_ms", "pass_b_mean_count",
                                                 "launch_floor_ms") if key in m})
             row.update({f"previous_design_{key}": prev[key] for key in ("pass_b_ms", "device_ms") if key in prev})
             row.update(previous_design=label, previous_design_ms=prev["ms"],
-                       plan=current_plan(ops, name, cls, N_, inputs.sms))
+                       plan=current_plan(ops, name, cls, N_, inp.sms))
         rows.append(dict(row, table_rows=N_, **tag))
     return rows
+
+
+def filtered_kernel_rows(torch, ops, ref, rec, queries_np, log) -> list:
+    """The filtered phase's kernel rows, timed on the 1M-row jensen_shannon
+    exact index with the most common shop's row mask (the pushdown mask of
+    the phase's K2 and K3 masked classes)."""
+    run = next(r for r in rec["runs"] if r["metric"] == "jensen_shannon")
+    inner = run["index"]._inner
+    mask = torch.as_tensor(rec["tests"]["shop_top"][1](rec["attrs"]).astype(np.uint8), device=inner.data.device)
+    inputs = ShapeInputs(torch, ops, ref, run["index"], queries_np, log, mask=mask)
+    must = [("apex_topk", (Q, K, "upb", N_PIVOTS, "masked")), ("apex_threshold", (Q, 512, N_PIVOTS, "masked"))]
+    return kernel_rows(torch, ops, inputs, rec["hist"], "filtered", must=must)
+
+
+def online_kernel_rows(torch, ops, ref, rec, queries_np, log) -> list:
+    """The online phase's kernel rows, K4 at the add-burst class among them:
+    K2 and K3 narrower than the 4,096 cap timed on the delta segment of the
+    jensen_shannon online index (where the phase launches them: the base's
+    k-NN selections, widened past the cap by its tombstones, overflow to
+    K1), with the delta's slots of the filtered batch's predicate as the
+    row mask; the others (the 4,096-wide range selections mostly on the
+    base) on its 1M-row base."""
+    run = next(r for r in rec["runs"] if r["metric"] == "jensen_shannon")
+    index = run["index"]
+    delta = index._materialize()
+    sides = index._sides()
+    masks, _ = index._side_masks(sides, index.attributes.match(rec["pred"]))
+    slots = masks[[s.seg for s in sides].index(delta)]
+    mask = delta._inner._device_mask(delta._inner._mask_of(slots))
+    return kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, index._base, queries_np, log), rec["hist"], "online",
+                       selection_inputs=ShapeInputs(torch, ops, ref, delta, queries_np, log, mask=mask),
+                       must=[("apex_project", (ONLINE_ADD + ONLINE_UPSERT, N_PIVOTS, "float64"))])
 
 
 def kernel_row(name, m, launches, share) -> dict:
@@ -1347,12 +1856,18 @@ def main(argv=None) -> int:
                         help="only time each step of K4's query path at (1, 20, f64), three rounds")
     parser.add_argument("--ptxas", action="store_true",
                         help="only print registers and spills of apex_project.cu's kernels (nvcc -Xptxas -v)")
+    parser.add_argument("--filtered-only", action="store_true",
+                        help="only run the filtered phase (both metrics) and its checks")
+    parser.add_argument("--online-only", action="store_true",
+                        help="only run the online phase (both metrics) and its checks")
+    parser.add_argument("--seed", type=int, default=SEED,
+                        help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch import api, metrics as metrics_mod
+    from repro_torch import api, filter as filter_mod, metrics as metrics_mod
     from repro_torch.data import colors_like
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import service as service_mod
@@ -1411,9 +1926,33 @@ def main(argv=None) -> int:
         return 0
 
     t0 = time.perf_counter()
+    attrs = make_attributes(N_ROWS, args.seed)
+    emit(phase="data", attribute_rows=N_ROWS, wall_s=time.perf_counter() - t0)
+    if args.online_only:
+        online = phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries_np, attrs, args.seed)
+        verify_online(torch, ref, metrics_mod, online)
+        print(json.dumps({"online_kernels": online_kernel_rows(torch, ops, ref, online, queries_np, log)}),
+              flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
+
+    t0 = time.perf_counter()
     euclid = api.build_index(data_np, "euclidean", n_pivots=N_PIVOTS, seed=SEED % 1000, device="cuda")
     torch.cuda.synchronize()
     emit(phase="e2e", metric="euclidean", task="build", rows=N_ROWS, wall_s=time.perf_counter() - t0)
+    store = filter_mod.AttributeStore(ATTR_SCHEMA)
+    store.put(np.arange(N_ROWS), attrs)
+    if args.filtered_only:
+        jsd_exact = api.build_index(data_np, "jensen_shannon", n_pivots=N_PIVOTS, seed=SEED % 1000, device="cuda")
+        filtered = phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod,
+                                  {"euclidean": euclid, "jensen_shannon": jsd_exact}, queries_np, store, attrs)
+        verify_filtered(torch, ops, ref, filtered)
+        print(json.dumps({"filtered_kernels": filtered_kernel_rows(torch, ops, ref, filtered, queries_np, log)}),
+              flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
 
     mods = (torch, api, metrics_mod, service_mod, ref, data_np, queries_np)
     if args.approx_only:
@@ -1434,10 +1973,7 @@ def main(argv=None) -> int:
     ops.reset_launches()
     phase_e2e(*mods, "euclidean", index=euclid)
     approx_runs = [phase_approx(*mods, "euclidean", index=euclid)]
-    del euclid
     jsd_exact = phase_e2e(*mods, "jensen_shannon")
-    del jsd_exact
-    torch.cuda.empty_cache()
     approx_runs.append(phase_approx(*mods, "jensen_shannon"))
     launches = dict(ops.LAUNCHES)
     hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
@@ -1447,10 +1983,25 @@ def main(argv=None) -> int:
              classes=[[list(cls), n, share] for cls, n, share in hist[name]])
     for rec in approx_runs:
         verify_approx(torch, ops, ref, rec)
+    # filtered search on the same two exact indexes, then the online index
+    filtered = phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod,
+                              {"euclidean": euclid, "jensen_shannon": jsd_exact}, queries_np, store, attrs)
+    verify_filtered(torch, ops, ref, filtered)
+    del euclid
+    torch.cuda.empty_cache()
+    online = phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries_np, attrs, args.seed)
+    verify_online(torch, ref, metrics_mod, online)
+    torch.cuda.empty_cache()
     mech_hist, mech_index = phase_mechanisms(ops, *mech_mods)
 
     rows = kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, approx_runs[-1]["index"], queries_np, log), hist)
     del approx_runs
+    torch.cuda.empty_cache()
+    rows += filtered_kernel_rows(torch, ops, ref, filtered, queries_np, log)
+    del filtered, jsd_exact
+    torch.cuda.empty_cache()
+    rows += online_kernel_rows(torch, ops, ref, online, queries_np, log)
+    del online
     torch.cuda.empty_cache()
     # the mechanisms phase's own shape classes, timed on its engine's
     # 112,682-row N_seq table and corpus, with that phase's launches

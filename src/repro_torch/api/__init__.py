@@ -3,25 +3,31 @@
 Build with ``build_index``, answer declarative ``Query`` specs with
 ``index.query(q_or_batch, spec)`` (``index.plan(spec).explain()`` shows the
 pipeline), persist with ``save`` / ``load_index`` in the JAX package's
-on-disk format.  Results arrive as ``QueryResult`` / ``BatchQueryResult``
+on-disk format.  ``build_index(..., mutable=True)`` returns a
+``MutableIndex`` (online add / remove / upsert / compact, exact queries);
+``build_index(..., attributes=store)`` enables ``Query(where=Predicate...)``.  Results arrive as ``QueryResult`` / ``BatchQueryResult``
 carriers with the paper's per-query cost ledger.
 """
 
 from repro_torch.api.execute import QuerySurface, execute
-from repro_torch.api.factory import build_index, load_index
+from repro_torch.api.factory import COMPOSITE_KINDS, INDEX_KINDS, build_index, load_index
 from repro_torch.api.indexes import MetricTreeIndex, PivotTableIndex, SimplexTableIndex
+from repro_torch.api.mutable import MutableIndex
 from repro_torch.api.persistence import FORMAT_VERSION
 from repro_torch.api.planner import PlanStage, QueryPlan, plan
-from repro_torch.api.protocol import STATS_CONTRACT, Index
+from repro_torch.api.protocol import STATS_CONTRACT, Index, SupportsMutation
 from repro_torch.api.query import DEFAULT_REFINE, Query, QueryOptions
 from repro_torch.api.types import BatchQueryResult, QueryResult, QueryStats
 
 __all__ = [
     "BatchQueryResult",
+    "COMPOSITE_KINDS",
     "DEFAULT_REFINE",
     "FORMAT_VERSION",
+    "INDEX_KINDS",
     "Index",
     "MetricTreeIndex",
+    "MutableIndex",
     "PivotTableIndex",
     "PlanStage",
     "Query",
@@ -32,6 +38,7 @@ __all__ = [
     "QuerySurface",
     "STATS_CONTRACT",
     "SimplexTableIndex",
+    "SupportsMutation",
     "build_index",
     "execute",
     "load_index",

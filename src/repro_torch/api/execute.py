@@ -10,12 +10,24 @@ shims over them.
 The plan's approx config (``{"dims", "refine"}``, None for an exact plan)
 rides into every primitive, so exact and approximate plans take the same
 dispatch.  Id filters (all exact): ``allow`` is a direct true-metric scan of
-the listed rows; ``deny`` with k-NN over-fetches ``k + len(deny)`` and drops
-the denied ids; ``deny`` with range post-filters the verified set.
+the listed live rows; ``deny`` with k-NN over-fetches ``k + len(deny)`` and
+drops the denied ids; ``deny`` with range post-filters the verified set.
+
+Attribute predicates (``Query.where``) compile to the sorted logical ids of
+the matching rows (``AttributeStore.match``, composed with allow/deny) and
+run one of three strategies: ``prefilter`` scans those rows directly (the
+allowlist path), ``pushdown`` hands them to the index as a ``rowmask`` (the
+bound-scan kernels' row mask), ``postfilter`` over-fetches unfiltered and
+keeps the matching rows, doubling the fetch until ``k`` match.
+
+Logical ids are not row positions on a mutable index (removed ids,
+compaction); the direct scans map ids to rows through the index's live
+``(ids, rows)`` view, never by position.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -25,31 +37,151 @@ import torch
 from repro_torch.api.planner import QueryPlan, plan as make_plan
 from repro_torch.api.query import Query
 from repro_torch.api.types import BatchQueryResult, QueryResult, QueryStats
-from repro_torch.index.knn import knn_select
 
 __all__ = ["QuerySurface", "execute"]
 
 
-def _allow_direct(index, queries: np.ndarray, spec: Query):
-    """Exact scan of the live rows of the allowlist, on the index's device."""
-    want = np.asarray(spec.allow, dtype=np.int64)
-    sel_ids = want[want < index.data.shape[0]]
-    rows = index.data[torch.as_tensor(sel_ids, device=index.data.device)]
+# -- id-filter helpers ---------------------------------------------------------
+def _live_rows(index):
+    """(ascending logical ids, aligned rows on the index's device) of any
+    index.  A composite materialises ``.data`` by gathering its segments, so
+    the view is cached on the instance under its mutation ``version``; a
+    plain index exposes ``.data`` by reference, has no version and is not
+    cached."""
+    version = getattr(index, "version", None)
+    cached = getattr(index, "_live_rows_cache", None)
+    if version is not None and cached is not None and cached[0] == version:
+        return cached[1], cached[2]
+    rows = index.data
+    ids_fn = getattr(index, "ids", None)
+    lids = np.asarray(ids_fn(), dtype=np.int64) if callable(ids_fn) else np.arange(rows.shape[0], dtype=np.int64)
+    if version is not None:
+        index._live_rows_cache = (version, lids, rows)
+    return lids, rows
+
+
+def _allow_selection(index, allow):
+    """(logical ids, rows) of the live subset of ``allow``, ids ascending."""
+    lids, rows = _live_rows(index)
+    want = np.asarray(allow, dtype=np.int64)
+    pos = np.searchsorted(lids, want)
+    pos_c = np.minimum(pos, max(len(lids) - 1, 0))
+    valid = (pos < len(lids)) & (lids[pos_c] == want) if len(lids) else np.zeros(len(want), bool)
+    sel = pos[valid]
+    return lids[sel], rows[torch.as_tensor(sel, device=rows.device)]
+
+
+def _allow_direct(index, queries: np.ndarray, spec: Query, want=None):
+    """Exact scan of an explicit id set (the allowlist, or a predicate's
+    matching rows under the prefilter strategy) on the index's device.  The
+    selected ids ascend, so a stable sort by distance is the (distance, id)
+    order of ``knn_select``."""
+    sel_ids, sel_rows = _allow_selection(index, spec.allow if want is None else want)
+    n = len(sel_ids)
     out = []
     for qi, q in enumerate(queries):
-        if len(sel_ids):
-            q_t = torch.as_tensor(q, device=rows.device)
-            d = np.asarray(index.metric.one_to_many(q_t, rows).cpu().numpy(), dtype=np.float64)
+        stats = QueryStats(original_calls=n, candidates=n)
+        if n:
+            d = index.metric.one_to_many(torch.as_tensor(q, device=sel_rows.device), sel_rows).to(torch.float64)
         else:
-            d = np.empty(0, dtype=np.float64)
-        stats = QueryStats(original_calls=len(sel_ids), candidates=len(sel_ids))
+            d = torch.empty(0, dtype=torch.float64)
         if spec.task == "knn":
-            ids, dd = knn_select(d, sel_ids, min(spec.k, len(sel_ids)))
-            out.append(QueryResult(ids=ids, distances=dd, stats=stats))
+            top = torch.sort(d, stable=True)
+            take = min(spec.k, n)
+            pos = top.indices[:take].cpu().numpy()
+            out.append(QueryResult(ids=sel_ids[pos], distances=top.values[:take].cpu().numpy(), stats=stats))
         else:
-            keep = d <= _threshold_for(spec, qi)
-            out.append(QueryResult(ids=sel_ids[keep], distances=d[keep], stats=stats))
+            keep = torch.nonzero(d <= _threshold_for(spec, qi)).flatten()
+            out.append(QueryResult(ids=sel_ids[keep.cpu().numpy()], distances=d[keep].cpu().numpy(), stats=stats))
     return out
+
+
+# -- predicate strategies ------------------------------------------------------
+def _match_ids(index, spec: Query) -> np.ndarray:
+    """Sorted logical ids satisfying ``spec.where`` composed with allow/deny."""
+    store = getattr(index, "attributes", None)
+    if store is None:
+        raise ValueError("query has a 'where' predicate but the index carries no attribute store")
+    match = store.match(spec.where)
+    if spec.allow is not None:
+        match = np.intersect1d(match, np.asarray(spec.allow, dtype=np.int64))
+    if spec.deny:
+        match = np.setdiff1d(match, np.asarray(spec.deny, dtype=np.int64))
+    return match
+
+
+def _empty_result() -> QueryResult:
+    return QueryResult(ids=np.empty(0, dtype=np.int64), distances=np.empty(0, dtype=np.float64), stats=QueryStats())
+
+
+def _keep_matching(r: QueryResult, match: np.ndarray, limit=None) -> QueryResult:
+    keep = np.isin(r.ids, match)
+    return QueryResult(
+        ids=r.ids[keep][:limit],
+        distances=None if r.distances is None else r.distances[keep][:limit],
+        stats=r.stats,
+        approx=r.approx,
+    )
+
+
+def _postfilter_knn_one(index, q, k: int, cfg, match, n_live: int) -> QueryResult:
+    """Grow-overfetch loop: fetch, keep the matching rows, double until
+    ``k`` match or the index is exhausted; exact, because the final fetch
+    holds the k nearest matching rows."""
+    fetch = min(n_live, max(2 * k, k + 16))
+    while True:
+        r = index._exec_knn(q, fetch, cfg)
+        if int(np.isin(r.ids, match).sum()) >= k or fetch >= n_live or len(r.ids) < fetch:
+            return _keep_matching(r, match, k)
+        fetch = min(n_live, fetch * 2)
+
+
+def _dispatch_predicate(index, q, queries, single: bool, spec: Query, qp: QueryPlan):
+    """The three predicate strategies (plan ``filter_strategy`` =
+    ``predicate_{prefilter,pushdown,postfilter}``)."""
+    cfg = qp.approx_cfg
+    strategy = qp.filter_strategy.split("_", 1)[1]
+    t0 = time.perf_counter()
+    match = _match_ids(index, spec)
+
+    def _batch(results):
+        return BatchQueryResult(results=results, elapsed_s=time.perf_counter() - t0)
+
+    if match.size == 0:
+        results = [_empty_result() for _ in range(queries.shape[0])]
+        return results[0] if single else _batch(results)
+
+    if strategy == "prefilter":
+        results = _allow_direct(index, queries, spec, want=match)
+        return results[0] if single else _batch(results)
+
+    if strategy == "pushdown":
+        if spec.task == "knn":
+            if single:
+                return index._exec_knn(q, spec.k, cfg, rowmask=match)
+            return index._exec_knn_batch(queries, spec.k, cfg, rowmask=match)
+        if single:
+            return index._exec_search(q, _threshold_for(spec, 0), cfg, rowmask=match)
+        return index._exec_search_batch(queries, _broadcast_thresholds(spec, queries.shape[0]), cfg, rowmask=match)
+
+    # postfilter
+    n_live = len(_live_rows(index)[0])
+    if spec.task == "knn":
+        if single:
+            return _postfilter_knn_one(index, q, spec.k, cfg, match, n_live)
+        fetch = min(n_live, max(2 * spec.k, spec.k + 16))
+        b = index._exec_knn_batch(queries, fetch, cfg)
+        results = []
+        for qi, r in enumerate(b.results):
+            if int(np.isin(r.ids, match).sum()) >= spec.k or fetch >= n_live or len(r.ids) < fetch:
+                results.append(_keep_matching(r, match, spec.k))
+            else:
+                results.append(_postfilter_knn_one(index, queries[qi], spec.k, cfg, match, n_live))
+        return _batch(results)
+    if single:
+        return _keep_matching(index._exec_search(q, _threshold_for(spec, 0), cfg), match)
+    b = index._exec_search_batch(queries, _broadcast_thresholds(spec, queries.shape[0]), cfg)
+    return _batch([_keep_matching(r, match) for r in b.results])
 
 
 def _threshold_for(spec: Query, qi: int) -> float:
@@ -100,6 +232,8 @@ def _dispatch(index, q, queries, single: bool, spec: Query, qp: QueryPlan):
     """The strategy dispatch behind ``execute`` (one return point per path)."""
     cfg = qp.approx_cfg
     t0 = time.perf_counter()
+    if qp.filter_strategy.startswith("predicate_"):
+        return _dispatch_predicate(index, q, queries, single, spec, qp)
     if qp.filter_strategy == "allow_direct":
         results = _allow_direct(index, queries, spec)
         if single:
@@ -142,6 +276,11 @@ class QuerySurface:
     #: per-index query defaults (set by ``build_index(query_options=...)``)
     query_options = None
 
+    #: optional ``repro_torch.filter.AttributeStore`` riding with the index
+    #: (``build_index(attributes=...)`` or ``attach_attributes``); required
+    #: by ``Query.where`` predicates
+    attributes = None
+
     def query(self, q, spec: Query, *, plan: Optional[QueryPlan] = None):
         """Answer one ``Query`` over a single vector (1-D) or a block (2-D)."""
         return execute(self, q, spec, plan=plan)
@@ -149,6 +288,35 @@ class QuerySurface:
     def plan(self, spec: Query) -> QueryPlan:
         """The plan ``query()`` would use (see ``explain()``)."""
         return make_plan(self, spec)
+
+    def attach_attributes(self, store):
+        """Attach an ``AttributeStore`` (enables ``Query.where`` predicates)."""
+        self.attributes = store
+        return self
+
+    def _attrs_put(self, ids, attrs) -> None:
+        """Record attribute rows of a mutation just accepted (so a rejected
+        batch never touches the store)."""
+        if attrs is None:
+            return
+        if self.attributes is None:
+            raise ValueError(
+                "attrs= given but the index carries no attribute store; build "
+                "with build_index(..., attributes=AttributeStore(schema)) or "
+                "attach_attributes() first"
+            )
+        self.attributes.put(ids, attrs)
+
+    def _attrs_drop(self, ids) -> None:
+        """Drop the attribute rows of removed logical ids (absent ids ignored)."""
+        if self.attributes is not None:
+            self.attributes.drop(ids)
+
+    def _save_attributes(self, path) -> None:
+        """Persist the attached store as the ``attributes/`` sidecar of an
+        index directory (``load_index`` reattaches it)."""
+        if self.attributes is not None:
+            self.attributes.save(os.path.join(os.fspath(path), "attributes"))
 
     def search(self, q, threshold: float, *, mode=None, dims=None, refine=None):
         """Shim for ``query(q, Query.range(threshold, ...))``."""

@@ -14,27 +14,37 @@
     laesa = build_index(data, "jensen_shannon", kind="laesa", n_pivots=20)
     tree = build_index(data, "jensen_shannon", kind="tree", leaf_size=32)
 
+    # filtered and online: an attribute store and the mutable composite
+    store = AttributeStore({"shop": "categorical", "year": "int"})
+    store.put(np.arange(len(data)), {"shop": shops, "year": years})
+    live = build_index(data, "euclidean", attributes=store, mutable=True)
+    live.add(rows, attrs={"shop": new_shops, "year": new_years})
+    live.query(queries, Query.knn(10, where=Predicate.eq("shop", "s1")))
+
 Both default to ``device="cuda"`` and raise when no card is present, unless
 ``device="cpu"`` is passed.  This package builds the three single-structure
-kinds (``nsimplex``, ``laesa``, ``tree``); the composites of the JAX package
-(mutable, sharded, durable) and attribute stores raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+kinds (``nsimplex``, ``laesa``, ``tree``), the mutable composite over them
+and attribute stores; the sharded and durable composites of the JAX package
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import numpy as np
 
 from repro_torch.api.indexes import MetricTreeIndex, PivotTableIndex, SimplexTableIndex
+from repro_torch.api.mutable import MutableIndex
 from repro_torch.api.persistence import read_index_dir
 from repro_torch.api.query import DEFAULT_REFINE, QueryOptions
 from repro_torch.core import select_pivots
 from repro_torch.device import resolve_device
+from repro_torch.filter.store import AttributeStore
 from repro_torch.metrics import Metric, get_metric
 
-__all__ = ["INDEX_KINDS", "build_index", "load_index"]
+__all__ = ["COMPOSITE_KINDS", "INDEX_KINDS", "build_index", "load_index"]
 
 #: kind -> implementation; also the manifest dispatch table of load_index
 INDEX_KINDS = {
@@ -46,9 +56,12 @@ INDEX_KINDS = {
 #: engine-mechanism spellings accepted as aliases
 _KIND_ALIASES = {"N_seq": "nsimplex", "L_seq": "laesa", "simplex": "nsimplex"}
 
-#: composite kinds of the JAX package's manifests, with the ROADMAP item
-#: that ports them
-_NOT_PORTED_COMPOSITES = {"mutable": 7, "sharded": 7, "durable": 9}
+#: composite kinds (selected with build_index flags, not ``kind=``)
+COMPOSITE_KINDS = {MutableIndex.kind: MutableIndex}
+
+#: composite kinds of the JAX package's manifests not ported yet, with the
+#: ROADMAP item that ports them
+_NOT_PORTED_COMPOSITES = {"sharded": 7, "durable": 9}
 
 
 def _not_ported(what: str, item: int):
@@ -89,13 +102,14 @@ def build_index(
     use_kernel: bool = True,
     mutable: bool = False,
     shards: Optional[int] = None,
+    compact_threshold: Optional[float] = 0.5,
     durable: bool = False,
     apex_dims: Optional[int] = None,
     refine: int = DEFAULT_REFINE,
     attributes=None,
     query_options: Optional[QueryOptions] = None,
     device="cuda",
-) -> Union[SimplexTableIndex, PivotTableIndex, MetricTreeIndex]:
+) -> Union[SimplexTableIndex, PivotTableIndex, MetricTreeIndex, MutableIndex]:
     """Build one index of the requested kind over (data, metric) on ``device``.
 
     Args:
@@ -120,12 +134,25 @@ def build_index(
                       None = exact.
       refine:         true-metric re-rank budget of approximate queries
                       (overridable per query with ``Query(refine=...)``).
+      mutable:        wrap the segment in ``MutableIndex``: online add /
+                      remove / upsert / compact with exact queries.
+      compact_threshold: delta + tombstone fraction that marks a mutable
+                      index ``pending_compaction``; the fold runs on an
+                      explicit ``compact()`` (None: never marked).
+      attributes:     a ``repro_torch.filter.AttributeStore`` to attach,
+                      enabling ``Query(where=Predicate...)``; persisted next
+                      to the index by ``save`` and reattached by
+                      ``load_index``.
       query_options:  per-index ``QueryOptions`` defaults (persisted).
       device:         "cuda" (default) or "cpu".
-      mutable, shards, durable, attributes: not ported yet; any non-default
-                      value raises ``NotImplementedError``.
+      shards, durable: not ported yet (ROADMAP items 7 and 9); any
+                      non-default value raises ``NotImplementedError``.
     """
     kind = _resolve_kind(kind)
+    if attributes is not None and not isinstance(attributes, AttributeStore):
+        raise TypeError(
+            f"attributes= must be a repro_torch.filter.AttributeStore; got {type(attributes).__name__}"
+        )
     approx = None
     if apex_dims is not None:
         if kind not in ("nsimplex", "laesa"):
@@ -136,12 +163,7 @@ def build_index(
         if not (2 <= int(apex_dims) <= int(n_pivots)):
             raise ValueError(f"apex_dims must be in [2, n_pivots={n_pivots}]; got {apex_dims}")
         approx = {"dims": int(apex_dims), "refine": int(refine)}
-    for flag, value, item in (
-        ("mutable", mutable, 7),
-        ("shards", shards, 7),
-        ("durable", durable, 9),
-        ("attributes", attributes, 8),
-    ):
+    for flag, value, item in (("shards", shards, 7), ("durable", durable, 9)):
         if value is not None and value is not False:
             raise _not_ported(f"build_index({flag}=...)", item)
     dev = resolve_device(device)
@@ -154,18 +176,33 @@ def build_index(
         data, metric, kind, pivots=pivots, leaf_size=leaf_size, seed=seed, eps=eps,
         use_kernel=use_kernel, approx=approx, device=dev,
     )
+    if mutable:
+        index = MutableIndex(index, compact_threshold=compact_threshold)
     index.query_options = query_options
+    if attributes is not None:
+        index.attach_attributes(attributes)
     return index
 
 
 def load_index(path, *, device="cuda"):
     """Load an index saved by either package onto ``device``; the
-    manifest's ``kind`` selects the class and nothing is re-measured."""
+    manifest's ``kind`` selects the class (a mutable index recurses into its
+    ``base/`` and ``delta/`` segment directories), a saved ``attributes/``
+    store is reattached, and nothing is re-measured."""
     dev = resolve_device(device)
     manifest, arrays = read_index_dir(path)
     kind = manifest["kind"]
     if kind in _NOT_PORTED_COMPOSITES:
         raise _not_ported(f"loading a {kind!r} index", _NOT_PORTED_COMPOSITES[kind])
-    if kind not in INDEX_KINDS:
-        raise ValueError(f"index at {path!r} has unknown kind {kind!r}; one of {sorted(INDEX_KINDS)}")
-    return INDEX_KINDS[kind]._load(manifest, arrays, device=dev)
+    if kind in COMPOSITE_KINDS:
+        out = COMPOSITE_KINDS[kind]._load(path, manifest, arrays, device=dev)
+    elif kind in INDEX_KINDS:
+        out = INDEX_KINDS[kind]._load(manifest, arrays, device=dev)
+    else:
+        raise ValueError(
+            f"index at {path!r} has unknown kind {kind!r}; one of {sorted(INDEX_KINDS) + sorted(COMPOSITE_KINDS)}"
+        )
+    store = AttributeStore.maybe_load(os.path.join(os.fspath(path), "attributes"))
+    if store is not None:
+        out.attach_attributes(store)
+    return out

@@ -28,7 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.index.hyperplane_tree import HyperplaneTree
 from repro_torch.index.laesa import LaesaIndex
 from repro_torch.index.nsimplex_index import NSimplexIndex
-from repro_torch.index.rows import row_mask
+from repro_torch.index.rows import device_rows, row_mask
 from repro_torch.metrics import Metric, metric_from_config, metric_to_config
 
 __all__ = ["MetricTreeIndex", "PivotTableIndex", "SimplexTableIndex"]
@@ -48,6 +48,7 @@ def _save(index, path, params: dict, arrays: dict) -> None:
         "query_options": index.query_options.to_dict() if index.query_options else None,
     }
     write_index_dir(path, kind=index.kind, params=params, arrays={**arrays, **metric_arrays})
+    index._save_attributes(path)
 
 
 def _restore_options(index, params: dict):
@@ -95,6 +96,29 @@ class _TableIndex(QuerySurface):
         """Rebuild over new data, reusing the fitted pivots and metric."""
         self._inner = self.spawn(data)._inner
         return self
+
+    def extend(self, rows) -> "_TableIndex":
+        """A NEW same-config segment over this segment's rows plus ``rows``
+        (only the new rows' table entries are measured; the fitted state is
+        shared).  Functional: ``self`` is never mutated, so point-in-time
+        read views holding this segment stay consistent while the live index
+        extends its delta."""
+        inner = self._inner.extended(rows)
+        if inner is self._inner:
+            return self
+        return type(self)(inner, self.metric, self.approx)
+
+    def query_pivot_distances(self, queries, cfg: Optional[dict] = None) -> torch.Tensor:
+        """The (Q, width) float64 query-pivot distances (on the index's
+        device) that this segment's ``_exec_*`` primitives accept as
+        ``qpd``: the one original-metric cost every segment sharing this
+        pivot set has in common.  A composite measures it once per query
+        block and forwards it, and owns the ``original_calls`` of the block
+        (``width`` per query)."""
+        inner = self._inner
+        queries = torch.atleast_2d(inner._tensor(queries))
+        dims = None if cfg is None else int(cfg["dims"])
+        return self.metric.cross(queries, inner._tensor(inner.pivot_rows(dims)))
 
     # -- execution primitives (dispatched by repro_torch.api.execute) ---------
     # ``rowmask`` (optional) restricts a primitive to the allowed row
@@ -254,7 +278,7 @@ class MetricTreeIndex(QuerySurface):
     @classmethod
     def build(cls, data, metric: Metric, *, leaf_size: int = 32, seed: int = 0,
               device="cuda") -> "MetricTreeIndex":
-        rows = torch.tensor(np.asarray(data), device=resolve_device(device))
+        rows = device_rows(data, resolve_device(device))
         tree = HyperplaneTree(rows, _metric_dist_fn(metric), supermetric=True, leaf_size=leaf_size, seed=seed)
         return cls(rows, metric, tree, leaf_size=leaf_size, seed=seed)
 
@@ -267,6 +291,14 @@ class MetricTreeIndex(QuerySurface):
         fresh = self.spawn(data)
         self.data, self._tree = fresh.data, fresh._tree
         return self
+
+    def extend(self, rows) -> "MetricTreeIndex":
+        """Trees have no append path: a delta segment is rebuilt over the
+        combined rows (delta segments are small by construction)."""
+        rows = torch.atleast_2d(device_rows(rows, self.device))
+        if not rows.shape[0]:
+            return self
+        return self.spawn(torch.cat([self.data, rows]) if self.data.shape[0] else rows)
 
     @staticmethod
     def _original_stats(st: QueryStats) -> QueryStats:

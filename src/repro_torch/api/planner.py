@@ -19,10 +19,15 @@ Mode resolution:
 
 The ``tree`` kind has no truncatable surrogate: it is always exact, and
 ``mode="approx"`` on it raises.  An ``allow`` list overrides all of this:
-the executor scans the listed rows directly, and the plan says so.  This
-package plans the three single-structure kinds (``nsimplex``, ``laesa``,
-``tree``); predicates (ROADMAP item 8) and composites (item 7) are not
-ported.
+the executor scans the listed rows directly, and the plan says so.  A
+``where`` predicate is planned from the attribute store's column
+statistics: a direct scan of the matching rows (``prefilter``), a row mask
+handed to the bound-scan kernels (``pushdown``) or an over-fetch filtered on
+the way out (``postfilter``).  The strategy thresholds and the cost model
+are the JAX package's constants, unchanged, so both packages pick the same
+strategy for the same stats.  This package plans the three single-structure
+kinds (``nsimplex``, ``laesa``, ``tree``) and the ``mutable`` composite over
+them; the sharded composite (ROADMAP item 7b) is not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +42,19 @@ __all__ = ["PlanStage", "QueryPlan", "plan"]
 #: expected fraction of the table surviving the exact filter (auto-mode
 #: cost estimate only; ~2x the measured N_seq fraction for margin)
 _EXACT_CANDIDATE_FRACTION = 0.02
+
+#: predicate-strategy thresholds (estimated matching rows / selectivity):
+#: few enough matches -> a direct exact scan of them beats any index work
+_PREFILTER_ROWS_FLOOR = 1024
+_PREFILTER_SELECTIVITY = 0.05
+#: matches this common -> an overfetch + postfilter costs ~one unfiltered query
+_POSTFILTER_SELECTIVITY = 0.5
+#: masked-table-scan cost model: per-element overhead of the bounds and
+#: the masked selection relative to one fused direct-scan multiply, and the
+#: relative cost of a true-metric evaluation for the non-vector metrics
+_MASKED_SCAN_OVERHEAD = 3.0
+_CHEAP_METRICS = ("euclidean", "cosine")
+_EXPENSIVE_METRIC_FACTOR = 4.0
 
 
 @dataclass(frozen=True)
@@ -145,7 +163,8 @@ def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict):
         if not table_kind:
             raise ValueError(
                 f"mode='approx' needs a truncatable surrogate table; "
-                f"kind {stats.get('kind')!r} (mechanism {stats.get('kind')!r}) has none"
+                f"kind {stats.get('kind')!r} (mechanism "
+                f"{stats.get('base_kind') or stats.get('kind')!r}) has none"
             )
         if dims is None:
             raise ValueError(
@@ -190,13 +209,131 @@ def _filter_strategy(query: Query) -> str:
     return "none"
 
 
+def _predicate_strategy(query: Query, selectivity: float, est_rows: int, stats: dict) -> str:
+    """Pick a predicate strategy from the stats-only estimate.
+
+    * ``prefilter``  — a direct exact scan of the matching rows beats the
+      index traversal: always for small match sets and, on the table kinds,
+      whenever the modelled direct cost ``est_rows * dim`` undercuts the
+      masked surrogate scan (``n * n_pivots`` plus bookkeeping).
+    * ``postfilter`` — matches are common: an overfetch of ``~k/selectivity``
+      costs about one unfiltered query, so filter on the way out.
+    * ``pushdown``   — the middle: the row mask rides into the fused scan,
+      so pruning still works but only matching rows can surface.
+    """
+    if query.filter_mode is not None:
+        return query.filter_mode
+    want = int(query.k or 0)
+    if est_rows <= max(_PREFILTER_ROWS_FLOOR, 4 * want) or selectivity <= _PREFILTER_SELECTIVITY:
+        return "prefilter"
+    n = int(stats.get("n_objects", 0))
+    dim = int(stats.get("dim") or 0)
+    n_pivots = int(stats.get("n_pivots") or 0)
+    if n and dim and n_pivots:
+        unit = 1.0 if stats.get("metric") in _CHEAP_METRICS else _EXPENSIVE_METRIC_FACTOR
+        direct = est_rows * dim * unit
+        masked = (
+            _MASKED_SCAN_OVERHEAD * n * n_pivots
+            + n_pivots * dim * unit
+            + _EXACT_CANDIDATE_FRACTION * est_rows * dim * unit
+        )
+        if direct <= masked:
+            return "prefilter"
+    if selectivity >= _POSTFILTER_SELECTIVITY:
+        return "postfilter"
+    return "pushdown"
+
+
+def _merge_stage(kind: str, stats: dict):
+    """The composite's segment-merge stage, or None for a plain index."""
+    if kind not in ("mutable", "durable"):
+        return None
+    return _stage(
+        "merge_segments",
+        delta_rows=int(stats.get("delta_rows", 0)),
+        tombstones=int(stats.get("tombstones", 0)),
+    )
+
+
+def _plan_predicate(index, query: Query, stats: dict, kind: str) -> QueryPlan:
+    """Plan a query carrying an attribute predicate (``Query.where``)."""
+    store = getattr(index, "attributes", None)
+    if store is None:
+        raise ValueError(
+            "query has a 'where' predicate but the index carries no attribute "
+            "store; build with build_index(..., attributes=AttributeStore(schema))"
+        )
+    for name in query.where.attrs:
+        if name not in store.schema:
+            raise ValueError(
+                f"predicate references unknown attribute {name!r}; "
+                f"the store has columns {sorted(store.schema)}"
+            )
+    n = int(stats.get("n_objects", 0))
+    selectivity = store.selectivity(query.where)
+    est_rows = int(round(selectivity * n))
+    choice = _predicate_strategy(query, selectivity, est_rows, stats)
+    strategy = f"predicate_{choice}"
+    filter_stage = _stage(
+        "predicate_filter",
+        strategy=choice,
+        forced=query.filter_mode is not None,
+        clauses=len(query.where.clauses),
+        columns=list(query.where.attrs),
+        selectivity=round(float(selectivity), 6),
+        est_rows=est_rows,
+        allow=len(query.allow) if query.allow is not None else None,
+        deny=len(query.deny) if query.deny else None,
+    )
+    if choice == "prefilter":
+        # like the allowlist: a direct exact scan of the matching rows; no
+        # index pipeline runs, whatever mode the query asked for
+        return QueryPlan(
+            index_kind=kind,
+            mechanism=stats.get("base_kind") or kind,
+            task=query.task,
+            mode="exact",
+            k=query.k,
+            threshold=query.threshold,
+            dims=None,
+            refine=None,
+            filter_strategy=strategy,
+            stages=(filter_stage, _stage("prefilter_scan", est_rows=est_rows)),
+            reason=(
+                f"predicate prefilter: ~{est_rows} matching rows "
+                f"(selectivity {selectivity:.4g}) — direct exact scan"
+            ),
+            budget=query.budget,
+        )
+    options = getattr(index, "query_options", None)
+    mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats)
+    mech, inner_stages = _mechanism_stages(stats, query, mode, dims, refine)
+    merge = _merge_stage(kind, stats)
+    stages = [filter_stage] + ([merge] if merge else []) + inner_stages
+    return QueryPlan(
+        index_kind=kind,
+        mechanism=mech,
+        task=query.task,
+        mode=mode,
+        k=query.k,
+        threshold=query.threshold,
+        dims=dims,
+        refine=refine,
+        filter_strategy=strategy,
+        stages=tuple(stages),
+        reason=f"predicate {choice}: selectivity {selectivity:.4g} (~{est_rows} rows); {reason}",
+        budget=budget,
+        calibration=calibration,
+    )
+
+
 def _mechanism_stages(stats: dict, query: Query, mode: str, dims, refine):
-    """The index's pipeline stages."""
-    mech = stats["kind"]
+    """(mechanism, stages) of the innermost segment's pipeline."""
+    mech = stats.get("base_kind") or stats["kind"]
     n = int(stats.get("n_objects", 0))
     if mech == "tree":
         algo = "best_first_branch_and_bound" if query.task == "knn" else "hyperplane_exclusion"
-        return [_stage("tree_traverse", algorithm=algo, n=n)]
+        return mech, [_stage("tree_traverse", algorithm=algo, n=n)]
     eff = dims if mode == "approx" else int(stats.get("n_pivots", 0))
     stages = [_stage("pivot_distances", count=eff)]
     if mech == "nsimplex":
@@ -222,13 +359,13 @@ def _mechanism_stages(stats: dict, query: Query, mode: str, dims, refine):
                 budget=refine,
             )
         )
-        return stages
+        return mech, stages
     algo = "two_sided_simplex" if mech == "nsimplex" else "chebyshev_triangle"
     stages.append(_stage("filter", algorithm=algo, rows=n, selection=selection))
     stages.append(
         _stage("refine", strategy="shrinking_radius" if query.task == "knn" else "straddler_recheck")
     )
-    return stages
+    return mech, stages
 
 
 def plan(index, query: Query) -> QueryPlan:
@@ -237,10 +374,14 @@ def plan(index, query: Query) -> QueryPlan:
         raise TypeError(f"expected a Query; got {type(query).__name__}")
     stats = index.stats()
     kind = stats["kind"]
+    if query.where is not None:
+        # attribute predicates subsume allow/deny: the executor composes the
+        # match set with both before running the chosen strategy
+        return _plan_predicate(index, query, stats, kind)
     if query.allow is not None:
         return QueryPlan(
             index_kind=kind,
-            mechanism=kind,
+            mechanism=stats.get("base_kind") or kind,
             task=query.task,
             mode="exact",
             k=query.k,
@@ -263,7 +404,9 @@ def plan(index, query: Query) -> QueryPlan:
 
     options = getattr(index, "query_options", None)
     mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats)
-    stages = _mechanism_stages(stats, query, mode, dims, refine)
+    mech, inner_stages = _mechanism_stages(stats, query, mode, dims, refine)
+    merge = _merge_stage(kind, stats)
+    stages = ([merge] if merge else []) + inner_stages
     strategy = _filter_strategy(query)
     if strategy != "none":
         stages.append(
@@ -276,7 +419,7 @@ def plan(index, query: Query) -> QueryPlan:
         )
     return QueryPlan(
         index_kind=kind,
-        mechanism=kind,
+        mechanism=mech,
         task=query.task,
         mode=mode,
         k=query.k,

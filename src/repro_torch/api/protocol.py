@@ -1,9 +1,11 @@
-"""The ``Index`` protocol and the ``stats()`` key contract.
+"""The ``Index`` and ``SupportsMutation`` protocols and the ``stats()`` key
+contract.
 
 ``STATS_CONTRACT`` is the JAX package's, key for key: every index kind
-reports the ``common`` keys and its own extras.  This package implements
-the ``nsimplex`` kind; the others are listed so that the contract stays one
-table across both packages.
+reports the ``common`` keys and its own extras; a composite reports its
+innermost segment's keys too.  This package implements the ``nsimplex``,
+``laesa``, ``tree`` and ``mutable`` kinds; the others are listed so that the
+contract stays one table across both packages.
 """
 
 from __future__ import annotations
@@ -92,4 +94,35 @@ class Index(Protocol):
 
     def stats(self) -> dict:
         """Build-time facts per the ``STATS_CONTRACT`` key sets."""
+        ...
+
+
+@runtime_checkable
+class SupportsMutation(Protocol):
+    """Structural protocol for online (mutable) indexes.
+
+    Query results always reflect the *logical* rows: ids are stable logical
+    ids that survive compaction, and every query answers as a fresh rebuild
+    over the current live rows would (same ids, same (distance, id) tie
+    order).
+    """
+
+    def add(self, rows: np.ndarray, ids=None) -> np.ndarray:
+        """Append rows; returns their logical ids (no refit)."""
+        ...
+
+    def remove(self, ids) -> None:
+        """Tombstone live logical ids; raises KeyError on an unknown id."""
+        ...
+
+    def upsert(self, ids, rows: np.ndarray) -> np.ndarray:
+        """Replace (or insert) rows under the given logical ids."""
+        ...
+
+    def compact(self) -> "Index":
+        """Fold delta + tombstones back into a single fitted segment."""
+        ...
+
+    def ids(self) -> np.ndarray:
+        """The live logical ids, ascending."""
         ...

@@ -1,12 +1,11 @@
 """Declarative query specs: what to answer, not how to answer it.
 
 A ``Query`` is a frozen, validated, hashable value: k-NN or range search,
-the exact/approx dial, id allow/deny lists and a per-query cost budget.
-Being hashable it is also the coalescing key of ``SearchService``.
-``QueryOptions`` holds per-index defaults for the fields a ``Query`` leaves
-unset.  Both mirror the JAX package's types field for field, so plans
-explain identically.  Attribute predicates (``where=``) belong to filtered
-search, which this package does not have yet (ROADMAP item 8).
+the exact/approx dial, id allow/deny lists, a per-query cost budget and an
+attribute predicate (``where=``) with its filter strategy.  Being hashable
+it is also the coalescing key of ``SearchService``.  ``QueryOptions`` holds
+per-index defaults for the fields a ``Query`` leaves unset.  Both mirror
+the JAX package's types field for field, so plans explain identically.
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ from dataclasses import asdict, dataclass, fields
 from typing import Optional, Tuple, Union
 
 import numpy as np
+
+from repro_torch.filter.predicate import Predicate
 
 __all__ = ["DEFAULT_REFINE", "Query", "QueryOptions"]
 
@@ -52,8 +53,12 @@ class Query:
       allow:     id allowlist, answered by a direct exact scan of its rows.
       deny:      id denylist (k-NN over-fetches ``k + len(deny)``).
       budget:    per-query cost budget in true-metric evaluations.
-      where:     attribute predicate — not supported by this package yet.
-      filter_mode: predicate strategy — only meaningful with ``where``.
+      where:     attribute ``Predicate`` (or its dict form) evaluated against
+                 the index's ``AttributeStore``; its id sugar
+                 (``Predicate.ids`` / ``exclude_ids``) folds into ``allow`` /
+                 ``deny`` here, so it rides the id-filter paths bit for bit.
+      filter_mode: force one predicate strategy ("prefilter", "pushdown",
+                 "postfilter"); None lets the planner choose.
     """
 
     task: str = "knn"
@@ -65,15 +70,10 @@ class Query:
     allow: Optional[Tuple[int, ...]] = None
     deny: Optional[Tuple[int, ...]] = None
     budget: Optional[int] = None
-    where: Optional[object] = None
+    where: Optional[Predicate] = None
     filter_mode: Optional[str] = None
 
     def __post_init__(self):
-        if self.where is not None:
-            raise NotImplementedError(
-                "Query(where=...) needs filtered search (attribute store and "
-                "predicates), ROADMAP item 8, not yet ported to repro_torch"
-            )
         if self.task not in _TASKS:
             raise ValueError(f"task must be one of {_TASKS}; got {self.task!r}")
         if self.mode not in _MODES:
@@ -104,8 +104,23 @@ class Query:
             raise ValueError(
                 f"filter_mode must be one of {_FILTER_MODES} or None; got {self.filter_mode!r}"
             )
-        object.__setattr__(self, "allow", _id_tuple(self.allow))
-        object.__setattr__(self, "deny", _id_tuple(self.deny))
+        allow, deny = self.allow, self.deny
+        if self.where is not None:
+            where = self.where
+            if isinstance(where, dict):
+                where = Predicate.from_dict(where)
+            if not isinstance(where, Predicate):
+                raise ValueError(
+                    f"where must be a Predicate (or its dict form); got {type(where).__name__}"
+                )
+            where, sugar_allow, sugar_deny = where.split_ids()
+            if sugar_allow:
+                allow = sugar_allow if allow is None else tuple(allow) + sugar_allow
+            if sugar_deny:
+                deny = sugar_deny if deny is None else tuple(deny) + sugar_deny
+            object.__setattr__(self, "where", where if where else None)
+        object.__setattr__(self, "allow", _id_tuple(allow))
+        object.__setattr__(self, "deny", _id_tuple(deny))
         if self.allow and self.deny:
             clash = set(self.allow) & set(self.deny)
             if clash:
@@ -125,6 +140,7 @@ class Query:
         for key in ("threshold", "allow", "deny"):
             if isinstance(d[key], tuple):
                 d[key] = list(d[key])
+        d["where"] = self.where.to_dict() if self.where is not None else None
         return d
 
 

@@ -33,7 +33,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.index.approx import approx_knn_from_bounds, approx_search_from_bounds
 from repro_torch.index.knn import knn_refine_candidates
-from repro_torch.index.rows import DeviceRows
+from repro_torch.index.rows import DeviceRows, device_rows
 from repro_torch.index.stats import QueryStats
 from repro_torch.metrics import Metric
 
@@ -49,7 +49,7 @@ class LaesaIndex(DeviceRows):
 
     def __init__(self, data, pivots, metric: Metric, *, device="cuda"):
         self.device = resolve_device(device)
-        self.data = torch.tensor(np.asarray(data), device=self.device)
+        self.data = device_rows(data, self.device)
         self.pivots = np.asarray(pivots)
         self.pivots_t = torch.tensor(self.pivots, device=self.device)
         self.metric = metric
@@ -80,6 +80,25 @@ class LaesaIndex(DeviceRows):
         index.metric = metric
         index.table = torch.tensor(np.asarray(arrays["table"], dtype=np.float64), device=index.device)
         return index
+
+    def extended(self, rows) -> "LaesaIndex":
+        """Functional append: a NEW index over this index's rows plus
+        ``rows``, sharing the pivot set.  Only the new rows' n pivot
+        distances are measured (``Metric.cross``, K5 for Jensen-Shannon);
+        existing table rows carry over bit for bit and ``self`` is never
+        mutated, so point-in-time readers holding it stay consistent."""
+        rows = torch.atleast_2d(device_rows(rows, self.device))
+        if not rows.shape[0]:
+            return self
+        out = object.__new__(type(self))
+        out.device = self.device
+        out.data = torch.cat([self.data, rows]) if self.n_rows else rows
+        out.pivots = self.pivots
+        out.pivots_t = self.pivots_t
+        out.metric = self.metric
+        tab = self.metric.cross(rows, self.pivots_t)
+        out.table = torch.cat([self.table, tab]) if self.n_rows else tab
+        return out
 
     # -- operands -------------------------------------------------------------
     def _qd(self, qpd) -> torch.Tensor:

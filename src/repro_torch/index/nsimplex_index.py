@@ -37,7 +37,7 @@ from repro_torch.core import NSimplexProjector
 from repro_torch.device import resolve_device
 from repro_torch.index.approx import approx_knn_from_pairs, approx_search_decide
 from repro_torch.index.knn import knn_refine, knn_refine_candidates
-from repro_torch.index.rows import DeviceRows
+from repro_torch.index.rows import DeviceRows, device_rows
 from repro_torch.index.stats import QueryStats
 from repro_torch.kernels import (
     MAX_SELECT_WIDTH,
@@ -73,7 +73,7 @@ class NSimplexIndex(DeviceRows):
         """``projector`` (optional) reuses an already-fitted simplex: no
         inter-pivot distance is re-measured."""
         self.device = resolve_device(device)
-        self.data = torch.tensor(np.asarray(data), device=self.device)
+        self.data = device_rows(data, self.device)
         self.metric = metric
         self.eps = float(eps)
         self.use_kernel = bool(use_kernel)
@@ -132,6 +132,30 @@ class NSimplexIndex(DeviceRows):
         index.table = torch.tensor(np.asarray(arrays["table"], dtype=np.float64), device=index.device)
         index._reset_caches()
         return index
+
+    def extended(self, rows) -> "NSimplexIndex":
+        """Functional append: a NEW index over this index's rows plus
+        ``rows``, sharing the fitted projector.  Per new row: n pivot
+        distances through ``Metric.cross`` (K5 for Jensen-Shannon) and its
+        apex through the projector (K4), exactly as a fresh build computes
+        them; the simplex is never refit and existing table rows carry over
+        bit for bit.  ``self`` is never mutated and the new index builds its
+        own f32 twin and truncation caches, so readers holding ``self``
+        (point-in-time views) keep a consistent segment."""
+        rows = torch.atleast_2d(device_rows(rows, self.device))
+        if not rows.shape[0]:
+            return self
+        out = object.__new__(type(self))
+        out.device = self.device
+        out.data = torch.cat([self.data, rows]) if self.n_rows else rows
+        out.metric = self.metric
+        out.eps = self.eps
+        out.use_kernel = self.use_kernel
+        out.projector = self.projector
+        tab = self.projector(rows)
+        out.table = torch.cat([self.table, tab]) if self.n_rows else tab
+        out._reset_caches()
+        return out
 
     # -- operands -------------------------------------------------------------
     def _kernel_table(self) -> torch.Tensor:
@@ -257,7 +281,7 @@ class NSimplexIndex(DeviceRows):
         ids_k, lwb_k, upb_k, counts = self._host(
             *apex_bounds_threshold(
                 self._kernel_table(), apexes.to(torch.float32), self._tensor(t32), cap,
-                dims=dims, rowmask=mask,
+                dims=dims, rowmask=self._device_mask(mask),
             )
         )
         lwb_k = lwb_k.astype(np.float64)
@@ -419,11 +443,12 @@ class NSimplexIndex(DeviceRows):
             ]
         tab = self._kernel_table()
         ap32 = apexes.to(torch.float32)
+        mask_t = self._device_mask(mask)
         err_sq = self._kernel_err_sq(apexes_np)
         # pass A: the k-th smallest upper bound seeds each query's radius; the
         # widening sqrt(x² + err) is monotone, so the k-th widened upb is the
         # widened k-th raw upb.  Masked rows never enter the selection.
-        _, _, upb_k = apex_bounds_topk(tab, ap32, k_eff, key="upb", rowmask=mask)
+        _, _, upb_k = apex_bounds_topk(tab, ap32, k_eff, key="upb", rowmask=mask_t)
         kth = upb_k[:, -1].cpu().numpy().astype(np.float64)
         # an external radius hint may only shrink the radius; the slack keeps
         # the hint boundary (d == hint) inclusive
@@ -436,7 +461,7 @@ class NSimplexIndex(DeviceRows):
         t_cand = np.sqrt(radius**2 + err_sq)
         t32 = np.nextafter(t_cand.astype(np.float32), np.float32(np.inf))
         ids_k, lwb_k, _, counts = self._host(
-            *apex_bounds_threshold(tab, ap32, self._tensor(t32), cap, rowmask=mask)
+            *apex_bounds_threshold(tab, ap32, self._tensor(t32), cap, rowmask=mask_t)
         )
         lwb_k = lwb_k.astype(np.float64)
 
@@ -540,7 +565,8 @@ class NSimplexIndex(DeviceRows):
         tab = self._kernel_table()
         ap32 = apexes.to(torch.float32)
         if m <= MAX_SELECT_WIDTH:
-            ids_k, lwb_k, upb_k = self._host(*apex_bounds_topk(tab, ap32, m, key="mid", dims=dims, rowmask=mask))
+            ids_k, lwb_k, upb_k = self._host(*apex_bounds_topk(tab, ap32, m, key="mid", dims=dims,
+                                                                   rowmask=self._device_mask(mask)))
             out = []
             for ids, lwb, upb in zip(ids_k, lwb_k, upb_k):
                 live = ids != SENTINEL_ID

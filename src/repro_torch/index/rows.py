@@ -8,7 +8,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["DeviceRows", "row_mask"]
+__all__ = ["DeviceRows", "device_rows", "row_mask"]
+
+
+def device_rows(data, device: torch.device) -> torch.Tensor:
+    """A corpus as a tensor on ``device``: host arrays are copied there, a
+    tensor already there is used as it is (indexes never write into their
+    rows, so sharing is safe)."""
+    if isinstance(data, torch.Tensor):
+        return data.to(device)
+    return torch.tensor(np.asarray(data), device=device)
 
 
 def row_mask(rowmask, n: int) -> Optional[np.ndarray]:
@@ -42,6 +51,14 @@ class DeviceRows:
 
     def _mask_of(self, rowmask) -> Optional[np.ndarray]:
         return row_mask(rowmask, self.n_rows)
+
+    def _device_mask(self, mask: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        """The host bool ``mask`` as the uint8 row mask the kernels read, on
+        the index's device: made once per batch call and handed to each
+        kernel launch, so no launch copies the mask again."""
+        if mask is None:
+            return None
+        return torch.from_numpy(np.ascontiguousarray(mask).view(np.uint8)).to(self.device)
 
     def _dist_fn(self, q: torch.Tensor):
         """rows (numpy ids) -> host distances from ``q``, evaluated on the

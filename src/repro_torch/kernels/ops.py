@@ -96,15 +96,19 @@ def shape_class(name: str, **s) -> tuple:
     ``apex_project``      ``(B, n, dtype)``
     ``jsd_pairwise``      ``(Q, P bucket, d, dtype)``
     ====================  =====================================
+
+    A K2 or K3 launch under a row mask (``masked=True``) counts in its own
+    class, the tuple above followed by ``"masked"``.
     """
     if name == "apex_bounds":
         return (s["n"], s["dtype"])
     if name == "apex_bounds_batch":
         return (s["Q"], s["dims"])
+    masked = ("masked",) if s.get("masked") else ()
     if name == "apex_topk":
-        return (s["Q"], s["k"], s["key"], s["dims"])
+        return (s["Q"], s["k"], s["key"], s["dims"]) + masked
     if name == "apex_threshold":
-        return (s["Q"], s["cap"], s["dims"])
+        return (s["Q"], s["cap"], s["dims"]) + masked
     if name == "apex_project":
         return (s["B"], s["n"], s["dtype"])
     if name == "jsd_pairwise":
@@ -179,11 +183,17 @@ def _check_table(table: torch.Tensor, queries: torch.Tensor, dims):
 
 
 def _mask_operand(rowmask, N: int, device):
+    """The row mask as the kernels read it: uint8, nonzero = allowed, on the
+    table's device.  A contiguous uint8 tensor already there (the indexes
+    make one per batch) is used as it is; anything else is converted, which
+    copies a host mask to the card on every call."""
     if rowmask is None:
         return None
     m = torch.as_tensor(rowmask, device=device).reshape(-1)
     if m.shape[0] != N:
         raise ValueError(f"rowmask length {m.shape[0]} != table rows {N}")
+    if m.dtype == torch.uint8 and m.is_contiguous():
+        return m
     return (m != 0).to(torch.uint8).contiguous()
 
 
@@ -373,7 +383,7 @@ def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = No
         ),
         "apex_bounds_topk",
     )
-    _counted("apex_topk", Q=Q, k=k, key=key, dims=dims)
+    _counted("apex_topk", Q=Q, k=k, key=key, dims=dims, masked=mask is not None)
     return ids, lwb, upb
 
 
@@ -415,7 +425,7 @@ def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = N
         ),
         "apex_bounds_threshold",
     )
-    _counted("apex_threshold", Q=Q, cap=cap, dims=dims)
+    _counted("apex_threshold", Q=Q, cap=cap, dims=dims, masked=mask is not None)
     return ids, lwb, upb, counts
 
 

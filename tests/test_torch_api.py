@@ -151,20 +151,28 @@ def test_default_device_raises_without_a_card(pair):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(mutable=True), dict(shards=2), dict(durable=True), dict(attributes=object())]
+    "kw",
+    [dict(shards=2, mutable=True), dict(shards=2), dict(durable=True), dict(durable=True, mutable=True)],
 )
 def test_unported_options_raise(pair, kw):
+    """The sharded (ROADMAP item 7) and durable (item 9) composites are not
+    ported; ``mutable=`` and ``attributes=`` are (tests/test_torch_mutable.py,
+    tests/test_torch_filter.py)."""
     _, _, data, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    item = 7 if "shards" in kw else 9
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         build_index(data[:50], n_pivots=4, device="cpu", **kw)
 
 
 def test_where_and_approx_raise(pair):
-    """``where=`` is not ported; an approx query needs a truncation
-    dimension from the query, the index's options or its build."""
-    port, _, _, queries = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    """A ``where=`` that is not a predicate (or its dict form) raises, as
+    does an attributes= that is not a store; an approx query needs a
+    truncation dimension from the query, the index's options or its build."""
+    port, _, data, queries = pair
+    with pytest.raises(ValueError, match="clauses"):
         Query.knn(3, where={"eq": ["color", 1]})
+    with pytest.raises(TypeError, match="AttributeStore"):
+        build_index(data[:50], n_pivots=4, device="cpu", attributes=object())
     with pytest.raises(ValueError, match="truncation dimension"):
         port.query(queries, Query.knn(3, mode="approx"))
 

@@ -265,6 +265,6 @@ def test_unknown_and_composite_kinds(corpus, tmp_path):
     with pytest.raises(ValueError, match="unknown index kind"):
         build_index(data[:50], kind="ball_tree", device="cpu")
     with enable_x64(True):
-        rapi.build_index(data[:100], n_pivots=4, mutable=True).save(tmp_path / "mutable")
+        rapi.build_index(data[:100], n_pivots=4, shards=2, fanout_workers=0).save(tmp_path / "sharded")
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        load_index(tmp_path / "mutable", device="cpu")
+        load_index(tmp_path / "sharded", device="cpu")

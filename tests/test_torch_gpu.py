@@ -551,3 +551,108 @@ def test_approx_knn_on_card_refines_k2_candidates(cuda, jsd_card, refine):
         want = cand[np.lexsort((cand, d[cand]))][:10]
         np.testing.assert_array_equal(r.ids, want)
         np.testing.assert_allclose(r.distances, d[want], rtol=1e-12, atol=1e-12)
+
+
+#: the row masks that filtered and online queries hand K2 and K3: a thin
+#: predicate (0.1% of the rows), fewer allowed rows than the selection
+#: width, and none allowed
+MASK_CASES = ["thin", "fewer_than_width", "none_allowed"]
+
+
+def _mask_case(case, N, width, device):
+    allowed = torch.zeros(N, dtype=torch.bool)
+    g = torch.Generator().manual_seed(11)
+    if case == "thin":
+        allowed = torch.rand(N, generator=g) < 1e-3
+    elif case == "fewer_than_width":
+        allowed[torch.randperm(N, generator=g)[: max(width // 2, 1)]] = True
+    return allowed.to(torch.uint8).to(device)
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+@pytest.mark.parametrize("key", ["upb", "mid"])
+@pytest.mark.parametrize("k", [10, 64])
+@pytest.mark.parametrize("Q", [1, 64])
+def test_k2_pushdown_masks_equal_plain(cuda, k2_table, case, key, k, Q):
+    """K2 under the masks of filtered queries equals the plain selection
+    (``ref``'s packed-key top-k) over K1's own f32 matrices bit for bit; a
+    short selection pads with the sentinel id and +inf bounds (the indexes
+    drop those slots); the launch counts in the masked class."""
+    table, queries = k2_table[0], k2_table[1][:Q]
+    N = table.shape[0]
+    mask = _mask_case(case, N, k, cuda)
+    ops.reset_launches()
+    got = ops.apex_bounds_topk(table, queries, k, key=key, rowmask=mask)
+    assert ops.SHAPE_LAUNCHES["apex_topk"] == {(Q, k, key, 20, "masked"): 1}
+    L, U = ops.apex_bounds_batch(table, queries)
+    keys = {"lwb": L, "upb": U}.get(key, 0.5 * (L + U))
+    want = _selection(ref.pack_keys(keys, mask.bool()[None].expand_as(L)), L, U, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    n_allowed = int(mask.sum())
+    real = got[0] != SENTINEL
+    assert bool((real.sum(dim=1) == min(k, n_allowed)).all())
+    assert bool(torch.isinf(got[1][~real]).all()) and bool(torch.isinf(got[2][~real]).all())
+    assert bool(mask[got[0][real].long()].bool().all())
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+@pytest.mark.parametrize("cap", [512, 4096])
+@pytest.mark.parametrize("Q", [1, 64])
+def test_k3_pushdown_masks_equal_plain(cuda, k2_table, case, cap, Q):
+    """K3 under the masks of filtered queries equals the plain selection
+    over K1's own f32 matrices bit for bit with exact counts, at a
+    threshold every allowed row passes and at one that passes about a tenth
+    of the rows."""
+    table, queries = k2_table[0], k2_table[1][:Q]
+    N = table.shape[0]
+    mask = _mask_case(case, N, cap, cuda)
+    L, U = ops.apex_bounds_batch(table, queries)
+    for thr in (torch.full((Q,), float("inf"), device=cuda),
+                torch.kthvalue(L, N // 10, dim=1).values.contiguous()):
+        ops.reset_launches()
+        got = ops.apex_bounds_threshold(table, queries, thr, cap, rowmask=mask)
+        assert ops.SHAPE_LAUNCHES["apex_threshold"] == {(Q, cap, 20, "masked"): 1}
+        hit = mask.bool()[None].expand_as(L) & (L <= thr[:, None])
+        assert torch.equal(got[3], hit.sum(dim=1).to(torch.int32))
+        for g, w in zip(got[:3], _selection(ref.pack_keys(L, hit), L, U, cap)):
+            assert torch.equal(g, w)
+        assert bool((got[3] <= int(mask.sum())).all())
+
+
+def _apex_gemm_np(Linv, sq_norms, distances):
+    """The JAX package's host apex solve (``repro.core.simplex.apex_gemm_np``)
+    restated in numpy: the card's machine has no jax to import it from."""
+    d1sq = distances[:, :1] ** 2
+    w = (0.5 * (d1sq + sq_norms[None, :] - distances[:, 1:] ** 2)) @ Linv.T
+    alt2 = np.maximum(d1sq[:, 0] - np.einsum("bi,bi->b", w, w), 0.0)
+    return np.concatenate([w, np.sqrt(alt2)[:, None]], axis=-1)
+
+
+@pytest.mark.parametrize("B", [256, 2048, 2304])
+def test_k4_add_burst_equals_apex_gemm_np(cuda, B):
+    """K4 at the online path's add bursts (upserts of 256 rows, adds of
+    2,048, both since the last query: 2,304), n = 20, f64, as
+    ``NSimplexIndex.extended`` calls it: within 2.8e-16 of the host solve on
+    the same fitted factors and distances (the head coordinates, and the
+    altitude squared), bit-equal to its first design, and the appended
+    table equal to a fresh projection of the same rows."""
+    from repro_torch.data import colors_like
+    from repro_torch.index import NSimplexIndex
+    from repro_torch.metrics import get_metric
+
+    X = colors_like(n=20_000 + B, dim=112, seed=29)
+    idx = NSimplexIndex(X[:20_000], X[:20], get_metric("euclidean"), device="cuda")
+    proj = idx.projector
+    new = torch.as_tensor(X[20_000:], device=cuda)
+    dists = proj.pivot_distances(new).contiguous()
+    ops.reset_launches()
+    ext = idx.extended(new)
+    assert ops.SHAPE_LAUNCHES["apex_project"] == {(B, 20, "float64"): 1}
+    got = ext.table[20_000:]
+    assert torch.equal(got, ops.apex_project(dists, proj._Linv_t, proj._sq_norms_t, _plan="row"))
+    want = _apex_gemm_np(proj.Linv, proj.sq_norms, dists.cpu().numpy())
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got[:, :-1], want[:, :-1], rtol=0, atol=2.8e-16)
+    np.testing.assert_allclose(got[:, -1] ** 2, want[:, -1] ** 2, rtol=0, atol=2.8e-16)
+    assert torch.equal(ext.table[:20_000], idx.table)

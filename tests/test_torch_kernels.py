@@ -636,6 +636,9 @@ class TestLaunchPlans:
             ("apex_bounds_batch", dict(Q=1, dims=10), (1, 10)),
             ("apex_topk", dict(Q=64, k=64, key="mid", dims=10), (64, 64, "mid", 10)),
             ("apex_threshold", dict(Q=64, cap=512, dims=20), (64, 512, 20)),
+            ("apex_topk", dict(Q=64, k=10, key="upb", dims=20, masked=True), (64, 10, "upb", 20, "masked")),
+            ("apex_threshold", dict(Q=64, cap=512, dims=20, masked=True), (64, 512, 20, "masked")),
+            ("apex_threshold", dict(Q=64, cap=512, dims=20, masked=False), (64, 512, 20)),
             ("apex_project", dict(B=1, n=20, dtype="float64"), (1, 20, "float64")),
             ("jsd_pairwise", dict(Q=1, P=20, d=112, dtype="float64"), (1, 20, 112, "float64")),
             ("jsd_pairwise", dict(Q=1, P=32, d=112, dtype="float64"), (1, 32, 112, "float64")),
