@@ -8,6 +8,7 @@
     python3 chip_smoke.py --mechanisms-only
     python3 chip_smoke.py --filtered-only
     python3 chip_smoke.py --online-only
+    python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -98,7 +99,31 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 and ``original_calls`` printed; every answer held to an f64
                 brute force over an oracle's live rows and their generated
                 attribute columns, kept apart from the index and its store;
-  5c. mechanisms — the paper's other mechanisms, with the launch counts set
+  5c. sharded — colors-1M as ``build_index(..., shards=4)`` (four 250,000-row
+                segments on one projector), the launch counts set to 0
+                before and read after (``launch_phase="sharded"``; each
+                kernel must have > 0): per metric a 64-query exact k-NN
+                batch (overflow routes printed per shard), exact range
+                batches at query 0's 10th and 100th neighbour distances
+                through the device filter (K3 over the 1M-row flat table,
+                its class (64, 256, 20) must be launched; the queries whose
+                256 slots overflowed printed) and under
+                ``device_filter=False``, one range batch under each of the
+                layouts ``{"replicas": 2}`` and ``{"rows": "replicated"}``
+                (both must clamp to the 1 x 1 grid and answer alike), an
+                ``apex_dims=10, refine=64`` sharded batch, 8 1-D k-NN and
+                range requests, 256 requests through ``SearchService`` under
+                overlapped and sequential fan-out (wall, p50, p99 and
+                ``original_calls``), a mutable ``shards=4`` index through
+                rounds of 2,048 adds, 1,024 removes and 256 upserts
+                (euclidean 2, JSD 1) with k-NN and range batches, then
+                ``compact()`` and one more round; euclidean also LAESA with
+                ``shards=4`` and a save / load round trip of a 112,682-row
+                sharded mutable index (same answers and ``original_calls``).
+                After the counts are read every exact answer is held to an
+                f64 brute force (the mutable index's over an oracle's live
+                rows), the approximate ones to their shards' own candidates;
+  5d. mechanisms — the paper's other mechanisms, with the launch counts set
                 to 0 before and read after (its own ``launch_shapes`` lines,
                 ``launch_phase="mechanisms"``; each kernel must have > 0):
                 LAESA at colors-1M (``build_index(kind="laesa",
@@ -146,7 +171,7 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
   7. ``{"kernels": [...]}`` — those rows with their launches and
                 ``table_rows`` (K1, K3 and K4 with ``plan``,
                 ``previous_design_ms`` and ``previous_design_device_ms``):
-                first the main path's, then the filtered, online and
+                first the main path's, then the filtered, online, sharded and
                 mechanisms phases', tagged with ``launch_phase`` and carrying
                 that phase's launches and shares.  The filtered rows are
                 timed on the 1M-row JSD index with the most common shop's
@@ -154,7 +179,14 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 always among them); the online rows on the JSD online
                 index's 1M-row base, its K2/K3 rows narrower than 4,096 on
                 its delta segment with the predicate's mask, and K4 at the
-                add-burst class (2,304, 20, f64) always among them;
+                add-burst class (2,304, 20, f64) always among them; the
+                sharded rows each on the rows its class scans: the device
+                filter's K3 (64, 256, 20) on the JSD index's 1M-row flat
+                table, every other class on its shard 0 (250,000 rows), and
+                a ``device_filter`` line timing the whole filter (K3 and the
+                K1 completion of the overflowing queries' histograms) against
+                its plain version (``selection="sort"``, bit-equal) and the
+                completion alone;
 then the card's ``nvidia-smi`` line, and last the device contract line.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
@@ -166,11 +198,11 @@ K3's (``[G, S]``; G = 0 is the first design, one query per block) or K4's
 or K3 class of more queries than the 256 query rows repeats them.
 ``--approx-only`` runs phase 4 alone, with its checks, so two checkouts'
 approximate batch and service wall times can be taken in turns on one
-card; ``--mechanisms-only`` runs phase 5c alone, with its checks, and
+card; ``--mechanisms-only`` runs phase 5d alone, with its checks, and
 prints its kernel rows as ``{"mechanisms_kernels": [...]}``;
-``--filtered-only`` and ``--online-only`` run phase 5a or 5b alone, with
-their checks, and print ``{"filtered_kernels": [...]}`` or
-``{"online_kernels": [...]}``.
+``--filtered-only``, ``--online-only`` and ``--sharded-only`` run phase 5a,
+5b or 5c alone, with their checks, and print ``{"filtered_kernels": [...]}``,
+``{"online_kernels": [...]}`` or ``{"sharded_kernels": [...]}``.
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -1761,6 +1793,358 @@ def verify_online(torch, ref, metrics_mod, rec):
         emit(phase="online", metric=metric, checked_answers=checked, near_tie_differences=swaps)
 
 
+#: the sharded phase: colors-1M as four segments sharing one pivot set, the
+#: distributed filter's slots per device (``build_index``'s default); its
+#: online part's rounds before the compaction per metric (then ``compact()``
+#: and one more round), and the save / load round trip at the paper's size
+SHARDS, MAX_CAND = 4, 256
+SHARDED_ROUNDS = {"euclidean": 2, "jensen_shannon": 1}
+#: the device filter's K3 shape class: every query against the flat table
+FILTER_CLASS = (Q, MAX_CAND, N_PIVOTS)
+
+
+def shard_overflow(index) -> list:
+    """Per shard, the queries its n-simplex segments sent to a per-query K1
+    route (LAESA and tree segments have none)."""
+    return [sum(getattr(seg._inner, "overflow_queries", 0) for seg in segments_of(s) if hasattr(seg, "_inner"))
+            for s in index._shards]
+
+
+def run_sharded(torch, index, qs, spec):
+    """(results, wall s, per-shard overflowed queries, device-filter queries
+    whose slots overflowed) of one query call on a sharded index."""
+    before, f0 = shard_overflow(index), index.filter_overflow_queries
+    res, wall = timed(torch, lambda: index.query(qs, spec))
+    over = [a - b for a, b in zip(shard_overflow(index), before)]
+    return ([res] if qs.ndim == 1 else list(res)), wall, over, index.filter_overflow_queries - f0
+
+
+def serve(torch, service_mod, index, qs, spec, workers):
+    """256 requests through ``SearchService(max_batch=64)`` under the fan-out
+    policy ``workers``: (results, wall s, service stats); the results must
+    equal a direct batch's ids and distances."""
+    with service_mod.SearchService(index, max_batch=64, max_wait_s=0.005, fanout_workers=workers) as svc:
+        svc.warmup(spec, qs[0])
+        t0 = time.perf_counter()
+        results = [f.result(timeout=900) for f in [svc.submit(q, spec) for q in qs]]
+        wall = time.perf_counter() - t0
+        st = svc.stats()
+    for r, w in zip(results, index.query(qs, spec)):
+        check(np.array_equal(r.ids, w.ids) and np.array_equal(r.distances, w.distances),
+              "served sharded results differ from a direct batch")
+    return results, wall, st
+
+
+def phase_sharded(ops, torch, api, service_mod, ref, metrics_mod, data_np, queries_np, seed) -> dict:
+    """The sharded composite at colors-1M, the launch counts set to 0 before
+    and read after: per metric ``build_index(..., shards=4)`` (every shard on
+    one projector), a 64-query exact k-NN batch, exact range batches at query
+    0's 10th and 100th neighbour distances through the device filter and
+    under ``device_filter=False``, one range batch under each of the layouts
+    ``{"replicas": 2}`` and ``{"rows": "replicated"}`` (clamped to the 1 x 1
+    grid of one card), an approximate k-NN batch of an ``apex_dims=10,
+    refine=64`` build, 8 1-D k-NN and range requests, 256 requests through
+    ``SearchService`` under overlapped and sequential fan-out; a mutable
+    ``shards=4`` index through rounds of 2,048 adds, 1,024 removes and 256
+    upserts (euclidean 2, JSD 1), each followed by k-NN and range batches,
+    then ``compact()`` and one more round; euclidean only: LAESA with
+    ``shards=4`` (k-NN and range batches) and a save / load round trip of a
+    112,682-row sharded mutable index.  Returns what ``verify_sharded``
+    checks."""
+    Query = api.Query
+    qs = queries_np[:Q]
+    build_kw = dict(n_pivots=N_PIVOTS, seed=SEED % 1000, shards=SHARDS, device=DEVICE)
+    ops.reset_launches()
+    runs = []
+    for mi, metric in enumerate(("euclidean", "jensen_shannon")):
+        report = lambda **f: emit(phase="sharded", metric=metric, **f)  # noqa: E731
+        index, wall = timed(torch, lambda: api.build_index(data_np, metric, **build_kw))
+        check(all(s._inner.projector is index._projector for s in index._shards),
+              "every shard must fit its table with the one shared projector")
+        report(task="build", rows=N_ROWS, shard_rows=index.stats()["shard_objects"], wall_s=wall)
+        brute = BruteForce(torch, ref, index.data, metrics_mod.get_metric(metric))
+        sample = np.sort(brute.dists(queries_np[0]).cpu().numpy())
+        t10, t100 = float(sample[9]), float(sample[99])       # query 0's 10th / 100th neighbour distance
+        tasks = []
+
+        def go(task, spec, q, idx=index, keep=True, **extra):
+            res, wall, over, f_over = run_sharded(torch, idx, q, spec)
+            report(task=task, queries=len(res), wall_ms=wall * 1e3, original_calls_per_query=calls_per_query(res),
+                   shard_overflow_queries=over, filter_overflow_queries=f_over, **extra)
+            if keep:
+                tasks.append((task, spec, q, res))
+            return res
+
+        go("knn_batch", Query.knn(K), qs)
+        for name, t in (("range10", t10), ("range100", t100)):
+            before = ops.SHAPE_LAUNCHES["apex_threshold"].get(FILTER_CLASS, 0)
+            go(f"{name}_batch", Query.range(t), qs, threshold=t)
+            check(index._filter_fn is not None and ops.SHAPE_LAUNCHES["apex_threshold"].get(FILTER_CLASS, 0) > before,
+                  "a range batch with the device filter on must launch K3 over the flat table")
+            check((index._mesh_data, index._mesh_replicas) == (1, 1), "one card is a 1 x 1 grid")
+            index.device_filter = False
+            go(f"{name}_host_batch", Query.range(t), qs, threshold=t)
+            index.device_filter = None
+        default = next(res for task, _, _, res in tasks if task == "range100_batch")
+        for label, layout in (("replica_groups", {"replicas": 2}), ("replicated_rows", {"rows": "replicated"})):
+            lay, wall = timed(torch, lambda: api.build_index(data_np, metric, layout=layout, **build_kw))
+            res = go(f"range100_{label}_batch", Query.range(t100), qs, idx=lay, build_s=wall)
+            check((lay._mesh_data, lay._mesh_replicas) == (1, 1),
+                  f"layout {layout} must clamp to the 1 x 1 grid on one card, as the reference does on one device")
+            check(all(np.array_equal(a.ids, b.ids) for a, b in zip(res, default)),
+                  f"layout {layout} answers differently from the default layout")
+            del lay
+        approx, wall = timed(torch, lambda: api.build_index(data_np, metric, apex_dims=APPROX_DIMS, refine=REFINE,
+                                                            **build_kw))
+        report(task="build_approx", apex_dims=APPROX_DIMS, refine=REFINE, wall_s=wall)
+        approx_res = go("approx_knn_batch", Query.knn(K), qs, idx=approx, keep=False)
+        for task, spec in (("knn_1d", Query.knn(K)), ("range100_1d", Query.range(t100))):
+            res, wall, over, _ = [], 0.0, [0] * SHARDS, 0
+            for q in qs[:8]:
+                r, w, o, _ = run_sharded(torch, index, q, spec)
+                res += r
+                wall, over = wall + w, [a + b for a, b in zip(over, o)]
+            report(task=task, queries=len(res), wall_ms_per_query=wall * 1e3 / len(res),
+                   original_calls_per_query=calls_per_query(res), shard_overflow_queries=over)
+            tasks.append((task, spec, qs[:8], res))
+        served = queries_np[:256]
+        for label, workers in (("overlapped", SHARDS), ("sequential", 0)):
+            res, wall, st = serve(torch, service_mod, index, served, Query.knn(K), workers)
+            report(task=f"service_knn_{label}", requests=len(served), fanout_workers=workers, wall_ms=wall * 1e3,
+                   latency_p50_ms=st["latency_p50_ms"], latency_p99_ms=st["latency_p99_ms"],
+                   n_batches=st["n_batches"], original_calls_per_query=calls_per_query(res))
+            tasks.append((f"service_knn_{label}", Query.knn(K), served[:8], res[:8]))
+        index.configure_fanout(None)
+        online = sharded_online(torch, api, metric, report, data_np, qs, t100, seed + 31 + mi, build_kw)
+        extra = {}
+        if metric == "euclidean":
+            laesa, wall = timed(torch, lambda: api.build_index(data_np, metric, kind="laesa", **build_kw))
+            report(task="build_laesa", wall_s=wall)
+            extra["laesa"] = [(task, spec, qs, go(f"laesa_{task}", spec, qs, idx=laesa, keep=False))
+                              for task, spec in (("knn_batch", Query.knn(K)), ("range100_batch", Query.range(t100)))]
+            del laesa
+            sharded_round_trip(torch, api, report, data_np, qs, t100, seed + 51)
+        runs.append(dict(metric=metric, index=index, brute=brute, tasks=tasks, approx=approx,
+                         approx_res=approx_res, online=online, **extra))
+    launches = dict(ops.LAUNCHES)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name, (kid, _, _) in KERNEL_INFO.items():
+        check(launches[name] > 0, f"{kid} ({name}) was not launched by the sharded phase")
+        emit(phase="launch_shapes", launch_phase="sharded", kernel=kid, name=name, launches=launches[name],
+             classes=[[list(cls), n, share] for cls, n, share in hist[name]])
+    return dict(runs=runs, hist=hist)
+
+
+def sharded_online(torch, api, metric, report, data_np, qs, t, seed, build_kw) -> dict:
+    """The mutable ``shards=4`` index: ``SHARDED_ROUNDS[metric]`` rounds of
+    2,048 adds (rows from ``colors_like`` with ``seed``), 1,024 removes and 256
+    upserts, each followed by a 64-query k-NN and range batch, then
+    ``compact()`` and one more round.  Returns the oracle and each round's
+    live slots and answers."""
+    from repro_torch.data import colors_like
+
+    Query = api.Query
+    rounds = SHARDED_ROUNDS[metric]
+    index, wall = timed(torch, lambda: api.build_index(data_np, metric, mutable=True, compact_threshold=None,
+                                                       **build_kw))
+    report(task="build_mutable", wall_s=wall)
+    per_round = ONLINE_ADD + ONLINE_UPSERT
+    pool = colors_like(n=(rounds + 1) * per_round, dim=DIM, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    oracle = Oracle(torch, torch.as_tensor(data_np, device=DEVICE), np.arange(N_ROWS), {})
+    out_rounds = []
+    for r in range(rounds + 1):
+        out = {}
+        if r == rounds:
+            _, wall = timed(torch, index.compact)
+            st = index.stats()
+            check(st["delta_rows"] == 0 and st["tombstones"] == 0, "compact() left a delta or tombstones")
+            out["compact_ms"] = wall * 1e3
+        block = slice(r * per_round, r * per_round + ONLINE_ADD)
+        ids, wall = timed(torch, lambda: index.add(pool[block]))
+        oracle.add(ids, pool[block], {})
+        out["add_ms"] = wall * 1e3
+        victims = rng.choice(oracle.live_ids(), size=ONLINE_REMOVE, replace=False)
+        _, wall = timed(torch, lambda: index.remove(victims))
+        oracle.remove(victims)
+        out["remove_ms"] = wall * 1e3
+        targets = rng.choice(oracle.live_ids(), size=ONLINE_UPSERT, replace=False)
+        block = slice(r * per_round + ONLINE_ADD, (r + 1) * per_round)
+        _, wall = timed(torch, lambda: index.upsert(targets, pool[block]))
+        oracle.remove(targets)
+        oracle.add(targets, pool[block], {})
+        out["upsert_ms"] = wall * 1e3
+        st = index.stats()
+        out.update(shard_objects=st["shard_objects"], delta_rows=st["delta_rows"], tombstones=st["tombstones"])
+        tasks = []
+        for task, spec in (("knn_batch", Query.knn(K)), ("range100_batch", Query.range(t))):
+            res, wall, over, f_over = run_sharded(torch, index, qs, spec)
+            out[task] = dict(wall_ms=wall * 1e3, original_calls_per_query=calls_per_query(res),
+                             shard_overflow_queries=over, filter_overflow_queries=f_over)
+            tasks.append((task, spec, qs, res))
+        report(task="online_round", round=r, **out)
+        out_rounds.append(dict(snap=oracle.snapshot(), tasks=tasks))
+    check(np.array_equal(index.ids(), oracle.live_ids()), "the sharded index's live ids differ from the oracle's")
+    return dict(oracle=oracle, rounds=out_rounds)
+
+
+def sharded_round_trip(torch, api, report, data_np, qs, t, seed):
+    """``save`` / ``load_index`` of a 112,682-row sharded mutable euclidean
+    index after 2,048 adds and 1,024 removes: the loaded index must answer a
+    k-NN and a range batch with the same ids, distances and
+    ``original_calls``."""
+    from repro_torch.data import colors_like
+
+    index = api.build_index(data_np[:ENGINE_ROWS], "euclidean", n_pivots=N_PIVOTS, seed=SEED % 1000, shards=SHARDS,
+                            mutable=True, compact_threshold=None, device=DEVICE)
+    index.add(colors_like(n=ONLINE_ADD, dim=DIM, seed=seed))
+    index.remove(np.random.default_rng(seed).choice(index.ids(), size=ONLINE_REMOVE, replace=False))
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as tmp:
+        _, save_s = timed(torch, lambda: index.save(Path(tmp) / "sharded.idx"))
+        loaded, load_s = timed(torch, lambda: api.load_index(Path(tmp) / "sharded.idx", device=DEVICE))
+    for spec in (api.Query.knn(K), api.Query.range(t)):
+        for a, b in zip(index.query(qs, spec), loaded.query(qs, spec)):
+            check(np.array_equal(a.ids, b.ids) and a.stats.original_calls == b.stats.original_calls,
+                  "the loaded sharded index answers differently")
+            check(a.distances is None or np.array_equal(a.distances, b.distances), "loaded distances differ")
+    report(task="save_load", rows=int(index.stats()["n_objects"]), save_s=save_s, load_s=load_s,
+           answers_equal=True)
+
+
+def verify_sharded(torch, ops, ref, metrics_mod, rec):
+    """Every exact sharded answer against an f64 brute force on the card
+    (JSD plain, not K5): the plain, layout, 1-D, served (first 8) and LAESA
+    answers over the corpus, the mutable index's over the oracle's live rows
+    each round; the approximate answers from their own candidates: per
+    shard the ``REFINE`` smallest f32 truncated mid keys of K1 over its rows
+    (query apexes projected by the plain versions), the k smallest (f64
+    distance, id) of their union, ``original_calls = dims + shards x
+    refine``."""
+    for run in rec["runs"]:
+        metric, brute = run["metric"], run["brute"]
+        m = metrics_mod.get_metric(metric)
+        tol = refine_tol(torch, metric, run["index"]._shards[0].data)
+        D = brute_matrix(torch, brute, run["tasks"][0][2])
+        everyone = torch.arange(D.shape[1], device=D.device)
+        allowed = torch.ones(D.shape[1], dtype=torch.bool, device=D.device)
+        want = expect_knn(torch, D, everyone, K)
+        checked, swaps = 0, 0
+        for task, spec, qs, results in run["tasks"] + run.get("laesa", []):
+            for qi, r in enumerate(results):
+                what = f"sharded {metric} {task} q{qi}"
+                if spec.task == "knn":
+                    swaps += check_exact(torch, D[qi], r, want[qi], allowed, None, tol, what)
+                else:
+                    t = float(spec.threshold)
+                    swaps += check_exact(torch, D[qi], r, everyone[D[qi] <= t].cpu().numpy(), allowed, t, tol, what)
+                checked += 1
+        verify_sharded_approx(torch, ops, ref, run, D, tol)
+        del D
+        torch.cuda.empty_cache()
+        online = run["online"]
+        oracle = online["oracle"]
+        for ri, rnd in enumerate(online["rounds"]):
+            snap = rnd["snap"]
+            ids = oracle.slot_id[snap]
+            rows = oracle.rows[torch.as_tensor(snap, device=oracle.rows.device)]
+            Dr = brute_matrix(torch, BruteForce(torch, ref, rows, m), rnd["tasks"][0][2])
+            live = torch.arange(len(ids), device=Dr.device)
+            every = torch.ones(len(ids), dtype=torch.bool, device=Dr.device)
+            want_r = expect_knn(torch, Dr, live, K)
+            for task, spec, qs, results in rnd["tasks"]:
+                for qi, r in enumerate(results):
+                    local = SimpleNamespace(ids=np.searchsorted(ids, r.ids), distances=r.distances)
+                    check(np.array_equal(ids[np.minimum(local.ids, len(ids) - 1)], r.ids),
+                          f"sharded online {metric} {task}: answered an id that is not live")
+                    what = f"sharded online {metric} round {ri} {task} q{qi}"
+                    if spec.task == "knn":
+                        swaps += check_exact(torch, Dr[qi], local, want_r[qi], every, None, tol, what)
+                    else:
+                        t = float(spec.threshold)
+                        swaps += check_exact(torch, Dr[qi], local, live[Dr[qi] <= t].cpu().numpy(), every, t, tol,
+                                             what)
+                    checked += 1
+            del Dr, rows
+            torch.cuda.empty_cache()
+        emit(phase="sharded", metric=metric, checked_exact_answers=checked, near_tie_differences=swaps)
+
+
+def verify_sharded_approx(torch, ops, ref, run, D, tol):
+    index, results = run["approx"], run["approx_res"]
+    qs8 = run["tasks"][0][2][:8]
+    cands = []
+    for s, shard in enumerate(index._shards):
+        inner = shard._inner
+        prefix = inner._prefix_projector(APPROX_DIMS)
+        apexes = ref.apex_project_ref(run["brute"].cross(qs8, prefix.pivots_t), prefix._Linv_t, prefix._sq_norms_t)
+        L, U = (t.cpu().numpy() for t in ops.apex_bounds_batch(inner._kernel_table(), apexes.float(),
+                                                                dims=APPROX_DIMS))
+        local = host_select(np.float32(0.5) * (L + U), None, REFINE)
+        cands.append(index._shard_ids[s][local])
+    cands = np.concatenate(cands, axis=1)
+    recall, swaps = [], 0
+    for qi, r in enumerate(results[:8]):
+        check(r.approx == {"dims": APPROX_DIMS, "refine": REFINE}, "an approximate result must carry its config")
+        c = cands[qi]
+        d64 = D[qi].cpu().numpy()
+        check(bool(np.isin(r.ids, c).all()), "sharded approximate k-NN answered outside its shards' candidates")
+        swaps += agree_knn(r, c[np.lexsort((c, d64[c]))][:K], d64, tol)
+        check(r.stats.original_calls == APPROX_DIMS + SHARDS * REFINE,
+              "sharded approximate original_calls must be dims + shards x refine")
+        recall.append(len(np.intersect1d(r.ids, host_select(d64[None, :], None, K)[0])) / K)
+    emit(phase="sharded", metric=run["metric"], task="approx_knn_batch", checked=len(recall),
+         recall_at_10=float(np.mean(recall)), near_tie_differences=swaps)
+
+
+def sharded_kernel_rows(torch, ops, ref, rec, data_np, queries_np, log) -> list:
+    """The sharded phase's kernel rows, each timed on the rows its class
+    scans: the device filter's K3 class on the JSD index's 1M-row flat
+    table, every other class on its shard 0 (250,000 rows; raw rows for the
+    build and compaction classes from the corpus).  Also the device filter
+    itself at the 100th-neighbour range batch: K3 with the K1 completion
+    against its plain version (``selection="sort"``: K1 and a stable sort),
+    bit-equal, each timed, and the completion alone."""
+    from repro_torch.search import distributed
+
+    run = next(r for r in rec["runs"] if r["metric"] == "jensen_shannon")
+    index = run["index"]
+    table, _, rows, _ = index._flat_state()
+    seg0 = index._shards[0]
+    flat = SimpleNamespace(_inner=SimpleNamespace(_kernel_table=lambda: table, data=rows,
+                                                  query_apex_batch=seg0._inner.query_apex_batch))
+    hist = rec["hist"]
+    shard_hist = {name: [e for e in by if not (name == "apex_threshold" and e[0] == FILTER_CLASS)]
+                  for name, by in hist.items()}
+    flat_hist = {"apex_threshold": [e for e in hist["apex_threshold"] if e[0] == FILTER_CLASS]}
+    corpus = torch.as_tensor(data_np, device=DEVICE)
+    out = kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, seg0, queries_np, log, corpus), shard_hist, "sharded")
+    out += kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, flat, queries_np, log), flat_hist, "sharded",
+                       must=[("apex_threshold", FILTER_CLASS)])
+    # the device filter at the 100th-neighbour batch's bands
+    t = next(spec.threshold for task, spec, _, _ in run["tasks"] if task == "range100_batch")
+    qs = queries_np[:Q]
+    apexes = index._projector.project_distances(index._block_qpd(qs)[0])
+    eps_eff = index._eps + index._fp32_slack(index._flat_state()[3], apexes, t) / t
+    ap32 = apexes.float().contiguous()
+    t_hi = torch.full((Q,), t * (1 + eps_eff), dtype=torch.float32, device=DEVICE)
+    t_lo = torch.full((Q,), t * (1 - eps_eff), dtype=torch.float32, device=DEVICE)
+    placed = index._device_table(table)
+    topk = index._device_filter_fn()
+    plain = distributed.build_distributed_filter(index._mesh, max_candidates=MAX_CAND, selection="sort")
+    got, want = topk(placed, ap32, t_hi, t_lo), plain(placed, ap32, t_hi, t_lo)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "the device filter's K3 slots differ from its plain version")
+    over = torch.nonzero((got[0][:, 1] + got[0][:, 2]) > MAX_CAND).flatten()
+    completion = {}
+    if over.numel():
+        local = placed[0][0]
+        completion = dict(completion_queries=int(over.numel()), completion_ms=time_ms(
+            torch, lambda: distributed._accepted(local, ap32[over], t_hi[over], t_lo[over]), reps=5))
+    emit(phase="sharded", metric="jensen_shannon", task="device_filter", rows=int(table.shape[0]), queries=Q,
+         slots=MAX_CAND, ms=time_ms(torch, lambda: topk(placed, ap32, t_hi, t_lo), reps=5),
+         plain_ms=time_ms(torch, lambda: plain(placed, ap32, t_hi, t_lo), reps=2), **completion)
+    return out
+
+
 def kernel_rows(torch, ops, inputs, hist, launch_phase=None, selection_inputs=None, must=()) -> list:
     """The kernels line's rows of one launch histogram: each (kernel, shape
     class) of ``rows_to_time(hist, must)`` timed on ``inputs`` (held to its
@@ -1860,6 +2244,8 @@ def main(argv=None) -> int:
                         help="only run the filtered phase (both metrics) and its checks")
     parser.add_argument("--online-only", action="store_true",
                         help="only run the online phase (both metrics) and its checks")
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="only run the sharded phase (both metrics) and its checks")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
@@ -1920,6 +2306,15 @@ def main(argv=None) -> int:
         corpus = torch.as_tensor(data_np, device="cuda")
         inputs = ShapeInputs(torch, ops, ref, mech_index, queries_np, log, corpus)
         print(json.dumps({"mechanisms_kernels": kernel_rows(torch, ops, inputs, mech_hist, "mechanisms")}),
+              flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
+    sharded_mods = (ops, torch, api, service_mod, ref, metrics_mod, data_np, queries_np, args.seed)
+    if args.sharded_only:
+        sharded = phase_sharded(*sharded_mods)
+        verify_sharded(torch, ops, ref, metrics_mod, sharded)
+        print(json.dumps({"sharded_kernels": sharded_kernel_rows(torch, ops, ref, sharded, data_np, queries_np, log)}),
               flush=True)
         emit(phase="host", host_yardstick_s=host_yardstick())
         print(smi, flush=True)
@@ -1992,6 +2387,9 @@ def main(argv=None) -> int:
     online = phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries_np, attrs, args.seed)
     verify_online(torch, ref, metrics_mod, online)
     torch.cuda.empty_cache()
+    sharded = phase_sharded(*sharded_mods)
+    verify_sharded(torch, ops, ref, metrics_mod, sharded)
+    torch.cuda.empty_cache()
     mech_hist, mech_index = phase_mechanisms(ops, *mech_mods)
 
     rows = kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, approx_runs[-1]["index"], queries_np, log), hist)
@@ -2002,6 +2400,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += online_kernel_rows(torch, ops, ref, online, queries_np, log)
     del online
+    torch.cuda.empty_cache()
+    rows += sharded_kernel_rows(torch, ops, ref, sharded, data_np, queries_np, log)
+    del sharded
     torch.cuda.empty_cache()
     # the mechanisms phase's own shape classes, timed on its engine's
     # 112,682-row N_seq table and corpus, with that phase's launches

@@ -4,9 +4,12 @@ Build with ``build_index``, answer declarative ``Query`` specs with
 ``index.query(q_or_batch, spec)`` (``index.plan(spec).explain()`` shows the
 pipeline), persist with ``save`` / ``load_index`` in the JAX package's
 on-disk format.  ``build_index(..., mutable=True)`` returns a
-``MutableIndex`` (online add / remove / upsert / compact, exact queries);
-``build_index(..., attributes=store)`` enables ``Query(where=Predicate...)``.  Results arrive as ``QueryResult`` / ``BatchQueryResult``
-carriers with the paper's per-query cost ledger.
+``MutableIndex`` (online add / remove / upsert / compact, exact queries),
+``build_index(..., shards=S)`` a ``ShardedIndex`` (rows over S segments
+sharing one pivot set, optionally mutable);
+``build_index(..., attributes=store)`` enables ``Query(where=Predicate...)``.
+Results arrive as ``QueryResult`` / ``BatchQueryResult`` carriers with the
+paper's per-query cost ledger.
 """
 
 from repro_torch.api.execute import QuerySurface, execute
@@ -17,6 +20,7 @@ from repro_torch.api.persistence import FORMAT_VERSION
 from repro_torch.api.planner import PlanStage, QueryPlan, plan
 from repro_torch.api.protocol import STATS_CONTRACT, Index, SupportsMutation
 from repro_torch.api.query import DEFAULT_REFINE, Query, QueryOptions
+from repro_torch.api.sharded import ShardedIndex
 from repro_torch.api.types import BatchQueryResult, QueryResult, QueryStats
 
 __all__ = [
@@ -37,6 +41,7 @@ __all__ = [
     "QueryStats",
     "QuerySurface",
     "STATS_CONTRACT",
+    "ShardedIndex",
     "SimplexTableIndex",
     "SupportsMutation",
     "build_index",

@@ -21,11 +21,15 @@
     live.add(rows, attrs={"shop": new_shops, "year": new_years})
     live.query(queries, Query.knn(10, where=Predicate.eq("shop", "s1")))
 
+    # a corpus served as four segments sharing one pivot set, online or not
+    sharded = build_index(data, "euclidean", shards=4)
+    online = build_index(data, "euclidean", shards=4, mutable=True)
+
 Both default to ``device="cuda"`` and raise when no card is present, unless
 ``device="cpu"`` is passed.  This package builds the three single-structure
-kinds (``nsimplex``, ``laesa``, ``tree``), the mutable composite over them
-and attribute stores; the sharded and durable composites of the JAX package
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+kinds (``nsimplex``, ``laesa``, ``tree``), the mutable and sharded composites
+over them and attribute stores; the durable composite of the JAX package
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from repro_torch.api.indexes import MetricTreeIndex, PivotTableIndex, SimplexTab
 from repro_torch.api.mutable import MutableIndex
 from repro_torch.api.persistence import read_index_dir
 from repro_torch.api.query import DEFAULT_REFINE, QueryOptions
+from repro_torch.api.sharded import ShardedIndex, _shared_projector
 from repro_torch.core import select_pivots
 from repro_torch.device import resolve_device
 from repro_torch.filter.store import AttributeStore
@@ -57,11 +62,11 @@ INDEX_KINDS = {
 _KIND_ALIASES = {"N_seq": "nsimplex", "L_seq": "laesa", "simplex": "nsimplex"}
 
 #: composite kinds (selected with build_index flags, not ``kind=``)
-COMPOSITE_KINDS = {MutableIndex.kind: MutableIndex}
+COMPOSITE_KINDS = {MutableIndex.kind: MutableIndex, ShardedIndex.kind: ShardedIndex}
 
 #: composite kinds of the JAX package's manifests not ported yet, with the
 #: ROADMAP item that ports them
-_NOT_PORTED_COMPOSITES = {"sharded": 7, "durable": 9}
+_NOT_PORTED_COMPOSITES = {"durable": 9}
 
 
 def _not_ported(what: str, item: int):
@@ -104,12 +109,16 @@ def build_index(
     shards: Optional[int] = None,
     compact_threshold: Optional[float] = 0.5,
     durable: bool = False,
+    device_filter: Optional[bool] = None,
+    max_candidates: int = 256,
+    fanout_workers: Optional[int] = None,
+    layout: Optional[dict] = None,
     apex_dims: Optional[int] = None,
     refine: int = DEFAULT_REFINE,
     attributes=None,
     query_options: Optional[QueryOptions] = None,
     device="cuda",
-) -> Union[SimplexTableIndex, PivotTableIndex, MetricTreeIndex, MutableIndex]:
+) -> Union[SimplexTableIndex, PivotTableIndex, MetricTreeIndex, MutableIndex, ShardedIndex]:
     """Build one index of the requested kind over (data, metric) on ``device``.
 
     Args:
@@ -139,14 +148,30 @@ def build_index(
       compact_threshold: delta + tombstone fraction that marks a mutable
                       index ``pending_compaction``; the fold runs on an
                       explicit ``compact()`` (None: never marked).
+      shards:         partition rows across this many segments
+                      (``ShardedIndex``); shard 0 fits the shared pivot set
+                      and the others reuse it, so the sharded simplex filter
+                      can scan every shard's table as one.
+      device_filter:  sharded nsimplex only: route exact range batches
+                      through the distributed filter (K3 per device; None =
+                      auto, False = host fan-out).
+      max_candidates: per-device candidate slots of the distributed filter.
+      fanout_workers: sharded only: host fan-out policy; None uses the
+                      shared process pool with the overlapped top-k merge
+                      and radius hints, 0 the sequential scan, an int > 0 a
+                      private pool of that size.
+      layout:         sharded only: the distributed filter's device
+                      placement as a ``ShardLayout`` dict (``rows``:
+                      partitioned|replicated, ``replicas``: replica groups);
+                      None = rows partitioned over every visible card.
       attributes:     a ``repro_torch.filter.AttributeStore`` to attach,
                       enabling ``Query(where=Predicate...)``; persisted next
                       to the index by ``save`` and reattached by
                       ``load_index``.
       query_options:  per-index ``QueryOptions`` defaults (persisted).
       device:         "cuda" (default) or "cpu".
-      shards, durable: not ported yet (ROADMAP items 7 and 9); any
-                      non-default value raises ``NotImplementedError``.
+      durable:        not ported yet (ROADMAP item 9); True raises
+                      ``NotImplementedError``.
     """
     kind = _resolve_kind(kind)
     if attributes is not None and not isinstance(attributes, AttributeStore):
@@ -163,32 +188,66 @@ def build_index(
         if not (2 <= int(apex_dims) <= int(n_pivots)):
             raise ValueError(f"apex_dims must be in [2, n_pivots={n_pivots}]; got {apex_dims}")
         approx = {"dims": int(apex_dims), "refine": int(refine)}
-    for flag, value, item in (("shards", shards, 7), ("durable", durable, 9)):
-        if value is not None and value is not False:
-            raise _not_ported(f"build_index({flag}=...)", item)
+    if durable:
+        raise _not_ported("build_index(durable=...)", 9)
+    if shards is None and (fanout_workers is not None or layout is not None):
+        raise ValueError("fanout_workers=/layout= are only meaningful with shards=")
     dev = resolve_device(device)
     data = np.asarray(data)
     metric = get_metric(metric) if isinstance(metric, str) else metric
     pivots = None
     if kind in ("nsimplex", "laesa"):
         pivots = select_pivots(data, n_pivots, strategy=pivot_strategy, seed=seed, metric=metric)
-    index = _build_segment(
-        data, metric, kind, pivots=pivots, leaf_size=leaf_size, seed=seed, eps=eps,
-        use_kernel=use_kernel, approx=approx, device=dev,
-    )
-    if mutable:
-        index = MutableIndex(index, compact_threshold=compact_threshold)
+    seg_kw = dict(pivots=pivots, leaf_size=leaf_size, seed=seed, eps=eps, use_kernel=use_kernel,
+                  approx=approx, device=dev)
+    if shards is not None:
+        index = _build_sharded(
+            data, metric, kind, int(shards), seg_kw, mutable=mutable, compact_threshold=compact_threshold,
+            eps=eps, device_filter=device_filter, max_candidates=max_candidates, approx=approx,
+            fanout_workers=fanout_workers, layout=layout,
+        )
+    else:
+        index = _build_segment(data, metric, kind, **seg_kw)
+        if mutable:
+            index = MutableIndex(index, compact_threshold=compact_threshold)
     index.query_options = query_options
     if attributes is not None:
         index.attach_attributes(attributes)
     return index
 
 
+def _build_sharded(data, metric, kind: str, n_shards: int, seg_kw: dict, *, mutable: bool, compact_threshold,
+                   **composite_kw) -> ShardedIndex:
+    """Rows split into ``n_shards`` contiguous blocks: shard 0 fits the
+    (shared) simplex and the rest spawn from it, so the inter-pivot
+    distances are measured once; each block is a mutable shard on request."""
+    if n_shards < 1:
+        raise ValueError(f"shards must be >= 1; got {n_shards}")
+    bounds = np.linspace(0, len(data), n_shards + 1).astype(int)
+    shard_list, shard_ids, seg0 = [], [], None
+    for s in range(n_shards):
+        block = data[bounds[s]: bounds[s + 1]]
+        seg = _build_segment(block, metric, kind, **seg_kw) if s == 0 else seg0.spawn(block)
+        seg0 = seg0 or seg
+        ids = np.arange(bounds[s], bounds[s + 1], dtype=np.int64)
+        if mutable:
+            shard_list.append(MutableIndex(seg, ids=ids, compact_threshold=compact_threshold))
+            shard_ids.append(None)
+        else:
+            shard_list.append(seg)
+            shard_ids.append(ids)
+    return ShardedIndex(
+        shard_list, shard_ids, inner_kind=kind, mutable=mutable, next_id=len(data),
+        projector=_shared_projector(shard_list[0], kind), **composite_kw,
+    )
+
+
 def load_index(path, *, device="cuda"):
     """Load an index saved by either package onto ``device``; the
     manifest's ``kind`` selects the class (a mutable index recurses into its
-    ``base/`` and ``delta/`` segment directories), a saved ``attributes/``
-    store is reattached, and nothing is re-measured."""
+    ``base/`` and ``delta/`` segment directories, a sharded one into its
+    ``shard_SSS/`` directories), a saved ``attributes/`` store is
+    reattached, and nothing is re-measured."""
     dev = resolve_device(device)
     manifest, arrays = read_index_dir(path)
     kind = manifest["kind"]

@@ -334,6 +334,15 @@ class MutableIndex(QuerySurface):
             self._built = d
         return self._delta_seg
 
+    def physical_parts(self) -> List[Tuple[object, np.ndarray]]:
+        """(segment, logical ids with -1 marking tombstoned slots) for every
+        physical segment: the flat-table feed of the sharded device filter."""
+        parts = [(self._base, np.where(self._base_live, self._base_ids, -1))]
+        delta = self._materialize()
+        if delta is not None:
+            parts.append((delta, np.where(self._delta_live, self._delta_ids, -1)))
+        return parts
+
     def _sides(self) -> List[_Side]:
         sides = [_Side(self._base, self._base_ids, self._base_live)]
         delta = self._materialize()

@@ -26,8 +26,9 @@ handed to the bound-scan kernels (``pushdown``) or an over-fetch filtered on
 the way out (``postfilter``).  The strategy thresholds and the cost model
 are the JAX package's constants, unchanged, so both packages pick the same
 strategy for the same stats.  This package plans the three single-structure
-kinds (``nsimplex``, ``laesa``, ``tree``) and the ``mutable`` composite over
-them; the sharded composite (ROADMAP item 7b) is not ported.
+kinds (``nsimplex``, ``laesa``, ``tree``) and the ``mutable`` and ``sharded``
+composites over them; a sharded plan carries the ``shard_fanout`` stage
+(shards, whether the device filter runs, the fan-out workers and layout).
 """
 
 from __future__ import annotations
@@ -37,11 +38,17 @@ from typing import Optional, Tuple
 
 from repro_torch.api.query import DEFAULT_REFINE, Query, QueryOptions
 
-__all__ = ["PlanStage", "QueryPlan", "plan"]
+__all__ = ["MIN_DEVICE_THRESHOLD", "PlanStage", "QueryPlan", "plan"]
 
 #: expected fraction of the table surviving the exact filter (auto-mode
 #: cost estimate only; ~2x the measured N_seq fraction for margin)
 _EXACT_CANDIDATE_FRACTION = 0.02
+
+#: below this threshold the sharded device filter flips to the host fan-out
+#: (the fp32 relative guard band around a near-zero threshold would swallow
+#: the decision); shared with ShardedIndex._use_device_filter so the plan's
+#: shard_fanout stage reports the gate the executor applies
+MIN_DEVICE_THRESHOLD = 1e-6
 
 #: predicate-strategy thresholds (estimated matching rows / selectivity):
 #: few enough matches -> a direct exact scan of them beats any index work
@@ -164,7 +171,7 @@ def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict):
             raise ValueError(
                 f"mode='approx' needs a truncatable surrogate table; "
                 f"kind {stats.get('kind')!r} (mechanism "
-                f"{stats.get('base_kind') or stats.get('kind')!r}) has none"
+                f"{stats.get('base_kind') or stats.get('inner_kind') or stats.get('kind')!r}) has none"
             )
         if dims is None:
             raise ValueError(
@@ -244,9 +251,24 @@ def _predicate_strategy(query: Query, selectivity: float, est_rows: int, stats: 
     return "pushdown"
 
 
+def _fanout_stage(kind: str, stats: dict, device_filter: bool):
+    """The sharded composite's fan-out stage, or None for another kind."""
+    if kind != "sharded":
+        return None
+    return _stage(
+        "shard_fanout",
+        shards=int(stats.get("n_shards", 1)),
+        device_filter=bool(device_filter),
+        workers=int(stats.get("fanout_workers", 0)),
+        overlap=bool(stats.get("fanout_overlap", False)),
+        layout=stats.get("layout"),
+    )
+
+
 def _merge_stage(kind: str, stats: dict):
-    """The composite's segment-merge stage, or None for a plain index."""
-    if kind not in ("mutable", "durable"):
+    """The composite's segment-merge stage, or None for a plain index or
+    an immutable sharded one."""
+    if kind not in ("mutable", "durable") and not (kind == "sharded" and stats.get("mutable")):
         return None
     return _stage(
         "merge_segments",
@@ -290,7 +312,7 @@ def _plan_predicate(index, query: Query, stats: dict, kind: str) -> QueryPlan:
         # index pipeline runs, whatever mode the query asked for
         return QueryPlan(
             index_kind=kind,
-            mechanism=stats.get("base_kind") or kind,
+            mechanism=stats.get("base_kind") or stats.get("inner_kind") or kind,
             task=query.task,
             mode="exact",
             k=query.k,
@@ -308,8 +330,10 @@ def _plan_predicate(index, query: Query, stats: dict, kind: str) -> QueryPlan:
     options = getattr(index, "query_options", None)
     mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats)
     mech, inner_stages = _mechanism_stages(stats, query, mode, dims, refine)
-    merge = _merge_stage(kind, stats)
-    stages = [filter_stage] + ([merge] if merge else []) + inner_stages
+    # the row mask routes through the host fan-out: the device filter has
+    # no mask operand on the sharded flat state
+    composite = [st for st in (_fanout_stage(kind, stats, False), _merge_stage(kind, stats)) if st]
+    stages = [filter_stage] + composite + inner_stages
     return QueryPlan(
         index_kind=kind,
         mechanism=mech,
@@ -329,7 +353,7 @@ def _plan_predicate(index, query: Query, stats: dict, kind: str) -> QueryPlan:
 
 def _mechanism_stages(stats: dict, query: Query, mode: str, dims, refine):
     """(mechanism, stages) of the innermost segment's pipeline."""
-    mech = stats.get("base_kind") or stats["kind"]
+    mech = stats.get("base_kind") or stats.get("inner_kind") or stats["kind"]
     n = int(stats.get("n_objects", 0))
     if mech == "tree":
         algo = "best_first_branch_and_bound" if query.task == "knn" else "hyperplane_exclusion"
@@ -381,7 +405,7 @@ def plan(index, query: Query) -> QueryPlan:
     if query.allow is not None:
         return QueryPlan(
             index_kind=kind,
-            mechanism=stats.get("base_kind") or kind,
+            mechanism=stats.get("base_kind") or stats.get("inner_kind") or kind,
             task=query.task,
             mode="exact",
             k=query.k,
@@ -405,8 +429,19 @@ def plan(index, query: Query) -> QueryPlan:
     options = getattr(index, "query_options", None)
     mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats)
     mech, inner_stages = _mechanism_stages(stats, query, mode, dims, refine)
-    merge = _merge_stage(kind, stats)
-    stages = ([merge] if merge else []) + inner_stages
+    t = query.threshold
+    t_min = min(t) if isinstance(t, tuple) else t
+    device = (
+        mech == "nsimplex"
+        and mode == "exact"
+        and query.task == "range"
+        and stats.get("device_filter") is not False
+        and stats.get("shared_projector", False)
+        and t_min is not None
+        and t_min > MIN_DEVICE_THRESHOLD
+    )
+    composite = [st for st in (_fanout_stage(kind, stats, device), _merge_stage(kind, stats)) if st]
+    stages = composite + inner_stages
     strategy = _filter_strategy(query)
     if strategy != "none":
         stages.append(

@@ -4,8 +4,8 @@ contract.
 ``STATS_CONTRACT`` is the JAX package's, key for key: every index kind
 reports the ``common`` keys and its own extras; a composite reports its
 innermost segment's keys too.  This package implements the ``nsimplex``,
-``laesa``, ``tree`` and ``mutable`` kinds; the others are listed so that the
-contract stays one table across both packages.
+``laesa``, ``tree``, ``mutable`` and ``sharded`` kinds; ``durable`` is listed
+so that the contract stays one table across both packages.
 """
 
 from __future__ import annotations

@@ -17,9 +17,11 @@ about three decimal digits and would break the slack with no error raised.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["pin_precision", "resolve_device"]
+__all__ = ["on_device", "pin_precision", "resolve_device"]
 
 
 def pin_precision() -> None:
@@ -42,3 +44,10 @@ def resolve_device(device="cuda") -> torch.device:
         )
     pin_precision()
     return dev
+
+
+def on_device(device):
+    """A context making ``device`` the current CUDA device of this thread
+    (kernel launches go to the current device); nothing for the CPU."""
+    dev = torch.device(device)
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()

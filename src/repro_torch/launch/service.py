@@ -100,12 +100,17 @@ class SearchService:
       max_batch:   flush a batch once this many compatible requests joined.
       max_wait_s:  flush an open batch this long after its first request.
       pad_batches: pad fused blocks to power-of-two bucket sizes.
+      fanout_workers: forwarded to a sharded index's ``configure_fanout``
+                   (None leaves the index's own policy alone); 0 pins the
+                   index to sequential fan-out.
     """
 
     def __init__(self, index, *, max_batch: int = 64, max_wait_s: float = 0.002,
-                 pad_batches: bool = True):
+                 pad_batches: bool = True, fanout_workers: Optional[int] = None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1; got {max_batch}")
+        if fanout_workers is not None and hasattr(index, "configure_fanout"):
+            index.configure_fanout(int(fanout_workers))
         self.index = index
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_s)

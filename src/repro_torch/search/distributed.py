@@ -1,0 +1,219 @@
+"""Distributed n-simplex filtering over a sharded apex table, on a device grid.
+
+The apex table — n float32 per object — is split row-wise over the grid's
+``data`` axis; queries are tiny and replicated (or split over ``replica``
+groups, see ``repro_torch.sharding.rules``).  Each device:
+
+  1. runs the two-sided bound filter over its row slice: one launch of K3
+     (``apex_bounds_threshold``) with the exclusion band ``t_hi`` as its
+     threshold, which keeps the rows with ``lwb <= t_hi`` ordered by
+     (lwb, local row) — the reference's ``lax.top_k`` of ``-lwb`` — up to
+     ``min(max_candidates, rows_local)`` of them, and counts them all;
+  2. decides each kept row: ACCEPT where ``upb <= t_lo`` (f32 compare), else
+     RECHECK; empty slots are -1 / EXCLUDE, padded back to
+     ``max_candidates``;
+  3. contributes its (Q, 3) decision histogram.  Where a query's count
+     exceeds the slots, the accepted rows past them are not in K3's output:
+     that column is completed from K1 (``apex_bounds_batch``) over the
+     device's rows, for the overflowing queries only, in row tiles.
+
+The grid is driven from one process, as the reference's ``shard_map`` is
+from one controller: the ``psum`` of the histograms is a sum and the
+``all_gather`` of the candidate slots a concatenation, both onto the grid's
+first device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bounds import ACCEPT, EXCLUDE, RECHECK
+from repro_torch.device import on_device
+from repro_torch.kernels import MAX_SELECT_WIDTH, SENTINEL_ID, apex_bounds_batch, apex_bounds_threshold
+from repro_torch.sharding.rules import DeviceGrid
+
+__all__ = ["build_distributed_filter", "place_table"]
+
+#: elements of one (Q, rows) bound block of K1's row tiles: no (Q, N)
+#: block is held (at 64 queries x 1M rows it would be 512 MB)
+_TILE_ELEMS = 1 << 24
+
+
+def _k1_tiles(table: torch.Tensor, queries: torch.Tensor):
+    """(first row, lwb, upb) of each row tile of ``table`` through K1."""
+    rows = max(1, _TILE_ELEMS // max(1, queries.shape[0]))
+    for lo in range(0, table.shape[0], rows):
+        lwb, upb = apex_bounds_batch(table[lo:lo + rows], queries)
+        yield lo, lwb, upb
+
+
+def _codes(lwb, upb, t_hi, t_lo):
+    return torch.where(
+        lwb > t_hi[:, None], EXCLUDE, torch.where(upb <= t_lo[:, None], ACCEPT, RECHECK)
+    )
+
+
+def _accepted(table, queries, t_hi, t_lo) -> torch.Tensor:
+    """(Q,) rows with ``lwb <= t_hi`` and ``upb <= t_lo``, counted through
+    K1 in row tiles."""
+    acc = torch.zeros(queries.shape[0], dtype=torch.int64, device=table.device)
+    for _, lwb, upb in _k1_tiles(table, queries):
+        acc += ((lwb <= t_hi[:, None]) & (upb <= t_lo[:, None])).sum(dim=1)
+    return acc
+
+
+def _sort_select(table, queries, t_hi, t_lo, width: int):
+    """The full-argsort selection: K1 bounds in row tiles, codes and the
+    histogram per tile, and a running stable sort of ``where(code !=
+    EXCLUDE, lwb, inf)`` that keeps the ``width`` smallest (key, row).
+    The reference's ``selection="sort"`` baseline, and the route of a
+    selection wider than K3 holds (``MAX_SELECT_WIDTH``), where the
+    reference's ``lax.top_k`` has no cap."""
+    Q = queries.shape[0]
+    dev = table.device
+    hist = torch.zeros((Q, 3), dtype=torch.int64, device=dev)
+    keys = torch.empty((Q, 0), dtype=torch.float32, device=dev)
+    rows = torch.empty((Q, 0), dtype=torch.int64, device=dev)
+    codes = torch.empty((Q, 0), dtype=torch.int64, device=dev)
+    for lo, lwb, upb in _k1_tiles(table, queries):
+        code = _codes(lwb, upb, t_hi, t_lo)
+        for c in (EXCLUDE, RECHECK, ACCEPT):
+            hist[:, c] += (code == c).sum(dim=1)
+        tile_rows = torch.arange(lo, lo + lwb.shape[1], device=dev).expand(Q, -1)
+        # earlier rows precede later ones in the concatenation, so a stable
+        # sort keeps (key, row) order among equal keys
+        keys = torch.cat([keys, torch.where(code != EXCLUDE, lwb, float("inf"))], dim=1)
+        rows = torch.cat([rows, tile_rows], dim=1)
+        codes = torch.cat([codes, code], dim=1)
+        order = torch.sort(keys, dim=1, stable=True).indices[:, :width]
+        keys, rows, codes = keys.gather(1, order), rows.gather(1, order), codes.gather(1, order)
+    picked = codes != EXCLUDE
+    return hist, torch.where(picked, rows, -1), torch.where(picked, codes, EXCLUDE)
+
+
+def _threshold_select(table, queries, t_hi, t_lo, cap: int):
+    """K3's selection: the up-to-``cap`` smallest (lwb, row) with
+    ``lwb <= t_hi``, their codes, and the histogram (K1 completes the
+    accepted column of the queries whose count overflows the slots)."""
+    rows_local = table.shape[0]
+    ids, _, upb, counts = apex_bounds_threshold(table, queries, t_hi, cap)
+    kept = ids != SENTINEL_ID
+    code = torch.where(kept, torch.where(upb <= t_lo[:, None], ACCEPT, RECHECK), EXCLUDE)
+    counts = counts.to(torch.int64)
+    accepted = (code == ACCEPT).sum(dim=1)
+    over = torch.nonzero(counts > cap).flatten()
+    if over.numel():
+        accepted[over] = _accepted(table, queries[over], t_hi[over], t_lo[over])
+    hist = torch.stack([rows_local - counts, counts - accepted, accepted], dim=1)
+    return hist, torch.where(kept, ids.to(torch.int64), -1), code
+
+
+def _local_filter(table, query, t_hi, t_lo, max_candidates: int, selection: str = "topk"):
+    """Per-device filter and fixed-slot candidate packing.
+
+    table: (rows_local, n) float32; query: (Q, n) float32; t_hi / t_lo: (Q,)
+    float32 decision bands (exclude above t_hi, admit at or below t_lo).
+    Returns (hist (Q, 3), cand_idx (Q, K) local rows or -1, cand_code
+    (Q, K)), K = ``max_candidates``: a slice smaller than K clamps the
+    selection width (every row fits) and pads back to K empty slots, so the
+    gathered shape and the caller's overflow test are unchanged.
+
+    ``selection="topk"`` is K3 (the default); ``"sort"`` is the full-argsort
+    baseline (``_sort_select``), which a selection wider than K3's
+    ``MAX_SELECT_WIDTH`` also takes.
+    """
+    k_eff = min(int(max_candidates), table.shape[0])
+    if selection == "topk" and 0 < k_eff <= MAX_SELECT_WIDTH:
+        hist, idx, code = _threshold_select(table, query, t_hi, t_lo, k_eff)
+    else:
+        hist, idx, code = _sort_select(table, query, t_hi, t_lo, k_eff)
+    pad = int(max_candidates) - k_eff
+    if pad:
+        idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
+        code = torch.nn.functional.pad(code, (0, pad), value=EXCLUDE)
+    return hist, idx, code
+
+
+def place_table(mesh: DeviceGrid, table: torch.Tensor):
+    """The table's row slices on the grid: ``[r][j]`` is slice ``j`` on
+    device ``(r, j)`` (a view where the table already lies there).  The
+    caller pads the table to a multiple of the ``data`` size."""
+    D = len(mesh.devices[0])
+    if table.shape[0] % D:
+        raise ValueError(f"table rows {table.shape[0]} must be a multiple of the data axis size {D}")
+    per = table.shape[0] // D
+    return tuple(
+        tuple(table[j * per:(j + 1) * per].to(dev) for j, dev in enumerate(group)) for group in mesh.devices
+    )
+
+
+def build_distributed_filter(
+    mesh: DeviceGrid,
+    *,
+    table_axes=("data",),
+    eps: float = 1e-5,
+    max_candidates: int = 128,
+    selection: str = "topk",
+):
+    """Returns filter_fn(table, queries, threshold[, threshold_lo]).
+
+    table        : (N, n) float32, N a multiple of the ``data`` size; or its
+                   ``place_table(mesh, table)`` slices (placed once by a
+                   caller that queries the same table again)
+    queries      : (Q, n) float32 query apexes, replicated
+    threshold    : scalar or (Q,).  With one threshold the decision bands are
+                   derived from ``eps`` (t·(1±eps)); callers needing exact
+                   fp32 guarantees pass explicit (t_hi, t_lo) bands instead.
+    output       : hist (Q, 3) summed over ``data``; cand_idx (n_data, Q, K)
+                   GLOBAL row ids (-1 = empty slot); cand_code same shape;
+                   all on the grid's first device.
+
+    Replica groups: a grid with a ``replica`` axis splits the QUERY stream
+    over the groups while each group scans its own copy of the row
+    partition.  Q must then be a multiple of the replica count (callers
+    pad).
+    """
+    axes = tuple(table_axes) if isinstance(table_axes, (tuple, list)) else (table_axes,)
+    if axes != ("data",):
+        raise ValueError(f"the grid splits table rows over ('data',) only; got {axes}")
+    if selection not in ("topk", "sort"):
+        raise ValueError(f"selection must be 'topk' or 'sort'; got {selection!r}")
+    K = int(max_candidates)
+    out_dev = mesh.devices[0][0]
+
+    def filter_fn(table, queries, threshold, threshold_lo=None):
+        placed = table if isinstance(table, tuple) else place_table(mesh, table)
+        R = len(mesh.devices)
+        Q = queries.shape[0]
+        if Q % R:
+            raise ValueError(f"{Q} queries do not split over {R} replica groups; pad them")
+        t = torch.as_tensor(threshold, dtype=torch.float32).reshape(-1)
+        if threshold_lo is None:
+            t_hi, t_lo = t * (1.0 + eps) + 1e-9, t * (1.0 - eps) - 1e-9
+        else:
+            t_hi, t_lo = t, torch.as_tensor(threshold_lo, dtype=torch.float32).reshape(-1)
+        t_hi, t_lo = t_hi.expand(Q).contiguous(), t_lo.expand(Q).contiguous()
+        qr = Q // R
+        hist_parts, idx_parts, code_parts = [], [], []
+        for r, group in enumerate(mesh.devices):
+            rows = slice(r * qr, (r + 1) * qr)
+            hist_r, idx_r, code_r = None, [], []
+            for j, dev in enumerate(group):
+                local = placed[r][j]
+                with on_device(dev):
+                    h, idx, code = _local_filter(
+                        local, queries[rows].to(dev), t_hi[rows].to(dev), t_lo[rows].to(dev), K, selection
+                    )
+                    # globalise local row ids: offset by this slice's first row
+                    idx = torch.where(idx >= 0, idx + j * local.shape[0], -1)
+                h = h.to(out_dev)
+                hist_r = h if hist_r is None else hist_r + h
+                idx_r.append(idx.to(out_dev))
+                code_r.append(code.to(out_dev))
+            hist_parts.append(hist_r)
+            idx_parts.append(torch.stack(idx_r))
+            code_parts.append(torch.stack(code_r))
+        return torch.cat(hist_parts), torch.cat(idx_parts, dim=1), torch.cat(code_parts, dim=1)
+
+    return filter_fn
+

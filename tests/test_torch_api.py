@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -57,22 +58,22 @@ def test_query_batch_and_single(pair, spec):
     _same(port.query(queries[0], spec), ref.query(queries[0], rspec), dists=spec.task == "knn")
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(task="knn", k=10),
-        dict(task="range", threshold=0.1),
-        dict(task="range", threshold=(0.1, 0.2)),
-        dict(task="knn", k=5, mode="exact"),
-        dict(task="knn", k=5, budget=10),
-        dict(task="knn", k=5, budget=10_000),
-        dict(task="knn", k=5, mode="approx", dims=4),
-        dict(task="range", threshold=0.1, mode="approx", dims=3, refine=7),
-        dict(task="knn", k=5, deny=(3, 1)),
-        dict(task="range", threshold=0.1, deny=(2,)),
-        dict(task="knn", k=5, allow=(1, 2, 3)),
-    ],
-)
+EXPLAIN_SPECS = [
+    dict(task="knn", k=10),
+    dict(task="range", threshold=0.1),
+    dict(task="range", threshold=(0.1, 0.2)),
+    dict(task="knn", k=5, mode="exact"),
+    dict(task="knn", k=5, budget=10),
+    dict(task="knn", k=5, budget=10_000),
+    dict(task="knn", k=5, mode="approx", dims=4),
+    dict(task="range", threshold=0.1, mode="approx", dims=3, refine=7),
+    dict(task="knn", k=5, deny=(3, 1)),
+    dict(task="range", threshold=0.1, deny=(2,)),
+    dict(task="knn", k=5, allow=(1, 2, 3)),
+]
+
+
+@pytest.mark.parametrize("kw", EXPLAIN_SPECS)
 def test_explain_equals_reference(pair, kw):
     port, ref, _, _ = pair
     assert port.plan(Query(**kw)).explain() == ref.plan(rapi.Query(**kw)).explain()
@@ -150,18 +151,93 @@ def test_default_device_raises_without_a_card(pair):
         load_index(ROOT / "does-not-matter")
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [dict(shards=2, mutable=True), dict(shards=2), dict(durable=True), dict(durable=True, mutable=True)],
-)
+@pytest.mark.parametrize("kw", [dict(durable=True), dict(durable=True, mutable=True)])
 def test_unported_options_raise(pair, kw):
-    """The sharded (ROADMAP item 7) and durable (item 9) composites are not
-    ported; ``mutable=`` and ``attributes=`` are (tests/test_torch_mutable.py,
-    tests/test_torch_filter.py)."""
+    """The durable composite (ROADMAP item 9) is not ported; ``mutable=``,
+    ``shards=`` and ``attributes=`` are (tests/test_torch_mutable.py,
+    tests/test_torch_sharded.py, tests/test_torch_filter.py)."""
     _, _, data, _ = pair
-    item = 7 if "shards" in kw else 9
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         build_index(data[:50], n_pivots=4, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module", params=["sharded", "sharded-mutable"])
+def composite(request, pair):
+    """The reference suite's composite kinds: the same corpus as ``pair``
+    in three shards, plain or mutable, fan-out sequential (the counts of an
+    overlapped fan-out depend on completion order in both packages)."""
+    _, _, data, queries = pair
+    kw = dict(n_pivots=12, seed=3, shards=3, mutable=request.param == "sharded-mutable", fanout_workers=0)
+    with enable_x64(True):
+        ref = rapi.build_index(data, "jensen_shannon", use_kernel=True, **kw)
+    port = build_index(data, "jensen_shannon", device="cpu", **kw)
+    # the device filter on as many CPU positions as the reference's mesh has
+    # devices (four when a module forcing a 4-device host platform was
+    # imported first): slot overflows, so the counts, follow them
+    port._grid_devices = [torch.device("cpu")] * jax.device_count()
+    return port, ref, data, queries
+
+
+@pytest.mark.parametrize("spec", [Query.knn(1), Query.knn(10), Query.range(0.12)])
+def test_composite_query_batch_and_single(composite, spec):
+    port, ref, _, queries = composite
+    rspec = rapi.Query(task=spec.task, k=spec.k, threshold=spec.threshold)
+    for g, w in zip(port.query(queries, spec), ref.query(queries, rspec)):
+        _same(g, w, dists=spec.task == "knn")
+    _same(port.query(queries[0], spec), ref.query(queries[0], rspec), dists=spec.task == "knn")
+
+
+@pytest.mark.parametrize("kw", EXPLAIN_SPECS)
+def test_composite_explain_equals_reference(composite, kw):
+    port, ref, _, _ = composite
+    assert port.plan(Query(**kw)).explain() == ref.plan(rapi.Query(**kw)).explain()
+
+
+def test_composite_cross_load_both_ways(composite, tmp_path):
+    port, ref, _, queries = composite
+    ref.save(tmp_path / "ref")
+    port.save(tmp_path / "port")
+    from_ref = load_index(tmp_path / "ref", device="cpu")
+    from_ref._grid_devices = port._grid_devices
+    with enable_x64(True):
+        from_port = rapi.load_index(tmp_path / "port")
+    assert from_ref.stats()["n_shards"] == 3 and from_port.stats()["n_shards"] == 3
+    spec, rspec = Query.knn(10), rapi.Query.knn(10)
+    for g, w in zip(from_ref.query(queries, spec), ref.query(queries, rspec)):
+        _same(g, w)
+    for g, w in zip(from_port.query(queries, rspec), port.query(queries, spec)):
+        np.testing.assert_array_equal(g.ids, w.ids)
+        np.testing.assert_allclose(g.distances, w.distances, rtol=1e-12, atol=1e-12)
+
+
+def test_sharded_mutable_approx_smoke(tmp_path):
+    """mode='approx' composes through both composite layers: the config
+    propagates, mutations keep serving, persistence nests it; answers equal
+    the reference's where every straddler is re-ranked (refine = corpus)."""
+    from repro.data import colors_like
+
+    data = colors_like(n=900, seed=21).astype(np.float64)
+    queries = colors_like(n=8, seed=22).astype(np.float64)
+    idx = build_index(data, "euclidean", n_pivots=10, seed=5, shards=3, mutable=True, apex_dims=5, refine=40,
+                      device="cpu")
+    r = idx.knn(queries[0], 10)
+    assert r.approx == {"dims": 5, "refine": 40} and r.stats.bound_width > 0.0 and len(r) == 10
+    assert all(x.approx == {"dims": 5, "refine": 40} for x in idx.search_batch(queries, 0.08))
+    new_ids = idx.add(queries[:3])
+    idx.remove(new_ids[:1])
+    assert all(x.approx == {"dims": 5, "refine": 40} for x in idx.knn_batch(queries, 5))
+    idx.save(tmp_path / "shmu.idx")
+    loaded = load_index(tmp_path / "shmu.idx", device="cpu")
+    assert loaded.approx == {"dims": 5, "refine": 40}
+    r3 = loaded.knn(queries[0], 5)
+    assert r3.approx == {"dims": 5, "refine": 40}
+    np.testing.assert_array_equal(r3.ids, idx.knn(queries[0], 5).ids)
+    kw = dict(n_pivots=10, seed=5, shards=3, mutable=True, apex_dims=5, refine=len(data), fanout_workers=0)
+    with enable_x64(True):
+        ref = rapi.build_index(data, "euclidean", use_kernel=True, **kw)
+    port = build_index(data, "euclidean", device="cpu", **kw)
+    for g, w in zip(port.knn_batch(queries, 10), ref.knn_batch(queries, 10)):
+        _same(g, w)
 
 
 def test_where_and_approx_raise(pair):

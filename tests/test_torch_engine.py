@@ -265,6 +265,17 @@ def test_unknown_and_composite_kinds(corpus, tmp_path):
     with pytest.raises(ValueError, match="unknown index kind"):
         build_index(data[:50], kind="ball_tree", device="cpu")
     with enable_x64(True):
-        rapi.build_index(data[:100], n_pivots=4, shards=2, fanout_workers=0).save(tmp_path / "sharded")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        load_index(tmp_path / "sharded", device="cpu")
+        ref = rapi.build_index(data[:100], n_pivots=4, shards=2, fanout_workers=0)
+        ref.save(tmp_path / "sharded")
+    # the sharded composite is ported: the reference's directory loads and
+    # answers as the reference does
+    port = load_index(tmp_path / "sharded", device="cpu")
+    assert port.stats()["kind"] == "sharded" and port.stats()["n_shards"] == 2
+    for g, w in zip(port.knn_batch(data[100:104], 5), ref.knn_batch(data[100:104], 5)):
+        np.testing.assert_array_equal(g.ids, w.ids)
+    # the durable composite is not (ROADMAP item 9)
+    from repro_torch.api.persistence import write_index_dir
+
+    write_index_dir(tmp_path / "durable", kind="durable", params={}, arrays={})
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        load_index(tmp_path / "durable", device="cpu")

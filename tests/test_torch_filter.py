@@ -21,6 +21,7 @@ the port follows) and ``repro_torch.api`` on ``device="cpu"``.  Held:
   stats and attribute columns.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -96,6 +97,11 @@ def same(got, want, dists=True):
 def _build_pair(X, kind, ids, **kw):
     port_store, ref_store = _stores(ids)
     port = build_index(X, kind=kind, n_pivots=PIVOTS, seed=3, attributes=port_store, device="cpu", **kw)
+    if "shards" in kw:
+        # the device filter on as many CPU positions as the reference's mesh
+        # has devices (one, or four when a module forcing a 4-device host
+        # platform was imported first): slot overflows follow them
+        port._grid_devices = [torch.device("cpu")] * jax.device_count()
     with enable_x64(True):
         ref = rbuild(X, kind=kind, n_pivots=PIVOTS, seed=3, attributes=ref_store, use_kernel=True, **kw)
     return port, ref
@@ -464,3 +470,116 @@ def test_plan_at_the_chip_phase_stats_equals_reference(colors_1m_stores, metric,
     got = plan(fake(port), spec).explain()
     assert got == rplan(fake(ref), rquery(spec)).explain()
     assert got["filter"] == f"predicate_{COLORS_1M_AUTO[metric][pname]}"
+
+
+# -- the sharded composite (tests/test_filter.py's sharded cases) ---------------
+def _mutate(index, vecs):
+    """``tests/test_filter.py::_mutate``: adds, removes and upserts with
+    attributes; ``vecs`` (logical id -> row) follows them."""
+    rng = np.random.default_rng(77)
+    new_ids = np.arange(N, N + 40, dtype=np.int64)
+    new_rows = rng.normal(size=(40, DIM))
+    index.add(new_rows, ids=new_ids, attrs=_attrs_for(new_ids))
+    gone = np.array([5, 107, 211, N + 3], dtype=np.int64)
+    index.remove(gone)
+    up_ids = np.array([8, 42, N + 10], dtype=np.int64)
+    up_rows = rng.normal(size=(3, DIM))
+    index.upsert(up_ids, up_rows, attrs=_attrs_for(up_ids))
+    if vecs is not None:
+        vecs.update({int(i): r for i, r in zip(new_ids, new_rows)})
+        for i in gone:
+            vecs.pop(int(i))
+        vecs.update({int(i): r for i, r in zip(up_ids, up_rows)})
+
+
+@pytest.fixture(scope="module", params=[("laesa", True, 2), ("laesa", False, 2), ("nsimplex", True, 0),
+                                        ("nsimplex", False, 0)],
+                ids=["laesa-mutable", "laesa-plain", "nsimplex-mutable-seq", "nsimplex-plain-seq"])
+def sharded(request):
+    """``_fresh_sharded``: 2 shards, mutated when mutable; the reference the
+    same.  Counts are compared under sequential fan-out (``fanout_workers=0``)
+    only: overlapped counts depend on completion order in both packages."""
+    kind, mutable, workers = request.param
+    X = _vectors(seed=13)
+    port, ref = _build_pair(X, kind, np.arange(N, dtype=np.int64), shards=2, mutable=mutable,
+                            fanout_workers=workers)
+    vecs = {i: X[i] for i in range(N)}
+    if mutable:
+        _mutate(port, vecs)
+        _mutate(ref, None)
+    return port, ref, vecs, workers == 0
+
+
+def _same_or_ids(got, want, counts, dists=True):
+    """``same`` under sequential fan-out; ids and distances alone under an
+    overlapped one, whose counts depend on completion order."""
+    if counts:
+        same(got, want, dists=dists)
+        return
+    np.testing.assert_array_equal(got.ids, want.ids)
+    if dists and want.distances is not None:
+        np.testing.assert_allclose(got.distances, want.distances, rtol=1e-12, atol=1e-12)
+
+
+def _brute_over(vecs, match, q, k=None, t=None):
+    match = np.asarray(match, dtype=np.int64)
+    if not len(match):
+        return match
+    d = METRIC.one_to_many_np(q, np.stack([vecs[int(i)] for i in match]))
+    return match[np.lexsort((match, d))[:k]] if t is None else match[d <= t]
+
+
+@pytest.mark.parametrize("sel", sorted(PREDICATES))
+@pytest.mark.parametrize("mode", MODES, ids=[m or "auto" for m in MODES])
+def test_sharded_filtered_equals_reference_and_brute_force(sharded, sel, mode):
+    port, ref, vecs, counts = sharded
+    q = np.random.default_rng(3).normal(size=(2, DIM))
+    live = np.sort(np.fromiter(vecs, dtype=np.int64))
+    match = np.intersect1d(port.attributes.match(PREDICATES[sel]), live)
+    np.testing.assert_array_equal(match, np.intersect1d(ref.attributes.match(rquery(
+        Query.knn(1, where=PREDICATES[sel])).where), ref.ids()))
+    for spec in (Query(task="knn", k=10, where=PREDICATES[sel], filter_mode=mode),
+                 Query(task="range", threshold=4.5, where=PREDICATES[sel], filter_mode=mode)):
+        rspec = rquery(spec)
+        assert port.plan(spec).explain() == ref.plan(rspec).explain()
+        for qi, (g, w) in enumerate(zip(port.query(q, spec), ref.query(q, rspec))):
+            _same_or_ids(g, w, counts, dists=spec.task == "knn")
+            if spec.task == "knn":
+                np.testing.assert_array_equal(g.ids, _brute_over(vecs, match, q[qi], k=10))
+            else:
+                np.testing.assert_array_equal(np.sort(g.ids), _brute_over(vecs, match, q[qi], t=4.5))
+
+
+def test_sharded_sugar_equals_legacy_and_reference(sharded):
+    port, ref, vecs, counts = sharded
+    rng = np.random.default_rng(59)
+    live = np.sort(np.fromiter(vecs, dtype=np.int64))
+    allow = rng.choice(live, size=20, replace=False).astype(np.int64)
+    deny = np.setdiff1d(live, allow)[:15]
+    q = rng.normal(size=DIM)
+    for legacy, sugar, want in (
+        (Query.knn(10, allow=tuple(int(i) for i in allow)), Query.knn(10, where=Predicate.ids(allow)), np.sort(allow)),
+        (Query.knn(10, deny=tuple(int(i) for i in deny)), Query.knn(10, where=Predicate.exclude_ids(deny)),
+         np.setdiff1d(live, deny)),
+    ):
+        got = _sugar_pair(port, q, legacy, sugar)
+        np.testing.assert_array_equal(got.ids, _brute_over(vecs, want, q, k=10))
+        _same_or_ids(got, ref.query(q, rquery(sugar)), counts)
+
+
+def test_sharded_save_load_with_attributes_both_ways(sharded, tmp_path):
+    port, ref, vecs, _ = sharded
+    port.save(tmp_path / "port")
+    ref.save(tmp_path / "ref")
+    from_ref = load_index(tmp_path / "ref", device="cpu")
+    from_ref._grid_devices = port._grid_devices
+    with enable_x64(True):
+        from_port = rload(tmp_path / "port")
+    assert from_ref.attributes is not None and from_port.attributes is not None
+    q = np.random.default_rng(61).normal(size=(2, DIM))
+    for pred in (PREDICATES["0.1"], PREDICATES["0.5"]):
+        spec = Query(task="knn", k=10, where=pred)
+        for a, b in ((from_ref, ref), (port, from_port)):
+            for g, w in zip(a.query(q, spec), b.query(q, rquery(spec))):
+                np.testing.assert_array_equal(g.ids, w.ids)
+                np.testing.assert_allclose(g.distances, w.distances, rtol=1e-12, atol=1e-12)
