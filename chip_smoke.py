@@ -9,6 +9,7 @@
     python3 chip_smoke.py --filtered-only
     python3 chip_smoke.py --online-only
     python3 chip_smoke.py --sharded-only
+    python3 chip_smoke.py --durable-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -79,7 +80,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 rarest shops) a 64-query k-NN (k=10) and range batch under
                 the planner's choice (its strategy printed; the CPU tests
                 hold it to the JAX package's plan at these stats) and under
-                each forced strategy, one approximate pushdown batch (dims 10, refine
+                each forced strategy (the rarest shops' forced-postfilter
+                k-NN batch: 8 queries), one approximate pushdown batch (dims 10, refine
                 64) and 8 1-D pushdown requests; walls, ``original_calls``
                 and overflows printed.  After the counts are read every
                 exact answer is held to an f64 brute force over the
@@ -93,7 +95,7 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 with another seed), 1,024 removes and 256 upserts, then a
                 64-query exact k-NN, range and filtered k-NN batch (the
                 filtered one forced to pushdown and under the planner's
-                choice); euclidean 6 rounds, jensen_shannon 2, then
+                choice); euclidean 3 rounds, jensen_shannon 1, then
                 ``compact()`` and one more round with 8 1-D k-NN requests.
                 Mutation, materialise and compaction ms, overflowed queries
                 and ``original_calls`` printed; every answer held to an f64
@@ -123,6 +125,40 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 After the counts are read every exact answer is held to an
                 f64 brute force (the mutable index's over an oracle's live
                 rows), the approximate ones to their shards' own candidates;
+  5e. durable — colors-1M behind a WAL: ``build_index(colors-1M, metric,
+                durable=True, wal_dir=<a fresh directory under build/>,
+                fsync_every=8, checkpoint_every=None, drift_threshold=0.25,
+                attributes=store)`` (4 GiB free disk checked first; the
+                directories removed at the end, on failure too), the
+                launch counts set to 0 before and read after
+                (``launch_phase="durable"``; each kernel must have > 0):
+                rounds of 16 add records of 128 rows with attributes (rows
+                from the base's own mixture), 8 remove records of 128 ids
+                and 2 upsert records of 128, then a 64-query exact k-NN,
+                range and filtered (``shop_top``, the planner's choice)
+                batch, the last round also 8 1-D k-NN requests (euclidean 3
+                rounds, JSD 1); one more add record, ``flush()`` and two
+                copies of the open directory: copy A reopened with
+                ``open_durable`` answers bit-equal to the live index (ids,
+                distances, ``QueryStats``), copy B, its last record (that
+                add) cut in half, replays one record fewer, holds none of
+                its ids and answers as the brute force without it; then a
+                ``BackgroundCompactor`` and a reader thread looping 64-query
+                k-NN batches while a shifted stream (``np.roll(colors_like,
+                112 // 3)``, without attributes) raises ``drift_pending``
+                and the compactor refits (exactly one refit, the generation
+                bumped, no error, no torn reader answer), then ``compact()``
+                racing a reader; then ``checkpoint()``, ``save()`` and
+                ``load_index`` (equal answers).  Printed: WAL append p50 /
+                p99 and fsyncs, mutation ms, WAL bytes, recovery s split
+                into checkpoint load, replay and materialisation with the
+                records replayed, refit s, the longest swap under the write
+                lock, the drift statistic and the shifted queries' bound
+                width and candidates before and after the refit, reader
+                batch walls, checkpoint / save / load s and bytes.  After
+                the counts are read every round's, copy B's and the
+                quiesced answers are held to an f64 brute force over an
+                oracle's rows (rows without attributes match no predicate);
   5d. mechanisms — the paper's other mechanisms, with the launch counts set
                 to 0 before and read after (its own ``launch_shapes`` lines,
                 ``launch_phase="mechanisms"``; each kernel must have > 0):
@@ -171,8 +207,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
   7. ``{"kernels": [...]}`` — those rows with their launches and
                 ``table_rows`` (K1, K3 and K4 with ``plan``,
                 ``previous_design_ms`` and ``previous_design_device_ms``):
-                first the main path's, then the filtered, online, sharded and
-                mechanisms phases', tagged with ``launch_phase`` and carrying
+                first the main path's, then the filtered, online, sharded,
+                durable and mechanisms phases', tagged with ``launch_phase`` and carrying
                 that phase's launches and shares.  The filtered rows are
                 timed on the 1M-row JSD index with the most common shop's
                 row mask (masked K2 (64, 10, upb, 20) and K3 (64, 512, 20)
@@ -186,7 +222,11 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 a ``device_filter`` line timing the whole filter (K3 and the
                 K1 completion of the overflowing queries' histograms) against
                 its plain version (``selection="sort"``, bit-equal) and the
-                completion alone;
+                completion alone; the durable rows on the jensen_shannon
+                crash copy A (its 1M-row base; K2/K3 narrower than 4,096 on
+                its replayed delta under the filtered batch's mask), K4 at
+                the replay's materialisation class and K5 at the drift
+                witness class (8, 128, 112, f64) always among them;
 then the card's ``nvidia-smi`` line, and last the device contract line.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
@@ -200,9 +240,10 @@ or K3 class of more queries than the 256 query rows repeats them.
 approximate batch and service wall times can be taken in turns on one
 card; ``--mechanisms-only`` runs phase 5d alone, with its checks, and
 prints its kernel rows as ``{"mechanisms_kernels": [...]}``;
-``--filtered-only``, ``--online-only`` and ``--sharded-only`` run phase 5a,
-5b or 5c alone, with their checks, and print ``{"filtered_kernels": [...]}``,
-``{"online_kernels": [...]}`` or ``{"sharded_kernels": [...]}``.
+``--filtered-only``, ``--online-only``, ``--sharded-only`` and
+``--durable-only`` run phase 5a, 5b, 5c or 5e alone, with their checks, and
+print ``{"filtered_kernels": [...]}``, ``{"online_kernels": [...]}``,
+``{"sharded_kernels": [...]}`` or ``{"durable_kernels": [...]}``.
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -214,9 +255,11 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -1399,8 +1442,14 @@ ATTR_SCHEMA = {"shop": "categorical", "year": "int", "price": "float", "in_stock
 FILTER_MODES = (None, "prefilter", "pushdown", "postfilter")
 #: the online phase: per round 2,048 rows added, 1,024 ids removed and 256
 #: upserted, then the query batches; rounds before the compaction per metric
+#: (6 and 2 until the durable phase joined the run, which had to stay in
+#: its time limit)
 ONLINE_ADD, ONLINE_REMOVE, ONLINE_UPSERT = 2048, 1024, 256
-ONLINE_ROUNDS = {"euclidean": 6, "jensen_shannon": 2}
+ONLINE_ROUNDS = {"euclidean": 3, "jensen_shannon": 1}
+#: queries of the filtered phase's forced-postfilter k-NN batch under the
+#: rarest predicate (64 until the durable phase joined the run: 46 s eu and
+#: 154 s JSD of per-query doubling fetches, PERF.md section 5)
+RARE_POSTFILTER_Q = 8
 
 
 def make_attributes(n: int, seed: int) -> dict:
@@ -1414,6 +1463,14 @@ def make_attributes(n: int, seed: int) -> dict:
         "price": rng.lognormal(3.0, 1.0, size=n),
         "in_stock": rng.random(n) < IN_STOCK_P,
     }
+
+
+def no_attributes(n: int) -> dict:
+    """The oracle's columns for ``n`` rows added without attributes: the
+    store holds no row for them, so no predicate matches them (SQL NULL);
+    these values match none of ``filter_predicates``."""
+    return {"shop": np.full(n, ""), "year": np.full(n, -1), "price": np.full(n, np.nan),
+            "in_stock": np.zeros(n, dtype=bool)}
 
 
 def take_attributes(attrs: dict, rows) -> dict:
@@ -1442,7 +1499,9 @@ def filter_predicates(filter_mod, attrs) -> dict:
 
 def segments_of(index):
     """The table segments a query of ``index`` scans (base and delta of a
-    mutable index)."""
+    mutable index, of a durable index's inner one)."""
+    if getattr(index, "kind", None) == "durable":
+        index = index._inner
     if hasattr(index, "_base"):
         return [s for s in (index._base, index._delta_seg) if s is not None]
     return [index]
@@ -1468,8 +1527,9 @@ def phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod, indexes, queri
     jensen_shannon) with the 1M-row attribute store attached, the launch
     counts set to 0 before and read after: per metric and predicate a
     64-query exact k-NN (k=10) and range batch under the planner's choice
-    and under each forced strategy, one approximate k-NN batch (dims 10,
-    refine 64) under pushdown and 8 1-D k-NN requests under pushdown.
+    and under each forced strategy (the ten rarest shops' forced-postfilter
+    k-NN batch: 8 queries), one approximate k-NN batch (dims 10, refine 64)
+    under pushdown and 8 1-D k-NN requests under pushdown.
     ``store`` holds ``attrs``, the generated columns.  Returns what
     ``verify_filtered`` checks."""
     Query = api.Query
@@ -1489,11 +1549,12 @@ def phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod, indexes, queri
                 for task, spec in (("knn_batch", Query.knn(K, where=pred, filter_mode=mode)),
                                    ("range_batch", Query.range(t_range, where=pred, filter_mode=mode))):
                     strategy = index.plan(spec).filter_strategy
-                    res, wall, over = run_batch(torch, index, qs, spec)
+                    rare = (pname, mode, task) == ("shop_rare10", "postfilter", "knn_batch")
+                    res, wall, over = run_batch(torch, index, qs[:RARE_POSTFILTER_Q] if rare else qs, spec)
                     emit(phase="filtered", metric=metric, predicate=pname, selectivity=sel, mode=mode or "auto",
                          strategy=strategy, task=task, queries=len(res), wall_ms=wall * 1e3,
                          original_calls_per_query=calls_per_query(res), overflow_queries=over)
-                    tasks.append((pname, task, spec, qs, res))
+                    tasks.append((pname, task, spec, qs[:len(res)], res))
         pred = preds["shop_top"]
         spec = Query.knn(K, mode="approx", dims=APPROX_DIMS, refine=REFINE, where=pred, filter_mode="pushdown")
         res, wall, over = run_batch(torch, index, qs, spec)
@@ -1663,7 +1724,7 @@ def phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries
     1,024 removes and 256 upserts, each followed by a 64-query exact k-NN
     (k=10), range and filtered k-NN (``shop`` = the most common) batch, the
     filtered one forced to pushdown and under the planner's choice; then ``compact()`` and one more round with 8 1-D k-NN requests.
-    Euclidean takes 6 rounds before the compaction, jensen_shannon 2.
+    Euclidean takes 3 rounds before the compaction, jensen_shannon 1.
     Returns what ``verify_online`` checks."""
     from repro_torch.data import colors_like
 
@@ -1747,12 +1808,12 @@ def phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries
     return dict(runs=runs, hist=hist, pred=pred, test=test)
 
 
-def verify_online(torch, ref, metrics_mod, rec):
-    """Every online answer against an f64 brute force over the round's live
-    rows (the oracle's, not the index's; JSD plain, not K5): k-NN ids and
-    tie order, range ids, and the filtered k-NN over the live rows whose
-    generated attribute rows (the oracle's) match the predicate; and the
-    index's own store matching exactly those live ids."""
+def verify_online(torch, ref, metrics_mod, rec, phase="online"):
+    """Every online (or durable) answer against an f64 brute force over the
+    round's live rows (the oracle's, not the index's; JSD plain, not K5):
+    k-NN ids and tie order, range ids, and the filtered k-NN over the live
+    rows whose generated attribute rows (the oracle's) match the predicate;
+    and the index's own store matching exactly those live ids."""
     for run in rec["runs"]:
         metric, oracle = run["metric"], run["oracle"]
         m = metrics_mod.get_metric(metric)
@@ -1767,7 +1828,7 @@ def verify_online(torch, ref, metrics_mod, rec):
             everyone = torch.arange(len(ids), device=D.device)
             matching = np.flatnonzero(rec["test"](take_attributes(oracle.attrs, snap)))
             check(np.array_equal(rnd["store_match"], ids[matching]),
-                  f"online {metric} round {ri}: the index's attribute store matches other ids than the oracle")
+                  f"{phase} {metric} round {ri}: the index's attribute store matches other ids than the oracle")
             matching = torch.as_tensor(matching, device=D.device)
             masks = {"all": torch.ones(len(ids), dtype=torch.bool, device=D.device),
                      "match": torch.zeros(len(ids), dtype=torch.bool, device=D.device)}
@@ -1779,8 +1840,8 @@ def verify_online(torch, ref, metrics_mod, rec):
                     # logical ids -> positions among the live rows
                     local = SimpleNamespace(ids=np.searchsorted(ids, r.ids), distances=r.distances)
                     check(np.array_equal(ids[np.minimum(local.ids, len(ids) - 1)], r.ids),
-                          f"online {metric} {task}: answered an id that is not live")
-                    what = f"online {metric} round {ri} {task} q{qi}"
+                          f"{phase} {metric} {task}: answered an id that is not live")
+                    what = f"{phase} {metric} round {ri} {task} q{qi}"
                     if spec.task == "knn":
                         swaps += check_exact(torch, D[qi], local, want[key][qi], masks[key], None, tol, what)
                     else:
@@ -1790,7 +1851,459 @@ def verify_online(torch, ref, metrics_mod, rec):
                     checked += 1
             del D, brute, rows
             torch.cuda.empty_cache()
-        emit(phase="online", metric=metric, checked_answers=checked, near_tie_differences=swaps)
+        emit(phase=phase, metric=metric, checked_answers=checked, near_tie_differences=swaps)
+
+
+#: the durable phase: colors-1M behind a WAL (``build_index(durable=True)``);
+#: per round 16 add records of 128 rows with attributes, 8 remove records of
+#: 128 ids and 2 upsert records of 128 rows, then the query batches
+DURABLE_RECORD, DURABLE_ADDS, DURABLE_REMOVES, DURABLE_UPSERTS = 128, 16, 8, 2
+DURABLE_ROUNDS = {"euclidean": 3, "jensen_shannon": 1}
+DURABLE_FSYNC_EVERY, DURABLE_DRIFT = 8, 0.25
+#: the most shifted rows the maintenance writes before drift_pending: the
+#: detector pools every row since the fit, so the rounds' rows dilute it
+#: (after the euclidean rounds' 7,040 rows, 20,000-30,000 shifted rows raise
+#: the statistic past 0.25)
+DURABLE_SHIFTED = 65_536
+#: queries of the crash, swap and persistence equality checks (bit-equal
+#: answers of two indexes over the same rows)
+DURABLE_CHECK_Q = 16
+#: free disk asked for under build/: a 1M-row checkpoint is ~0.6 GB, beside
+#: it two crash copies, a save and a refit's new checkpoint
+DURABLE_DISK_BYTES = 4 << 30
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def percentiles_ms(seconds) -> dict:
+    a = np.asarray(seconds, dtype=np.float64) * 1e3
+    return dict(n=int(a.size), p50_ms=float(np.percentile(a, 50)), p99_ms=float(np.percentile(a, 99)),
+                max_ms=float(a.max()))
+
+
+class WalProbe:
+    """Host-clock times of one log's appends and fsyncs, taken by wrapping
+    the two methods on the instance (the program itself is unchanged); an
+    append that reaches its batch's fsync includes it."""
+
+    def __init__(self, wal):
+        self.append_s, self.fsync_s = [], []
+        append, fsync = wal.append, wal._fsync_locked
+
+        def timed_append(*a, **kw):
+            t0 = time.perf_counter()
+            out = append(*a, **kw)
+            self.append_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_fsync():
+            t0 = time.perf_counter()
+            fsync()
+            self.fsync_s.append(time.perf_counter() - t0)
+
+        wal.append, wal._fsync_locked = timed_append, timed_fsync
+
+    def report(self) -> dict:
+        return dict(append=percentiles_ms(self.append_s), fsyncs=len(self.fsync_s),
+                    fsync_ms_mean=float(np.mean(self.fsync_s) * 1e3) if self.fsync_s else None)
+
+
+def same_answers(got, want, what):
+    """Two indexes' answers bit for bit: ids, distances and the cost ledger."""
+    check(len(got) == len(want), f"{what}: different batch sizes")
+    for qi, (g, w) in enumerate(zip(got, want)):
+        check(np.array_equal(g.ids, w.ids), f"{what} q{qi}: ids differ")
+        check((g.distances is None) == (w.distances is None)
+              and (g.distances is None or np.array_equal(g.distances, w.distances)), f"{what} q{qi}: distances differ")
+        cost = lambda s: (s.original_calls, s.surrogate_calls, s.accepted_no_check, s.candidates)  # noqa: E731
+        check(cost(g.stats) == cost(w.stats), f"{what} q{qi}: QueryStats differ")
+
+
+def open_timed(torch, ops, store_mod, path):
+    """Recovery of one durable directory on the card, split into the
+    checkpoint load, the WAL replay (``apply_record`` timed in place) and the
+    first read view's materialisation of the replayed delta (its K5/K4);
+    returns (index, timings, K4 classes of the materialisation)."""
+    durable_mod = sys.modules[store_mod.DurableIndex.__module__]
+    apply_record, spent = durable_mod.apply_record, [0.0, 0]
+
+    def timed_apply(*a, **kw):
+        t0 = time.perf_counter()
+        apply_record(*a, **kw)
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+
+    durable_mod.apply_record = timed_apply
+    try:
+        index, wall = timed(torch, lambda: store_mod.open_durable(path, device=DEVICE))
+    finally:
+        durable_mod.apply_record = apply_record
+    before = dict(ops.SHAPE_LAUNCHES["apex_project"])
+    _, mat = timed(torch, index._snapshot)
+    k4 = sorted(cls for cls, n in ops.SHAPE_LAUNCHES["apex_project"].items() if n > before.get(cls, 0))
+    return index, dict(open_s=wall, checkpoint_load_s=wall - spent[0], replay_s=spent[0], records_replayed=spent[1],
+                       materialize_s=mat, recovery_s=wall + mat), k4
+
+
+def bound_probe(torch, seg, queries) -> dict:
+    """The fitted pivot set's tightness for ``queries`` on an n-simplex
+    segment: the mean two-sided bound width (upb - lwb; the JAX package's
+    ``bench_online._mean_bound_width``) and the k-NN candidates per query
+    (rows whose lwb is at most the query's K-th smallest upb), from one
+    bound scan (K4, K1) and no refinement."""
+    inner = seg._inner
+    lwb, upb = inner.bounds_batch(inner.query_apex_batch(queries))
+    kth = torch.kthvalue(upb, K, dim=1).values
+    return dict(mean_bound_width=float((upb - lwb).double().mean()),
+                candidates_per_query=float((lwb <= kth[:, None]).sum(dim=1).double().mean()))
+
+
+class Reader(threading.Thread):
+    """A reader looping 64-query exact k-NN batches against a durable index
+    while maintenance swaps generations under it: every answer must hold k
+    ids at non-decreasing distances, each id allocated (so live at some
+    point of the run).  Keeps (generation before, after, wall s) per batch."""
+
+    def __init__(self, torch, api, index, qs):
+        super().__init__(name="durable-reader", daemon=True)
+        self.torch, self.index, self.qs, self.spec = torch, index, qs, api.Query.knn(K)
+        self.stop, self.batches, self.error, self.answers = threading.Event(), [], None, 0
+
+    def run(self):
+        from repro_torch.device import on_device
+
+        try:
+            with on_device(self.index.device):
+                while not self.stop.is_set():
+                    g0 = self.index.generation
+                    res, wall = timed(self.torch, lambda: self.index.query(self.qs, self.spec))
+                    allocated = self.index._inner._next_id
+                    for r in res:
+                        check(len(r.ids) == K, "a reader's k-NN answer lost rows during a swap")
+                        check(bool(np.all(np.diff(r.distances) >= 0)), "a reader's k-NN distances are not sorted")
+                        check(bool(r.ids.min() >= 0 and r.ids.max() < allocated), "a reader saw an unallocated id")
+                    self.answers += len(res)
+                    self.batches.append((g0, self.index.generation, wall))
+        except BaseException as e:  # noqa: BLE001 — raised by the main thread
+            self.error = e
+
+    def finish(self, generation):
+        """Stop once a batch that started on ``generation`` (the swap's) has
+        answered, so the reader straddles the swap; then raise its error."""
+        deadline = time.monotonic() + 300
+        while (self.error is None and self.is_alive() and time.monotonic() < deadline
+               and not any(g0 >= generation for g0, _, _ in self.batches)):
+            time.sleep(0.05)
+        self.stop.set()
+        self.join()
+        check(self.error is None, f"the reader failed: {self.error!r}")
+        check(any(g0 >= generation for g0, _, _ in self.batches), "the reader answered nothing after the swap")
+
+
+def durable_record(index, oracle, pool, pool_attrs, cursor, op, rng):
+    """One mutation record through the durable index and the oracle; returns
+    the new pool cursor."""
+    block = slice(cursor, cursor + DURABLE_RECORD)
+    if op == "remove":
+        victims = rng.choice(oracle.live_ids(), size=DURABLE_RECORD, replace=False)
+        index.remove(victims)
+        oracle.remove(victims)
+        return cursor
+    attrs = take_attributes(pool_attrs, block)
+    if op == "add":
+        ids = index.add(pool[block], attrs=attrs)
+    else:
+        ids = rng.choice(oracle.live_ids(), size=DURABLE_RECORD, replace=False)
+        index.upsert(ids, pool[block], attrs=attrs)
+        oracle.remove(ids)
+    oracle.add(np.asarray(ids, dtype=np.int64), pool[block], attrs)
+    return cursor + DURABLE_RECORD
+
+
+def durable_checks(torch, api, index, qs, t_range, pred, timing=None) -> list:
+    """The three batches on ``qs``: k-NN, range and filtered k-NN (the
+    planner's choice), as (task, spec, queries, results); each one's wall,
+    calls per query and overflowed queries go into ``timing`` if given."""
+    Query = api.Query
+    out = []
+    for task, spec in (("knn_batch", Query.knn(K)), ("range_batch", Query.range(t_range)),
+                       ("filtered_knn_batch", Query.knn(K, where=pred))):
+        res, wall, over = run_batch(torch, index, qs, spec)
+        if timing is not None:
+            timing[task] = dict(wall_ms=wall * 1e3, original_calls_per_query=calls_per_query(res),
+                                overflow_queries=over)
+        out.append((task, spec, qs, res))
+    return out
+
+
+def phase_durable(ops, torch, api, filter_mod, store_mod, ref, metrics_mod, data_np, queries_np, attrs, seed) -> dict:
+    """The durable store, the launch counts set to 0 before and read after:
+    ``build_index(colors-1M, metric, durable=True, wal_dir=<under build/>,
+    fsync_every=8, checkpoint_every=None, drift_threshold=0.25,
+    attributes=store)``; rounds of 16 add records of 128 rows (with
+    attributes), 8 remove records of 128 ids and 2 upsert records of 128
+    rows, each round followed by a 64-query exact k-NN (k=10), range and
+    filtered (``shop_top``, the planner's choice) batch, the last also by 8
+    1-D k-NN requests; one more add record, ``flush()``, two copies of the
+    open directory: copy A reopened on the card answers bit-equal to the
+    live index, copy B with its last record (that add) cut in half replays
+    one record fewer; then maintenance under load (a ``BackgroundCompactor``
+    and a reader thread while a shifted stream drives the drift detector to
+    a refit, then an explicit ``compact()`` racing the reader); then a timed
+    ``checkpoint()``, ``save()`` and ``load_index`` with equal answers.
+    Euclidean 3 rounds, jensen_shannon 1.  Returns what ``verify_online``
+    checks (each round's answers and the quiesced ones against an f64 brute
+    force over the oracle's rows) and the kernel-row inputs."""
+    from repro_torch.data import colors_like
+
+    Query = api.Query
+    root = Path(__file__).resolve().parent / "build" / "durable_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    emit(phase="durable", task="disk", free_bytes=free, root=str(root))
+    check(free >= DURABLE_DISK_BYTES,
+          f"the durable phase needs {DURABLE_DISK_BYTES / 2**30:.0f} GiB free under {root}; "
+          f"{free / 2**30:.1f} GiB free")
+    work = Path(tempfile.mkdtemp(dir=root))
+    qs, cq = queries_np[:Q], queries_np[:DURABLE_CHECK_Q]
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    runs, keep = [], None
+    try:
+        for mi, (metric, rounds) in enumerate(DURABLE_ROUNDS.items()):
+            report = lambda **f: emit(phase="durable", metric=metric, **f)  # noqa: E731
+            store = filter_mod.AttributeStore(ATTR_SCHEMA)
+            store.put(np.arange(N_ROWS), attrs)
+            pred, _ = filter_predicates(filter_mod, attrs)["shop_top"]
+            wal_dir = work / metric / "wal"
+            index, wall = timed(torch, lambda: api.build_index(
+                data_np, metric, n_pivots=N_PIVOTS, seed=SEED % 1000, durable=True, wal_dir=str(wal_dir),
+                fsync_every=DURABLE_FSYNC_EVERY, checkpoint_every=None, drift_threshold=DURABLE_DRIFT,
+                attributes=store, device=DEVICE))
+            report(task="build", rows=N_ROWS, wall_s=wall, checkpoint_bytes=dir_bytes(wal_dir))
+            probe = WalProbe(index._wal)
+            per_round = (DURABLE_ADDS + DURABLE_UPSERTS) * DURABLE_RECORD
+            # new rows from the base's own mixture (colors_like's seed fixes
+            # the mixture: rows of another seed are drift from the first add)
+            pool = colors_like(n=(rounds + 1) * per_round + 64 * DURABLE_RECORD + mi, dim=DIM, seed=SEED)
+            pool_attrs = make_attributes(len(pool), seed + 41 + mi)
+            rng = np.random.default_rng(seed + 51 + mi)
+            oracle = Oracle(torch, torch.as_tensor(data_np, device=DEVICE), np.arange(N_ROWS), attrs)
+            brute = BruteForce(torch, ref, oracle.rows, metrics_mod.get_metric(metric))
+            t_range = float(np.sort(brute.dists(queries_np[0]).cpu().numpy())[99])   # ~100th-neighbour distance
+            del brute
+            checked, cursor, mut = [], 0, {"add": [], "remove": [], "upsert": []}
+            for r in range(rounds):
+                out = {"round": r}
+                for op, count in (("add", DURABLE_ADDS), ("remove", DURABLE_REMOVES), ("upsert", DURABLE_UPSERTS)):
+                    for _ in range(count):
+                        t0 = time.perf_counter()
+                        cursor = durable_record(index, oracle, pool, pool_attrs, cursor, op, rng)
+                        mut[op].append(time.perf_counter() - t0)
+                snap = oracle.snapshot()
+                tasks = durable_checks(torch, api, index, qs, t_range, pred, timing=out)
+                if r == rounds - 1:
+                    res, wall, over = [], 0.0, 0
+                    for q in qs[:8]:
+                        rr, w, o = run_batch(torch, index, q, Query.knn(K))
+                        res += rr
+                        wall, over = wall + w, over + o
+                    out["knn_1d"] = dict(wall_ms_per_query=wall * 1e3 / len(res), overflow_queries=over)
+                    tasks.append(("knn_1d", Query.knn(K), qs[:8], res))
+                st = index.stats()
+                out.update(delta_rows=st["delta_rows"], tombstones=st["tombstones"], live_rows=st["n_objects"],
+                           wal_records=st["wal_records"], wal_bytes=st["wal_bytes"])
+                report(**out)
+                checked.append(dict(snap=snap, tasks=tasks, store_match=index.attributes.match(pred)))
+            report(task="mutations", **{f"{op}_ms": percentiles_ms(s) for op, s in mut.items()}, wal=probe.report())
+
+            # -- crash: one more add, flush, two copies of the open directory
+            snap_before = oracle.snapshot()
+            last = slice(cursor, cursor + DURABLE_RECORD)
+            last_ids = index.add(pool[last], attrs=take_attributes(pool_attrs, last))
+            oracle.add(np.asarray(last_ids, dtype=np.int64), pool[last], take_attributes(pool_attrs, last))
+            cursor += DURABLE_RECORD
+            index.flush()
+            copies = {}
+            for name in ("A", "B"):
+                _, wall = timed(torch, lambda: shutil.copytree(wal_dir, work / metric / name))
+                copies[name] = (work / metric / name, wall)
+            live_check = durable_checks(torch, api, index, cq, t_range, pred)
+            live_records = index.stats()["wal_records"]
+            a_index, a_times, a_k4 = open_timed(torch, ops, store_mod, copies["A"][0])
+            check(a_index.stats()["wal_records"] == live_records, "copy A reopened at another sequence number")
+            check(np.array_equal(a_index.ids(), index.ids()), "copy A holds other ids than the live index")
+            a_check = durable_checks(torch, api, a_index, cq, t_range, pred)
+            for (task, _, _, want), (_, _, _, got) in zip(live_check, a_check):
+                same_answers(got, want, f"durable {metric} copy A {task}")
+            segs = sorted((copies["B"][0]).glob("wal-*.log"))
+            records, _, size = store_mod.scan_segment(str(segs[-1]))
+            start, end = records[-2][4], records[-1][4]
+            check(records[-1][1] == "add" and end == size, "the newest segment does not end in the last add")
+            with open(segs[-1], "r+b") as f:
+                f.truncate(start + (end - start) // 2)
+            b_index, b_times, _ = open_timed(torch, ops, store_mod, copies["B"][0])
+            check(b_times["records_replayed"] == a_times["records_replayed"] - 1,
+                  f"the torn copy replayed {b_times['records_replayed']} records, not "
+                  f"{a_times['records_replayed'] - 1}")
+            check(not any(b_index.has_id(int(i)) for i in last_ids), "the torn add's ids survived recovery")
+            b_tasks = durable_checks(torch, api, b_index, cq, t_range, pred)
+            checked.append(dict(snap=snap_before, tasks=b_tasks, store_match=b_index.attributes.match(pred)))
+            b_index.close()
+            report(task="recovery", copy_s=[c[1] for c in copies.values()], copy_A=a_times, copy_B=b_times,
+                   replay_k4_classes=[list(c) for c in a_k4], wal_bytes=index.stats()["wal_bytes"],
+                   last_record_bytes=end - start)
+            for path, _ in copies.values():
+                shutil.rmtree(path)
+            if metric == "jensen_shannon":
+                keep = dict(index=a_index, replay_k4=a_k4, pred=pred)   # kernel-row operands
+            else:
+                a_index.close()
+
+            # -- maintenance under load: drift refit, then an explicit compaction
+            maint = durable_maintenance(torch, api, store_mod, index, oracle, pool, pool_attrs, cursor, qs, pred,
+                                        t_range, seed + 61 + mi, report)
+            checked += maint.pop("checked")
+
+            # -- persistence
+            ckpt, wall = timed(torch, index.checkpoint)
+            save_dir = work / metric / "save"
+            _, save_s = timed(torch, lambda: index.save(str(save_dir)))
+            loaded, load_s = timed(torch, lambda: api.load_index(str(save_dir), device=DEVICE))
+            for (task, _, _, want), (_, _, _, got) in zip(durable_checks(torch, api, index, cq, t_range, pred),
+                                                         durable_checks(torch, api, loaded, cq, t_range, pred)):
+                same_answers(got, want, f"durable {metric} save/load {task}")
+            report(task="persistence", checkpoint_s=wall, checkpoint_bytes=dir_bytes(ckpt), save_s=save_s,
+                   save_bytes=dir_bytes(save_dir), load_s=load_s, live_rows=index.stats()["n_objects"])
+            loaded.close()
+            check(np.array_equal(index.ids(), oracle.live_ids()),
+                  "the durable index's live ids differ from the oracle's")
+            report(task="wal", **probe.report(), wal_records=index.stats()["wal_records"])
+            index.close()
+            shutil.rmtree(work / metric)
+            runs.append(dict(metric=metric, oracle=oracle, rounds=checked, t=t_range))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = dict(ops.LAUNCHES)
+    emit(phase="durable", task="phase", wall_s=time.perf_counter() - t_phase)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name, (kid, _, _) in KERNEL_INFO.items():
+        check(launches[name] > 0, f"{kid} ({name}) was not launched by the durable phase")
+        emit(phase="launch_shapes", launch_phase="durable", kernel=kid, name=name, launches=launches[name],
+             classes=[[list(cls), n, share] for cls, n, share in hist[name]])
+    return dict(runs=runs, hist=hist, test=filter_predicates(filter_mod, attrs)["shop_top"][1], keep=keep)
+
+
+def durable_maintenance(torch, api, store_mod, index, oracle, pool, pool_attrs, cursor, qs, pred, t_range, seed,
+                        report) -> dict:
+    """A ``BackgroundCompactor`` and a reader thread on ``index`` while the
+    main thread writes a shifted stream (``np.roll(colors_like, 112 // 3)``,
+    as the JAX package's drift tests do) in 128-row add records until
+    ``drift_pending``, then same-distribution records while the compactor
+    refits (fold, new pivots, a 1M-row K5/K4 rebuild off the write lock,
+    catch-up replay, swap, checkpoint); then an explicit ``compact()``
+    racing the reader.  Returns the quiesced answers for the brute force."""
+    from repro_torch.data import colors_like
+
+    rng = np.random.default_rng(seed)
+    shifted = np.roll(colors_like(n=DURABLE_SHIFTED + Q, dim=DIM, seed=seed), DIM // 3, axis=1)
+    shifted, shifted_q = shifted[:DURABLE_SHIFTED], shifted[DURABLE_SHIFTED:]   # the stream; queries like it
+
+    before = bound_probe(torch, index._snapshot()._base, shifted_q)
+    g0, refit_s = index.generation, []
+    refit = index.refit
+
+    def timed_refit():
+        t0 = time.perf_counter()
+        out = refit()
+        refit_s.append(time.perf_counter() - t0)
+        return out
+
+    index.refit = timed_refit            # the compactor's tick calls it
+    bg = store_mod.BackgroundCompactor(index, interval_s=0.02)
+    reader = Reader(torch, api, index, qs)
+    reader.start()
+    bg.start()
+    stat_pending, n_shifted, n_catchup = None, 0, 0
+    t_drift = None
+    try:
+        while not index.drift_pending and bg.counters["refits"] == 0:
+            check(n_shifted < len(shifted) // DURABLE_RECORD, "the shifted stream never raised drift_pending")
+            block = slice(n_shifted * DURABLE_RECORD, (n_shifted + 1) * DURABLE_RECORD)
+            # rows with no attribute row (the store's host put would cost
+            # ~0.2 s per record at 1M rows): they never match a predicate
+            ids = index.add(shifted[block])
+            oracle.add(np.asarray(ids, dtype=np.int64), shifted[block], no_attributes(DURABLE_RECORD))
+            n_shifted += 1
+            stat_pending = index.drift_stat()
+        t_drift = time.perf_counter()
+        # same-distribution writes while the refit runs: the swap's catch-up
+        deadline = time.monotonic() + 300
+        while bg.counters["refits"] == 0 and bg.counters["errors"] == 0 and time.monotonic() < deadline:
+            if n_catchup < 16:
+                cursor = durable_record(index, oracle, pool, pool_attrs, cursor, "add", rng)
+                n_catchup += 1
+            else:
+                time.sleep(0.01)
+        refit_wait = time.perf_counter() - t_drift
+    finally:
+        bg.stop()
+        del index.refit
+    check(bg.last_error is None, f"the compactor failed: {bg.last_error!r}")
+    check(bg.counters["refits"] == 1 and index.refits == 1, f"expected one refit; counters {bg.counters}")
+    check(index.generation > g0, "the refit did not bump the generation")
+    swap_gen = index.generation
+    reader.finish(swap_gen)
+    walls = {k: [w for a, b, w in reader.batches if (b < swap_gen if k == "before" else a >= swap_gen)]
+             for k in ("before", "after")}
+    after = bound_probe(torch, index._snapshot()._base, shifted_q)
+    quiet = durable_checks(torch, api, index, qs, t_range, pred)
+    checked = [dict(snap=oracle.snapshot(), tasks=quiet, store_match=index.attributes.match(pred))]
+    report(task="refit", drift_stat_at_pending=stat_pending, drift_stat_after=index.drift_stat(),
+           shifted_records=n_shifted, catchup_records=n_catchup, refit_s=refit_s, refit_wait_s=refit_wait,
+           max_swap_hold_ms=index.max_swap_hold_s * 1e3, generation=index.generation,
+           shifted_queries_before=before, shifted_queries_after=after, reader_batches=len(reader.batches),
+           reader_answers=reader.answers, compactor=bg.stats(),
+           **{f"batch_wall_ms_{k}": percentiles_ms(w) if w else None for k, w in walls.items()})
+    # an explicit compaction races the reader the same way
+    for _ in range(8):
+        cursor = durable_record(index, oracle, pool, pool_attrs, cursor, "add", rng)
+    g1 = index.generation
+    reader = Reader(torch, api, index, qs)
+    reader.start()
+    time.sleep(0.5)
+    _, compact_s = timed(torch, index.compact)
+    reader.finish(g1 + 1)
+    check(index.generation == g1 + 1 and index.stats()["delta_rows"] == 0, "compact() did not swap a folded base in")
+    quiet = durable_checks(torch, api, index, qs, t_range, pred)
+    checked.append(dict(snap=oracle.snapshot(), tasks=quiet, store_match=index.attributes.match(pred)))
+    report(task="compact", compact_s=compact_s, max_swap_hold_ms=index.max_swap_hold_s * 1e3,
+           reader_batches=len(reader.batches), reader_answers=reader.answers)
+    return dict(checked=checked)
+
+
+def durable_kernel_rows(torch, ops, ref, rec, queries_np, log) -> list:
+    """The durable phase's kernel rows, timed on the jensen_shannon crash copy
+    A (its 1M-row checkpointed base and its replayed delta), K4 at the
+    replay's materialisation class and K5 at the drift witness class (8,
+    128, 112, f64) always among them: K2 and K3 narrower than the 4,096 cap
+    on the delta with the filtered batch's predicate as the row mask, the
+    others on the base."""
+    keep = rec["keep"]
+    index = keep["index"]._inner
+    delta = index._materialize()
+    sides = index._sides()
+    masks, _ = index._side_masks(sides, keep["index"].attributes.match(keep["pred"]))
+    slots = masks[[s.seg for s in sides].index(delta)]
+    mask = delta._inner._device_mask(delta._inner._mask_of(slots))
+    must = [("apex_project", tuple(c)) for c in keep["replay_k4"]]
+    must.append(("jsd_pairwise", (8, DURABLE_RECORD, DIM, "float64")))
+    rows = kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, index._base, queries_np, log), rec["hist"], "durable",
+                       selection_inputs=ShapeInputs(torch, ops, ref, delta, queries_np, log, mask=mask), must=must)
+    keep["index"].close()
+    return rows
 
 
 #: the sharded phase: colors-1M as four segments sharing one pivot set, the
@@ -2246,6 +2759,8 @@ def main(argv=None) -> int:
                         help="only run the online phase (both metrics) and its checks")
     parser.add_argument("--sharded-only", action="store_true",
                         help="only run the sharded phase (both metrics) and its checks")
+    parser.add_argument("--durable-only", action="store_true",
+                        help="only run the durable phase (both metrics) and its checks")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
@@ -2258,6 +2773,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import service as service_mod
     from repro_torch import search as search_mod
+    from repro_torch import store as store_mod
 
     smi = nvidia_smi()
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -2323,6 +2839,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     attrs = make_attributes(N_ROWS, args.seed)
     emit(phase="data", attribute_rows=N_ROWS, wall_s=time.perf_counter() - t0)
+    durable_mods = (ops, torch, api, filter_mod, store_mod, ref, metrics_mod, data_np, queries_np, attrs, args.seed)
+    if args.durable_only:
+        durable = phase_durable(*durable_mods)
+        verify_online(torch, ref, metrics_mod, durable, phase="durable")
+        print(json.dumps({"durable_kernels": durable_kernel_rows(torch, ops, ref, durable, queries_np, log)}),
+              flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
     if args.online_only:
         online = phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries_np, attrs, args.seed)
         verify_online(torch, ref, metrics_mod, online)
@@ -2390,6 +2915,9 @@ def main(argv=None) -> int:
     sharded = phase_sharded(*sharded_mods)
     verify_sharded(torch, ops, ref, metrics_mod, sharded)
     torch.cuda.empty_cache()
+    durable = phase_durable(*durable_mods)
+    verify_online(torch, ref, metrics_mod, durable, phase="durable")
+    torch.cuda.empty_cache()
     mech_hist, mech_index = phase_mechanisms(ops, *mech_mods)
 
     rows = kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, approx_runs[-1]["index"], queries_np, log), hist)
@@ -2403,6 +2931,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += sharded_kernel_rows(torch, ops, ref, sharded, data_np, queries_np, log)
     del sharded
+    torch.cuda.empty_cache()
+    durable_rows = durable_kernel_rows(torch, ops, ref, durable, queries_np, log)
+    print(json.dumps({"durable_kernels": durable_rows}), flush=True)
+    rows += durable_rows
+    del durable
     torch.cuda.empty_cache()
     # the mechanisms phase's own shape classes, timed on its engine's
     # 112,682-row N_seq table and corpus, with that phase's launches

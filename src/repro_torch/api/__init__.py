@@ -6,7 +6,10 @@ pipeline), persist with ``save`` / ``load_index`` in the JAX package's
 on-disk format.  ``build_index(..., mutable=True)`` returns a
 ``MutableIndex`` (online add / remove / upsert / compact, exact queries),
 ``build_index(..., shards=S)`` a ``ShardedIndex`` (rows over S segments
-sharing one pivot set, optionally mutable);
+sharing one pivot set, optionally mutable),
+``build_index(..., durable=True, wal_dir=...)`` a ``DurableIndex`` (WAL-first
+mutations, checkpoints, crash recovery through ``repro_torch.store``, in the
+JAX package's on-disk format);
 ``build_index(..., attributes=store)`` enables ``Query(where=Predicate...)``.
 Results arrive as ``QueryResult`` / ``BatchQueryResult`` carriers with the
 paper's per-query cost ledger.
@@ -27,6 +30,7 @@ __all__ = [
     "BatchQueryResult",
     "COMPOSITE_KINDS",
     "DEFAULT_REFINE",
+    "DurableIndex",
     "FORMAT_VERSION",
     "INDEX_KINDS",
     "Index",
@@ -49,3 +53,13 @@ __all__ = [
     "load_index",
     "plan",
 ]
+
+
+def __getattr__(name):
+    # ``repro_torch.store`` imports this package, so its class is bound on
+    # first use rather than at import time
+    if name == "DurableIndex":
+        from repro_torch.store.durable import DurableIndex
+
+        return DurableIndex
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

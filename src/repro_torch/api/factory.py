@@ -25,11 +25,13 @@
     sharded = build_index(data, "euclidean", shards=4)
     online = build_index(data, "euclidean", shards=4, mutable=True)
 
+    # crash-safe: WAL-first mutations, checkpoints, recovery (open_durable)
+    durable = build_index(data, "euclidean", durable=True, wal_dir="t/wal")
+
 Both default to ``device="cuda"`` and raise when no card is present, unless
 ``device="cpu"`` is passed.  This package builds the three single-structure
-kinds (``nsimplex``, ``laesa``, ``tree``), the mutable and sharded composites
-over them and attribute stores; the durable composite of the JAX package
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+kinds (``nsimplex``, ``laesa``, ``tree``), the mutable, sharded and durable
+composites over them and attribute stores.
 """
 
 from __future__ import annotations
@@ -61,16 +63,17 @@ INDEX_KINDS = {
 #: engine-mechanism spellings accepted as aliases
 _KIND_ALIASES = {"N_seq": "nsimplex", "L_seq": "laesa", "simplex": "nsimplex"}
 
-#: composite kinds (selected with build_index flags, not ``kind=``)
+#: composite kinds (selected with build_index flags, not ``kind=``); the
+#: durable kind registers itself lazily: ``repro_torch.store`` imports this
+#: package, so a top-level import here would be circular
 COMPOSITE_KINDS = {MutableIndex.kind: MutableIndex, ShardedIndex.kind: ShardedIndex}
 
-#: composite kinds of the JAX package's manifests not ported yet, with the
-#: ROADMAP item that ports them
-_NOT_PORTED_COMPOSITES = {"durable": 9}
 
+def _durable_cls():
+    from repro_torch.store.durable import DurableIndex
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP item {item})")
+    COMPOSITE_KINDS.setdefault(DurableIndex.kind, DurableIndex)
+    return DurableIndex
 
 
 def _resolve_kind(kind: str) -> str:
@@ -109,6 +112,10 @@ def build_index(
     shards: Optional[int] = None,
     compact_threshold: Optional[float] = 0.5,
     durable: bool = False,
+    wal_dir: Optional[str] = None,
+    fsync_every: int = 8,
+    drift_threshold: Optional[float] = None,
+    checkpoint_every: Optional[int] = 4096,
     device_filter: Optional[bool] = None,
     max_candidates: int = 256,
     fanout_workers: Optional[int] = None,
@@ -118,7 +125,7 @@ def build_index(
     attributes=None,
     query_options: Optional[QueryOptions] = None,
     device="cuda",
-) -> Union[SimplexTableIndex, PivotTableIndex, MetricTreeIndex, MutableIndex, ShardedIndex]:
+) -> Union[SimplexTableIndex, PivotTableIndex, MetricTreeIndex, MutableIndex, ShardedIndex, "DurableIndex"]:
     """Build one index of the requested kind over (data, metric) on ``device``.
 
     Args:
@@ -168,10 +175,26 @@ def build_index(
                       enabling ``Query(where=Predicate...)``; persisted next
                       to the index by ``save`` and reattached by
                       ``load_index``.
+      durable:        wrap the (implied) ``MutableIndex`` in a
+                      ``repro_torch.store.DurableIndex``: every mutation is
+                      write-ahead logged under ``wal_dir`` before it is
+                      applied, checkpoints publish crash-consistent
+                      snapshots, and recovery (``repro_torch.store.open_durable``)
+                      replays the tail to the exact pre-crash state.  The
+                      log and checkpoints are the JAX package's format.
+      wal_dir:        directory of the WAL + checkpoints (required, and only
+                      legal, with ``durable=True``); must not already hold a
+                      durable store (reopen those with ``open_durable``).
+      fsync_every:    batch size of the WAL's group fsync (durable only).
+      drift_threshold: Jensen-Shannon divergence of the pivot-distance
+                      histogram past which ingest stages a pivot
+                      re-selection + refit on a shadow index (durable table
+                      kinds only; None = drift detection off).
+      checkpoint_every: WAL records between automatic checkpoints picked up
+                      by the maintenance tick (durable only; None = only
+                      explicit ``checkpoint()``).
       query_options:  per-index ``QueryOptions`` defaults (persisted).
       device:         "cuda" (default) or "cpu".
-      durable:        not ported yet (ROADMAP item 9); True raises
-                      ``NotImplementedError``.
     """
     kind = _resolve_kind(kind)
     if attributes is not None and not isinstance(attributes, AttributeStore):
@@ -189,7 +212,15 @@ def build_index(
             raise ValueError(f"apex_dims must be in [2, n_pivots={n_pivots}]; got {apex_dims}")
         approx = {"dims": int(apex_dims), "refine": int(refine)}
     if durable:
-        raise _not_ported("build_index(durable=...)", 9)
+        if shards is not None:
+            raise ValueError(
+                "durable=True does not compose with shards=; durable stores "
+                "are sharded at the registry level (one WAL dir per tenant)"
+            )
+        if wal_dir is None:
+            raise ValueError("durable=True requires wal_dir=")
+    elif wal_dir is not None:
+        raise ValueError("wal_dir= is only meaningful with durable=True")
     if shards is None and (fanout_workers is not None or layout is not None):
         raise ValueError("fanout_workers=/layout= are only meaningful with shards=")
     dev = resolve_device(device)
@@ -208,6 +239,25 @@ def build_index(
         )
     else:
         index = _build_segment(data, metric, kind, **seg_kw)
+        if durable:
+            return _durable_cls().create(
+                MutableIndex(index, compact_threshold=compact_threshold),
+                wal_dir,
+                build_params={
+                    "kind": kind,
+                    "n_pivots": int(n_pivots),
+                    "pivot_strategy": pivot_strategy,
+                    "leaf_size": int(leaf_size),
+                    "seed": int(seed),
+                    "eps": float(eps),
+                    "use_kernel": bool(use_kernel),
+                },
+                drift_threshold=drift_threshold,
+                fsync_every=fsync_every,
+                checkpoint_every=checkpoint_every,
+                query_options=query_options,
+                attributes=attributes,
+            )
         if mutable:
             index = MutableIndex(index, compact_threshold=compact_threshold)
     index.query_options = query_options
@@ -246,13 +296,14 @@ def load_index(path, *, device="cuda"):
     """Load an index saved by either package onto ``device``; the
     manifest's ``kind`` selects the class (a mutable index recurses into its
     ``base/`` and ``delta/`` segment directories, a sharded one into its
-    ``shard_SSS/`` directories), a saved ``attributes/`` store is
+    ``shard_SSS/`` directories, a durable snapshot into its ``state/`` and
+    then replays its WAL tail), a saved ``attributes/`` store is
     reattached, and nothing is re-measured."""
     dev = resolve_device(device)
     manifest, arrays = read_index_dir(path)
     kind = manifest["kind"]
-    if kind in _NOT_PORTED_COMPOSITES:
-        raise _not_ported(f"loading a {kind!r} index", _NOT_PORTED_COMPOSITES[kind])
+    if kind == "durable":
+        _durable_cls()
     if kind in COMPOSITE_KINDS:
         out = COMPOSITE_KINDS[kind]._load(path, manifest, arrays, device=dev)
     elif kind in INDEX_KINDS:
@@ -261,7 +312,10 @@ def load_index(path, *, device="cuda"):
         raise ValueError(
             f"index at {path!r} has unknown kind {kind!r}; one of {sorted(INDEX_KINDS) + sorted(COMPOSITE_KINDS)}"
         )
-    store = AttributeStore.maybe_load(os.path.join(os.fspath(path), "attributes"))
-    if store is not None:
-        out.attach_attributes(store)
+    if out.attributes is None:
+        # the durable loader attaches its own store (checkpoint + WAL
+        # replay); every other kind persists it as an ``attributes/`` sidecar
+        store = AttributeStore.maybe_load(os.path.join(os.fspath(path), "attributes"))
+        if store is not None:
+            out.attach_attributes(store)
     return out

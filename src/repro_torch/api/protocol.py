@@ -3,9 +3,10 @@ contract.
 
 ``STATS_CONTRACT`` is the JAX package's, key for key: every index kind
 reports the ``common`` keys and its own extras; a composite reports its
-innermost segment's keys too.  This package implements the ``nsimplex``,
-``laesa``, ``tree``, ``mutable`` and ``sharded`` kinds; ``durable`` is listed
-so that the contract stays one table across both packages.
+innermost segment's keys too.  This package implements every kind of the
+table: ``nsimplex``, ``laesa``, ``tree``, ``mutable``, ``sharded`` and
+``durable`` (``repro_torch.store.DurableIndex``, which reports the
+``mutable`` keys of its inner index as well).
 """
 
 from __future__ import annotations

@@ -203,13 +203,19 @@ class AttributeStore:
         return copy.deepcopy(self._stats())
 
     def _stats(self) -> dict:
-        """``stats()``, computed once per ``version`` and shared (read only)."""
+        """``stats()``, computed once per ``version`` and shared (read only).
+
+        A durable index's planner reads its live store while a writer may
+        ``put``: the version is read before the columns (a writer bumps it
+        after rebinding them), so a racing fill can only cache newer columns
+        under an older version, never older ones under the current."""
+        version, cols = self.version, self._cols
         cached = getattr(self, "_stats_cache", None)
-        if cached is not None and cached[0] == self.version:
+        if cached is not None and cached[0] == version:
             return cached[1]
-        out = {"n_rows": len(self), "version": self.version, "columns": {}}
+        out = {"n_rows": len(self), "version": version, "columns": {}}
         for name, kind in sorted(self.schema.items()):
-            col = self._cols[name]
+            col = cols[name]
             entry: dict = {"kind": kind, "count": int(col.size)}
             if col.size:
                 uniq, counts = np.unique(col, return_counts=True)
@@ -231,7 +237,7 @@ class AttributeStore:
             else:
                 entry["cardinality"] = 0
             out["columns"][name] = entry
-        self._stats_cache = (self.version, out)
+        self._stats_cache = (version, out)
         return out
 
     # -- predicate evaluation --------------------------------------------

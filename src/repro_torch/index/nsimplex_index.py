@@ -159,9 +159,13 @@ class NSimplexIndex(DeviceRows):
 
     # -- operands -------------------------------------------------------------
     def _kernel_table(self) -> torch.Tensor:
-        if self._table_f32 is None:
-            self._table_f32 = self.table.to(torch.float32).contiguous()
-        return self._table_f32
+        # lazy fills build their value, bind it once and return the local:
+        # read views share segments across threads (a racing fill binds an
+        # equal value twice, never a partial one)
+        table = self._table_f32
+        if table is None:
+            table = self._table_f32 = self.table.to(torch.float32).contiguous()
+        return table
 
     def _kernel_err_sq(self, apexes: np.ndarray) -> float:
         """Absolute error bound on the kernels' SQUARED f32 bounds.
@@ -169,14 +173,15 @@ class NSimplexIndex(DeviceRows):
         The kernels evaluate |x-y|² as |x|² + |y|² - 2<x,y> in float32; a
         length-m dot product accumulates O(m · eps32 · (|x|² + |y|²)) error.
         """
-        if self._row_sq_max is None:
-            self._row_sq_max = (
+        row_sq_max = self._row_sq_max
+        if row_sq_max is None:
+            row_sq_max = self._row_sq_max = (
                 float((self.table * self.table).sum(dim=1).max()) if self.n_rows else 0.0
             )
         a = np.atleast_2d(apexes)
         q_sq_max = float(np.max(np.einsum("qd,qd->q", a, a)))
         c = 4.0 * (self.n_pivots + 8)
-        return c * np.finfo(np.float32).eps * (self._row_sq_max + q_sq_max)
+        return c * np.finfo(np.float32).eps * (row_sq_max + q_sq_max)
 
     def _kernel_slack(self, apexes: np.ndarray, thresholds: np.ndarray) -> np.ndarray:
         """Per-query distance slack covering the f32 bound error near each

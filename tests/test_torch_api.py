@@ -152,13 +152,16 @@ def test_default_device_raises_without_a_card(pair):
 
 
 @pytest.mark.parametrize("kw", [dict(durable=True), dict(durable=True, mutable=True)])
-def test_unported_options_raise(pair, kw):
-    """The durable composite (ROADMAP item 9) is not ported; ``mutable=``,
-    ``shards=`` and ``attributes=`` are (tests/test_torch_mutable.py,
-    tests/test_torch_sharded.py, tests/test_torch_filter.py)."""
+def test_unported_options_raise(pair, kw, tmp_path):
+    """Every option of the JAX package's ``build_index`` is ported now; the
+    durable composite (tests/test_torch_store.py) raises as the JAX
+    package's does without its ``wal_dir=``, and builds with it."""
     _, _, data, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(ValueError, match="requires wal_dir"):
         build_index(data[:50], n_pivots=4, device="cpu", **kw)
+    idx = build_index(data[:50], n_pivots=4, device="cpu", wal_dir=str(tmp_path / "w"), **kw)
+    assert idx.kind == "durable" and idx.stats()["n_objects"] == 50
+    idx.close()
 
 
 @pytest.fixture(scope="module", params=["sharded", "sharded-mutable"])
@@ -261,6 +264,12 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "x = np.random.default_rng(0).random((300, 8))\n"
         "idx = build_index(x, n_pivots=5, device='cpu')\n"
         "assert len(idx.query(x[:2], Query.knn(3))) == 2\n"
+        "from repro_torch.store import open_durable\n"
+        f"wal = {str(tmp_path / 'wal')!r}\n"
+        "live = build_index(x, n_pivots=5, durable=True, wal_dir=wal, device='cpu')\n"
+        "live.add(x[:3] * 0.5); live.flush(); live.close()\n"
+        "back = open_durable(wal, device='cpu')\n"
+        "assert back.stats()['n_objects'] == 303 and back.query(x[:2], Query.knn(3)).results[0].ids.size == 3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

@@ -273,9 +273,17 @@ def test_unknown_and_composite_kinds(corpus, tmp_path):
     assert port.stats()["kind"] == "sharded" and port.stats()["n_shards"] == 2
     for g, w in zip(port.knn_batch(data[100:104], 5), ref.knn_batch(data[100:104], 5)):
         np.testing.assert_array_equal(g.ids, w.ids)
-    # the durable composite is not (ROADMAP item 9)
-    from repro_torch.api.persistence import write_index_dir
-
-    write_index_dir(tmp_path / "durable", kind="durable", params={}, arrays={})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        load_index(tmp_path / "durable", device="cpu")
+    # so is the durable composite: a reference snapshot reattaches to its
+    # WAL and answers as the reference does
+    with enable_x64(True):
+        ref = rapi.build_index(data[:100], n_pivots=4, durable=True, wal_dir=str(tmp_path / "wal"), use_kernel=True)
+        ref.add(data[100:110])
+        ref.save(tmp_path / "durable")
+    port = load_index(tmp_path / "durable", device="cpu")
+    assert port.stats()["kind"] == "durable" and port.stats()["n_objects"] == 110
+    with enable_x64(True):
+        want = ref.knn_batch(data[110:114], 5)
+    for g, w in zip(port.knn_batch(data[110:114], 5), want):
+        np.testing.assert_array_equal(g.ids, w.ids)
+    port.close()
+    ref.close()
