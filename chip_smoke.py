@@ -10,6 +10,7 @@
     python3 chip_smoke.py --online-only
     python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --durable-only
+    python3 chip_smoke.py --serving-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -159,6 +160,37 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 the counts are read every round's, copy B's and the
                 quiesced answers are held to an f64 brute force over an
                 oracle's rows (rows without attributes match no predicate);
+  5f. serving — the serving stack, the launch counts set to 0 before and
+                read after (``launch_phase="serving"``; each kernel must have
+                > 0): the CLI's shard_map engine in-process
+                (``repro_torch.launch.serve.main(["--n-objects", "1000000",
+                "--queries", "64", "--batches", "4", "--metric",
+                "jensen_shannon", "--selectivity", "1e-4"])``: K5 pivot
+                distances, K4 projection, K3 (64, 256, 20) on the 1 x 1 grid;
+                the queries whose candidates overflow the 256 slots
+                printed); ``SearchService(max_batch=64, max_queue=256)`` on
+                phase 3's two exact indexes, 256 k=10 requests per metric
+                through ``run_poisson_open_loop`` at 4x the sequential
+                single-request QPS, each equal to a direct ``index.query``;
+                ``IndexRegistry(max_concurrent_batches=4, max_batch=64,
+                max_queue=256)`` behind the HTTP front end with ``colors``
+                (phase 3's euclidean index, queue bound 64), ``colors_half``
+                (500,000 rows, seed-1 pivots) and ``colors_durable`` (a
+                112,682-row JSD durable directory under build/serving_smoke/
+                with 4 WAL records past its checkpoint, added by path, removed
+                at the end, on failure too): 384 round-robin requests at half
+                ``colors``'s sequential QPS with deadlines of 4x each tenant's
+                single-request wall, a burst of 8 threads x 64 concurrent
+                ``mode="auto"`` requests (shed and degraded), an HTTP upsert
+                of 128 rows and remove of 64 ids, ``registry.close()`` and a
+                re-add by path answering as before; then ``python -m
+                repro_torch.launch.serve --engine batch --workload frontend``
+                as a subprocess.  After the counts are read: the CLI's answers
+                against an f64 brute force (overflowing queries a subset;
+                rows inside the t(1 +- eps) +- 1e-9 band counted), 8 answers
+                per metric and tenant (the durable tenant's over an oracle's
+                live rows) against the brute force, every degraded answer
+                from its own candidates;
   5d. mechanisms — the paper's other mechanisms, with the launch counts set
                 to 0 before and read after (its own ``launch_shapes`` lines,
                 ``launch_phase="mechanisms"``; each kernel must have > 0):
@@ -208,7 +240,7 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 ``table_rows`` (K1, K3 and K4 with ``plan``,
                 ``previous_design_ms`` and ``previous_design_device_ms``):
                 first the main path's, then the filtered, online, sharded,
-                durable and mechanisms phases', tagged with ``launch_phase`` and carrying
+                durable, serving and mechanisms phases', tagged with ``launch_phase`` and carrying
                 that phase's launches and shares.  The filtered rows are
                 timed on the 1M-row JSD index with the most common shop's
                 row mask (masked K2 (64, 10, upb, 20) and K3 (64, 512, 20)
@@ -240,10 +272,13 @@ or K3 class of more queries than the 256 query rows repeats them.
 approximate batch and service wall times can be taken in turns on one
 card; ``--mechanisms-only`` runs phase 5d alone, with its checks, and
 prints its kernel rows as ``{"mechanisms_kernels": [...]}``;
-``--filtered-only``, ``--online-only``, ``--sharded-only`` and
-``--durable-only`` run phase 5a, 5b, 5c or 5e alone, with their checks, and
-print ``{"filtered_kernels": [...]}``, ``{"online_kernels": [...]}``,
-``{"sharded_kernels": [...]}`` or ``{"durable_kernels": [...]}``.
+``--filtered-only``, ``--online-only``, ``--sharded-only``,
+``--durable-only`` and ``--serving-only`` run phase 5a, 5b, 5c, 5e or 5f
+alone, with their checks, and print ``{"filtered_kernels": [...]}``,
+``{"online_kernels": [...]}``, ``{"sharded_kernels": [...]}``,
+``{"durable_kernels": [...]}`` or ``{"serving_kernels": [...]}`` (timed on
+the 1M-row JSD exact index, the serve step's K3 (64, 256, 20) always among
+them).
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -254,6 +289,7 @@ prints the registers, spills and stack of apex_project.cu's kernels from
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -2658,6 +2694,451 @@ def sharded_kernel_rows(torch, ops, ref, rec, data_np, queries_np, log) -> list:
     return out
 
 
+#: the serving phase (the reference README's multi-tenant service over
+#: histogram corpora): the CLI's shard_map engine at colors-1M (JSD, 4
+#: batches of 64 queries), ``SearchService(max_batch=64, max_queue=256)``
+#: per metric, the HTTP front end over three tenants, the CLI as a
+#: subprocess
+SERVE_CLI = ["--n-objects", str(N_ROWS), "--queries", str(Q), "--batches", "4", "--metric", "jensen_shannon",
+             "--selectivity", "1e-4"]
+SERVE_REQUESTS = 256
+#: the front end: 384 round-robin k-NN requests at half the sequential QPS
+#: of ``colors`` with a deadline of 4x each tenant's single-request wall; a
+#: burst of 8 client threads x 64 concurrent ``mode="auto"`` requests to
+#: ``colors`` (its queue bound 64, degradation at a quarter of it); 128 rows
+#: upserted and 64 ids removed on the durable tenant
+FRONTEND_REQUESTS, FRONTEND_RATE_SHARE, FRONTEND_DEADLINE_X = 384, 0.5, 4.0
+BURST_THREADS, BURST_PER_THREAD, BURST_MAX_QUEUE = 8, 64, 64
+SERVE_UPSERTS, SERVE_REMOVES = 128, 64
+#: the durable tenant: the paper's colors size behind a WAL, 4 records past
+#: its checkpoint
+SERVE_DURABLE_ROWS = ENGINE_ROWS
+SERVE_DURABLE_RECORDS = ("add", "remove", "upsert", "add")
+#: the re-rank budget of a degraded request (``DEFAULT_DEGRADE_REFINE``)
+DEGRADE_REFINE = 32
+#: the CLI as a subprocess (the default arrival rate of its front end, one
+#: request per second, would take a minute for these 64 requests)
+SERVE_SUBPROCESS = ["--engine", "batch", "--workload", "frontend", "--n-objects", str(ENGINE_ROWS), "--queries", "32",
+                    "--batches", "2", "--metric", "euclidean", "--arrival-rate", "200"]
+
+
+def http_result(payload) -> SimpleNamespace:
+    """An HTTP k-NN answer in the shape the checks read."""
+    return SimpleNamespace(ids=np.asarray(payload["ids"], dtype=np.int64),
+                           distances=np.asarray(payload["distances"], dtype=np.float64),
+                           stats=SimpleNamespace(**payload["stats"]), approx=payload["approx"])
+
+
+def serving_cli(torch, report) -> dict:
+    """Part 1: ``repro_torch.launch.serve.main`` in-process on the 1 x 1 grid
+    (K5 pivot distances, K4 projection, K3 (64, 256, 20) per batch)."""
+    from repro_torch.launch import serve as serve_cli
+
+    rec, wall = timed(torch, lambda: serve_cli.main(SERVE_CLI))
+    report(task="cli_shard_map", wall_s=wall, queries=len(rec["answers"]), threshold=rec["threshold"],
+           ms_per_query=rec["ms_per_query"], rechecks=rec["rechecks"], results=rec["results"],
+           overflowing_queries=rec["overflowing"])
+    return rec
+
+
+def serving_service(torch, api, service_mod, indexes, queries_np, report) -> dict:
+    """Part 2: per metric 256 exact k=10 requests through
+    ``run_poisson_open_loop`` at 4x the measured sequential single-request
+    QPS (the reference CLI's rule), every result equal to a direct
+    ``index.query`` under the same plan."""
+    spec = api.Query.knn(K)
+    qs = queries_np[:SERVE_REQUESTS]
+    out = {}
+    for metric, index in indexes.items():
+        index.query(qs[0], spec)
+        (_, seq_s) = timed(torch, lambda: [index.query(q, spec) for q in qs[:32]])
+        rate = 4.0 * 32 / seq_s
+        with service_mod.SearchService(index, max_batch=64, max_queue=256) as svc:
+            svc.warmup(spec, qs[0])
+            results, wall = timed(torch, lambda: service_mod.run_poisson_open_loop(
+                svc, qs, spec, arrival_rate=rate, seed=7))
+            est = svc.estimated_wait_s()
+            st = svc.stats()
+        # ids and distances: the cost counts of the f32 kernel path hang on
+        # the block's own slack, so a query counts alike only in equal blocks
+        for qi, (r, w) in enumerate(zip(results, index.query(qs, spec, plan=index.plan(spec)))):
+            check(np.array_equal(r.ids, w.ids) and np.array_equal(r.distances, w.distances),
+                  f"serving service {metric} q{qi}: the served answer differs from a direct index.query")
+        report(task="service_knn", metric=metric, requests=len(qs), arrival_rate=rate, sequential_qps=32 / seq_s,
+               wall_ms=wall * 1e3, latency_p50_ms=st["latency_p50_ms"], latency_p99_ms=st["latency_p99_ms"],
+               mean_batch_occupancy=st["mean_batch_occupancy"], n_batches=st["n_batches"],
+               estimated_wait_s=est, rejected=st["rejected"], ewma_batch_ms=st["ewma_batch_ms"])
+        out[metric] = (qs[:8], results[:8])
+    return out
+
+
+def durable_tenant_dir(torch, api, filter_mod, data_np, wal, seed):
+    """The durable tenant's directory: ``SERVE_DURABLE_ROWS`` JSD rows with
+    attributes, then the records of ``SERVE_DURABLE_RECORDS`` past its
+    checkpoint, closed.  Returns the oracle of its rows."""
+    n = SERVE_DURABLE_ROWS
+    attrs = make_attributes(n, seed)
+    store = filter_mod.AttributeStore(ATTR_SCHEMA)
+    store.put(np.arange(n), attrs)
+    live = api.build_index(data_np[:n], "jensen_shannon", n_pivots=N_PIVOTS, seed=SEED % 1000, durable=True,
+                           wal_dir=str(wal), checkpoint_every=None, attributes=store, device=DEVICE)
+    oracle = Oracle(torch, torch.as_tensor(data_np[:n], device=DEVICE), np.arange(n), attrs)
+    pool = data_np[n:n + len(SERVE_DURABLE_RECORDS) * DURABLE_RECORD]
+    pool_attrs = make_attributes(len(pool), seed + 61)
+    rng = np.random.default_rng(seed + 71)
+    cursor = 0
+    for op in SERVE_DURABLE_RECORDS:
+        cursor = durable_record(live, oracle, pool, pool_attrs, cursor, op, rng)
+    live.flush()
+    live.close()
+    return oracle
+
+
+def round_robin(client, error_cls, names, queries_np, rate, deadline_ms) -> dict:
+    """``FRONTEND_REQUESTS`` k-NN requests over the tenants in turn from one
+    open-loop client (exponential gaps at ``rate``), each with its tenant's
+    deadline; per tenant the served, shed and expired counts, the served
+    latencies and the first 8 served (query, answer) pairs."""
+    per = {name: dict(sent=0, served=0, shed=0, expired=0, latency_s=[], answers=[]) for name in names}
+    gaps = np.random.default_rng(7).exponential(1.0 / rate, size=FRONTEND_REQUESTS)
+    t_next = time.perf_counter()
+    for i in range(FRONTEND_REQUESTS):
+        t_next += gaps[i]
+        delay = t_next - time.perf_counter()
+        if delay > 0.004:
+            time.sleep(delay)
+        name, q = names[i % len(names)], queries_np[i % len(queries_np)]
+        rec = per[name]
+        rec["sent"] += 1
+        t0 = time.perf_counter()
+        try:
+            got = client.query(name, q, k=K, deadline_ms=deadline_ms[name])
+        except error_cls as e:
+            check(e.status in (429, 504), f"round robin {name}: HTTP {e.status} {e.body}")
+            rec["shed" if e.status == 429 else "expired"] += 1
+            continue
+        rec["latency_s"].append(time.perf_counter() - t0)
+        rec["served"] += 1
+        if len(rec["answers"]) < 8:
+            rec["answers"].append((q, http_result(got)))
+    return per
+
+
+def burst(client, error_cls, queries_np) -> dict:
+    """``BURST_THREADS`` client threads each sending ``BURST_PER_THREAD``
+    concurrent ``mode="auto"`` k-NN requests to ``colors`` at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    start = threading.Barrier(BURST_THREADS)
+
+    def one(i):
+        q = queries_np[i % len(queries_np)]
+        t0 = time.perf_counter()
+        try:
+            return q, client.query("colors", q, k=K), None, time.perf_counter() - t0
+        except error_cls as e:
+            check(e.status in (429, 504), f"burst: HTTP {e.status} {e.body}")
+            return q, None, e, time.perf_counter() - t0
+
+    def sender(t):
+        start.wait()
+        with ThreadPoolExecutor(BURST_PER_THREAD) as pool:
+            return list(pool.map(one, range(t * BURST_PER_THREAD, (t + 1) * BURST_PER_THREAD)))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(BURST_THREADS) as senders:
+        calls = [c for part in senders.map(sender, range(BURST_THREADS)) for c in part]
+    wall = time.perf_counter() - t0
+    served = [(q, http_result(p), s) for q, p, e, s in calls if p is not None]
+    return dict(sent=len(calls), wall_s=wall, served=len(served),
+                shed=sum(1 for _, _, e, _ in calls if e is not None and e.status == 429),
+                expired=sum(1 for _, _, e, _ in calls if e is not None and e.status == 504),
+                exact=[(q, r) for q, r, _ in served if r.approx is None],
+                degraded=[(q, r) for q, r, _ in served if r.approx is not None],
+                latency_s=[s for _, _, s in served])
+
+
+def serving_frontend(torch, api, filter_mod, data_np, queries_np, euclid, seed, report) -> dict:
+    """Part 3: ``IndexRegistry(max_concurrent_batches=4, max_batch=64,
+    max_queue=256)`` behind the HTTP front end with three tenants:
+    ``colors`` (the 1M-row euclidean exact index, its queue bound 64),
+    ``colors_half`` (its first 500,000 rows under seed-1 pivots, the
+    reference's ``data[: len // (t + 1)]`` rule) and ``colors_durable``
+    (registered by ``path=``: a 112,682-row JSD durable directory under
+    build/serving_smoke/ with 4 WAL records past its checkpoint, recovered
+    through ``open_durable``).  Round-robin traffic with deadlines, a burst
+    that sheds and degrades, an HTTP upsert and remove on the durable
+    tenant, then ``registry.close()`` and a re-add by path that answers as
+    before.  The directory is removed at the end, on failure too."""
+    from repro_torch.serve import Frontend, FrontendClient, FrontendError, IndexRegistry
+
+    Query = api.Query
+    root = Path(__file__).resolve().parent / "build" / "serving_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=root))
+    wal = work / "colors_durable"
+    names = ["colors", "colors_half", "colors_durable"]
+    try:
+        oracle, wall = timed(torch, lambda: durable_tenant_dir(torch, api, filter_mod, data_np, wal, seed))
+        report(task="durable_tenant_dir", rows=SERVE_DURABLE_ROWS, records=len(SERVE_DURABLE_RECORDS), wall_s=wall,
+               bytes=dir_bytes(wal))
+        half, wall = timed(torch, lambda: api.build_index(data_np[: N_ROWS // 2], "euclidean", n_pivots=N_PIVOTS,
+                                                          seed=1, device=DEVICE))
+        report(task="build_colors_half", rows=N_ROWS // 2, wall_s=wall)
+        registry = IndexRegistry(max_concurrent_batches=4, max_batch=64, max_queue=256, device=DEVICE)
+        registry.add("colors", index=euclid, max_queue=BURST_MAX_QUEUE)
+        registry.add("colors_half", index=half)
+        tenant, wall = timed(torch, lambda: registry.add("colors_durable", path=str(wal)))
+        check(tenant.index.kind == "durable" and tenant.index.stats()["n_objects"] == len(oracle.live_ids()),
+              "the durable tenant must recover its checkpoint and the WAL records past it")
+        report(task="add_by_path", tenant="colors_durable", wall_s=wall, n_objects=tenant.index.stats()["n_objects"])
+        spec = Query.knn(K)
+        for name in names:
+            registry.tenant(name).warmup(spec, queries_np[0])
+        out = dict(oracle=oracle, half=half, tenants=names)
+        with Frontend(registry, port=0) as fe:
+            client = FrontendClient(*fe.address)
+            single = {}
+            for name in names:
+                walls = []
+                for q in queries_np[:8]:
+                    t0 = time.perf_counter()
+                    client.query(name, q, k=K)
+                    walls.append(time.perf_counter() - t0)
+                single[name] = float(np.median(walls))
+            for name in names:
+                got = client.query(name, queries_np[8], k=K)
+                # the JSON body decodes to float64: the direct call takes the same vector
+                want = registry.tenant(name).index.query(np.asarray(queries_np[8], np.float64), spec)
+                check(got["ids"] == [int(i) for i in want.ids] and got["distances"] == [float(d) for d in want.distances],
+                      f"tenant {name}: the HTTP answer differs from a direct index.query")
+            rate = FRONTEND_RATE_SHARE / single["colors"]
+            deadline_ms = {name: FRONTEND_DEADLINE_X * single[name] * 1e3 for name in names}
+            out["snap"] = oracle.snapshot()
+            rr, wall = timed(torch, lambda: round_robin(client, FrontendError, names, queries_np, rate, deadline_ms))
+            for name, r in rr.items():
+                check(r["served"] + r["shed"] + r["expired"] == r["sent"], f"round robin {name}: counts do not add up")
+                check(len(r["answers"]) >= 8, f"round robin {name}: fewer than 8 served answers to check")
+                report(task="round_robin", tenant=name, sent=r["sent"], served=r["served"], shed=r["shed"],
+                       expired=r["expired"], single_request_ms=single[name] * 1e3, deadline_ms=deadline_ms[name],
+                       **({} if not r["latency_s"] else percentiles_ms(r["latency_s"])))
+            report(task="round_robin", arrival_rate=rate, wall_s=wall, requests=FRONTEND_REQUESTS)
+            out["round_robin"] = rr
+            b = burst(client, FrontendError, queries_np)
+            check(b["served"] + b["shed"] + b["expired"] == b["sent"], "burst: counts do not add up")
+            check(b["shed"] > 0 and len(b["degraded"]) > 0, "the burst must shed some requests and degrade some")
+            report(task="burst", tenant="colors", sent=b["sent"], served=b["served"], shed=b["shed"],
+                   expired=b["expired"], degraded=len(b["degraded"]), wall_s=b["wall_s"],
+                   **percentiles_ms(b["latency_s"]))
+            out["burst"] = b
+            # writes on the durable tenant, visible in the next query
+            fresh = queries_np[SERVE_REQUESTS - SERVE_UPSERTS:SERVE_REQUESTS]
+            fresh_attrs = make_attributes(SERVE_UPSERTS, seed + 81)
+            t0 = time.perf_counter()
+            up = client.upsert("colors_durable", fresh, attrs=fresh_attrs)
+            up_ms = (time.perf_counter() - t0) * 1e3
+            new_ids = np.asarray(up["ids"], dtype=np.int64)
+            oracle.add(new_ids, fresh, fresh_attrs)
+            victims = np.asarray(client.query("colors_durable", queries_np[5], k=SERVE_REMOVES)["ids"])
+            t0 = time.perf_counter()
+            rm = client.remove_rows("colors_durable", victims)
+            rm_ms = (time.perf_counter() - t0) * 1e3
+            oracle.remove(victims)
+            check(rm["n_objects"] == len(oracle.live_ids()), "the remove must leave the oracle's live count")
+            after = [http_result(client.query("colors_durable", q, k=K)) for q in queries_np[:8]]
+            check(not np.isin(after[5].ids, victims).any(), "a removed id is still answered")
+            mine = http_result(client.query("colors_durable", fresh[0], k=K))
+            check(int(mine.ids[0]) == int(new_ids[0]) and mine.distances[0] <= 1e-6,
+                  "an upserted row must be its own nearest neighbour in the next query")
+            report(task="writes", tenant="colors_durable", upserted=len(new_ids), removed=len(victims),
+                   upsert_ms=up_ms, remove_ms=rm_ms, n_objects=rm["n_objects"], wal_synced=rm["wal_synced"])
+            out["after_snap"] = oracle.snapshot()
+            out["after"] = (queries_np[:8], after)
+            stats = client.stats()
+        for name in names:
+            ts = stats["tenants"][name]
+            report(task="tenant_stats", tenant=name, requests=ts["service"]["n_requests"],
+                   batches=ts["service"]["n_batches"], queue_depth=ts["service"]["queue_depth"],
+                   latency_p50_ms=ts["service"]["latency_p50_ms"], latency_p99_ms=ts["service"]["latency_p99_ms"],
+                   admission=ts["admission"], telemetry=ts["telemetry"])
+        source = euclid.plan(Query.knn(K)).explain()["calibration"]["source"]
+        check(source == "telemetry_ewma", f"after the traffic an auto spec on colors must be calibrated; got {source}")
+        registry.close()
+        tenant.index.close()
+        euclid.telemetry = None
+        # a new registry takes the tenant again by path and answers as before
+        again = IndexRegistry(max_concurrent_batches=4, max_batch=64, max_queue=256, device=DEVICE)
+        t_again, wall = timed(torch, lambda: again.add("colors_durable", path=str(wal)))
+        with Frontend(again, port=0) as fe:
+            client = FrontendClient(*fe.address)
+            redo = [http_result(client.query("colors_durable", q, k=K)) for q in queries_np[:8]]
+        for qi, (g, w) in enumerate(zip(redo, after)):
+            check(np.array_equal(g.ids, w.ids) and np.array_equal(g.distances, w.distances)
+                  and vars(g.stats) == vars(w.stats), f"the durable tenant added again by path answers otherwise: q{qi}")
+        report(task="re_add_by_path", tenant="colors_durable", wall_s=wall,
+               n_objects=t_again.index.stats()["n_objects"])
+        again.close()
+        t_again.index.close()
+        return out
+    finally:
+        euclid.telemetry = None
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def serving_subprocess(report):
+    """Part 4: ``python -m repro_torch.launch.serve`` with the front-end
+    workload as a child process, which must exit 0."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *SERVE_SUBPROCESS], capture_output=True,
+                         text=True, env=env, cwd=str(root), timeout=600)
+    check(out.returncode == 0, f"the serving CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    report(task="cli_subprocess", argv=SERVE_SUBPROCESS, wall_s=time.perf_counter() - t0,
+           lines=[line for line in out.stdout.splitlines() if line.startswith("[serve] frontend")])
+
+
+def phase_serving(ops, torch, api, filter_mod, service_mod, data_np, queries_np, indexes, seed) -> dict:
+    """The serving phase, the launch counts set to 0 before and read after
+    (``launch_phase="serving"``; each kernel must have > 0): the CLI's
+    shard_map engine in-process, ``SearchService`` per metric on the exact
+    1M-row indexes, the multi-tenant HTTP front end, then the CLI as a
+    subprocess.  Returns what ``verify_serving`` checks."""
+    report = lambda **f: emit(phase="serving", **f)  # noqa: E731
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    rec = dict(cli=serving_cli(torch, report))
+    rec["service"] = serving_service(torch, api, service_mod, indexes, queries_np, report)
+    rec["frontend"] = serving_frontend(torch, api, filter_mod, data_np, queries_np, indexes["euclidean"], seed, report)
+    launches = dict(ops.LAUNCHES)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name, (kid, _, _) in KERNEL_INFO.items():
+        check(launches[name] > 0, f"{kid} ({name}) was not launched by the serving phase")
+        emit(phase="launch_shapes", launch_phase="serving", kernel=kid, name=name, launches=launches[name],
+             classes=[[list(cls), n, share] for cls, n, share in hist[name]])
+    check(any(tuple(cls) == FILTER_CLASS for cls, _, _ in hist["apex_threshold"]),
+          "the CLI's serve step must launch K3 at (64, 256, 20)")
+    serving_subprocess(report)
+    report(task="phase", wall_s=time.perf_counter() - t_phase)
+    return dict(rec, hist=hist, indexes=indexes)
+
+
+def check_oracle_knn(torch, ref, m, oracle, snap, pairs, what) -> int:
+    """Exact k-NN answers (query, result) against an f64 brute force over the
+    oracle's live rows ``snap`` (JSD plain, not K5); returns the near-tie
+    swaps."""
+    ids = oracle.slot_id[snap]
+    rows = oracle.rows[torch.as_tensor(snap, device=oracle.rows.device)]
+    brute = BruteForce(torch, ref, rows, m)
+    D = brute_matrix(torch, brute, [q for q, _ in pairs])
+    everyone = torch.arange(len(ids), device=D.device)
+    want = expect_knn(torch, D, everyone, K)
+    allowed = torch.ones(len(ids), dtype=torch.bool, device=D.device)
+    tol, swaps = refine_tol(torch, m.name, rows), 0
+    for qi, (_, r) in enumerate(pairs):
+        local = SimpleNamespace(ids=np.searchsorted(ids, r.ids), distances=r.distances)
+        check(np.array_equal(ids[np.minimum(local.ids, len(ids) - 1)], r.ids), f"{what}: answered an id that is not live")
+        swaps += check_exact(torch, D[qi], local, want[qi], allowed, None, tol, f"{what} q{qi}")
+    return swaps
+
+
+def check_brute_knn(torch, ref, m, data, pairs, what) -> int:
+    """Exact k-NN answers against an f64 brute force over ``data``."""
+    brute = BruteForce(torch, ref, data, m)
+    tol, swaps = refine_tol(torch, m.name, data), 0
+    for q, r in pairs:
+        ids, d64 = brute.knn(q, K)
+        swaps += agree_knn(r, ids, d64, tol)
+    return swaps
+
+
+def verify_degraded(torch, ops, ref, index, m, pairs) -> int:
+    """Degraded answers from their own candidates, as ``verify_approx``: the
+    k smallest (f64 distance, id) among the ``DEGRADE_REFINE`` rows a host
+    lexsort of K1's own f32 truncated mid keys selects (query apexes
+    projected by the plain versions), ``original_calls == dims + refine``."""
+    inner = index._inner
+    tab = inner._kernel_table()
+    prefix = inner._prefix_projector(APPROX_DIMS)
+    brute = BruteForce(torch, ref, inner.data, m)
+    tol, swaps = refine_tol(torch, m.name, inner.data), 0
+    for lo in range(0, len(pairs), 16):
+        chunk = pairs[lo:lo + 16]
+        qpd = brute.cross(np.stack([q for q, _ in chunk]), prefix.pivots_t)
+        apexes = ref.apex_project_ref(qpd, prefix._Linv_t, prefix._sq_norms_t)
+        L, U = (t.cpu().numpy() for t in ops.apex_bounds_batch(tab, apexes.float(), dims=APPROX_DIMS))
+        for qi, (q, r) in enumerate(chunk):
+            check(r.approx == {"dims": APPROX_DIMS, "refine": DEGRADE_REFINE}, "a degraded answer must carry its config")
+            d64 = brute.dists(q).cpu().numpy()
+            cand = host_select(np.float32(0.5) * (L[qi:qi + 1] + U[qi:qi + 1]), None, DEGRADE_REFINE)[0]
+            check(bool(np.isin(r.ids, cand).all()), "a degraded answer came from outside its own candidates")
+            swaps += agree_knn(r, cand[np.lexsort((cand, d64[cand]))][:K], d64, tol)
+            check(r.stats.original_calls == APPROX_DIMS + DEGRADE_REFINE, "degraded original_calls must be dims + refine")
+    return swaps
+
+
+def verify_serving(torch, ops, ref, metrics_mod, rec):
+    """After the launch counts are read: the CLI's answers against an f64
+    brute force over its corpus (a query whose candidates fit the 256 slots
+    answers exactly; an overflowing one a subset; rows inside the
+    t(1 +- eps) +- 1e-9 band are counted, not failed); 8 service answers per
+    metric, 8 round-robin answers per tenant (the durable tenant's over the
+    oracle's live rows), 8 burst exact answers and the answers after the
+    writes against the brute force; every degraded answer from its own
+    candidates."""
+    from repro_torch.data import load_or_generate_colors
+
+    cli = rec["cli"]
+    X = load_or_generate_colors(n=N_ROWS + len(cli["answers"]), seed=99)
+    jsd, eu = metrics_mod.get_metric("jensen_shannon"), metrics_mod.get_metric("euclidean")
+    brute = BruteForce(torch, ref, torch.as_tensor(X[:N_ROWS], device=DEVICE), jsd)
+    t, eps = cli["threshold"], 1e-5
+    lo, hi = t * (1 - eps) - 1e-9, t * (1 + eps) + 1e-9
+    over = (cli["hist"][:, 1] + cli["hist"][:, 2]) > cli["max_candidates"]
+    band_rows = 0
+    for qi, ans in enumerate(cli["answers"]):
+        d = brute.dists(X[N_ROWS + qi]).cpu().numpy()
+        band = (d > lo) & (d <= hi)
+        truth = np.flatnonzero(d <= t)
+        wrong = np.setdiff1d(ans, truth) if over[qi] else np.setxor1d(ans, truth)
+        check(bool(band[wrong].all()), f"serving CLI q{qi}: the answer differs from the brute force outside the band")
+        band_rows += int(band[wrong].sum())
+    emit(phase="serving", task="cli_shard_map_checked", queries=len(cli["answers"]), overflowing_queries=int(over.sum()),
+         band_differences=band_rows)
+    del brute, X
+    torch.cuda.empty_cache()
+    swaps = 0
+    for metric, (qs, results) in rec["service"].items():
+        index = rec["indexes"][metric]
+        swaps += check_brute_knn(torch, ref, metrics_mod.get_metric(metric), index._inner.data, list(zip(qs, results)),
+                                 f"serving service {metric}")
+    fe = rec["frontend"]
+    colors = rec["indexes"]["euclidean"]
+    swaps += check_brute_knn(torch, ref, eu, colors._inner.data, fe["round_robin"]["colors"]["answers"], "colors")
+    swaps += check_brute_knn(torch, ref, eu, fe["half"]._inner.data, fe["round_robin"]["colors_half"]["answers"],
+                             "colors_half")
+    swaps += check_oracle_knn(torch, ref, jsd, fe["oracle"], fe["snap"], fe["round_robin"]["colors_durable"]["answers"],
+                              "colors_durable")
+    swaps += check_oracle_knn(torch, ref, jsd, fe["oracle"], fe["after_snap"], list(zip(*fe["after"])),
+                              "colors_durable after the writes")
+    swaps += check_brute_knn(torch, ref, eu, colors._inner.data, fe["burst"]["exact"][:8], "burst exact")
+    degraded = fe["burst"]["degraded"]
+    swaps += verify_degraded(torch, ops, ref, colors, eu, degraded)
+    emit(phase="serving", task="checked", service_answers=8 * len(rec["service"]), tenant_answers=8 * 3 + 8,
+         burst_exact=min(8, len(fe["burst"]["exact"])), degraded=len(degraded), near_tie_differences=swaps)
+
+
+def serving_kernel_rows(torch, ops, ref, rec, queries_np, log) -> list:
+    """The serving phase's kernel rows, timed on the 1M-row jensen_shannon
+    exact index (its table has the serve step's shape), the serve step's K3
+    class (64, 256, 20) and K2's and K3's padded bucket of 8 queries always
+    among them."""
+    inputs = ShapeInputs(torch, ops, ref, rec["indexes"]["jensen_shannon"], queries_np, log)
+    must = [("apex_threshold", FILTER_CLASS), ("apex_topk", (8, K, "upb", N_PIVOTS)),
+            ("apex_threshold", (8, 512, N_PIVOTS))]
+    return kernel_rows(torch, ops, inputs, rec["hist"], "serving", must=must)
+
+
 def kernel_rows(torch, ops, inputs, hist, launch_phase=None, selection_inputs=None, must=()) -> list:
     """The kernels line's rows of one launch histogram: each (kernel, shape
     class) of ``rows_to_time(hist, must)`` timed on ``inputs`` (held to its
@@ -2761,6 +3242,9 @@ def main(argv=None) -> int:
                         help="only run the sharded phase (both metrics) and its checks")
     parser.add_argument("--durable-only", action="store_true",
                         help="only run the durable phase (both metrics) and its checks")
+    parser.add_argument("--serving-only", action="store_true",
+                        help="only run the serving phase (the CLI's shard_map engine, SearchService per metric, "
+                             "the multi-tenant HTTP front end, the CLI as a subprocess) and its checks")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
@@ -2863,6 +3347,16 @@ def main(argv=None) -> int:
     emit(phase="e2e", metric="euclidean", task="build", rows=N_ROWS, wall_s=time.perf_counter() - t0)
     store = filter_mod.AttributeStore(ATTR_SCHEMA)
     store.put(np.arange(N_ROWS), attrs)
+    serving_mods = (ops, torch, api, filter_mod, service_mod, data_np, queries_np)
+    if args.serving_only:
+        jsd_exact = api.build_index(data_np, "jensen_shannon", n_pivots=N_PIVOTS, seed=SEED % 1000, device="cuda")
+        serving = phase_serving(*serving_mods, {"euclidean": euclid, "jensen_shannon": jsd_exact}, args.seed)
+        verify_serving(torch, ops, ref, metrics_mod, serving)
+        print(json.dumps({"serving_kernels": serving_kernel_rows(torch, ops, ref, serving, queries_np, log)}),
+              flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
     if args.filtered_only:
         jsd_exact = api.build_index(data_np, "jensen_shannon", n_pivots=N_PIVOTS, seed=SEED % 1000, device="cuda")
         filtered = phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod,
@@ -2907,7 +3401,6 @@ def main(argv=None) -> int:
     filtered = phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod,
                               {"euclidean": euclid, "jensen_shannon": jsd_exact}, queries_np, store, attrs)
     verify_filtered(torch, ops, ref, filtered)
-    del euclid
     torch.cuda.empty_cache()
     online = phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries_np, attrs, args.seed)
     verify_online(torch, ref, metrics_mod, online)
@@ -2917,6 +3410,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     durable = phase_durable(*durable_mods)
     verify_online(torch, ref, metrics_mod, durable, phase="durable")
+    torch.cuda.empty_cache()
+    serving = phase_serving(*serving_mods, {"euclidean": euclid, "jensen_shannon": jsd_exact}, args.seed)
+    verify_serving(torch, ops, ref, metrics_mod, serving)
+    del euclid
     torch.cuda.empty_cache()
     mech_hist, mech_index = phase_mechanisms(ops, *mech_mods)
 
@@ -2936,6 +3433,11 @@ def main(argv=None) -> int:
     print(json.dumps({"durable_kernels": durable_rows}), flush=True)
     rows += durable_rows
     del durable
+    torch.cuda.empty_cache()
+    serving_rows = serving_kernel_rows(torch, ops, ref, serving, queries_np, log)
+    print(json.dumps({"serving_kernels": serving_rows}), flush=True)
+    rows += serving_rows
+    del serving
     torch.cuda.empty_cache()
     # the mechanisms phase's own shape classes, timed on its engine's
     # 112,682-row N_seq table and corpus, with that phase's launches

@@ -208,9 +208,16 @@ def _broadcast_thresholds(spec: Query, n: int) -> np.ndarray:
     return np.broadcast_to(arr.ravel() if arr.ndim else arr, (n,))
 
 
-def execute(index, q, spec: Query, *, plan: Optional[QueryPlan] = None):
+def execute(index, q, spec: Query, *, plan: Optional[QueryPlan] = None, telemetry=None):
     """Answer ``spec`` over ``q`` (1-D: one query -> ``QueryResult``; 2-D:
-    a block -> ``BatchQueryResult``) through the resolved plan."""
+    a block -> ``BatchQueryResult``) through the resolved plan.
+
+    ``telemetry`` (default: the index's own ``telemetry`` attribute, a
+    ``repro_torch.serve.Telemetry``) observes every execution: the plan, the
+    block size, the wall time and the result.  The results are host arrays,
+    so the wall time covers the device work.  A caller that executes on
+    another object than the one the user holds (a durable index runs on one
+    read view) passes its own."""
     if not isinstance(spec, Query):
         raise TypeError(f"expected a Query; got {type(spec).__name__}")
     qp = plan if plan is not None else make_plan(index, spec)
@@ -225,7 +232,13 @@ def execute(index, q, spec: Query, *, plan: Optional[QueryPlan] = None):
                 f"per-query threshold tuple has {len(spec.threshold)} entries "
                 f"for a batch of {queries.shape[0]} queries"
             )
-    return _dispatch(index, q, queries, single, spec, qp)
+    t0 = time.perf_counter()
+    out = _dispatch(index, q, queries, single, spec, qp)
+    if telemetry is None:
+        telemetry = getattr(index, "telemetry", None)
+    if telemetry is not None:
+        telemetry.observe(qp, queries.shape[0], time.perf_counter() - t0, out)
+    return out
 
 
 def _dispatch(index, q, queries, single: bool, spec: Query, qp: QueryPlan):
@@ -280,6 +293,11 @@ class QuerySurface:
     #: (``build_index(attributes=...)`` or ``attach_attributes``); required
     #: by ``Query.where`` predicates
     attributes = None
+
+    #: optional serving telemetry (``repro_torch.serve.Telemetry``): the
+    #: executor feeds it every query's cost ledger and the planner consults
+    #: its calibrated estimate in place of the static prior
+    telemetry = None
 
     def query(self, q, spec: Query, *, plan: Optional[QueryPlan] = None):
         """Answer one ``Query`` over a single vector (1-D) or a block (2-D)."""

@@ -13,7 +13,9 @@ Mode resolution:
     dimension from the query, the index's ``QueryOptions`` or the build.
   * ``mode="auto"``   — with a budget: exact when the static estimate
     (``n_pivots`` pivot distances + ``max(k, 2% of n)`` rechecks) fits it,
-    else the truncated path (dims defaulting to ``n_pivots // 2``) with the
+    where an index carrying a warm ``repro_torch.serve.Telemetry`` puts its
+    measured refine fraction in place of the 2% (``explain()["calibration"]``
+    shows both numbers), else the truncated path (dims defaulting to ``n_pivots // 2``) with the
     refine budget capped to fit; without a budget: approx iff the index was
     built with ``apex_dims``.
 
@@ -145,20 +147,31 @@ def _exact_cost_estimate(stats: dict, query: Query) -> int:
     return n_pivots + max(int(want), int(_EXACT_CANDIDATE_FRACTION * n))
 
 
-def _cost_calibration(stats: dict, query: Query):
-    """(estimate, provenance pairs); no telemetry here, so always the prior."""
+def _cost_calibration(stats: dict, query: Query, telemetry):
+    """(estimate to use, calibration provenance pairs) for the table kinds:
+    the static prior, replaced by the measured-refine-fraction estimate of
+    a warm ``Telemetry`` model when the index carries one.  The pairs record
+    both numbers and which one was used, so ``explain()`` shows the flip."""
     prior = _exact_cost_estimate(stats, query)
+    calibrated = telemetry.calibrated_exact_cost(stats, query) if telemetry is not None else None
+    used = float(prior) if calibrated is None else float(calibrated)
     pairs = tuple(
-        sorted({"prior_evals": int(prior), "calibrated_evals": None, "source": "static_prior"}.items())
+        sorted(
+            {
+                "prior_evals": int(prior),
+                "calibrated_evals": round(float(calibrated), 3) if calibrated is not None else None,
+                "source": "telemetry_ewma" if calibrated is not None else "static_prior",
+            }.items()
+        )
     )
-    return float(prior), pairs
+    return used, pairs
 
 
-def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict):
+def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict, telemetry=None):
     """(mode, dims, refine, reason, budget, calibration) with "auto" collapsed."""
     table_kind = "n_pivots" in stats  # the truncatable (table) mechanisms
     dims, refine = _resolve_approx_fields(query, options, stats)
-    calibration = _cost_calibration(stats, query)[1] if table_kind else None
+    calibration = _cost_calibration(stats, query, telemetry)[1] if table_kind else None
     mode = query.mode
     if mode == "auto" and options and options.mode:
         mode = options.mode
@@ -186,7 +199,7 @@ def _resolve_mode(query: Query, options: Optional[QueryOptions], stats: dict):
     if budget is not None and table_kind:
         if dims is None:
             dims = max(2, int(stats["n_pivots"]) // 2)
-        est, calibration = _cost_calibration(stats, query)
+        est, calibration = _cost_calibration(stats, query, telemetry)
         source = dict(calibration)["source"]
         if est > budget:
             r = refine if refine is not None else DEFAULT_REFINE
@@ -328,7 +341,8 @@ def _plan_predicate(index, query: Query, stats: dict, kind: str) -> QueryPlan:
             budget=query.budget,
         )
     options = getattr(index, "query_options", None)
-    mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats)
+    telemetry = getattr(index, "telemetry", None)
+    mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats, telemetry)
     mech, inner_stages = _mechanism_stages(stats, query, mode, dims, refine)
     # the row mask routes through the host fan-out: the device filter has
     # no mask operand on the sharded flat state
@@ -427,7 +441,8 @@ def plan(index, query: Query) -> QueryPlan:
         )
 
     options = getattr(index, "query_options", None)
-    mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats)
+    telemetry = getattr(index, "telemetry", None)
+    mode, dims, refine, reason, budget, calibration = _resolve_mode(query, options, stats, telemetry)
     mech, inner_stages = _mechanism_stages(stats, query, mode, dims, refine)
     t = query.threshold
     t_min = min(t) if isinstance(t, tuple) else t

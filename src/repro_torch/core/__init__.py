@@ -13,6 +13,7 @@ from repro_torch.core.bounds import (
     upper_bound,
 )
 from repro_torch.core.simplex import (
+    apex_addition,
     apex_addition_np,
     apex_gemm_np,
     base_lower_triangular,
@@ -30,6 +31,7 @@ __all__ = [
     "truncate_apexes",
     "two_sided",
     "upper_bound",
+    "apex_addition",
     "apex_addition_np",
     "apex_gemm_np",
     "base_lower_triangular",

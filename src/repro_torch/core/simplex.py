@@ -5,7 +5,9 @@ pivot 1 at the origin and ``g_i = (δ_1² + ||v_i||² - δ_i²)/2`` the apex is
 ``w = g · L⁻ᵀ`` and its altitude ``sqrt(δ_1² - ||w||²)``, one
 (B, n-1) x (n-1, n-1) product for a whole batch: ``apex_gemm_np`` here on
 the host, and on the index's device the kernel K4
-(``repro_torch.kernels.apex_project``).
+(``repro_torch.kernels.apex_project``).  ``apex_addition`` is Algorithm 2
+on the device, batched over rows: the serving step's ``projection="paper"``
+baseline.
 
 Conventions: ``n`` pivots give a base simplex ``Sigma`` of shape (n, n-1)
 (row ``i`` = vertex i, zero upper triangle); apexes live in ``R^n``.
@@ -14,8 +16,10 @@ Conventions: ``n`` pivots give a base simplex ``Sigma`` of shape (n, n-1)
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
+    "apex_addition",
     "apex_addition_np",
     "apex_gemm_np",
     "base_lower_triangular",
@@ -49,6 +53,34 @@ def apex_addition_np(sigma_base: np.ndarray, distances: np.ndarray) -> np.ndarra
         rad = y**2 - out[i - 1] ** 2
         out[i] = np.sqrt(max(rad, 0.0))
     return out
+
+
+def apex_addition(sigma_base: torch.Tensor, distances: torch.Tensor) -> torch.Tensor:
+    """Algorithm 2 on ``sigma_base``'s device, one row per query: the (..., n)
+    apexes of (n,) or (B, n) distances over an (n, n-1) base simplex, in the
+    promoted dtype of the two.  The same sequential dataflow as
+    ``apex_addition_np`` (the JAX package's ``apex_addition_jax``), run for
+    every row of the block at once."""
+    sigma = torch.as_tensor(sigma_base)
+    d = torch.as_tensor(distances, device=sigma.device)
+    dt = torch.promote_types(sigma.dtype, d.dtype)
+    sigma, d = sigma.to(dt), d.to(dt)
+    n = sigma.shape[0]
+    if tuple(sigma.shape) != (n, n - 1):
+        raise ValueError(f"base simplex must be (n, n-1); got {tuple(sigma.shape)}")
+    if d.shape[-1] != n or d.ndim not in (1, 2):
+        raise ValueError(f"need (n,) or (B, n) distances with n = {n}; got {tuple(d.shape)}")
+    rows = d.reshape(-1, n)
+    out = torch.zeros_like(rows)
+    out[:, 0] = rows[:, 0]
+    for i in range(1, n):
+        # only the first n-1 coordinates can be nonzero before the last step
+        l2sq = ((sigma[i] - out[:, : n - 1]) ** 2).sum(dim=-1) + out[:, n - 1] ** 2
+        y = out[:, i - 1].clone()
+        new = y - (rows[:, i] ** 2 - l2sq) / (2.0 * sigma[i, i - 1])
+        out[:, i - 1] = new
+        out[:, i] = torch.sqrt(torch.clamp(y**2 - new**2, min=0.0))
+    return out.reshape(d.shape)
 
 
 def simplex_build_np(distance_matrix: np.ndarray) -> np.ndarray:

@@ -20,6 +20,18 @@ turns an open stream of independent requests into fused micro-batches:
   * Per-request deadlines (``deadline_s``) and ``close(drain=...)`` behave
     as in the JAX package's service; ``stats()`` reports latency
     percentiles, throughput, expiries and batch occupancy.
+  * ``max_queue`` bounds the pending queue: ``submit`` raises
+    ``ServiceOverloaded`` (counted as ``rejected``) instead of queueing
+    past it; ``queue_depth()`` and ``estimated_wait_s()`` (EWMAs of batch
+    time and occupancy) are what admission control sheds on.
+  * ``execute_gate`` (an optional semaphore) bounds the batches executing
+    at once across services sharing it (the multi-tenant registry passes
+    one gate to every tenant).
+  * The dispatcher thread enters the index's device before its first
+    batch, so kernel launches go to that card.
+
+``run_poisson_open_loop`` drives a service with an open-loop Poisson
+client.
 """
 
 from __future__ import annotations
@@ -36,12 +48,23 @@ import numpy as np
 
 from repro_torch.api.planner import plan as make_plan
 from repro_torch.api.query import Query
+from repro_torch.device import on_device
 
-__all__ = ["DeadlineExceeded", "SearchService", "ServiceClosed"]
+__all__ = [
+    "DeadlineExceeded",
+    "SearchService",
+    "ServiceClosed",
+    "ServiceOverloaded",
+    "run_poisson_open_loop",
+]
 
 
 class ServiceClosed(RuntimeError):
     """The service is (being) closed; the request was not executed."""
+
+
+class ServiceOverloaded(RuntimeError):
+    """The bounded request queue is full; retry later (backpressure)."""
 
 
 class DeadlineExceeded(TimeoutError):
@@ -79,10 +102,18 @@ class ServiceStats:
     latencies_s: deque = field(default_factory=lambda: deque(maxlen=STATS_WINDOW))
     t_first: Optional[float] = None
     t_last: Optional[float] = None
+    rejected: int = 0              # bounded-queue (ServiceOverloaded) rejections
     expired_queued: int = 0
     expired_in_flight: int = 0
     closed_rejects: int = 0
+    ewma_batch_s: float = 0.0      # EWMA batch execution wall time
+    ewma_occupancy: float = 0.0    # EWMA batch occupancy
     per_spec: Dict[Query, _SpecStats] = field(default_factory=dict)
+
+
+#: EWMA smoothing of the batch-time / occupancy estimates behind
+#: ``estimated_wait_s``
+_EWMA_ALPHA = 0.2
 
 
 def _percentile(sorted_vals: List[float], p: float) -> float:
@@ -100,21 +131,31 @@ class SearchService:
       max_batch:   flush a batch once this many compatible requests joined.
       max_wait_s:  flush an open batch this long after its first request.
       pad_batches: pad fused blocks to power-of-two bucket sizes.
+      max_queue:   bound on the pending queue (None = unbounded); ``submit``
+                   raises ``ServiceOverloaded`` past it.
+      execute_gate: optional ``threading.Semaphore`` acquired around each
+                   batch execution.
       fanout_workers: forwarded to a sharded index's ``configure_fanout``
                    (None leaves the index's own policy alone); 0 pins the
                    index to sequential fan-out.
     """
 
     def __init__(self, index, *, max_batch: int = 64, max_wait_s: float = 0.002,
-                 pad_batches: bool = True, fanout_workers: Optional[int] = None):
+                 pad_batches: bool = True, max_queue: Optional[int] = None,
+                 execute_gate: Optional[threading.Semaphore] = None,
+                 fanout_workers: Optional[int] = None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1; got {max_batch}")
+        if max_queue is not None and int(max_queue) < 1:
+            raise ValueError(f"max_queue must be >= 1; got {max_queue}")
         if fanout_workers is not None and hasattr(index, "configure_fanout"):
             index.configure_fanout(int(fanout_workers))
         self.index = index
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_s)
         self.pad_batches = bool(pad_batches)
+        self.max_queue = int(max_queue) if max_queue is not None else None
+        self._execute_gate = execute_gate
         self._pending: deque[_Request] = deque()
         self._lock = threading.Lock()
         self._arrived = threading.Condition(self._lock)
@@ -156,6 +197,11 @@ class SearchService:
         with self._arrived:
             if self._closing:
                 raise ServiceClosed("service is closed")
+            if self.max_queue is not None and len(self._pending) >= self.max_queue:
+                self._stats.rejected += 1
+                raise ServiceOverloaded(
+                    f"request queue is full ({len(self._pending)}/{self.max_queue}); retry later"
+                )
             self._pending.append(req)
             self._arrived.notify()
         return fut
@@ -185,6 +231,22 @@ class SearchService:
         self.close()
 
     # -- observability ---------------------------------------------------------
+    def queue_depth(self) -> int:
+        """Requests currently queued (not yet pulled into a batch)."""
+        with self._lock:
+            return len(self._pending)
+
+    def estimated_wait_s(self) -> float:
+        """EWMA estimate of how long a request submitted now waits until its
+        batch completes: the queued requests ahead of it at the observed
+        per-request batch cost, plus one batch.  0.0 until a batch ran."""
+        with self._lock:
+            st = self._stats
+            if st.ewma_batch_s <= 0.0:
+                return 0.0
+            per_request_s = st.ewma_batch_s / max(st.ewma_occupancy, 1.0)
+            return len(self._pending) * per_request_s + st.ewma_batch_s
+
     def stats(self) -> dict:
         """Latency percentiles, throughput, queue/expiry counters and batch
         occupancy (overall and per coalescing spec)."""
@@ -216,10 +278,12 @@ class SearchService:
                 "max_batch_occupancy": int(max(occ)) if occ else 0,
                 "coalesced_fraction": float(np.mean([o > 1 for o in occ])) if occ else 0.0,
                 "queue_depth": len(self._pending),
+                "rejected": st.rejected,
                 "expired": st.expired_queued + st.expired_in_flight,
                 "expired_queued": st.expired_queued,
                 "expired_in_flight": st.expired_in_flight,
                 "closed_rejects": st.closed_rejects,
+                "ewma_batch_ms": st.ewma_batch_s * 1e3,
                 "per_spec": per_spec,
             }
 
@@ -268,11 +332,12 @@ class SearchService:
             return batch
 
     def _run(self) -> None:
-        while True:
-            batch = self._take_batch()
-            if batch is None:
-                return
-            self._execute(batch)
+        with on_device(self.index.device):
+            while True:
+                batch = self._take_batch()
+                if batch is None:
+                    return
+                self._execute(batch)
 
     def _bucket(self, n: int) -> int:
         """Smallest power of two >= n, capped at ``max_batch``."""
@@ -297,16 +362,22 @@ class SearchService:
             self.index.query(np.repeat(q[None, :], s, axis=0), spec, plan=plan)
 
     def _plan_for(self, spec: Query):
+        """The cached plan for ``spec``, planned again whenever the index's
+        mutation ``version`` moved (a mutable index's stats, and with them
+        auto-mode decisions, change as rows come and go)."""
+        version = getattr(self.index, "version", None)
         with self._lock:
-            plan = self._plan_cache.get(spec)
-        if plan is None:
-            plan = make_plan(self.index, spec)
-            with self._lock:
-                self._plan_cache[spec] = plan
+            entry = self._plan_cache.get(spec)
+        if entry is not None and entry[0] == version:
+            return entry[1]
+        plan = make_plan(self.index, spec)
+        with self._lock:
+            self._plan_cache[spec] = (version, plan)
         return plan
 
     def _execute(self, batch: List[_Request]) -> None:
         spec = batch[0].spec
+        t_start = time.perf_counter()
         try:
             plan = self._plan_for(spec)
             fused = np.stack([r.q for r in batch])
@@ -314,7 +385,11 @@ class SearchService:
             if padded > len(batch):
                 # pad with copies of the last row: every path is row-independent
                 fused = np.concatenate([fused, np.repeat(fused[-1:], padded - len(batch), axis=0)])
-            result = self.index.query(fused, spec, plan=plan)
+            if self._execute_gate is not None:
+                with self._execute_gate:
+                    result = self.index.query(fused, spec, plan=plan)
+            else:
+                result = self.index.query(fused, spec, plan=plan)
             t_done = time.perf_counter()
             expired = 0
             for req, res in zip(batch, result.results):
@@ -333,17 +408,22 @@ class SearchService:
                 if not req.future.done():
                     req.future.set_exception(e)
             with self._lock:
-                self._record(batch, t_done)
+                self._record(batch, t_done, t_done - t_start)
             return
         with self._lock:
             self._stats.expired_in_flight += expired
-            self._record(batch, t_done)
+            self._record(batch, t_done, t_done - t_start)
 
-    def _record(self, batch: List[_Request], t_done: float) -> None:
+    def _record(self, batch: List[_Request], t_done: float, exec_s: float) -> None:
         st = self._stats
         st.n_batches += 1
         st.n_requests += len(batch)
         st.occupancies.append(len(batch))
+        a = _EWMA_ALPHA
+        st.ewma_batch_s = exec_s if st.ewma_batch_s == 0.0 else (1 - a) * st.ewma_batch_s + a * exec_s
+        st.ewma_occupancy = (
+            float(len(batch)) if st.ewma_occupancy == 0.0 else (1 - a) * st.ewma_occupancy + a * len(batch)
+        )
         ss = st.per_spec.setdefault(batch[0].spec, _SpecStats())
         ss.n_batches += 1
         ss.n_requests += len(batch)
@@ -354,3 +434,24 @@ class SearchService:
                 st.t_first = req.t_enqueue
         if st.t_last is None or t_done > st.t_last:
             st.t_last = t_done
+
+
+def run_poisson_open_loop(service: SearchService, queries: np.ndarray, spec: Query, *,
+                          arrival_rate: float, seed: int = 0) -> List:
+    """Drive ``service`` with a Poisson open-loop client: request ``i`` is
+    submitted on an exponential(1/rate) arrival process whatever the
+    completions (queueing shows in the latency tail).  Returns the
+    ``QueryResult``s in submission order."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / float(arrival_rate), size=len(queries))
+    futures = []
+    t_next = time.perf_counter()
+    for q, gap in zip(queries, gaps):
+        t_next += gap
+        delay = t_next - time.perf_counter()
+        # sleep only for gaps the OS can honour: shorter ones become a burst,
+        # which is what a saturating open-loop stream is
+        if delay > 0.004:
+            time.sleep(delay)
+        futures.append(service.submit(q, spec))
+    return [f.result(timeout=120.0) for f in futures]

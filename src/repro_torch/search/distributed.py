@@ -21,6 +21,11 @@ The grid is driven from one process, as the reference's ``shard_map`` is
 from one controller: the ``psum`` of the histograms is a sum and the
 ``all_gather`` of the candidate slots a concatenation, both onto the grid's
 first device.
+
+``build_serve_step`` is the serving step of ``python -m
+repro_torch.launch.serve``: it projects a block of query pivot distances
+(K4, or Algorithm 2 as the ``"paper"`` baseline) and runs the filter.  The
+row split of the table over the ``data`` axis is ``place_table``.
 """
 
 from __future__ import annotations
@@ -28,11 +33,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.bounds import ACCEPT, EXCLUDE, RECHECK
+from repro_torch.core.simplex import apex_addition
 from repro_torch.device import on_device
-from repro_torch.kernels import MAX_SELECT_WIDTH, SENTINEL_ID, apex_bounds_batch, apex_bounds_threshold
+from repro_torch.kernels import (
+    MAX_SELECT_WIDTH,
+    SENTINEL_ID,
+    apex_bounds_batch,
+    apex_bounds_threshold,
+    apex_project,
+)
 from repro_torch.sharding.rules import DeviceGrid
 
-__all__ = ["build_distributed_filter", "place_table"]
+__all__ = ["build_distributed_filter", "build_serve_step", "place_table"]
 
 #: elements of one (Q, rows) bound block of K1's row tiles: no (Q, N)
 #: block is held (at 64 queries x 1M rows it would be 512 MB)
@@ -217,3 +229,45 @@ def build_distributed_filter(
 
     return filter_fn
 
+
+
+def build_serve_step(
+    mesh: DeviceGrid,
+    *,
+    n_pivots: int,
+    eps: float = 1e-5,
+    max_candidates: int = 128,
+    table_axes=("data",),
+    projection: str = "gemm",
+    selection: str = "topk",
+):
+    """Serving step for the paper's own configuration: returns
+    ``serve_step(table, Linv, sq_norms, sigma, qdists, threshold)`` ->
+    ``(hist (Q, 3), cand_idx, cand_code (n_data, Q, K))`` on the grid's
+    first device, as ``build_distributed_filter`` gives them.
+
+    table    : (N, n) float32 apexes (or their ``place_table`` slices)
+    Linv, sq_norms, sigma : the fitted projector's (n-1, n-1), (n-1,) and
+               (n, n-1) arrays, float32 on the grid's first device
+    qdists   : (Q, n) float32 query-to-pivot distances there
+
+    projection: ``"gemm"`` projects the block with K4 (``apex_project``,
+    the three steps of the GEMM form in one launch) or ``"paper"`` with
+    Algorithm 2 (``apex_addition``, the sequential baseline).
+    selection: ``"topk"`` (K3) or ``"sort"`` (K1 and a stable sort)."""
+    if projection not in ("gemm", "paper"):
+        raise ValueError(f"projection must be 'gemm' or 'paper'; got {projection!r}")
+    filter_fn = build_distributed_filter(
+        mesh, eps=eps, max_candidates=max_candidates, table_axes=table_axes, selection=selection
+    )
+
+    def serve_step(table, Linv, sq_norms, sigma, qdists, threshold):
+        if qdists.ndim != 2 or qdists.shape[1] != n_pivots:
+            raise ValueError(f"need (Q, {n_pivots}) query pivot distances; got {tuple(qdists.shape)}")
+        if projection == "paper":
+            queries = apex_addition(sigma, qdists)
+        else:
+            queries = apex_project(qdists, Linv, sq_norms)
+        return filter_fn(table, queries, threshold)
+
+    return serve_step

@@ -294,9 +294,10 @@ class DurableIndex(QuerySurface):
         """Answer one ``Query`` against ONE read view, held for the whole
         execution: the predicate match, an allowlist's row gather and every
         segment call see the same point in time.  The plan is this index's
-        own (``index_kind`` "durable")."""
+        own (``index_kind`` "durable"), and this index's ``telemetry`` (not
+        the view's) observes the execution, as the planner reads it here."""
         qp = plan if plan is not None else self.plan(spec)
-        return execute(self._snapshot(), q, spec, plan=qp)
+        return execute(self._snapshot(), q, spec, plan=qp, telemetry=self.telemetry)
 
     # -- mutations (WAL-first) -------------------------------------------------
     def add(self, rows: np.ndarray, ids=None, attrs=None) -> np.ndarray:
