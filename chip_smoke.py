@@ -11,6 +11,7 @@
     python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --durable-only
     python3 chip_smoke.py --serving-only
+    python3 chip_smoke.py --models-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -259,6 +260,33 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 its replayed delta under the filtered batch's mask), K4 at
                 the replay's materialisation class and K5 at the drift
                 witness class (8, 128, 112, f64) always among them;
+  8. models — the model half (``repro_torch.configs``, ``models``,
+                ``data``), the launch counts set to 0 before and read after
+                (the paper's serve step must launch K4 and K3), f32 with no
+                TF32 unless a config says bf16: every registry arch at its
+                ``smoke_cfg`` on one seed's parameters, on the card against
+                the port on the CPU at rtol = atol = 1e-4 (``MODEL_TOL``):
+                the five LMs' prefill logits and one decode step (MoE
+                drop-free), mixtral's decode from an empty ring past its
+                wrap, the RecSys serve scores and 100-candidate retrieval,
+                the three GCN forwards, ``nsimplex-colors`` through
+                ``build_serve_step`` (equal histograms and candidates, no
+                true result lost); qwen2-1.5b at its full config (28 layers,
+                bf16, 3.1 GB) at B = 4: chunked against naive prefill at
+                S = 2,048, the chunked prefill at S = 4,096 and 32 decode
+                steps, the first held to the forward's logits at S;
+                mixtral-8x7b at full width cut to 2 of its 32 layers
+                (``MODEL_SIZES``): chunked against naive prefill at S =
+                4,608 (past the 4,096 window) and 8 decode steps on its
+                ring, a drop-free prefill at S = 4,088 whose first decode
+                step is held to the forward and whose 16 steps cross the
+                ring's wrap; two bf16 paths agree within 5% of the logits'
+                largest magnitude (``BF16_REL_TOL``); fm and xdeepfm at
+                serve_p99 (batch 512, 16.4M table rows), sasrec and mind at
+                retrieval_cand (1 x 1,000,000 candidates), gcn-cora at
+                full_graph_sm on ``cora_like``, card against CPU, ms per
+                call.  ms per prefill and decode step, tokens per second
+                and ``torch.cuda.max_memory_allocated`` per LM cell;
 then the card's ``nvidia-smi`` line, and last the device contract line.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
@@ -279,6 +307,7 @@ alone, with their checks, and print ``{"filtered_kernels": [...]}``,
 ``{"durable_kernels": [...]}`` or ``{"serving_kernels": [...]}`` (timed on
 the 1M-row JSD exact index, the serve step's K3 (64, 256, 20) always among
 them).
+``--models-only`` runs phase 8 alone, with its checks.
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -380,11 +409,9 @@ def time_ms(torch, fn, reps=10) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(torch, fn, reps=10) -> dict:
-    """Device time per call of each kernel ``fn`` launches, by kernel name,
-    from ``torch.profiler`` (empty where the profiler records no device
-    activity): it separates a kernel's own time from the wrapper's host
-    path, and the phases of a multi-kernel wrapper (scan, merge)."""
+def profiled_events(torch, fn, reps):
+    """``torch.profiler``'s host and device events of ``reps`` calls of
+    ``fn``, after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -393,8 +420,16 @@ def device_ms(torch, fn, reps=10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return prof.events()
+
+
+def device_ms(torch, fn, reps=10) -> dict:
+    """Device time per call of each kernel ``fn`` launches, by kernel name,
+    from ``torch.profiler`` (empty where the profiler records no device
+    activity): it separates a kernel's own time from the wrapper's host
+    path, and the phases of a multi-kernel wrapper (scan, merge)."""
     out = {}
-    for e in prof.events():
+    for e in profiled_events(torch, fn, reps):
         if e.device_type.name == "CUDA":
             bare = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", ""))[0]
             name = re.sub(r"^(void )?.*::", "", bare).removeprefix("void ").strip() or e.name
@@ -3216,6 +3251,436 @@ def kernel_row(name, m, launches, share) -> dict:
     return row
 
 
+# -- the models phase (ROADMAP item 11a) --------------------------------------
+
+#: seed of every model phase's parameters and token streams
+MODEL_SEED = 2026
+#: card against CPU in f32 with no TF32 (rtol = atol): the smoke configs and
+#: the RecSys / GCN cells; GCN and embedding sums add with atomics on the card
+MODEL_TOL = 1e-4
+#: bf16 logits of two paths on the card: max |a - b| over max |b|; bf16 keeps
+#: 8 mantissa bits (eps 2^-8 = 0.0039), compounded over the layers
+BF16_REL_TOL = 0.05
+LM_SMOKE_ARCHS = ("minitron-4b", "yi-6b", "qwen2-1.5b", "arctic-480b", "mixtral-8x7b")
+REC_ARCHS = ("fm", "xdeepfm", "mind", "sasrec")
+#: full-size cells: qwen2-1.5b (all 28 layers) at B = 4, S = 4096 chunked and
+#: 2048 naive, 32 decode steps; mixtral-8x7b at full width cut to 2 layers,
+#: a prefill past its 4096 window and a drop-free prefill below it that
+#: decodes across the ring's wrap
+MODEL_SIZES = SimpleNamespace(
+    qwen_batch=4, qwen_seq=4096, qwen_seq_naive=2048, qwen_decode=32,
+    mixtral_layers=2, mixtral_seq=4608, mixtral_seq_below=4088, mixtral_wrap_steps=16, mixtral_decode=8,
+    rec_batch=512, n_candidates=1_000_000,
+)
+
+
+def card_vs_cpu(torch, got, want, what, tol=MODEL_TOL) -> float:
+    """Max |card - CPU| after a hard allclose(rtol = atol = tol)."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    check(g.shape == w.shape, f"{what}: shape {tuple(g.shape)} against {tuple(w.shape)}")
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite values on the card")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    check(torch.allclose(g, w, rtol=tol, atol=tol), f"{what}: card against CPU beyond {tol} (max abs {err})")
+    return err
+
+
+def bf16_rel(torch, got, want, what) -> float:
+    """max |got - want| / max |want| of two bf16 paths, held to BF16_REL_TOL."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()), f"{what}: non-finite logits")
+    err = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+    check(err <= BF16_REL_TOL, f"{what}: relative error {err} > {BF16_REL_TOL}")
+    return err
+
+
+def timed_call(torch, fn):
+    """(result, seconds) of one call, synchronised on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_busy(torch, fn, reps):
+    """Per call of ``fn``, from ``torch.profiler``: the summed device time
+    of the kernels it launches, their number, and the number of top-level
+    PyTorch ops the host issues for them."""
+    ms = kernels = host_ops = 0
+    for e in profiled_events(torch, fn, reps):
+        if e.device_type.name == "CUDA":
+            ms += e.time_range.elapsed_us() / 1e3
+            kernels += 1
+        elif e.name.startswith("aten::") and e.cpu_parent is None:
+            host_ops += 1
+    return dict(ms=ms / reps, kernels=kernels / reps, host_ops=host_ops / reps)
+
+
+def drop_free(cfg):
+    """The MoE capacity at which no token drops (capacity_factor 32, the
+    decode oracle's of tests/test_models_smoke.py); dense configs as they are."""
+    import dataclasses
+
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=32.0))
+
+
+def on_both(torch, params_cpu):
+    """The CPU parameters and a copy of them on the card."""
+    import copy
+
+    return {"cpu": params_cpu, "card": copy.deepcopy(params_cpu).to("cuda")}
+
+
+def models_smoke_lm(torch, mods) -> list:
+    """Each LM arch's smoke config, one seed's parameters on the CPU and the
+    card: prefill logits and one decode step (drop-free MoE), and for the
+    windowed arch a decode from an empty ring past its wrap, teacher-forced
+    with the CPU's greedy tokens."""
+    tf = mods.tf
+    rows = []
+    for arch in LM_SMOKE_ARCHS:
+        cfg = drop_free(mods.get_arch(arch).smoke_cfg)
+        params = on_both(torch, tf.init_params(cfg, torch.Generator().manual_seed(MODEL_SEED), device="cpu"))
+        toks, _ = mods.token_stream(2, 13, cfg.vocab, seed=3)
+        out = {}
+        for side, d in (("cpu", "cpu"), ("card", "cuda")):
+            t = torch.as_tensor(toks, device=d)
+            logits, cache = tf.prefill(params[side], cfg, t[:, :12])
+            cache = tf.extend_cache(cfg, cache, 16)
+            dec, _ = tf.decode_step(params[side], cfg, t[:, 12], torch.full((2,), 12, dtype=torch.int32, device=d),
+                                    cache)
+            out[side] = (logits, dec)
+        row = dict(arch=arch, prefill_err=card_vs_cpu(torch, out["card"][0], out["cpu"][0], f"{arch} prefill"),
+                   decode_err=card_vs_cpu(torch, out["card"][1], out["cpu"][1], f"{arch} decode"))
+        if cfg.window is not None:
+            caches = {"cpu": tf.init_cache(cfg, 2, cfg.window, device="cpu"),
+                      "card": tf.init_cache(cfg, 2, cfg.window, device="cuda")}
+            tok, err = np.zeros(2, np.int32), 0.0
+            for pos in range(cfg.window + 5):
+                logits = {}
+                for side, d in (("cpu", "cpu"), ("card", "cuda")):
+                    logits[side], caches[side] = tf.decode_step(
+                        params[side], cfg, torch.as_tensor(tok, device=d),
+                        torch.full((2,), pos, dtype=torch.int32, device=d), caches[side])
+                err = max(err, card_vs_cpu(torch, logits["card"], logits["cpu"], f"{arch} ring decode at {pos}"))
+                tok = logits["cpu"].argmax(-1).to(torch.int32).numpy()
+            check(caches["card"]["k"].shape[2] == cfg.window, f"{arch}: the ring grew past the window")
+            row.update(ring_steps=cfg.window + 5, ring_err=err)
+        rows.append(row)
+    return rows
+
+
+def rec_batch(torch, mods, cfg, B, d, seed=0):
+    if cfg.interaction in ("fm-2way", "cin"):
+        sizes = None if cfg.vocab_sizes is None else np.asarray(cfg.vocab_sizes)
+        dense, sparse, _ = mods.criteo_like_batch(B, n_sparse=cfg.n_sparse, vocab_sizes=sizes, seed=seed)
+        return {"dense": torch.as_tensor(dense, device=d), "sparse": torch.as_tensor(sparse, device=d)}
+    seqs, _ = mods.user_history_batch(B, cfg.seq_len, cfg.n_items, seed=seed)
+    return {"seqs": torch.as_tensor(seqs, device=d)}
+
+
+def rec_scores(torch, mods, cfg, params, batch, cand):
+    """Serve scores (FM, xDeepFM), or the first user's retrieval scores over
+    ``cand`` (MIND: max over interests; SASRec)."""
+    _, fwd, _ = mods.recsys.get_model_fns(cfg)
+    if cfg.interaction in ("fm-2way", "cin"):
+        return fwd(params, cfg, batch)
+    enc = fwd(params, cfg, batch["seqs"])
+    return mods.recsys.score_candidates(params["items"], enc[0], cand)
+
+
+def models_smoke_other(torch, mods) -> list:
+    """RecSys serve and 100-candidate retrieval, the three GCN forwards,
+    card against CPU on one seed's smoke parameters."""
+    rows = []
+    for arch in REC_ARCHS:
+        cfg = mods.get_arch(arch).smoke_cfg
+        init, _, _ = mods.recsys.get_model_fns(cfg)
+        params = on_both(torch, init(cfg, torch.Generator().manual_seed(MODEL_SEED), device="cpu"))
+        out = {}
+        for side, d in (("cpu", "cpu"), ("card", "cuda")):
+            out[side] = rec_scores(torch, mods, cfg, params[side], rec_batch(torch, mods, cfg, 8, d),
+                                   torch.arange(1, 101, dtype=torch.int32, device=d))
+        rows.append(dict(arch=arch, task="smoke_serve" if cfg.interaction in ("fm-2way", "cin") else "smoke_retrieval_100",
+                         err=card_vs_cpu(torch, out["card"], out["cpu"], f"{arch} smoke")))
+    cfg = mods.get_arch("gcn-cora").smoke_cfg
+    params = on_both(torch, mods.gcn.init_params(cfg, torch.Generator().manual_seed(MODEL_SEED), device="cpu"))
+    X, ei, _ = mods.random_graph(500, 4000, cfg.d_feat, cfg.n_classes, seed=1)
+    layers = mods.NeighborSampler(ei, 500, seed=0).sample_batch(np.arange(32), [5, 3])
+    mol = mods.molecule_batch(batch=8, n_nodes=12, n_edges=20, d_feat=cfg.d_feat)
+    out = {}
+    for side, d in (("cpu", "cpu"), ("card", "cuda")):
+        p, T = params[side], (lambda a: torch.as_tensor(a, device=d))
+        out[side] = (
+            mods.gcn.forward_full(p, cfg, T(X), T(ei)),
+            mods.gcn.forward_sampled(p, cfg, T(X[layers[0]]), [T(X[layers[1]]), T(X[layers[2]])]),
+            mods.gcn.forward_molecule(p, cfg, T(mol["feats"]), T(mol["src"]), T(mol["dst"])),
+        )
+    for i, task in enumerate(("full", "sampled", "molecule")):
+        rows.append(dict(arch="gcn-cora", task=f"smoke_{task}",
+                         err=card_vs_cpu(torch, out["card"][i], out["cpu"][i], f"gcn-cora {task}")))
+    return rows
+
+
+def models_smoke_nsimplex(torch, mods) -> dict:
+    """``nsimplex-colors``'s smoke config through ``build_serve_step`` on a
+    one-position grid of the CPU and of the card (K4, K3) on the same f32
+    inputs: equal histograms summing to the corpus, equal packed
+    candidates, and no true result excluded unless its query overflows."""
+    cfg = mods.get_arch("nsimplex-colors").smoke_cfg
+    n = cfg.n_objects
+    X = mods.colors_like(n=n + cfg.query_batch, seed=5)
+    metric = mods.get_metric(cfg.metric)
+    data, queries = torch.as_tensor(X[:n]), torch.as_tensor(X[n:])
+    proj = mods.NSimplexProjector(mods.select_pivots(X[:n], cfg.n_pivots, seed=1), metric, device="cpu")
+    table = proj.project_distances(proj.pivot_distances(data)).to(torch.float32)
+    qd = proj.pivot_distances(queries).to(torch.float32)
+    consts = [torch.as_tensor(a, dtype=torch.float32) for a in (proj.Linv, proj.sq_norms, proj.sigma)]
+    D = metric.cross(queries.double(), data.double())
+    t = float(np.quantile(D.numpy(), 1e-3))
+    out = {}
+    for side, d in (("cpu", torch.device("cpu")), ("card", torch.device("cuda"))):
+        serve = mods.build_serve_step(mods.make_scaleout_mesh(devices=[d]), n_pivots=cfg.n_pivots,
+                                      max_candidates=cfg.max_candidates)
+        out[side] = [o.cpu() for o in serve(table.to(d), *[c.to(d) for c in consts], qd.to(d), t)]
+    hist, idx, code = out["card"]
+    check(bool((hist.sum(dim=1) == n).all()), "nsimplex-colors: a histogram does not sum to the corpus")
+    check(torch.equal(hist, out["cpu"][0]), "nsimplex-colors: card histogram differs from the CPU's")
+    overflow = 0
+    for qi in range(cfg.query_batch):
+        got = sorted((int(a), int(c)) for a, c in zip(idx[:, qi].ravel(), code[:, qi].ravel()) if a >= 0)
+        want = sorted((int(a), int(c)) for a, c in zip(out["cpu"][1][:, qi].ravel(), out["cpu"][2][:, qi].ravel())
+                      if a >= 0)
+        check(got == want, f"nsimplex-colors: query {qi}'s packed candidates differ from the CPU's")
+        over = int(hist[qi, 1] + hist[qi, 2]) > cfg.max_candidates
+        overflow += over
+        missing = set(np.where(D[qi].numpy() <= t)[0].tolist()) - {a for a, _ in got}
+        check(not missing or over, f"nsimplex-colors: query {qi} excluded true results {sorted(missing)[:5]}")
+    return dict(arch="nsimplex-colors", queries=cfg.query_batch, rows=n, threshold=t, overflowing=overflow)
+
+
+def models_qwen(torch, mods) -> dict:
+    """qwen2-1.5b at its full config (28 layers, bf16, tied head, QKV bias):
+    chunked against naive prefill at ``qwen_seq_naive``, the timed chunked
+    prefill at ``qwen_seq``, and ``qwen_decode`` greedy decode steps, the
+    first held to the full forward's logits at that position."""
+    import dataclasses
+
+    tf = mods.tf
+    cfg = mods.get_arch("qwen2-1.5b").model_cfg
+    ccfg = dataclasses.replace(cfg, attn_impl="chunked")
+    B, S, S_n = MODEL_SIZES.qwen_batch, MODEL_SIZES.qwen_seq, MODEL_SIZES.qwen_seq_naive
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(MODEL_SEED), device="cuda")
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    toks, _ = mods.token_stream(B, S + 1, cfg.vocab, seed=MODEL_SEED)
+    tk = torch.as_tensor(toks, device="cuda")
+    ln, naive_s = timed_call(torch, lambda: tf.prefill(params, cfg, tk[:, :S_n])[0])
+    ln, naive_s = timed_call(torch, lambda: tf.prefill(params, cfg, tk[:, :S_n])[0])
+    lc = tf.prefill(params, ccfg, tk[:, :S_n])[0]
+    chunk_vs_naive = bf16_rel(torch, lc, ln, f"qwen2-1.5b chunked against naive prefill at S = {S_n}")
+    del ln, lc
+    tf.prefill(params, ccfg, tk[:, :S])
+    (logits, cache), prefill_s = timed_call(torch, lambda: tf.prefill(params, ccfg, tk[:, :S]))
+    check(bool(torch.isfinite(logits).all()), "qwen2-1.5b: non-finite prefill logits")
+    cache = tf.extend_cache(ccfg, cache, S + MODEL_SIZES.qwen_decode)
+    hidden, _ = tf.forward(params, ccfg, tk[:, :S + 1])
+    want = tf.logits_fn(params, ccfg, hidden[:, -1:])[:, 0].float()
+    del hidden
+    tok, steps, decode_err = tk[:, S], [], None
+    for i in range(MODEL_SIZES.qwen_decode):
+        pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+        (dec, cache), s = timed_call(torch, lambda: tf.decode_step(params, ccfg, tok, pos, cache))
+        steps.append(s)
+        check(bool(torch.isfinite(dec).all()), f"qwen2-1.5b: non-finite decode logits at {S + i}")
+        if i == 0:
+            decode_err = bf16_rel(torch, dec, want, f"qwen2-1.5b decode against forward at position {S}")
+        tok = dec.argmax(-1)
+    step_s = float(np.median(steps))
+    peak = torch.cuda.max_memory_allocated()
+    # one decode step's and one chunked prefill's device time, kernels and
+    # host ops (torch.profiler): where the device is idle, the host is issuing
+    pos = torch.full((B,), S + MODEL_SIZES.qwen_decode - 1, dtype=torch.int32, device="cuda")
+    decode_prof = device_busy(torch, lambda: tf.decode_step(params, ccfg, tok, pos, cache), reps=5)
+    prefill_prof = device_busy(torch, lambda: tf.prefill(params, ccfg, tk[:, :S]), reps=1)
+    del params, cache
+    return dict(arch="qwen2-1.5b", layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+                param_bytes=n_bytes, batch=B, seq=S, prefill_chunked_ms=prefill_s * 1e3,
+                prefill_tokens_per_s=B * S / prefill_s, seq_naive=S_n, prefill_naive_ms=naive_s * 1e3,
+                prefill_naive_tokens_per_s=B * S_n / naive_s, chunked_vs_naive_rel=chunk_vs_naive,
+                decode_steps=MODEL_SIZES.qwen_decode, decode_ms_per_step=step_s * 1e3, decode_ms_first=steps[0] * 1e3,
+                decode_tokens_per_s=B / step_s, decode_vs_forward_rel=decode_err, max_memory_allocated=peak,
+                decode_device_ms=decode_prof["ms"], decode_kernels_per_step=decode_prof["kernels"],
+                decode_host_ops_per_step=decode_prof["host_ops"], prefill_chunked_device_ms=prefill_prof["ms"],
+                prefill_chunked_kernels=prefill_prof["kernels"])
+
+
+def models_mixtral(torch, mods) -> dict:
+    """mixtral-8x7b at full width, depth cut to ``mixtral_layers``: chunked
+    against naive prefill past the window (capacity factor as configured),
+    decode after it; a drop-free prefill below the window whose first
+    decode step is held to the forward and whose decode crosses the ring's
+    wrap at ``window``."""
+    import dataclasses
+
+    tf = mods.tf
+    cfg = dataclasses.replace(mods.get_arch("mixtral-8x7b").model_cfg, n_layers=MODEL_SIZES.mixtral_layers)
+    ccfg = dataclasses.replace(cfg, attn_impl="chunked")
+    W, S, S2 = cfg.window, MODEL_SIZES.mixtral_seq, MODEL_SIZES.mixtral_seq_below
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(MODEL_SEED), device="cuda")
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    toks, _ = mods.token_stream(1, S, cfg.vocab, seed=MODEL_SEED + 1)
+    tk = torch.as_tensor(toks, device="cuda")
+    (ln, _), naive_s = timed_call(torch, lambda: tf.prefill(params, cfg, tk))
+    (lc, cache), chunked_s = timed_call(torch, lambda: tf.prefill(params, ccfg, tk))
+    chunk_vs_naive = bf16_rel(torch, lc, ln, f"mixtral-8x7b chunked against naive prefill at S = {S}")
+    # the MoE dispatch has no data-dependent shape: one layer's moe_ffn
+    # at a decode step's and a prefill's token counts makes no host sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for T in (1, S):
+            mods.layers.moe_ffn(params["layers"][0]["moe"], torch.zeros((T, cfg.d_model), dtype=cfg.torch_dtype,
+                                                                         device="cuda"), cfg.moe)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(cache["k"].shape[:3]) == (cfg.n_layers, 1, W), f"mixtral-8x7b: cache {tuple(cache['k'].shape)}")
+    want_pos = torch.arange(S - W, S, device="cuda", dtype=torch.int32)
+    check(torch.equal(torch.sort(cache["pos"][0, 0]).values, want_pos) and
+          torch.equal(cache["pos"][0, 0] % W, torch.arange(W, device="cuda", dtype=torch.int32)),
+          "mixtral-8x7b: the prefill ring does not hold the last window positions at slot pos % window")
+    del ln
+    tok, steps = lc.argmax(-1), []
+    for i in range(MODEL_SIZES.mixtral_decode):
+        pos = torch.full((1,), S + i, dtype=torch.int32, device="cuda")
+        (dec, cache), s = timed_call(torch, lambda: tf.decode_step(params, ccfg, tok, pos, cache))
+        steps.append(s)
+        check(bool(torch.isfinite(dec).all()), f"mixtral-8x7b: non-finite decode logits at {S + i}")
+        tok = dec.argmax(-1)
+    del cache
+    dcfg = drop_free(ccfg)
+    _, cache = tf.prefill(params, dcfg, tk[:, :S2])
+    cache = tf.extend_cache(dcfg, cache, W)
+    hidden, _ = tf.forward(params, dcfg, tk[:, :S2 + 1])
+    want = tf.logits_fn(params, dcfg, hidden[:, -1:])[:, 0].float()
+    del hidden
+    tok, decode_err = tk[:, S2], None
+    for i in range(MODEL_SIZES.mixtral_wrap_steps):
+        pos = torch.full((1,), S2 + i, dtype=torch.int32, device="cuda")
+        dec, cache = tf.decode_step(params, dcfg, tok, pos, cache)
+        check(bool(torch.isfinite(dec).all()), f"mixtral-8x7b: non-finite logits at {S2 + i} (ring of {W})")
+        if i == 0:
+            decode_err = bf16_rel(torch, dec, want, f"mixtral-8x7b decode against forward at position {S2}")
+        tok = dec.argmax(-1)
+    check(cache["k"].shape[2] == W and int(cache["pos"].max()) == S2 + MODEL_SIZES.mixtral_wrap_steps - 1
+          and S2 + MODEL_SIZES.mixtral_wrap_steps > W, "mixtral-8x7b: the decode did not cross the ring's wrap")
+    step_s = float(np.median(steps))
+    peak = torch.cuda.max_memory_allocated()
+    pos = torch.full((1,), S2 + MODEL_SIZES.mixtral_wrap_steps - 1, dtype=torch.int32, device="cuda")
+    decode_prof = device_busy(torch, lambda: tf.decode_step(params, dcfg, tok, pos, cache), reps=5)
+    del params, cache
+    return dict(arch="mixtral-8x7b", layers=cfg.n_layers, layers_published=mods.get_arch("mixtral-8x7b").model_cfg.n_layers,
+                d_model=cfg.d_model, experts=cfg.moe.n_experts, d_ff=cfg.moe.d_ff, window=W, dtype=cfg.dtype,
+                param_bytes=n_bytes, seq=S, prefill_naive_ms=naive_s * 1e3, prefill_chunked_ms=chunked_s * 1e3,
+                prefill_tokens_per_s=S / chunked_s, chunked_vs_naive_rel=chunk_vs_naive,
+                decode_ms_per_step=step_s * 1e3, decode_tokens_per_s=1 / step_s, seq_below_window=S2,
+                decode_vs_forward_rel=decode_err, wrap_steps=MODEL_SIZES.mixtral_wrap_steps, max_memory_allocated=peak,
+                decode_device_ms=decode_prof["ms"], decode_kernels_per_step=decode_prof["kernels"],
+                decode_host_ops_per_step=decode_prof["host_ops"])
+
+
+def models_cells(torch, mods) -> list:
+    """fm and xdeepfm at serve_p99 (batch 512, the 39 default vocabularies
+    padded to ROW_PAD), sasrec and mind at retrieval_cand (1 query x 1M
+    candidates), gcn-cora at full_graph_sm on cora_like: card against the
+    port on the CPU for the same parameters, ms per call on the card."""
+    rows = []
+    for arch in REC_ARCHS:
+        cfg = mods.get_arch(arch).model_cfg
+        init, _, _ = mods.recsys.get_model_fns(cfg)
+        params = on_both(torch, init(cfg, torch.Generator().manual_seed(MODEL_SEED), device="cpu"))
+        serve = cfg.interaction in ("fm-2way", "cin")
+        B = MODEL_SIZES.rec_batch if serve else 1
+        out, calls = {}, {}
+        for side, d in (("cpu", "cpu"), ("card", "cuda")):
+            batch = rec_batch(torch, mods, cfg, B, d, seed=MODEL_SEED)
+            cand = torch.arange(1, MODEL_SIZES.n_candidates + 1, dtype=torch.int32, device=d)
+            calls[side] = (lambda p=params[side], b=batch, c=cand: rec_scores(torch, mods, cfg, p, b, c))
+            out[side] = calls[side]()
+        rows.append(dict(arch=arch, cell="serve_p99" if serve else "retrieval_cand", batch=B,
+                         table_rows=int(params["card"]["table" if serve else "items"].shape[0]),
+                         candidates=None if serve else MODEL_SIZES.n_candidates,
+                         err=card_vs_cpu(torch, out["card"], out["cpu"], f"{arch} at its cell"),
+                         ms=time_ms(torch, calls["card"], reps=20)))
+        del params, out, calls
+    cfg = mods.get_arch("gcn-cora").model_cfg
+    params = on_both(torch, mods.gcn.init_params(cfg, torch.Generator().manual_seed(MODEL_SEED), device="cpu"))
+    X, ei, _ = mods.cora_like(seed=MODEL_SEED)
+    out, calls = {}, {}
+    for side, d in (("cpu", "cpu"), ("card", "cuda")):
+        x, e = torch.as_tensor(X, device=d), torch.as_tensor(ei, device=d)
+        calls[side] = (lambda p=params[side], x=x, e=e: mods.gcn.forward_full(p, cfg, x, e))
+        out[side] = calls[side]()
+    rows.append(dict(arch="gcn-cora", cell="full_graph_sm", nodes=int(X.shape[0]), edges=int(ei.shape[1]),
+                     err=card_vs_cpu(torch, out["card"], out["cpu"], "gcn-cora at full_graph_sm"),
+                     ms=time_ms(torch, calls["card"], reps=20)))
+    return rows
+
+
+def model_modules():
+    """The port's model half and what the phase feeds it (no JAX)."""
+    from repro_torch import data
+    from repro_torch.configs import get_arch
+    from repro_torch.core import NSimplexProjector, select_pivots
+    from repro_torch.metrics import get_metric
+    from repro_torch.models import gcn, layers, recsys, transformer
+    from repro_torch.search.distributed import build_serve_step
+    from repro_torch.sharding import make_scaleout_mesh
+
+    return SimpleNamespace(
+        get_arch=get_arch, tf=transformer, layers=layers, recsys=recsys, gcn=gcn, get_metric=get_metric,
+        NSimplexProjector=NSimplexProjector, select_pivots=select_pivots, build_serve_step=build_serve_step,
+        make_scaleout_mesh=make_scaleout_mesh, **{name: getattr(data, name) for name in data.__all__},
+    )
+
+
+def phase_models(ops, torch) -> dict:
+    """The model half of the port on the card (ROADMAP item 11a): every
+    registry arch at its smoke config against the CPU, qwen2-1.5b at full
+    size, mixtral-8x7b at full width (2 of 32 layers), and the RecSys and
+    GCN archs at their published cells.  The launch counts are set to 0
+    before and read after: the paper's serve step launches K4 and K3."""
+    from repro_torch.device import pin_precision
+
+    pin_precision()
+    mods = model_modules()
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    for row in models_smoke_lm(torch, mods):
+        emit(phase="models", task="smoke_lm", **row)
+    for row in models_smoke_other(torch, mods):
+        emit(phase="models", **row)
+    emit(phase="models", task="smoke_serve_step", **models_smoke_nsimplex(torch, mods))
+    launches = dict(ops.LAUNCHES)
+    check(launches["apex_project"] > 0 and launches["apex_threshold"] > 0,
+          f"the serve step of nsimplex-colors launched no K4 or no K3 on the card: {launches}")
+    emit(phase="models", task="launches", launches=launches)
+    qwen = models_qwen(torch, mods)
+    emit(phase="models", task="qwen2_full", **qwen)
+    torch.cuda.empty_cache()
+    mixtral = models_mixtral(torch, mods)
+    emit(phase="models", task="mixtral_full_width", **mixtral)
+    torch.cuda.empty_cache()
+    for row in models_cells(torch, mods):
+        emit(phase="models", task="cell", **row)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit(phase="models", task="done", seconds=seconds)
+    return dict(qwen=qwen, mixtral=mixtral, launches=launches, seconds=seconds)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3245,6 +3710,9 @@ def main(argv=None) -> int:
     parser.add_argument("--serving-only", action="store_true",
                         help="only run the serving phase (the CLI's shard_map engine, SearchService per metric, "
                              "the multi-tenant HTTP front end, the CLI as a subprocess) and its checks")
+    parser.add_argument("--models-only", action="store_true",
+                        help="only run the models phase (every registry arch at its smoke config, qwen2-1.5b "
+                             "at full size, mixtral-8x7b at full width, the RecSys and GCN cells) and its checks")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
@@ -3279,6 +3747,11 @@ def main(argv=None) -> int:
         for round_ in range(3):
             emit(phase="launch_path", round=round_, shape=[1, N_PIVOTS, "float64"],
                  steps=launch_path(torch, ops, build, proj, q))
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
+    if args.models_only:
+        phase_models(ops, torch)
         emit(phase="host", host_yardstick_s=host_yardstick())
         print(smi, flush=True)
         return 0
@@ -3444,6 +3917,9 @@ def main(argv=None) -> int:
     corpus = torch.as_tensor(data_np, device="cuda")
     rows += kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, mech_index, queries_np, log, corpus), mech_hist,
                         "mechanisms")
+    del corpus, mech_index
+    torch.cuda.empty_cache()
+    phase_models(ops, torch)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -232,6 +232,12 @@ def execute(index, q, spec: Query, *, plan: Optional[QueryPlan] = None, telemetr
                 f"per-query threshold tuple has {len(spec.threshold)} entries "
                 f"for a batch of {queries.shape[0]} queries"
             )
+    if queries.shape[0] == 0:
+        # a 0-row block answers empty before any per-block reduction (the
+        # f32 slack's max over the queries, the device filter's min
+        # threshold) on every kind and composite; it carries no cost to
+        # observe
+        return BatchQueryResult(results=[], elapsed_s=0.0)
     t0 = time.perf_counter()
     out = _dispatch(index, q, queries, single, spec, qp)
     if telemetry is None:

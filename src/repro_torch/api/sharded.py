@@ -570,7 +570,7 @@ class ShardedIndex(QuerySurface):
         """The flat table padded to a multiple of the grid's ``data`` size
         with sentinel rows (last coordinate 1e30: they can never match) and
         placed on the grid; cached on the mutation version."""
-        from repro_torch.search.distributed import place_table
+        from repro_torch.sharding import place_rows
 
         if self._placed is not None and self._placed[0] == self.version:
             return self._placed[1]
@@ -579,7 +579,7 @@ class ShardedIndex(QuerySurface):
             sentinel = torch.zeros((pad, table.shape[1]), dtype=table.dtype, device=table.device)
             sentinel[:, -1] = 1e30
             table = torch.cat([table, sentinel])
-        placed = place_table(self._mesh, table)
+        placed = place_rows(self._mesh, table)
         self._placed = (self.version, placed)
         return placed
 

@@ -404,8 +404,8 @@ def _serve_shard_map(args, X, data, metric, t0) -> dict:
     the overflowing queries are counted and printed.  Returns the per-query
     answers, the histograms and the threshold."""
     from repro_torch.core import ACCEPT, RECHECK, NSimplexProjector, select_pivots
-    from repro_torch.search.distributed import build_serve_step, place_table
-    from repro_torch.sharding import make_scaleout_mesh
+    from repro_torch.search.distributed import build_serve_step
+    from repro_torch.sharding import make_scaleout_mesh, place_rows
 
     dev = args.device
     max_candidates = 256
@@ -424,7 +424,7 @@ def _serve_shard_map(args, X, data, metric, t0) -> dict:
     table_p = torch.nn.functional.pad(table, (0, 0, 0, pad))
     if pad:
         table_p[-pad:, -1] = 1e30
-    placed = place_table(mesh, table_p)
+    placed = place_rows(mesh, table_p)
     Linv, sq_norms, sigma = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                              for a in (proj.Linv, proj.sq_norms, proj.sigma))
     print(f"[serve] built index: {args.n_objects} objects x {args.pivots} pivots "

@@ -25,7 +25,8 @@ first device.
 ``build_serve_step`` is the serving step of ``python -m
 repro_torch.launch.serve``: it projects a block of query pivot distances
 (K4, or Algorithm 2 as the ``"paper"`` baseline) and runs the filter.  The
-row split of the table over the ``data`` axis is ``place_table``.
+row split of the table over the ``data`` axis is
+``repro_torch.sharding.place_rows``.
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ from repro_torch.kernels import (
     apex_bounds_threshold,
     apex_project,
 )
-from repro_torch.sharding.rules import DeviceGrid
+from repro_torch.sharding.rules import DeviceGrid, place_rows
 
-__all__ = ["build_distributed_filter", "build_serve_step", "place_table"]
+__all__ = ["build_distributed_filter", "build_serve_step"]
 
 #: elements of one (Q, rows) bound block of K1's row tiles: no (Q, N)
 #: block is held (at 64 queries x 1M rows it would be 512 MB)
@@ -146,19 +147,6 @@ def _local_filter(table, query, t_hi, t_lo, max_candidates: int, selection: str 
     return hist, idx, code
 
 
-def place_table(mesh: DeviceGrid, table: torch.Tensor):
-    """The table's row slices on the grid: ``[r][j]`` is slice ``j`` on
-    device ``(r, j)`` (a view where the table already lies there).  The
-    caller pads the table to a multiple of the ``data`` size."""
-    D = len(mesh.devices[0])
-    if table.shape[0] % D:
-        raise ValueError(f"table rows {table.shape[0]} must be a multiple of the data axis size {D}")
-    per = table.shape[0] // D
-    return tuple(
-        tuple(table[j * per:(j + 1) * per].to(dev) for j, dev in enumerate(group)) for group in mesh.devices
-    )
-
-
 def build_distributed_filter(
     mesh: DeviceGrid,
     *,
@@ -170,7 +158,7 @@ def build_distributed_filter(
     """Returns filter_fn(table, queries, threshold[, threshold_lo]).
 
     table        : (N, n) float32, N a multiple of the ``data`` size; or its
-                   ``place_table(mesh, table)`` slices (placed once by a
+                   ``place_rows(mesh, table)`` slices (placed once by a
                    caller that queries the same table again)
     queries      : (Q, n) float32 query apexes, replicated
     threshold    : scalar or (Q,).  With one threshold the decision bands are
@@ -194,7 +182,7 @@ def build_distributed_filter(
     out_dev = mesh.devices[0][0]
 
     def filter_fn(table, queries, threshold, threshold_lo=None):
-        placed = table if isinstance(table, tuple) else place_table(mesh, table)
+        placed = table if isinstance(table, tuple) else place_rows(mesh, table)
         R = len(mesh.devices)
         Q = queries.shape[0]
         if Q % R:
@@ -246,7 +234,7 @@ def build_serve_step(
     ``(hist (Q, 3), cand_idx, cand_code (n_data, Q, K))`` on the grid's
     first device, as ``build_distributed_filter`` gives them.
 
-    table    : (N, n) float32 apexes (or their ``place_table`` slices)
+    table    : (N, n) float32 apexes (or their ``place_rows`` slices)
     Linv, sq_norms, sigma : the fitted projector's (n-1, n-1), (n-1,) and
                (n, n-1) arrays, float32 on the grid's first device
     qdists   : (Q, n) float32 query-to-pivot distances there

@@ -18,7 +18,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["DeviceGrid", "ShardLayout", "apex_table_specs", "make_scaleout_mesh"]
+__all__ = ["DeviceGrid", "ShardLayout", "apex_table_specs", "make_scaleout_mesh", "place_rows"]
 
 
 @dataclass(frozen=True)
@@ -121,3 +121,17 @@ def apex_table_specs(mesh: DeviceGrid, layout: Optional[ShardLayout] = None):
     ``data``)."""
     rep = "replica" if "replica" in mesh.axis_names else None
     return ("data", None), (rep, None)
+
+
+def place_rows(mesh: DeviceGrid, rows: torch.Tensor):
+    """``rows``'s leading-axis slices on the grid: ``[r][j]`` is slice ``j``
+    on device ``(r, j)`` (a view where the rows already lie there), split
+    over ``data`` and replicated across replica groups.  The caller pads
+    the rows to a multiple of the ``data`` size."""
+    D = len(mesh.devices[0])
+    if rows.shape[0] % D:
+        raise ValueError(f"table rows {rows.shape[0]} must be a multiple of the data axis size {D}")
+    per = rows.shape[0] // D
+    return tuple(
+        tuple(rows[j * per:(j + 1) * per].to(dev) for j, dev in enumerate(group)) for group in mesh.devices
+    )

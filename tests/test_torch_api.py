@@ -270,6 +270,14 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "live.add(x[:3] * 0.5); live.flush(); live.close()\n"
         "back = open_durable(wal, device='cpu')\n"
         "assert back.stats()['n_objects'] == 303 and back.query(x[:2], Query.knn(3)).results[0].ids.size == 3\n"
+        "import torch\n"
+        "from repro_torch.configs import get_arch\n"
+        "from repro_torch.data import token_stream\n"
+        "from repro_torch.models import transformer as tf\n"
+        "cfg = get_arch('qwen2-1.5b').smoke_cfg\n"
+        "toks, _ = token_stream(1, 8, cfg.vocab, seed=0)\n"
+        "logits, cache = tf.prefill(tf.init_params(cfg, device='cpu'), cfg, torch.as_tensor(toks))\n"
+        "assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

@@ -28,7 +28,7 @@ from repro.data import colors_like
 from repro.metrics import get_metric as rmetric
 from repro.search.distributed import build_distributed_filter as rfilter
 from repro_torch.search import distributed
-from repro_torch.sharding import ShardLayout, apex_table_specs, make_scaleout_mesh
+from repro_torch.sharding import ShardLayout, apex_table_specs, make_scaleout_mesh, place_rows
 
 torch.set_num_threads(1)
 
@@ -189,7 +189,7 @@ def test_placed_table_answers_like_the_table(apexes):
     table, queries = apexes
     mesh = make_scaleout_mesh(ShardLayout(), [CPU] * 4)
     fn = distributed.build_distributed_filter(mesh, max_candidates=K)
-    placed = distributed.place_table(mesh, torch.from_numpy(table))
+    placed = place_rows(mesh, torch.from_numpy(table))
     assert len(placed) == 1 and len(placed[0]) == 4 and placed[0][1].shape == (512, 8)
     for a, b in zip(fn(placed, torch.from_numpy(queries), T), fn(torch.from_numpy(table), torch.from_numpy(queries), T)):
         assert torch.equal(a, b)
