@@ -12,6 +12,7 @@
     python3 chip_smoke.py --durable-only
     python3 chip_smoke.py --serving-only
     python3 chip_smoke.py --models-only
+    python3 chip_smoke.py --train-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -287,6 +288,29 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 full_graph_sm on ``cora_like``, card against CPU, ms per
                 call.  ms per prefill and decode step, tokens per second
                 and ``torch.cuda.max_memory_allocated`` per LM cell;
+  9. train  — training (``repro_torch.train``, ``launch.steps``,
+                ``launch.train``; no kernel of this repo on its path): every
+                trainable registry arch at its ``smoke_cfg``, 5 AdamW steps
+                on the card and on the CPU (the first step's loss and every
+                gradient leaf, each step's loss, the moments within 1e-4 of
+                each leaf's largest magnitude, ``TRAIN_TOL``; the parameters
+                within that plus 2·Σlr); qwen2-1.5b at its full config through
+                the ``train_4k`` cell, global batch cut 256 -> 8 (accum 8 of
+                one 4,096-token sequence), bf16 moments: the ``opt=True``
+                cell's first loss within 1% of the plain one's, 4 steps with
+                the loss falling, step s, tokens/s, the model-FLOPs share of
+                989 TFLOP/s, the device busy share of one profiled step, peak
+                memory, a checkpoint of params and moments saved and restored
+                bit-equal (timed), ``TrainLoop`` recovering one injected
+                failure from it (the replayed step's loss equal);
+                mixtral-8x7b at full width, 2 of 32 layers, 2 x 4,096 tokens:
+                3 steps, the loss falling; fm / xdeepfm / sasrec / mind at
+                ``train_batch`` 65,536 (halved while a step runs out of
+                memory, printed as a ``cut``); gcn-cora's four cells at their
+                published sizes; ``nsimplex-colors``' ``serve_1m`` cell with
+                ``opt=True`` on the colors corpus, the launch counts set to 0
+                before and read after (K4 and K3 must launch); the train CLI
+                as a subprocess (``TRAIN_SIZES``, ``TRAIN_OPT``);
 then the card's ``nvidia-smi`` line, and last the device contract line.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
@@ -307,7 +331,8 @@ alone, with their checks, and print ``{"filtered_kernels": [...]}``,
 ``{"durable_kernels": [...]}`` or ``{"serving_kernels": [...]}`` (timed on
 the 1M-row JSD exact index, the serve step's K3 (64, 256, 20) always among
 them).
-``--models-only`` runs phase 8 alone, with its checks.
+``--models-only`` runs phase 8 alone, with its checks; ``--train-only``
+phase 9.
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -317,6 +342,7 @@ prints the registers, spills and stack of apex_project.cu's kernels from
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -3330,7 +3356,7 @@ def on_both(torch, params_cpu):
     """The CPU parameters and a copy of them on the card."""
     import copy
 
-    return {"cpu": params_cpu, "card": copy.deepcopy(params_cpu).to("cuda")}
+    return {"cpu": params_cpu, "card": copy.deepcopy(params_cpu).to(DEVICE)}
 
 
 def models_smoke_lm(torch, mods) -> list:
@@ -3373,12 +3399,11 @@ def models_smoke_lm(torch, mods) -> list:
 
 
 def rec_batch(torch, mods, cfg, B, d, seed=0):
-    if cfg.interaction in ("fm-2way", "cin"):
-        sizes = None if cfg.vocab_sizes is None else np.asarray(cfg.vocab_sizes)
-        dense, sparse, _ = mods.criteo_like_batch(B, n_sparse=cfg.n_sparse, vocab_sizes=sizes, seed=seed)
-        return {"dense": torch.as_tensor(dense, device=d), "sparse": torch.as_tensor(sparse, device=d)}
-    seqs, _ = mods.user_history_batch(B, cfg.seq_len, cfg.n_items, seed=seed)
-    return {"seqs": torch.as_tensor(seqs, device=d)}
+    """A serving batch: ``rec_train_batch`` without its labels / targets."""
+    batch = rec_train_batch(torch, mods, cfg, B, d, seed)
+    batch.pop("labels", None)
+    batch.pop("targets", None)
+    return batch
 
 
 def rec_scores(torch, mods, cfg, params, batch, cand):
@@ -3681,6 +3706,529 @@ def phase_models(ops, torch) -> dict:
     return dict(qwen=qwen, mixtral=mixtral, launches=launches, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training (ROADMAP item 11b)
+# ---------------------------------------------------------------------------
+
+#: card against CPU for losses, gradients and AdamW state: within 1e-4 of
+#: each leaf's largest magnitude
+TRAIN_TOL = 1e-4
+#: the phase's AdamW: the reference's cells warm up over 100 steps, during
+#: which a short run's bf16 weights would not move at all; at 3e-4 Adam's
+#: first, sign-like step over a 4,096-wide model raises the loss before it
+#: falls (mixtral-8x7b's 2-layer cut on an H100: 11.26 -> 24.61 -> 17.30)
+TRAIN_OPT = dict(lr=3e-5, warmup_steps=0, total_steps=100)
+#: mixtral's learning rate: at 3e-5 the first step of its full-width 2-layer
+#: cut on an H100 raised the loss (11.26 -> 14.64) before it fell; its
+#: router (f32, 4,096 x 8) moves every token's expert logits the same way
+#: and the capacity limit drops the overflow
+MOE_TRAIN_LR = 3e-6
+#: published dense bf16 peak of one H100 SXM (NVIDIA data sheet)
+BF16_FLOPS = 989e12
+#: qwen2-1.5b's train_4k at its full config, global batch cut from 256 to 8
+#: (accum 8 microsteps of one sequence, as the cell gives on one device);
+#: mixtral-8x7b at full width, 2 of 32 layers, 2 sequences of 4,096; the
+#: RecSys cells at train_batch 65,536; 3 steps of each cell
+TRAIN_SIZES = SimpleNamespace(
+    qwen_seq=4096, qwen_batch=8, qwen_steps=4, mixtral_layers=2, mixtral_seq=4096, mixtral_batch=2,
+    cell_steps=3, smoke_steps=5, ogb_train_nodes=196_615, serve_checked=64,
+)
+
+
+def fresh_peak(torch):
+    """Free what earlier sections left (cycles included) and restart the
+    peak-memory count."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def leaf_err(torch, got, want, what, tol=TRAIN_TOL, extra=0.0) -> float:
+    """max |got - want| over max |want| of one leaf, held to ``tol`` (plus
+    ``extra`` absolute)."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    check(g.shape == w.shape, f"{what}: shape {tuple(g.shape)} against {tuple(w.shape)}")
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite values on the card")
+    scale = max(float(w.abs().max()) if w.numel() else 0.0, 1e-30)
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    check(err <= tol * scale + extra, f"{what}: card against CPU {err} > {tol} x {scale} + {extra}")
+    return err / scale
+
+
+def tree_err(torch, mods, got, want, what, extra=0.0) -> float:
+    gl, wl = mods.tree_leaves(got), mods.tree_leaves(want)
+    check(len(gl) == len(wl), f"{what}: {len(gl)} leaves against {len(wl)}")
+    return max([leaf_err(torch, g, w, what, extra=extra) for g, w in zip(gl, wl)] or [0.0])
+
+
+def smoke_train_cases(torch, mods):
+    """(name, init(device) -> params, batch(device), loss(params, batch))
+    for every trainable registry arch at its smoke config."""
+    cases = []
+    for arch in LM_SMOKE_ARCHS:
+        cfg = mods.get_arch(arch).smoke_cfg
+        toks, labs = mods.token_stream(2, 16, cfg.vocab, seed=1)
+        cases.append((arch, lambda cfg=cfg: mods.tf.init_params(cfg, torch.Generator().manual_seed(MODEL_SEED),
+                                                                device="cpu"),
+                      lambda d, t=toks, l=labs: (torch.as_tensor(t, device=d), torch.as_tensor(l, device=d)),
+                      lambda p, b, cfg=cfg: mods.tf.loss_fn(p, cfg, *b)[0]))
+    for arch in REC_ARCHS:
+        cfg = mods.get_arch(arch).smoke_cfg
+        init, _, loss = mods.recsys.get_model_fns(cfg)
+        cases.append((arch, lambda cfg=cfg, init=init: init(cfg, torch.Generator().manual_seed(MODEL_SEED),
+                                                            device="cpu"),
+                      lambda d, cfg=cfg: rec_train_batch(torch, mods, cfg, 32, d, seed=1),
+                      lambda p, b, cfg=cfg, loss=loss: loss(p, cfg, b)))
+    cfg = mods.get_arch("gcn-cora").smoke_cfg
+    X, ei, y = mods.random_graph(200, 800, cfg.d_feat, cfg.n_classes, seed=0)
+    mask = (np.arange(200) < 50).astype(np.float32)
+    layers = mods.NeighborSampler(ei, 200, seed=0).sample_batch(np.arange(32), [5, 3])
+    mol = mods.molecule_batch(batch=8, n_nodes=12, n_edges=20, d_feat=cfg.d_feat)
+    mol_y = (np.arange(8) % cfg.n_classes).astype(np.int32)
+    gcn_init = lambda: mods.gcn.init_params(cfg, torch.Generator().manual_seed(MODEL_SEED), device="cpu")  # noqa: E731
+    T = lambda a, d: torch.as_tensor(a, device=d)  # noqa: E731
+    cases += [
+        ("gcn-cora/full", gcn_init, lambda d: (T(X, d), T(ei, d), T(y, d), T(mask, d)),
+         lambda p, b: mods.gcn.loss_full(p, cfg, *b)),
+        ("gcn-cora/sampled", gcn_init, lambda d: (T(X[layers[0]], d), [T(X[layers[1]], d), T(X[layers[2]], d)],
+                                                  T(y[:32], d)),
+         lambda p, b: mods.gcn.loss_sampled(p, cfg, *b)),
+        ("gcn-cora/molecule", gcn_init, lambda d: (T(mol["feats"], d), T(mol["src"], d), T(mol["dst"], d),
+                                                   T(mol_y, d)),
+         lambda p, b: mods.gcn.loss_molecule(p, cfg, *b)),
+    ]
+    return cases
+
+
+def rec_train_batch(torch, mods, cfg, B, d, seed=0):
+    if cfg.interaction in ("fm-2way", "cin"):
+        sizes = None if cfg.vocab_sizes is None else np.asarray(cfg.vocab_sizes)
+        dense, sparse, labels = mods.criteo_like_batch(B, n_sparse=cfg.n_sparse, vocab_sizes=sizes, seed=seed)
+        return {"dense": torch.as_tensor(dense, device=d), "sparse": torch.as_tensor(sparse, device=d),
+                "labels": torch.as_tensor(labels, device=d)}
+    seqs, targets = mods.user_history_batch(B, cfg.seq_len, cfg.n_items, seed=seed)
+    return {"seqs": torch.as_tensor(seqs, device=d), "targets": torch.as_tensor(targets, device=d)}
+
+
+def train_smoke(torch, mods) -> list:
+    """Every trainable registry arch at its smoke config (nsimplex-colors
+    serves and has no loss): ``smoke_steps`` AdamW steps on each side, the
+    first step's loss and every gradient leaf on the card against the port
+    on the CPU, then every step's loss, the moments and the parameters.  A first AdamW update of an
+    element moves it by up to lr whatever its gradient's size against
+    eps = 1e-8, so the parameters get 2·Σlr beside the tolerance; the
+    moments carry the gradients' agreement."""
+    rows = []
+    opt_cfg = mods.AdamWConfig(moment_dtype="float32", **TRAIN_OPT)
+    for name, init, batch_of, loss_of in smoke_train_cases(torch, mods):
+        params = on_both(torch, init())
+        out = {}
+        for side, d in (("cpu", "cpu"), ("card", DEVICE)):
+            b = batch_of(d)
+            p = params[side]
+            state, losses, grads, lrs = mods.init_state(opt_cfg, p), [], [], []
+            for _ in range(TRAIN_SIZES.smoke_steps):
+                l, g = mods.value_and_grad(lambda q: loss_of(q, b), p)
+                p, state, m = mods.apply_updates(opt_cfg, p, g, state)      # leaves g as it was
+                losses.append(l)
+                grads = grads or [g]
+                lrs.append(float(m["lr"]))
+            out[side] = dict(grads=grads[0], losses=torch.stack(losses), params=p, state=state, lr=sum(lrs))
+        c, k = out["cpu"], out["card"]
+        row = dict(arch=name, loss=float(k["losses"][0]),
+                   loss_err=leaf_err(torch, k["losses"][0], c["losses"][0], f"{name} loss"),
+                   grad_err=tree_err(torch, mods, k["grads"], c["grads"], f"{name} gradients"),
+                   steps=TRAIN_SIZES.smoke_steps,
+                   step_loss_err=leaf_err(torch, k["losses"], c["losses"], f"{name} losses over AdamW steps"),
+                   moment_err=max(tree_err(torch, mods, k["state"][key], c["state"][key], f"{name} AdamW {key}")
+                                  for key in ("m", "v")),
+                   param_err=tree_err(torch, mods, k["params"], c["params"], f"{name} parameters after AdamW",
+                                      extra=2 * c["lr"]))
+        check(float(k["losses"][-1]) < float(k["losses"][0]), f"{name}: the smoke loss did not fall on the card")
+        rows.append(row)
+    return rows
+
+
+def run_steps(torch, fn, args, n):
+    """``n`` steps of a train cell's fn: (losses, seconds per step, args
+    after the last step)."""
+    losses, secs = [], []
+    for _ in range(n):
+        (params, opt, m), s = timed_call(torch, lambda: fn(*args))
+        args = (params, opt) + tuple(args[2:])
+        losses.append(float(m["loss"]))
+        secs.append(s)
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall over {n} steps: {losses}")
+    return losses, secs, args
+
+
+def host_mesh(mods):
+    """The (1, 1) mesh of the phase's device."""
+    return mods.make_host_mesh(1, 1, devices=None if DEVICE == "cuda" else [DEVICE])
+
+
+def train_root() -> Path:
+    root = Path(__file__).resolve().parent / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    return root
+
+
+def same_bits(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def train_qwen(torch, mods, root) -> dict:
+    """qwen2-1.5b at its full config through the train_4k cell (global batch
+    cut 256 -> 8): the opt cell's first loss on a copy, 4 steps on one
+    repeated batch, one profiled step, a checkpoint of params and bf16
+    moments saved and restored bit-equal, and ``TrainLoop`` recovering
+    from one injected failure through that checkpoint."""
+    import copy
+
+    tf, S, B = mods.tf, TRAIN_SIZES.qwen_seq, TRAIN_SIZES.qwen_batch
+    cfg = mods.get_arch("qwen2-1.5b").model_cfg
+    opt_cfg = mods.AdamWConfig(moment_dtype="bfloat16", **TRAIN_OPT)
+    mesh = host_mesh(mods)
+    plan = mods.steps.build_cell("qwen2-1.5b", "train_4k", mesh, accum_override=B, opt_cfg=opt_cfg)
+    plan_opt = mods.steps.build_cell("qwen2-1.5b", "train_4k", mesh, accum_override=B, opt=True, opt_cfg=opt_cfg)
+    check(plan.note == f"accum={B} micro=1", f"qwen2-1.5b plan: {plan.note}")
+    fresh_peak(torch)
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(MODEL_SEED), device=DEVICE)
+    opt = mods.init_state(opt_cfg, params)
+    n_params = sum(p.numel() for p in params.parameters())
+    toks, labs = mods.token_stream(B, S, cfg.vocab, seed=MODEL_SEED)
+    tk = torch.as_tensor(toks, device=DEVICE).reshape(B, 1, S)
+    lb = torch.as_tensor(labs, device=DEVICE).reshape(B, 1, S)
+    p2 = copy.deepcopy(params)
+    out, opt_s = timed_call(torch, lambda: plan_opt.fn(p2, mods.init_state(opt_cfg, p2), tk, lb))
+    opt_loss = float(out[2]["loss"])
+    del p2, out
+    peak_opt = torch.cuda.max_memory_allocated()
+    fresh_peak(torch)
+    losses, secs, (params, opt, _, _) = run_steps(torch, plan.fn, (params, opt, tk, lb), TRAIN_SIZES.qwen_steps)
+    check(abs(opt_loss - losses[0]) <= 0.01 * abs(losses[0]),
+          f"qwen2-1.5b: the opt cell's first loss {opt_loss} against the plain cell's {losses[0]}")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(secs[1:]))
+    state = [params, opt]
+
+    def one_step():
+        state[0], state[1], _ = plan.fn(state[0], state[1], tk, lb)
+
+    prof = device_busy(torch, one_step, reps=1)
+    params, opt = state
+    tokens = B * S
+    # one checkpoint of params and bf16 moments, saved and restored bit-equal
+    mgr = mods.CheckpointManager(str(root / "qwen"), keep=1)
+    done = int(opt["step"])                 # the profiler's steps ran too
+    check(done > TRAIN_SIZES.qwen_steps, f"qwen2-1.5b: AdamW step {done} after the profiled step")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(done, (params, opt))
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = dir_bytes(root / "qwen")
+    t0 = time.perf_counter()
+    (rp, ro), step = mgr.restore((params, opt))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == done, f"qwen2-1.5b: restored step {step}")
+    pairs = list(zip(mods.tree_leaves((params, opt)), mods.tree_leaves((rp, ro))))
+    check(all(b.device.type == torch.device(DEVICE).type and same_bits(torch, a, b) for a, b in pairs),
+          "qwen2-1.5b: the restored checkpoint is not bit-equal on the card")
+    check(ro["m"]["embed"].dtype == torch.bfloat16 and all(p.requires_grad for p in rp.parameters()),
+          "qwen2-1.5b: restored moments are not bf16 or parameters lost requires_grad")
+    del rp, ro, pairs
+    # TrainLoop: resume from the checkpoint, one injected failure, recovery
+    fired = []
+
+    def bomb(step):
+        if step == done + 1 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected failure")
+
+    def step_fn(state, batch):
+        p, o, m = plan.fn(*state, *batch)
+        return (p, o), {"loss": m["loss"]}
+
+    loop = mods.TrainLoop(mods.LoopConfig(total_steps=done + 2, checkpoint_every=1000,
+                                          checkpoint_dir=str(root / "qwen"), keep_checkpoints=1, max_retries=2),
+                          step_fn, lambda step: (tk, lb), (params, opt), failure_hook=bomb)
+    del params, opt
+    t0 = time.perf_counter()
+    lm = loop.run(start_step=done)      # the state in memory is the checkpoint's: no resume read
+    loop_s = time.perf_counter() - t0
+    check(lm.failures_recovered == 1 and lm.steps_run == 3 and fired, f"qwen2-1.5b TrainLoop: {lm}")
+    check(all(np.isfinite(lm.losses)) and lm.losses[0] == lm.losses[1],
+          f"qwen2-1.5b TrainLoop: the step replayed from the checkpoint gave another loss: {lm.losses}")
+    check(mgr.latest_step() == done + 2, f"qwen2-1.5b TrainLoop did not checkpoint its last step: {mgr.all_steps()}")
+    del loop
+    torch.cuda.empty_cache()
+    return dict(arch="qwen2-1.5b", cell="train_4k", layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+                dtype=cfg.dtype, moment_dtype="bfloat16", params=n_params, seq=S, global_batch=B,
+                global_batch_published=256, note=plan.note, losses=losses, opt_first_loss=opt_loss,
+                opt_vs_plain_rel=abs(opt_loss - losses[0]) / abs(losses[0]), opt_step_s=opt_s,
+                step_s=step_s, step_s_all=secs, tokens_per_s=tokens / step_s,
+                model_flops_share=6.0 * n_params * tokens / step_s / BF16_FLOPS,
+                device_busy_ms=prof["ms"], device_busy_share=prof["ms"] / 1e3 / step_s,
+                kernels_per_step=prof["kernels"], host_ops_per_step=prof["host_ops"], max_memory_allocated=peak,
+                max_memory_allocated_opt_cell=peak_opt,
+                checkpoint_bytes=ckpt_bytes, checkpoint_save_s=save_s, checkpoint_restore_s=restore_s,
+                loop_steps_run=lm.steps_run, loop_failures_recovered=lm.failures_recovered,
+                loop_losses=lm.losses, loop_s=loop_s)
+
+
+def train_mixtral(torch, mods) -> dict:
+    """mixtral-8x7b at full width, 2 of 32 layers, through the train_4k cell
+    (2 sequences of 4,096, accum 2): 3 steps, the loss falling (the MoE
+    backward on the card)."""
+    cfg = mods.get_arch("mixtral-8x7b").model_cfg
+    L, S, B = TRAIN_SIZES.mixtral_layers, TRAIN_SIZES.mixtral_seq, TRAIN_SIZES.mixtral_batch
+    opt_cfg = mods.AdamWConfig(moment_dtype="bfloat16", **dict(TRAIN_OPT, lr=MOE_TRAIN_LR))
+    plan = mods.steps.build_cell("mixtral-8x7b", "train_4k", host_mesh(mods), n_layers=L,
+                                 accum_override=B, opt_cfg=opt_cfg)
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, n_layers=L)
+    fresh_peak(torch)
+    allocated_before = torch.cuda.memory_allocated()
+    params = mods.tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(MODEL_SEED), device=DEVICE)
+    n_params = sum(p.numel() for p in params.parameters())
+    toks, labs = mods.token_stream(B, S, cfg.vocab, seed=MODEL_SEED + 1)
+    tk = torch.as_tensor(toks, device=DEVICE).reshape(B, 1, S)
+    lb = torch.as_tensor(labs, device=DEVICE).reshape(B, 1, S)
+    losses, secs, _ = run_steps(torch, plan.fn, (params, mods.init_state(opt_cfg, params), tk, lb),
+                                TRAIN_SIZES.cell_steps)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    step_s = float(np.median(secs[1:]))
+    return dict(arch="mixtral-8x7b", cell="train_4k", layers=L, layers_published=32, d_model=cfg.d_model,
+                experts=cfg.moe.n_experts, dtype=cfg.dtype, params=n_params, seq=S, global_batch=B,
+                note=plan.note, lr=opt_cfg.lr, losses=losses, step_s=step_s, step_s_all=secs,
+                tokens_per_s=B * S / step_s, allocated_before=allocated_before, max_memory_allocated=peak)
+
+
+def rec_cell_batch(torch, mods, cfg, B, accum):
+    b = rec_train_batch(torch, mods, cfg, B, DEVICE, seed=MODEL_SEED)
+    return {k: v.reshape((accum, -1) + tuple(v.shape[1:])) for k, v in b.items()} if accum > 1 else b
+
+
+def train_rec_cells(torch, mods) -> list:
+    """fm, xdeepfm, sasrec and mind at train_batch (65,536 rows; the sequence
+    models in the cell's 16 microbatches): 3 steps each, the batch halved
+    until a step fits in memory (printed as a cut)."""
+    rows = []
+    opt_cfg = mods.AdamWConfig(moment_dtype="float32", **TRAIN_OPT)
+    for arch in REC_ARCHS:
+        cfg = mods.get_arch(arch).model_cfg
+        plan = mods.steps.build_cell(arch, "train_batch", host_mesh(mods), opt_cfg=opt_cfg)
+        accum = int(plan.note.split("=")[1])
+        B = mods.get_arch(arch).shapes["train_batch"].sizes["batch"]
+        init = mods.recsys.get_model_fns(cfg)[0]
+        fresh_peak(torch)
+        params = init(cfg, torch.Generator(device=DEVICE).manual_seed(MODEL_SEED), device=DEVICE)
+        while True:
+            batch = rec_cell_batch(torch, mods, cfg, B, accum)
+            opt = mods.init_state(opt_cfg, params)
+            try:
+                losses, secs, _ = run_steps(torch, plan.fn, (params, opt, batch), TRAIN_SIZES.cell_steps)
+                break
+            except torch.cuda.OutOfMemoryError:
+                pass        # retried with half the rows and fresh moments
+            # outside the handler, so that the failed step's frames are released
+            del batch, opt
+            torch.cuda.empty_cache()
+            check(B > 1024, f"{arch}: out of memory down to {B} rows")
+            B //= 2
+            emit(phase="train", task="cut", arch=arch, cell="train_batch", batch=B, reason="out of memory")
+        step_s = float(np.median(secs[1:]))
+        rows.append(dict(arch=arch, cell="train_batch", batch=B, batch_published=65536, note=plan.note,
+                         losses=losses, ms_per_step=step_s * 1e3, rows_per_s=B / step_s,
+                         max_memory_allocated=torch.cuda.max_memory_allocated()))
+        del params, opt, batch
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gcn_cell_args(torch, mods, cfg, name, sizes, g):
+    """One GCN cell's batch on the card: cora_like for full_graph_sm, a
+    random graph of the published size on the device for ogb_products,
+    drawn features for minibatch_lg's sampled hops, molecule_batch."""
+    dev = DEVICE
+    if name in ("full_graph_sm", "ogb_products"):
+        N, E = sizes["n_nodes"], sizes["n_edges"]
+        E_pad = ((E + 511) // 512) * 512
+        if name == "full_graph_sm":
+            X, ei, y = mods.cora_like(seed=MODEL_SEED)
+            feats, y = torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev)
+            ei, E = torch.as_tensor(ei, device=dev), ei.shape[1]
+            E_pad = ((E + 511) // 512) * 512
+            mask = (torch.arange(N, device=dev) < 140).float()        # cora's 140 training nodes
+        else:
+            feats = torch.randn((N, sizes["d_feat"]), generator=g, device=dev)
+            ei = torch.randint(0, N, (2, E), generator=g, device=dev, dtype=torch.int32)
+            y = torch.randint(0, sizes["n_classes"], (N,), generator=g, device=dev, dtype=torch.int32)
+            mask = torch.zeros(N, device=dev)
+            mask[torch.randperm(N, generator=g, device=dev)[:TRAIN_SIZES.ogb_train_nodes]] = 1.0
+        edges = torch.zeros((2, E_pad), dtype=torch.int32, device=dev)
+        edges[:, :E] = ei
+        weight = (torch.arange(E_pad, device=dev) < E).float()       # 0.0 marks padding edges
+        return (feats, edges, weight, y.to(torch.int32), mask), dict(nodes=N, edges=E)
+    if name == "minibatch_lg":
+        B, f1, f2, F_ = sizes["batch_nodes"], sizes["fanout1"], sizes["fanout2"], sizes["d_feat"]
+        hops = [torch.randn((n, F_), generator=g, device=dev) for n in (B, B * f1, B * f1 * f2)]
+        y = torch.randint(0, sizes["n_classes"], (B,), generator=g, device=dev, dtype=torch.int32)
+        return tuple(hops) + (y,), dict(batch_nodes=B, gathered_rows=B * (1 + f1 + f1 * f2))
+    mol = mods.molecule_batch(batch=sizes["batch"], n_nodes=sizes["n_nodes"], n_edges=sizes["n_edges"],
+                              d_feat=sizes["d_feat"], seed=MODEL_SEED)
+    y = torch.randint(0, sizes["n_classes"], (sizes["batch"],), generator=g, device=dev, dtype=torch.int32)
+    return tuple(torch.as_tensor(mol[k], device=dev) for k in ("feats", "src", "dst")) + (y,), dict(
+        graphs=sizes["batch"])
+
+
+def train_gcn_cells(torch, mods) -> list:
+    """gcn-cora's four train cells at their published sizes (minibatch_lg's
+    sampled features drawn on the card; the sampler over its 114.6M-edge
+    graph is host work outside the step): 3 steps each."""
+    import dataclasses
+
+    rows = []
+    opt_cfg = mods.AdamWConfig(moment_dtype="float32", **TRAIN_OPT)
+    arch = mods.get_arch("gcn-cora")
+    g = torch.Generator(device=DEVICE).manual_seed(MODEL_SEED)
+    for name, shape in arch.shapes.items():
+        fresh_peak(torch)
+        plan = mods.steps.build_cell("gcn-cora", name, host_mesh(mods), opt_cfg=opt_cfg)
+        cfg = dataclasses.replace(arch.model_cfg, d_feat=shape.sizes["d_feat"], n_classes=shape.sizes["n_classes"])
+        params = mods.gcn.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(MODEL_SEED), device=DEVICE)
+        args, info = gcn_cell_args(torch, mods, cfg, name, shape.sizes, g)
+        losses, secs, _ = run_steps(torch, plan.fn, (params, mods.init_state(opt_cfg, params)) + args,
+                                    TRAIN_SIZES.cell_steps)
+        rows.append(dict(arch="gcn-cora", cell=name, **info, losses=losses, ms_per_step=float(np.median(secs[1:])) * 1e3,
+                         max_memory_allocated=torch.cuda.max_memory_allocated()))
+        del params, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_serve_cell(ops, torch, mods, data_np) -> dict:
+    """nsimplex-colors' serve_1m cell with opt=True (K4 projection, K3
+    selection) on the card: the colors corpus (1M rows of 112) under JSD,
+    32 pivots, the table padded to 1,007,616 rows with sentinel rows, 1,024
+    queries.  Every histogram sums to the padded table; for the first 64
+    queries every true result within the threshold is among the packed
+    candidates unless the query overflows its 8 slots.  The launch counts
+    are set to 0 before the step and read after it."""
+    arch = mods.get_arch("nsimplex-colors")
+    sizes = arch.shapes["serve_1m"].sizes
+    N, Q, n = sizes["n_objects"], sizes["query_batch"], sizes["n_pivots"]
+    plan = mods.steps.build_cell("nsimplex-colors", "serve_1m", host_mesh(mods), opt=True)
+    N_pad = plan.args[0].shape[0]
+    X = data_np if data_np is not None and len(data_np) >= N else mods.colors_like(n=N, dim=DIM, seed=SEED)
+    data = torch.as_tensor(X[:N], device=DEVICE)
+    queries = torch.as_tensor(mods.colors_like(n=Q, dim=DIM, seed=SEED + 1), device=DEVICE)
+    metric = mods.get_metric(arch.model_cfg.metric)
+    proj = mods.NSimplexProjector(mods.select_pivots(X[:N], n, seed=1), metric, device=DEVICE)
+    table = torch.full((N_pad, n), 0.0, dtype=torch.float32, device=DEVICE)
+    table[:, -1] = float("inf")                   # sentinel rows: altitude +inf, never a candidate
+    table[:N] = proj.project_distances(proj.pivot_distances(data)).to(torch.float32)
+    qd = proj.pivot_distances(queries).to(torch.float32)
+    consts = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE) for a in (proj.Linv, proj.sq_norms, proj.sigma)]
+    checked = TRAIN_SIZES.serve_checked
+    D = metric.cross(queries[:checked].double(), data.double())
+    t = float(D.kthvalue(3, dim=1).values.median())   # about half the checked queries have <= 3 results
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    (hist, idx, code), serve_s = timed_call(torch, lambda: plan.fn(table, *consts, qd, t))
+    launches = dict(ops.LAUNCHES)
+    check(launches["apex_project"] > 0 and launches["apex_threshold"] > 0,
+          f"the nsimplex-colors serve_1m cell launched no K4 or no K3: {launches}")
+    check(bool((hist.sum(dim=1) == N_pad).all()), "nsimplex-colors serve_1m: a histogram does not sum to the table")
+    idx, code, hist = idx.cpu(), code.cpu(), hist.cpu()
+    overflow = 0
+    for qi in range(checked):
+        got = {int(a) for a in idx[:, qi].ravel() if a >= 0}
+        over = int(hist[qi, 1] + hist[qi, 2]) > idx.shape[-1]
+        overflow += over
+        missing = set(torch.nonzero(D[qi] <= t).flatten().cpu().tolist()) - got
+        check(not missing or over, f"nsimplex-colors serve_1m: query {qi} excluded true results {sorted(missing)[:5]}")
+    serve_ms = time_ms(torch, lambda: plan.fn(table, *consts, qd, t), reps=5)
+    return dict(arch="nsimplex-colors", cell="serve_1m", note=plan.note, rows=N, rows_padded=N_pad, queries=Q,
+                pivots=n, threshold=t, checked=checked, overflowing_checked=overflow, first_call_ms=serve_s * 1e3,
+                ms=serve_ms, launches=launches)
+
+
+def train_cli(torch, root) -> dict:
+    """``python -m repro_torch.launch.train --arch qwen2-1.5b --smoke --steps
+    20`` on the card, as a subprocess."""
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2-1.5b", "--smoke",
+                          "--steps", "20", "--ckpt-dir", str(root / "cli")] + ([] if DEVICE == "cuda" else
+                                                                              ["--device", DEVICE]),
+                         cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and lines and lines[-1].startswith("[train] done: 20 steps"),
+          f"the train CLI failed ({out.returncode}): {out.stdout[-2000:]} {out.stderr[-2000:]}")
+    check(f"({DEVICE}" in out.stdout, f"the train CLI did not run on the card: {out.stdout[-500:]}")
+    return dict(command="python -m repro_torch.launch.train --arch qwen2-1.5b --smoke --steps 20", wall_s=wall,
+                lines=lines)
+
+
+def train_modules():
+    """The port's training half and what the phase feeds it (no JAX)."""
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models.params import tree_leaves, value_and_grad
+    from repro_torch.train import AdamWConfig, CheckpointManager, LoopConfig, TrainLoop, apply_updates, init_state
+
+    return SimpleNamespace(**vars(model_modules()), steps=steps, make_host_mesh=mesh.make_host_mesh,
+                           tree_leaves=tree_leaves, value_and_grad=value_and_grad, AdamWConfig=AdamWConfig,
+                           CheckpointManager=CheckpointManager, LoopConfig=LoopConfig, TrainLoop=TrainLoop,
+                           apply_updates=apply_updates, init_state=init_state)
+
+
+def phase_train(ops, torch, data_np=None) -> dict:
+    """Training on the card (ROADMAP item 11b): every smoke arch's loss,
+    gradients and AdamW steps against the CPU; qwen2-1.5b at its full config
+    (batch cut 256 -> 8) with a checkpoint round trip and a recovered
+    failure; mixtral-8x7b at full width (2 of 32 layers); the RecSys and GCN
+    train cells at their published sizes; the paper's serve_1m cell (K4,
+    K3); the train CLI.  No kernel of this repo lies on the training path."""
+    from repro_torch.device import pin_precision
+
+    pin_precision()
+    mods = train_modules()
+    t_phase = time.perf_counter()
+    root = train_root()
+    emit(phase="train", task="disk", free_bytes=shutil.disk_usage(root).free)
+    for row in train_smoke(torch, mods):
+        emit(phase="train", task="smoke", **row)
+    qwen = train_qwen(torch, mods, root)
+    emit(phase="train", task="qwen2_full", **qwen)
+    shutil.rmtree(root / "qwen", ignore_errors=True)
+    mixtral = train_mixtral(torch, mods)
+    emit(phase="train", task="mixtral_full_width", **mixtral)
+    for row in train_rec_cells(torch, mods) + train_gcn_cells(torch, mods):
+        emit(phase="train", task="cell", **row)
+    serve = train_serve_cell(ops, torch, mods, data_np)
+    emit(phase="train", task="serve_cell", **serve)
+    torch.cuda.empty_cache()
+    emit(phase="train", task="cli", **train_cli(torch, root))
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    emit(phase="train", task="done", seconds=seconds)
+    return dict(qwen=qwen, mixtral=mixtral, serve=serve, seconds=seconds)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3713,6 +4261,10 @@ def main(argv=None) -> int:
     parser.add_argument("--models-only", action="store_true",
                         help="only run the models phase (every registry arch at its smoke config, qwen2-1.5b "
                              "at full size, mixtral-8x7b at full width, the RecSys and GCN cells) and its checks")
+    parser.add_argument("--train-only", action="store_true",
+                        help="only run the train phase (every smoke arch against the CPU, qwen2-1.5b at full "
+                             "config, mixtral-8x7b at full width, the RecSys and GCN train cells, the serve_1m "
+                             "cell, the train CLI) and its checks")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
@@ -3752,6 +4304,11 @@ def main(argv=None) -> int:
         return 0
     if args.models_only:
         phase_models(ops, torch)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
+    if args.train_only:
+        phase_train(ops, torch)
         emit(phase="host", host_yardstick_s=host_yardstick())
         print(smi, flush=True)
         return 0
@@ -3920,6 +4477,8 @@ def main(argv=None) -> int:
     del corpus, mech_index
     torch.cuda.empty_cache()
     phase_models(ops, torch)
+    torch.cuda.empty_cache()
+    phase_train(ops, torch, data_np)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

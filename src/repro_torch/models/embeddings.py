@@ -17,8 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
-from repro_torch.models.params import generator_for, normal
+from repro_torch.models.params import generator_for, model_device, normal
 
 __all__ = [
     "EmbeddingSpec",
@@ -56,7 +55,7 @@ def padded_rows(spec: EmbeddingSpec, pad_to: int = ROW_PAD) -> int:
 
 
 def embedding_init(generator, spec: EmbeddingSpec, dtype=torch.float32, pad_to: int = ROW_PAD, device="cuda"):
-    dev = resolve_device(device)
+    dev = model_device(device)
     return normal(generator_for(generator, dev), (padded_rows(spec, pad_to), spec.dim), dtype, 0.05, dev)
 
 

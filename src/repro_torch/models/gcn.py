@@ -21,8 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import resolve_device
-from repro_torch.models.params import Params, generator_for, normal
+from repro_torch.models.params import Params, generator_for, model_device, normal
 
 __all__ = [
     "GCNConfig",
@@ -57,7 +56,7 @@ class GCNConfig:
 
 
 def init_params(cfg: GCNConfig, generator=None, device="cuda") -> Params:
-    dev = resolve_device(device)
+    dev = model_device(device)
     g = generator_for(generator, dev)
     dt = cfg.torch_dtype
     dims = [cfg.d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models.params import Params, generator_for, normal
+from repro_torch.models.params import Params, generator_for, model_device, normal
 
 __all__ = [
     "AttnConfig",
@@ -90,7 +90,7 @@ class AttnConfig:
 
 
 def attn_init(generator, cfg: AttnConfig, dtype=torch.float32, device="cuda") -> Params:
-    device = resolve_device(device)
+    device = model_device(device)
     generator = generator_for(generator, device)
     D, H, Hk, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
     s = D**-0.5
@@ -245,7 +245,7 @@ def decode_attention(params, x, cfg: AttnConfig, cache_k, cache_v, cache_pos, po
 # ---------------------------------------------------------------------------
 
 def mlp_init(generator, d_model: int, d_ff: int, dtype=torch.float32, device="cuda") -> Params:
-    device = resolve_device(device)
+    device = model_device(device)
     generator = generator_for(generator, device)
     s_in, s_out = d_model**-0.5, d_ff**-0.5
     return Params(
@@ -282,7 +282,7 @@ class MoEConfig:
 
 
 def moe_init(generator, d_model: int, cfg: MoEConfig, dtype=torch.float32, device="cuda") -> Params:
-    device = resolve_device(device)
+    device = model_device(device)
     generator = generator_for(generator, device)
     E, Ff = cfg.n_experts, cfg.d_ff
     s_in, s_out = d_model**-0.5, Ff**-0.5

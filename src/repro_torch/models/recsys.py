@@ -18,9 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.data.synthetic import default_vocab_sizes
-from repro_torch.device import resolve_device
 from repro_torch.models.embeddings import EmbeddingSpec, embedding_init, lookup, padded_rows
-from repro_torch.models.params import Params, generator_for, normal
+from repro_torch.models.params import Params, generator_for, model_device, normal
 
 __all__ = [
     "RecsysConfig",
@@ -97,7 +96,7 @@ class RecsysConfig:
 
 
 def _setup(cfg: RecsysConfig, generator, device):
-    dev = resolve_device(device)
+    dev = model_device(device)
     return generator_for(generator, dev), dev, cfg.torch_dtype
 
 

@@ -17,7 +17,12 @@ Entry points:
   init_cache(cfg, batch, cache_len, device)  -> cache
   decode_step(params, cfg, token, pos, cache) -> (logits, cache)
 
-This slice serves: gradients and the train step come with the optimiser.
+Gradients: ``loss_fn`` is differentiable; the train path turns them on
+for its own tree (``repro_torch.models.params.value_and_grad``).  With
+``cfg.remat`` and grad mode on, each layer and each chunk of the chunked
+CE runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` on its layer scan and CE scan): the backward recomputes
+their activations instead of keeping them.
 """
 
 from __future__ import annotations
@@ -27,8 +32,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
 from repro_torch.models.layers import (
     AttnConfig,
     MoEConfig,
@@ -42,7 +47,7 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu_mlp,
 )
-from repro_torch.models.params import Params, generator_for, normal
+from repro_torch.models.params import Params, generator_for, model_device, normal
 
 __all__ = [
     "TransformerConfig",
@@ -51,6 +56,7 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "init_params_abstract",
     "logits_fn",
     "loss_fn",
     "prefill",
@@ -59,11 +65,12 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The JAX package's config, field for field.  ``remat``,
-    ``scan_unroll`` and ``cache_shard_axes`` steer only XLA's layer scan,
-    its rematerialisation and the KV cache's sharding inside the scan; the
-    port keeps them so that registry configs compare equal, and none of
-    them changes a forward here."""
+    """The JAX package's config, field for field.  ``remat`` recomputes each
+    layer's and each CE chunk's activations in the backward (values
+    unchanged).  ``scan_unroll`` and ``cache_shard_axes`` steer only XLA's
+    layer scan and the KV cache's sharding inside it; the port keeps them
+    so that registry configs compare equal, and neither changes a forward
+    here."""
 
     name: str
     n_layers: int
@@ -166,7 +173,7 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     ``generator`` (a fresh one seeded 0 on that device when None).  The
     draws do not reproduce ``jax.random``; ``repro_torch.models.convert``
     carries the JAX package's own parameters across."""
-    dev = resolve_device(device)
+    dev = model_device(device)
     g = generator_for(generator, dev)
     dt = cfg.torch_dtype
     p = {
@@ -177,6 +184,12 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     if not cfg.tie_embeddings:
         p["head"] = normal(g, (cfg.d_model, cfg.vocab), dt, 0.02, dev)
     return Params(**p)
+
+
+def init_params_abstract(cfg: TransformerConfig) -> Params:
+    """Shape and dtype skeleton on the meta device, without memory (the
+    reference's ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(cfg, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +223,10 @@ def _block(layer_p, x, cfg: TransformerConfig, positions):
     return x + y, aux, kv
 
 
+def _remat(cfg: TransformerConfig) -> bool:
+    return cfg.remat and torch.is_grad_enabled()
+
+
 def forward(params, cfg: TransformerConfig, tokens, positions=None):
     """tokens: (B, S) integer -> hidden states (B, S, D) and total aux loss."""
     x = params["embed"][tokens]
@@ -217,8 +234,12 @@ def forward(params, cfg: TransformerConfig, tokens, positions=None):
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _remat(cfg)
     for layer_p in params["layers"]:
-        x, aux, _ = _block(layer_p, x, cfg, positions)
+        if remat:
+            x, aux, _ = checkpoint(_block, layer_p, x, cfg, positions, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux, _ = _block(layer_p, x, cfg, positions)
         aux_total = aux_total + aux
     return rms_norm(x, params["ln_f"]), aux_total
 
@@ -231,23 +252,33 @@ def logits_fn(params, cfg: TransformerConfig, hidden):
     return hidden @ _head(params, cfg)
 
 
+def _ce_chunk(h, head, lab):
+    logits = (h @ head).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
 def _chunked_ce(params, cfg: TransformerConfig, hidden, labels):
     """logsumexp-form CE over sequence chunks: never materialises the full
-    (B, S, V) log-softmax."""
+    (B, S, V) log-softmax; under ``remat`` the backward recomputes each
+    chunk's logits."""
     head = _head(params, cfg)
     B, S, D = hidden.shape
     ck = min(cfg.loss_chunk, S)
+    remat = _remat(cfg)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, S, ck):
-        logits = (hidden[:, lo:lo + ck] @ head).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, lo:lo + ck, None].long())[..., 0]
-        total = total + torch.sum(lse - gold)
+        h, lab = hidden[:, lo:lo + ck], labels[:, lo:lo + ck]
+        if remat:
+            total = total + checkpoint(_ce_chunk, h, head, lab, use_reentrant=False, preserve_rng_state=False)
+        else:
+            total = total + _ce_chunk(h, head, lab)
     return total / (B * S)
 
 
 def loss_fn(params, cfg: TransformerConfig, tokens, labels):
-    """Forward value of the LM loss: (CE + aux_loss_weight · aux, parts)."""
+    """The LM loss: (CE + aux_loss_weight · aux, parts)."""
     hidden, aux = forward(params, cfg, tokens)
     if cfg.loss_impl == "chunked":
         loss = _chunked_ce(params, cfg, hidden, labels)
@@ -266,7 +297,7 @@ def loss_fn(params, cfg: TransformerConfig, tokens, labels):
 def init_cache(cfg: TransformerConfig, batch: int, cache_len: int, device="cuda"):
     """Ring-buffer KV cache (L, B, C, Hk, Dh); for SWA configs cache_len
     should be the window.  ``pos`` -1 marks an empty entry."""
-    dev = resolve_device(device)
+    dev = model_device(device)
     L, Hk, Dh = cfg.n_layers, cfg.n_kv, cfg.head_dim
     dt = cfg.torch_dtype
     return {

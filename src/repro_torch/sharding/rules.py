@@ -1,4 +1,5 @@
-"""Scale-out layouts for the sharded apex-table scan.
+"""Sharding rules: the model half's parameter, batch and KV-cache specs,
+and the scale-out layouts of the sharded apex-table scan.
 
 The JAX package runs its distributed filter as one program over a mesh of
 every device (``jax.device_count()``), driven by one Python process.  The
@@ -6,9 +7,32 @@ same thing in PyTorch is a grid of ``torch.device``s shaped
 ``(replica, data)`` in one process: the flattened table's rows split over
 ``data``, the queries over ``replica``, one kernel launch per device under
 ``torch.cuda.device(dev)``.  ``make_scaleout_mesh`` builds that grid by the
-reference's rule.  The model parameter rules of the reference's
-``sharding/rules.py`` serve the workload models and are not part of this
-module.
+reference's rule.
+
+The model half names a layout the way the reference does: a
+``DeviceMesh`` with axes ``("data", "model")`` or ``("pod", "data",
+"model")`` (``repro_torch.launch.mesh``), and per leaf a
+``PartitionSpec``, one entry per dimension: ``None``, an axis name or a
+tuple of names.  The rules are the reference's baseline "fsdp x tp"
+scheme:
+
+  * ``model`` axis: tensor parallelism — attention heads / d_ff / vocab /
+    expert dim (when n_experts >= |model|) / embedding-table rows.
+  * ``data`` axis (+ ``pod`` when present): batch parallelism for
+    activations; FSDP sharding of the *other* big weight dim; optimizer
+    moments take the param specs.
+
+Dims with size 1 never get a mesh axis.  The reference stacks a
+transformer's layer parameters along a leading (n_layers,) axis that
+stays unsharded; the port keeps one tree per layer, so each layer spec is
+the reference's without its first entry.
+
+``to_named_shardings`` turns specs into placements.  One process holds a
+tensor on one device, so a placement puts a leaf whole on its mesh's
+device when the mesh has one distinct device (a card, or the CPU listed n
+times in the tests), and raises ``NotImplementedError`` where it would
+have to split or replicate a leaf over several distinct devices: that is
+the multi-device sharded train step, not yet ported.
 """
 
 from __future__ import annotations
@@ -16,9 +40,25 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["DeviceGrid", "ShardLayout", "apex_table_specs", "make_scaleout_mesh", "place_rows"]
+__all__ = [
+    "DeviceGrid",
+    "DeviceMesh",
+    "NamedSharding",
+    "PartitionSpec",
+    "ShardLayout",
+    "apex_table_specs",
+    "batch_spec",
+    "gcn_param_specs",
+    "kv_cache_specs",
+    "lm_param_specs",
+    "make_scaleout_mesh",
+    "place_rows",
+    "recsys_param_specs",
+    "to_named_shardings",
+]
 
 
 @dataclass(frozen=True)
@@ -83,6 +123,69 @@ class DeviceGrid:
         return {name: sizes[name] for name in self.axis_names}
 
 
+def _entry(e):
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        return None if not e else (e[0] if len(e) == 1 else e)
+    return e
+
+
+class PartitionSpec(tuple):
+    """Per dimension of a leaf: ``None`` (not split), an axis name, or a
+    tuple of axis names (split over their product), as
+    ``jax.sharding.PartitionSpec``, which also reads an empty tuple as
+    ``None`` and a one-name tuple as the name."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class DeviceMesh:
+    """A named grid of devices, row-major: ``devices[i]`` is the device at
+    the multi-index ``np.unravel_index(i, sizes)``.  An abstract mesh (the
+    production mesh) lists the meta device."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"{len(self.axis_names)} axis names for {len(self.sizes)} sizes")
+        if len(self.devices) != int(np.prod(self.sizes)):
+            raise ValueError(f"a {self.sizes} mesh needs {int(np.prod(self.sizes))} devices; got {len(self.devices)}")
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def distinct_devices(self) -> list:
+        return list(dict.fromkeys(self.devices))
+
+    def scaleout_grid(self, row_axes: Sequence[str]) -> DeviceGrid:
+        """The search half's ``(replica, data)`` grid over this mesh's
+        devices: table rows split over the product of ``row_axes``, one
+        replica group per index of the other axes."""
+        rows = [a for a in self.axis_names if a in tuple(row_axes)]
+        rest = [a for a in self.axis_names if a not in rows]
+        grid = np.empty(len(self.devices), dtype=object)
+        grid[:] = list(self.devices)
+        grid = grid.reshape(self.sizes)
+        order = [self.axis_names.index(a) for a in rest + rows]
+        n_rows = int(np.prod([self.shape[a] for a in rows]))
+        grid = grid.transpose(order).reshape(-1, n_rows)
+        return DeviceGrid(tuple(tuple(r) for r in grid), ("data",) if len(grid) == 1 else ("replica", "data"))
+
+
 def make_scaleout_mesh(layout: Optional[ShardLayout] = None,
                        devices: Optional[Sequence[torch.device]] = None) -> DeviceGrid:
     """The device grid of the distributed filter under ``layout``.
@@ -135,3 +238,162 @@ def place_rows(mesh: DeviceGrid, rows: torch.Tensor):
     return tuple(
         tuple(rows[j * per:(j + 1) * per].to(dev) for j, dev in enumerate(group)) for group in mesh.devices
     )
+
+
+# ---------------------------------------------------------------------------
+# the model half: parameter, batch and KV-cache specs
+# ---------------------------------------------------------------------------
+
+def _axes(mesh):
+    names = mesh.axis_names
+    fsdp = "data" if "data" in names else None
+    mdl = "model" if "model" in names else None
+    batch_axes = tuple(a for a in ("pod", "data") if a in names)
+    return fsdp, mdl, batch_axes
+
+
+def batch_spec(mesh, extra_dims: int = 1) -> PartitionSpec:
+    """Batch-leading arrays: (B, ...) -> P(('pod', 'data'), None, ...)."""
+    _, _, batch = _axes(mesh)
+    return P(batch, *([None] * extra_dims))
+
+
+def _path_str(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def _replicated(leaf) -> PartitionSpec:
+    return P(*([None] * len(leaf.shape)))
+
+
+def lm_param_specs(params_abstract, mesh, *, n_experts: Optional[int] = None, moe_local: bool = False):
+    """Spec tree of a transformer's parameters (a ``Params`` tree, meta
+    tensors or real ones).  ``moe_local``: expert weights replicate over
+    the data axes when experts cannot shard over ``model`` (the local
+    dispatch path); optimizer moments are built without it."""
+    from repro_torch.models.params import tree_map_with_path  # repro_torch.models imports this module
+
+    fsdp, mdl, _ = _axes(mesh)
+    mdl_size = mesh.shape.get("model", 1)
+    experts_on_model = n_experts is not None and n_experts >= mdl_size
+    e_fsdp = None if (moe_local and not experts_on_model) else fsdp
+
+    def rule(path, leaf):
+        name = _path_str(path)
+        if "layers/" in name:
+            # one layer's leaf: the reference's spec less its (n_layers,) entry
+            if "attn/w" in name:
+                if name.endswith("wo"):
+                    return P(mdl, fsdp)
+                return P(fsdp, mdl)              # wq, wk, wv (D, H*Dh)
+            if "attn/b" in name:
+                return P(mdl)
+            if "ln_" in name:
+                return P(None)
+            if "moe/w_router" in name:
+                return P(fsdp, None)
+            if "moe/w_gate" in name or "moe/w_up" in name:   # (E, D, F)
+                return P(mdl, e_fsdp, None) if experts_on_model else P(None, e_fsdp, mdl)
+            if "moe/w_down" in name:                          # (E, F, D)
+                return P(mdl, None, e_fsdp) if experts_on_model else P(None, mdl, e_fsdp)
+            if "mlp/w_gate" in name or "mlp/w_up" in name:    # (D, F)
+                return P(fsdp, mdl)
+            if "mlp/w_down" in name:                          # (F, D)
+                return P(mdl, fsdp)
+            return _replicated(leaf)
+        if name == "embed":
+            return P(mdl, None)
+        if name == "head":
+            return P(None, mdl)
+        return _replicated(leaf)
+
+    return tree_map_with_path(rule, params_abstract)
+
+
+def gcn_param_specs(params_abstract, mesh):
+    """GCN weights are tiny (d_hidden 16): replicate everything."""
+    from repro_torch.models.params import tree_map  # repro_torch.models imports this module
+
+    return tree_map(_replicated, params_abstract)
+
+
+def recsys_param_specs(params_abstract, mesh):
+    """Embedding tables row-shard over ``model``; interaction weights replicate."""
+    from repro_torch.models.params import tree_map_with_path  # repro_torch.models imports this module
+
+    _, mdl, _ = _axes(mesh)
+
+    def rule(path, leaf):
+        name = _path_str(path)
+        nd = len(leaf.shape)
+        if name in ("table", "items") and nd == 2:
+            return P(mdl, None)
+        if name == "linear" and nd == 1:
+            return P(mdl)
+        return _replicated(leaf)
+
+    return tree_map_with_path(rule, params_abstract)
+
+
+def kv_cache_specs(cache_abstract, mesh, *, batch: int):
+    """KV caches (the port keeps the reference's stacked (L, B, C, Hk, Dh)
+    layout): batch over (pod, data) when divisible; head_dim over model."""
+    from repro_torch.models.params import tree_map_with_path  # repro_torch.models imports this module
+
+    _, mdl, batch_axes = _axes(mesh)
+    n_batch_shards = 1
+    for a in batch_axes:
+        n_batch_shards *= mesh.shape[a]
+    shard_batch = batch % n_batch_shards == 0 and batch >= n_batch_shards
+    mdl_size = mesh.shape.get("model", 1)
+
+    def rule(path, leaf):
+        name = _path_str(path)
+        if name in ("k", "v"):  # (L, B, C, Hk, Dh)
+            dh_axis = mdl if leaf.shape[-1] % mdl_size == 0 else None
+            return P(None, batch_axes if shard_batch else None, None, None, dh_axis)
+        if name == "pos":       # (L, B, C)
+            return P(None, batch_axes if shard_batch else None, None)
+        return _replicated(leaf)
+
+    return tree_map_with_path(rule, cache_abstract)
+
+
+def _split_size(mesh, spec: PartitionSpec) -> int:
+    n = 1
+    for entry in spec:
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                n *= mesh.shape[a]
+    return n
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's placement: ``spec`` over ``mesh``.  ``place(t)`` puts the
+    leaf whole on the mesh's one distinct device."""
+
+    mesh: DeviceMesh
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        distinct = self.mesh.distinct_devices
+        if len(distinct) > 1:
+            how = "split" if _split_size(self.mesh, self.spec) > 1 else "replicated"
+            raise NotImplementedError(
+                f"{self.spec} would be {how} over {len(distinct)} distinct devices; one process holds a "
+                "tensor on one device, and the multi-device sharded train step is not ported")
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.distinct_devices[0]
+
+    def place(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device)
+
+
+def to_named_shardings(spec_tree, mesh: DeviceMesh):
+    from repro_torch.models.params import tree_map  # repro_torch.models imports this module
+
+    return tree_map(lambda s: NamedSharding(mesh, s), spec_tree, is_leaf=lambda x: isinstance(x, PartitionSpec))
+

@@ -278,6 +278,15 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "toks, _ = token_stream(1, 8, cfg.vocab, seed=0)\n"
         "logits, cache = tf.prefill(tf.init_params(cfg, device='cpu'), cfg, torch.as_tensor(toks))\n"
         "assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all())\n"
+        "import repro_torch.train, repro_torch.launch.steps, repro_torch.launch.train, repro_torch.launch.mesh\n"
+        "from repro_torch.models.params import value_and_grad\n"
+        "params = tf.init_params(cfg, device='cpu')\n"
+        "opt = repro_torch.train.init_state(repro_torch.train.AdamWConfig(), params)\n"
+        "t = torch.as_tensor(toks)\n"
+        "loss, g = value_and_grad(lambda p: tf.loss_fn(p, cfg, t, t)[0], params)\n"
+        "repro_torch.train.apply_updates(repro_torch.train.AdamWConfig(), params, g, opt)\n"
+        "plan = repro_torch.launch.steps.build_cell('qwen2-1.5b', 'train_4k', repro_torch.launch.mesh.make_production_mesh())\n"
+        "assert plan.kind == 'train' and bool(torch.isfinite(loss))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

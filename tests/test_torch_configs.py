@@ -30,6 +30,8 @@ from repro.configs import get_arch as rget_arch, list_archs as rlist_archs
 from repro.models import gcn as rgcn, recsys as rrec, transformer as rtf
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.models import gcn, layers, recsys, transformer as tf
+from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.convert import from_reference
 
 ASSIGNED = {
@@ -181,6 +183,9 @@ def test_model_entry_points_default_to_the_card():
                lambda: layers.rope_freqs(16),
                lambda: recsys.fm_init(cfgs["fm"]),
                lambda: gcn.init_params(cfgs["gcn-cora"]),
-               lambda: from_reference(cfgs["gcn-cora"], {})):
+               lambda: from_reference(cfgs["gcn-cora"], {}),
+               lambda: train_cli.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh(1, 1)
