@@ -13,6 +13,8 @@
     python3 chip_smoke.py --serving-only
     python3 chip_smoke.py --models-only
     python3 chip_smoke.py --train-only
+    python3 chip_smoke.py --tools-only
+    python3 chip_smoke.py --tune-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -203,8 +205,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 refine=64``) and 8 timed 1-D exact k-NN requests; then
                 ``ExactSearchEngine`` over the first 112,682 rows (the
                 paper's colors size) with all five mechanisms, per
-                mechanism a 16-query range batch (query 0's 1e-3 distance
-                quantile), a 16-query k-NN batch and two 1-D requests of
+                mechanism an 8-query range batch (query 0's 1e-3 distance
+                quantile), an 8-query k-NN batch and two 1-D requests of
                 each, printing calls per query (the paper's Table 3), wall
                 ms per query (batched and 1-D) and build seconds.  After
                 the counts are read: the card's LAESA ``bounds_batch`` bit-equal
@@ -242,7 +244,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 ``table_rows`` (K1, K3 and K4 with ``plan``,
                 ``previous_design_ms`` and ``previous_design_device_ms``):
                 first the main path's, then the filtered, online, sharded,
-                durable, serving and mechanisms phases', tagged with ``launch_phase`` and carrying
+                durable, serving and mechanisms phases' (and, after the
+                train phase, the tools phase's), tagged with ``launch_phase`` and carrying
                 that phase's launches and shares.  The filtered rows are
                 timed on the 1M-row JSD index with the most common shop's
                 row mask (masked K2 (64, 10, upb, 20) and K3 (64, 512, 20)
@@ -311,7 +314,45 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 ``opt=True`` on the colors corpus, the launch counts set to 0
                 before and read after (K4 and K3 must launch); the train CLI
                 as a subprocess (``TRAIN_SIZES``, ``TRAIN_OPT``);
-then the card's ``nvidia-smi`` line, and last the device contract line.
+  10. tools — the tooling slice (``repro_torch.core.distortion``,
+                ``baselines``, ``launch.dryrun``), the launch counts set to 0
+                before and read after (K4 and K5 must launch): the paper's
+                Fig. 2 on ``colors_like(n=112,682, dim=112)`` in f64 on the
+                card, k in {5, 10, 20, 50}, ``measure_distortion``'s 20,000
+                pairs; Euclidean through n-simplex (k random pivots), PCA,
+                JL and LMDS (max(k + 2, 2k) landmarks), JSD through n-simplex
+                and LMDS; D per (metric, k, method) with each map's fit and
+                projection wall ms; every n-simplex ratio true / apex >=
+                1 - 1e-9, every D finite, the card's n-simplex and JL D equal
+                to the port's on the CPU over the same pairs within 1e-9
+                relative; whether n-simplex beats JL printed.  The
+                projector's gemm (K4), paper and solve modes on 4,096 rows at
+                n = 20 within 1e-10 (altitudes squared).  The dry run of the
+                train phase's two cells on meta tensors (qwen2-1.5b's
+                train_4k at full config, 8 microbatches; mixtral-8x7b's at 2
+                layers, 2 microbatches): counted FLOPs against
+                ``model_flops``, the dominant roofline term and the bound
+                seconds beside the train phase's measured step.  Then
+                ``{"tools_kernels": [...]}``: each K4 and K5 class with >= 10%
+                of the phase's launches (``launch_phase="tools"``), timed and
+                held to its plain version on a JSD n-simplex index of 50
+                pivots over the Fig. 2 corpus; they join the kernels line;
+  11. tune  — the launch-plan tuner (``repro_torch.kernels.tuning``) on the
+                e2e build's 1M-row n = 20 table, the launch counts set to 0
+                before and read after (K1-K3 must launch): ``autotune`` of
+                K1 (Q, dims 20), K2 (Q, k 10, upb, 20) and K3 (Q, cap 512,
+                20, k-NN pass B's thresholds) at Q = 1 and 64, each
+                candidate validated against its plain version, then timed
+                with CUDA events; every candidate's validity and ms, the
+                default plan's ms and the winner printed; the default in the
+                space and valid, no invalid winner, and with no cache file
+                every ``lookup`` the default (hard).  No cache is written;
+                the memo is reset at the end;
+then the full run's seconds (and each phase's, ``phase_seconds``), the
+``kernels`` line, the card's ``nvidia-smi`` line, and last the device
+contract line.  The run points the tuning cache
+(``REPRO_TORCH_KERNEL_TUNE_CACHE``) at a fresh temporary path, removed at
+the end, so no phase reads a tuning file left on the machine.
 
 ``--time-shapes`` skips phases 2-5 and 7: it builds the JSD approximate index
 and prints ``{"shape_times": [...]}`` for the given (kernel, shape class)
@@ -332,7 +373,7 @@ alone, with their checks, and print ``{"filtered_kernels": [...]}``,
 the 1M-row JSD exact index, the serve step's K3 (64, 256, 20) always among
 them).
 ``--models-only`` runs phase 8 alone, with its checks; ``--train-only``
-phase 9.
+phase 9; ``--tools-only`` phase 10; ``--tune-only`` phase 11.
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -363,11 +404,15 @@ Q, K, CAP = 64, 10, 4096
 #: the approximate phase's truncation and re-rank budget
 APPROX_DIMS, REFINE = 10, 64
 #: the mechanisms phase's engine: the paper's colors size (SISAP colors,
-#: 112,682 rows), 16 queries per task, range at a 1e-3 selectivity
-ENGINE_ROWS, ENGINE_Q, ENGINE_SELECTIVITY = 112_682, 16, 1e-3
-#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 / f64
-#: FLOP/s outside the tensor cores
-HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+#: 112,682 rows), 8 queries per task (16 until the tools and tune phases
+#: joined the run: the tree mechanisms' host path takes 0.3-1.5 s a query,
+#: and the full run must stay well inside its time limit), range at a 1e-3
+#: selectivity
+ENGINE_ROWS, ENGINE_Q, ENGINE_SELECTIVITY = 112_682, 8, 1e-3
+#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 / f64
+#: FLOP/s outside the tensor cores and dense bf16 FLOP/s; bound in main()
+#: from their one home, ``repro_torch.launch.roofline``
+HBM_BPS = F32_FLOPS = F64_FLOPS = BF16_FLOPS = None
 F32_TOL, F64_TOL = 2e-5, 1e-12
 #: f32 tolerances of K4 and K5 (tests/test_kernels.py:79 and :111)
 K4_F32_TOL, K5_F32_TOL = 3e-4, 1e-4
@@ -1459,9 +1504,9 @@ def verify_laesa(torch, rec):
 
 def phase_engine(torch, search_mod, metrics_mod, ref, data_np, queries_np, metric_name):
     """``ExactSearchEngine`` over the paper's colors size with all five
-    mechanisms: per mechanism a 16-query range batch at the 1e-3 selectivity
+    mechanisms: per mechanism an ``ENGINE_Q``-query range batch at the 1e-3 selectivity
     of ``benchmarks/bench_batch_search.py`` (query 0's distance quantile),
-    a 16-query k-NN batch and two 1-D requests of each, every answer held to
+    a k-NN batch of as many and two 1-D requests of each, every answer held to
     the brute force.  Prints the paper's Table 3 per mechanism: calls per
     query, wall ms per query and the build seconds."""
     data, qs = data_np[:ENGINE_ROWS], queries_np[:ENGINE_Q]
@@ -3723,8 +3768,6 @@ TRAIN_OPT = dict(lr=3e-5, warmup_steps=0, total_steps=100)
 #: router (f32, 4,096 x 8) moves every token's expert logits the same way
 #: and the capacity limit drops the overflow
 MOE_TRAIN_LR = 3e-6
-#: published dense bf16 peak of one H100 SXM (NVIDIA data sheet)
-BF16_FLOPS = 989e12
 #: qwen2-1.5b's train_4k at its full config, global batch cut from 256 to 8
 #: (accum 8 microsteps of one sequence, as the cell gives on one device);
 #: mixtral-8x7b at full width, 2 of 32 layers, 2 sequences of 4,096; the
@@ -4228,8 +4271,310 @@ def phase_train(ops, torch, data_np=None) -> dict:
     emit(phase="train", task="done", seconds=seconds)
     return dict(qwen=qwen, mixtral=mixtral, serve=serve, seconds=seconds)
 
+#: the paper's Fig. 2 at its colors size: output widths, sampled pairs and
+#: the methods per metric (PCA and JL need coordinates: Euclidean only)
+FIG2_ROWS, FIG2_KS, FIG2_PAIRS = ENGINE_ROWS, (5, 10, 20, 50), 20_000
+FIG2_METHODS = {"euclidean": ("nsimplex", "pca", "jl", "lmds"), "jensen_shannon": ("nsimplex", "lmds")}
+#: the card's D of n-simplex and JL against the port's on the CPU, same pairs
+FIG2_CPU_RTOL = 1e-9
+#: every n-simplex ratio true / apex is >= 1 (the apex distance is a lower bound)
+RATIO_FLOOR = 1.0 - 1e-9
+#: the projector's three modes on this many rows at n pivots, within this
+MODES_ROWS, MODES_TOL = 4096, 1e-10
+#: the dry run's cells: the two the train phase measures, at its cuts
+#: (qwen2-1.5b's global batch 256 -> 8; mixtral-8x7b 2 of 32 layers, batch 2)
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", dict(accum=TRAIN_SIZES.qwen_batch)),
+                ("mixtral-8x7b", "train_4k", dict(accum=TRAIN_SIZES.mixtral_batch,
+                                                  n_layers=TRAIN_SIZES.mixtral_layers)))
+#: the tune phase's problems on the e2e phase's 1M-row n = 20 table: K1 at
+#: (Q, dims 20), K2 at (Q, k 10, upb, 20), K3 at (Q, cap 512, 20) under
+#: k-NN pass B's thresholds (the K-th smallest upb: the serving bucket's)
+TUNE_QS, TUNE_KEY, TUNE_CAP = (1, 64), "upb", 512
+
+
+def tools_modules():
+    """The port's Fig. 2 pieces, dry run and roofline (no JAX)."""
+    from repro_torch.baselines import LandmarkMDS, jl_project, pca_project
+    from repro_torch.core import NSimplexProjector, distortion_from_ratios, measure_distortion, select_pivots
+    from repro_torch.core.distortion import pair_distances, sample_pairs
+    from repro_torch.data import colors_like
+    from repro_torch.launch import dryrun
+    from repro_torch.metrics import get_metric
+
+    return SimpleNamespace(colors_like=colors_like, LandmarkMDS=LandmarkMDS, jl_project=jl_project, pca_project=pca_project,
+                           NSimplexProjector=NSimplexProjector, distortion_from_ratios=distortion_from_ratios,
+                           measure_distortion=measure_distortion, select_pivots=select_pivots,
+                           pair_distances=pair_distances, sample_pairs=sample_pairs, dryrun=dryrun,
+                           get_metric=get_metric)
+
+
+def fig2_maps(t, metric, X_np, X, method, k, seed=0):
+    """(f on the card, f on the CPU or None) of one Fig. 2 method at width
+    k: n-simplex on k random pivots, PCA, JL, LMDS on max(k + 2, 2k)
+    landmarks (the JAX package's benchmark's choice)."""
+    if method == "nsimplex":
+        piv = t.select_pivots(X_np, k, seed=seed)
+        return (t.NSimplexProjector(piv, metric, device=DEVICE), t.NSimplexProjector(piv, metric, device="cpu"))
+    if method == "jl":
+        return (t.jl_project(X_np.shape[1], k, seed=seed, device=DEVICE),
+                t.jl_project(X_np.shape[1], k, seed=seed, device="cpu"))
+    if method == "pca":
+        return t.pca_project(X, k, device=DEVICE), None
+    return t.LandmarkMDS(t.select_pivots(X_np, max(k + 2, 2 * k), seed=seed + 1), metric, k, device=DEVICE), None
+
+
+def cpu_distortion(torch, t, metric, X_np, f_cpu, n_pairs, seed=0) -> float:
+    """D of ``f_cpu`` on the CPU over ``measure_distortion``'s pairs, the
+    projection of the sampled rows only (every map here is row-wise)."""
+    i, j = t.sample_pairs(X_np.shape[0], n_pairs, seed)
+    A, B = torch.as_tensor(X_np[i]), torch.as_tensor(X_np[j])
+    true_d = t.pair_distances(metric, A, B)
+    diff = f_cpu(A).double() - f_cpu(B).double()
+    return t.distortion_from_ratios(true_d, torch.sqrt(torch.clamp_min((diff * diff).sum(dim=1), 0.0)))
+
+
+def tools_fig2(torch, t, X_np) -> list:
+    """The paper's Fig. 2 on the card: D per (metric, k, method) over
+    20,000 pairs of the 112,682-row colors corpus ``X_np`` in f64, each
+    map's fit and projection wall ms; n-simplex's ratios all >= 1, every D
+    finite, and the card's n-simplex and JL D equal to the port's on the
+    CPU."""
+    X = torch.as_tensor(X_np, device=DEVICE)
+    rows = []
+    for metric_name, methods in FIG2_METHODS.items():
+        metric = t.get_metric(metric_name)
+        for k in FIG2_KS:
+            for method in methods:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f, f_cpu = fig2_maps(t, metric, X_np, X, method, k)
+                torch.cuda.synchronize()
+                fit_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                Xp = f(X)
+                torch.cuda.synchronize()
+                proj_ms = (time.perf_counter() - t0) * 1e3
+                check(tuple(Xp.shape) == (FIG2_ROWS, k) and bool(torch.isfinite(Xp).all()),
+                      f"Fig. 2 {metric_name} {method} k={k}: projection {tuple(Xp.shape)} not finite")
+                del Xp
+                D, true_d, approx_d = t.measure_distortion(metric, X, f, n_pairs=FIG2_PAIRS)
+                check(np.isfinite(D), f"Fig. 2 {metric_name} {method} k={k}: D = {D}")
+                row = dict(metric=metric_name, k=k, method=method, D=D, fit_ms=fit_ms, projection_ms=proj_ms,
+                           pairs=int(true_d.shape[0]))
+                if method == "nsimplex":
+                    keep = approx_d > 1e-12
+                    ratio_min = float((true_d[keep] / approx_d[keep]).min())
+                    check(ratio_min >= RATIO_FLOOR,
+                          f"Fig. 2 {metric_name} k={k}: an n-simplex apex distance exceeds the true one "
+                          f"(ratio {ratio_min})")
+                    row["ratio_min"] = ratio_min
+                if f_cpu is not None:
+                    t0 = time.perf_counter()
+                    D_cpu = cpu_distortion(torch, t, metric, X_np, f_cpu, FIG2_PAIRS)
+                    row.update(D_cpu=D_cpu, cpu_s=time.perf_counter() - t0)
+                    check(abs(D - D_cpu) <= FIG2_CPU_RTOL * abs(D_cpu),
+                          f"Fig. 2 {metric_name} {method} k={k}: card D {D!r} != CPU D {D_cpu!r}")
+                del true_d, approx_d, f, f_cpu
+                emit(phase="tools", task="fig2", **row)
+                rows.append(row)
+    for k in FIG2_KS:
+        by = {r["method"]: r["D"] for r in rows if r["metric"] == "euclidean" and r["k"] == k}
+        # printed, not checked: tests/test_system.py asserts it at 1,500 rows
+        emit(phase="tools", task="fig2_nsimplex_vs_jl", k=k, nsimplex_D=by["nsimplex"], jl_D=by["jl"],
+             nsimplex_below_jl=by["nsimplex"] < by["jl"])
+    return rows
+
+
+def tools_modes(torch, t) -> dict:
+    """The projector's gemm (K4), paper and solve modes on MODES_ROWS rows at
+    N_PIVOTS pivots on the card agree within MODES_TOL (altitudes, a sqrt
+    that is ~0 at a pivot, compared squared)."""
+    X_np = t.colors_like(n=MODES_ROWS, dim=DIM, seed=SEED + 1).astype(np.float64)
+    X = torch.as_tensor(X_np, device=DEVICE)
+    piv = t.select_pivots(X_np, N_PIVOTS, seed=1)
+    metric = t.get_metric("euclidean")
+    outs, ms = {}, {}
+    for mode in ("gemm", "paper", "solve"):
+        proj = t.NSimplexProjector(piv, metric, mode=mode, device=DEVICE)
+        d = proj.pivot_distances(X)
+        outs[mode] = proj.project_distances(d)
+        ms[mode] = time_ms(torch, lambda: proj.project_distances(d))
+    err = {}
+    for mode in ("paper", "solve"):
+        a, b = outs[mode], outs["gemm"]
+        head = ((a[:, :-1] - b[:, :-1]).abs() / (1.0 + b[:, :-1].abs())).max()
+        alt = ((a[:, -1] ** 2 - b[:, -1] ** 2).abs() / (1.0 + b[:, -1] ** 2)).max()
+        err[mode] = float(max(head, alt))
+        check(err[mode] <= MODES_TOL, f"projector mode {mode} differs from gemm by {err[mode]}")
+    return dict(rows=MODES_ROWS, n_pivots=N_PIVOTS, max_rel_err_vs_gemm=err, ms=ms)
+
+
+def tools_dryrun(t, train=None) -> list:
+    """The dry run of the train phase's two cells on meta tensors: counted
+    FLOPs against model_flops, the dominant roofline term and the bound
+    seconds (beside the train phase's measured step where it ran)."""
+    measured = {"qwen2-1.5b": (train or {}).get("qwen", {}).get("step_s"),
+                "mixtral-8x7b": (train or {}).get("mixtral", {}).get("step_s")}
+    rows = []
+    for arch, shape, cut in DRYRUN_CELLS:
+        rec = t.dryrun.run_cell(arch, shape, "single", None, verbose=False, **cut)
+        check(rec["status"] == "ok", f"dry run {arch}/{shape}: {rec.get('error')}")
+        r = rec["roofline"]
+        row = dict(arch=arch, shape=shape, cut=cut, counted_flops=rec["op_walk"]["flops"],
+                   model_flops=rec["model_flops"], counted_over_model=rec["op_walk"]["flops"] / rec["model_flops"],
+                   bytes_hbm=rec["op_walk"]["bytes_hbm"], ops=rec["op_walk"]["ops"], dominant=r["dominant"],
+                   compute_s=r["compute_s"], memory_s=r["memory_s"], bound_s=max(r["compute_s"], r["memory_s"]),
+                   memory=rec["memory"], walk_s=rec["walk_s"], measured_step_s=measured.get(arch))
+        emit(phase="tools", task="dryrun", **row)
+        rows.append(row)
+    return rows
+
+
+def phase_tools(ops, torch, api, ref, log, train=None) -> dict:
+    """The tooling slice (ROADMAP item 12): the paper's Fig. 2 on the card
+    (K4 and K5 through the projector and LMDS), the projector's three modes,
+    the dry run of the train phase's cells; the launch counts set to 0
+    before and read after (K4 and K5 must launch).  Then its kernel rows:
+    each K4 and K5 class with >= 10% of the phase's launches, timed on a
+    JSD n-simplex index of 50 pivots over the Fig. 2 corpus (the widest k;
+    narrower classes on its prefix projectors)."""
+    t = tools_modules()
+    t_phase = time.perf_counter()
+    X_np = t.colors_like(n=FIG2_ROWS, dim=DIM, seed=SEED).astype(np.float64)
+    ops.reset_launches()
+    fig2 = tools_fig2(torch, t, X_np)
+    modes = tools_modes(torch, t)
+    launches = dict(ops.LAUNCHES)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name in ("apex_project", "jsd_pairwise"):
+        check(launches[name] > 0, f"{KERNEL_INFO[name][0]} ({name}) was not launched by the tools phase")
+    emit(phase="tools", task="modes", **modes)
+    for name in ("apex_project", "jsd_pairwise"):
+        emit(phase="launch_shapes", launch_phase="tools", kernel=KERNEL_INFO[name][0], name=name,
+             launches=launches[name], classes=[[list(cls), n, share] for cls, n, share in hist[name]])
+    torch.cuda.empty_cache()
+    dry = tools_dryrun(t, train)
+    index = api.build_index(X_np, "jensen_shannon", n_pivots=max(FIG2_KS), seed=0, device=DEVICE)
+    inputs = ShapeInputs(torch, ops, ref, index, X_np[:256], log)
+    rows = kernel_rows(torch, ops, inputs, hist, "tools")
+    print(json.dumps({"tools_kernels": rows}), flush=True)
+    del inputs, index
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit(phase="tools", task="done", seconds=seconds)
+    return dict(fig2=fig2, modes=modes, dryrun=dry, rows=rows, seconds=seconds)
+
+
+def tune_row(r) -> list:
+    return [r["plan"], r["max_group"], r["waves"], r["slice_rows"], r["launch"], r["valid"],
+            r["us_per_call"] / 1e3]
+
+
+def phase_tune(ops, torch, api, ref, data_np, queries_np) -> dict:
+    """The launch-plan tuner (``kernels.tuning.autotune``) on the e2e
+    phase's 1M-row n = 20 table, K1, K2 and K3 at Q = 1 and 64: every
+    candidate validated against the plain version, then timed with CUDA
+    events; the default plan's ms and the winner printed.  With no cache
+    file every lookup is the default; no cache is written; the memo is
+    reset at the end."""
+    from dataclasses import asdict
+
+    from repro_torch.kernels import tuning
+
+    t_phase = time.perf_counter()
+    path = tuning.default_cache_path()
+    tuning.reset_lookup_memo()
+    check(not os.path.exists(path), f"the tune phase's cache {path} already exists")
+    for kernel in tuning.KERNELS:
+        check(tuning.lookup(kernel, N_PIVOTS, N_PIVOTS, torch.float32) == tuning.DEFAULT_CONFIG,
+              f"{kernel}: lookup without a cache file is not the default")
+    index = api.build_index(data_np, "euclidean", n_pivots=N_PIVOTS, seed=SEED % 1000, device=DEVICE)
+    inner = index._inner
+    tab = inner._kernel_table()
+    ap = inner.query_apex_batch(queries_np[:max(TUNE_QS)]).float().contiguous()
+    ops.reset_launches()
+    sweeps = []
+    for kernel in tuning.KERNELS:
+        for Q_ in TUNE_QS:
+            q = ap[:Q_].contiguous()
+            kw = {}
+            if kernel == "apex_topk":
+                kw = dict(k=K, key=TUNE_KEY)
+            elif kernel == "apex_threshold":
+                _, U = ref.apex_bounds_batch_ref(tab, q, N_PIVOTS)
+                kw = dict(cap=TUNE_CAP, thresholds=torch.kthvalue(U, K, dim=1).values.contiguous())
+                del U
+            space = tuning.candidate_space(tab.shape[0], Q_, kernel=kernel)
+            check(tuning.DEFAULT_CONFIG in space, f"{kernel}: the default is not in the sweep")
+            t0 = time.perf_counter()
+            winner, rows = tuning.autotune(tab, q, kernel=kernel, dims=N_PIVOTS, candidates=space, cache=None, **kw)
+            sweep_s = time.perf_counter() - t0
+            by_config = {tuning.KernelConfig(r["plan"], r["max_group"], r["waves"], r["slice_rows"]): r for r in rows}
+            default = by_config[tuning.DEFAULT_CONFIG]
+            check(default["valid"], f"{kernel} Q={Q_}: the default plan failed validation: {default}")
+            check(by_config[winner]["valid"], f"{kernel} Q={Q_}: an invalid candidate won")
+            n_invalid = sum(not r["valid"] for r in rows)
+            out = dict(kernel=KERNEL_INFO[kernel][0], name=kernel, Q=Q_, N=tab.shape[0], dims=N_PIVOTS,
+                       candidates=len(rows), invalid=n_invalid, distinct_plans=len({str(r["launch"]) for r in rows}),
+                       default=asdict(tuning.DEFAULT_CONFIG), default_launch=default["launch"],
+                       default_ms=default["us_per_call"] / 1e3, winner=asdict(winner),
+                       winner_launch=by_config[winner]["launch"], winner_ms=by_config[winner]["us_per_call"] / 1e3,
+                       sweep_s=sweep_s, **{k_: v for k_, v in kw.items() if k_ != "thresholds"})
+            emit(phase="tune", task="sweep", **out,
+                 rows_fields=["plan", "max_group", "waves", "slice_rows", "launch", "valid", "ms"],
+                 rows=[tune_row(r) for r in rows])
+            sweeps.append(out)
+            torch.cuda.empty_cache()
+    launches = dict(ops.LAUNCHES)
+    for name in tuning.KERNELS:
+        check(launches[name] > 0, f"{KERNEL_INFO[name][0]} ({name}) was not launched by the tune phase")
+    emit(phase="launch_shapes", launch_phase="tune", launches=launches)
+    del index, inner, tab, ap
+    torch.cuda.empty_cache()
+    tuning.reset_lookup_memo()
+    check(not os.path.exists(path), "the tune phase wrote a cache file")
+    check(tuning.lookup("apex_topk", N_PIVOTS, N_PIVOTS, torch.float32) == tuning.DEFAULT_CONFIG,
+          "lookup after the sweeps is not the default")
+    tuning.reset_lookup_memo()
+    seconds = time.perf_counter() - t_phase
+    emit(phase="tune", task="done", seconds=seconds)
+    return dict(sweeps=sweeps, seconds=seconds)
+
+
+class Laps:
+    """Seconds between successive calls, by the name given at each call."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.laps[name] = now - self.t
+        self.t = now
+
+
+def bind_peaks():
+    """The published H100 peaks from their one home in the port."""
+    from repro_torch.launch import roofline as peaks
+
+    global HBM_BPS, F32_FLOPS, F64_FLOPS, BF16_FLOPS
+    HBM_BPS, F32_FLOPS, F64_FLOPS, BF16_FLOPS = peaks.HBM_BW, peaks.F32_FLOPS, peaks.F64_FLOPS, peaks.PEAK_FLOPS
+
 
 def main(argv=None) -> int:
+    """Runs ``run`` with the kernel tuning cache pointed at a fresh
+    temporary path (no phase reads a tuning file left on the machine),
+    removed at the end."""
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_TORCH_KERNEL_TUNE_CACHE"] = os.path.join(tune_dir, "kernel_tuning.json")
+    try:
+        return run(argv)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run(argv=None) -> int:
     import argparse
 
     import torch
@@ -4265,13 +4610,21 @@ def main(argv=None) -> int:
                         help="only run the train phase (every smoke arch against the CPU, qwen2-1.5b at full "
                              "config, mixtral-8x7b at full width, the RecSys and GCN train cells, the serve_1m "
                              "cell, the train CLI) and its checks")
+    parser.add_argument("--tools-only", action="store_true",
+                        help="only run the tools phase (the paper's Fig. 2 on the card, the projector's three "
+                             "modes, the dry run of the train phase's cells) and its checks")
+    parser.add_argument("--tune-only", action="store_true",
+                        help="only run the tune phase (the launch-plan tuner over K1, K2 and K3 on the 1M-row "
+                             "table at Q = 1 and 64) and its checks")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    bind_peaks()
     from repro_torch import api, filter as filter_mod, metrics as metrics_mod
     from repro_torch.data import colors_like
     from repro_torch.kernels import build, ops, ref
@@ -4314,11 +4667,21 @@ def main(argv=None) -> int:
         return 0
     log = log_cost(build)
     emit(phase="build", log_fp64=log)
+    if args.tools_only:
+        phase_tools(ops, torch, api, ref, log)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
 
     t0 = time.perf_counter()
     X = colors_like(n=N_ROWS + 256, dim=DIM, seed=SEED)
     data_np, queries_np = X[:N_ROWS], X[N_ROWS:]
     emit(phase="data", rows=N_ROWS, dim=DIM, dtype=str(X.dtype), wall_s=time.perf_counter() - t0)
+    if args.tune_only:
+        phase_tune(ops, torch, api, ref, data_np, queries_np)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
 
     if args.time_shapes is not None:
         index = api.build_index(data_np, "jensen_shannon", n_pivots=N_PIVOTS, seed=SEED % 1000,
@@ -4407,6 +4770,7 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
 
+    lap = Laps()
     inner = euclid._inner
     ap32 = inner.query_apex_batch(queries_np[:Q]).float().contiguous()
     phase_kernels(torch, ops, ref, inner._kernel_table(), ap32)
@@ -4427,25 +4791,32 @@ def main(argv=None) -> int:
              classes=[[list(cls), n, share] for cls, n, share in hist[name]])
     for rec in approx_runs:
         verify_approx(torch, ops, ref, rec)
+    lap("kernels_e2e_approx")
     # filtered search on the same two exact indexes, then the online index
     filtered = phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod,
                               {"euclidean": euclid, "jensen_shannon": jsd_exact}, queries_np, store, attrs)
     verify_filtered(torch, ops, ref, filtered)
     torch.cuda.empty_cache()
+    lap("filtered")
     online = phase_online(ops, torch, api, filter_mod, ref, metrics_mod, data_np, queries_np, attrs, args.seed)
     verify_online(torch, ref, metrics_mod, online)
     torch.cuda.empty_cache()
+    lap("online")
     sharded = phase_sharded(*sharded_mods)
     verify_sharded(torch, ops, ref, metrics_mod, sharded)
     torch.cuda.empty_cache()
+    lap("sharded")
     durable = phase_durable(*durable_mods)
     verify_online(torch, ref, metrics_mod, durable, phase="durable")
     torch.cuda.empty_cache()
+    lap("durable")
     serving = phase_serving(*serving_mods, {"euclidean": euclid, "jensen_shannon": jsd_exact}, args.seed)
     verify_serving(torch, ops, ref, metrics_mod, serving)
     del euclid
     torch.cuda.empty_cache()
+    lap("serving")
     mech_hist, mech_index = phase_mechanisms(ops, *mech_mods)
+    lap("mechanisms")
 
     rows = kernel_rows(torch, ops, ShapeInputs(torch, ops, ref, approx_runs[-1]["index"], queries_np, log), hist)
     del approx_runs
@@ -4476,9 +4847,20 @@ def main(argv=None) -> int:
                         "mechanisms")
     del corpus, mech_index
     torch.cuda.empty_cache()
+    lap("kernel_rows")
     phase_models(ops, torch)
     torch.cuda.empty_cache()
-    phase_train(ops, torch, data_np)
+    lap("models")
+    train = phase_train(ops, torch, data_np)
+    torch.cuda.empty_cache()
+    lap("train")
+    rows += phase_tools(ops, torch, api, ref, log, train)["rows"]
+    torch.cuda.empty_cache()
+    lap("tools")
+    phase_tune(ops, torch, api, ref, data_np, queries_np)
+    lap("tune")
+    emit(phase="run", seconds=time.perf_counter() - t_run, phase_seconds=lap.laps,
+         host_yardstick_s=host_yardstick())
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The n-simplex technique: Algorithms 1/2, the host GEMM projection, the
-projector, and the two-sided bounds."""
+triangular solve, the projector, the two-sided bounds, and the distortion
+measurement (paper §5)."""
 
 from repro_torch.core.bounds import (
     ACCEPT,
@@ -12,10 +13,14 @@ from repro_torch.core.bounds import (
     two_sided,
     upper_bound,
 )
+from repro_torch.core.distortion import distortion_from_ratios, measure_distortion
 from repro_torch.core.simplex import (
     apex_addition,
+    apex_addition_jax,
     apex_addition_np,
+    apex_gemm,
     apex_gemm_np,
+    apex_solve,
     base_lower_triangular,
     simplex_build_np,
 )
@@ -32,11 +37,16 @@ __all__ = [
     "two_sided",
     "upper_bound",
     "apex_addition",
+    "apex_addition_jax",
     "apex_addition_np",
+    "apex_gemm",
     "apex_gemm_np",
+    "apex_solve",
     "base_lower_triangular",
     "simplex_build_np",
     "NSimplexProjector",
     "select_pivots",
     "truncate_apexes_np",
+    "measure_distortion",
+    "distortion_from_ratios",
 ]

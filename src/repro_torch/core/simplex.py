@@ -7,7 +7,9 @@ pivot 1 at the origin and ``g_i = (δ_1² + ||v_i||² - δ_i²)/2`` the apex is
 the host, and on the index's device the kernel K4
 (``repro_torch.kernels.apex_project``).  ``apex_addition`` is Algorithm 2
 on the device, batched over rows: the serving step's ``projection="paper"``
-baseline.
+baseline and the projector's ``mode="paper"``.  ``apex_solve`` is the same
+apex by one batched triangular solve against ``L`` (the projector's
+``mode="solve"``).
 
 Conventions: ``n`` pivots give a base simplex ``Sigma`` of shape (n, n-1)
 (row ``i`` = vertex i, zero upper triangle); apexes live in ``R^n``.
@@ -21,7 +23,10 @@ import torch
 __all__ = [
     "apex_addition",
     "apex_addition_np",
+    "apex_addition_jax",
+    "apex_gemm",
     "apex_gemm_np",
+    "apex_solve",
     "base_lower_triangular",
     "simplex_build_np",
 ]
@@ -83,6 +88,10 @@ def apex_addition(sigma_base: torch.Tensor, distances: torch.Tensor) -> torch.Te
     return out.reshape(d.shape)
 
 
+#: the JAX package's name for the same on-device Algorithm 2
+apex_addition_jax = apex_addition
+
+
 def simplex_build_np(distance_matrix: np.ndarray) -> np.ndarray:
     """Paper Algorithm 1: the (m, m-1) vertex matrix of the simplex over m
     points from their (m, m) distance matrix (lower triangle read)."""
@@ -106,6 +115,33 @@ def simplex_build_np(distance_matrix: np.ndarray) -> np.ndarray:
 def base_lower_triangular(sigma_base) -> np.ndarray:
     """Rows 2..n of the base simplex as an (n-1)x(n-1) lower-triangular L."""
     return np.asarray(sigma_base)[1:, :]
+
+
+def apex_solve(L, sq_norms, distances) -> torch.Tensor:
+    """Float64 apexes (B, n) of (B, n) or (n,) pivot distances by one
+    triangular solve ``L w = g`` with the B right-hand sides
+    ``g_i = (δ_1² + ||v_i||² - δ_i²)/2``, on the distances' device; the
+    altitude is ``sqrt(max(δ_1² - ||w||², 0))``."""
+    d = torch.atleast_2d(torch.as_tensor(distances)).to(torch.float64)
+    L = torch.as_tensor(L, dtype=torch.float64, device=d.device)
+    sq = torch.as_tensor(sq_norms, dtype=torch.float64, device=d.device)
+    d1sq = d[:, :1] ** 2
+    g = 0.5 * (d1sq + sq[None, :] - d[:, 1:] ** 2)
+    w = torch.linalg.solve_triangular(L, g.T, upper=False, left=True).T
+    alt2 = torch.clamp_min(d1sq[:, 0] - (w * w).sum(dim=-1), 0.0)
+    return torch.cat([w, torch.sqrt(alt2)[:, None]], dim=-1)
+
+
+def apex_gemm(Linv, sq_norms, distances) -> torch.Tensor:
+    """Apexes (B, n) of (B, n) or (n,) pivot distances by one product
+    against ``L⁻¹``, in the distances' dtype on their device: the kernel K4
+    on a CUDA device, its plain version on the CPU."""
+    from repro_torch.kernels import apex_project
+
+    d = torch.atleast_2d(torch.as_tensor(distances))
+    Linv = torch.as_tensor(Linv, dtype=d.dtype, device=d.device)
+    sq = torch.as_tensor(sq_norms, dtype=d.dtype, device=d.device)
+    return apex_project(d.contiguous(), Linv.contiguous(), sq.contiguous())
 
 
 def apex_gemm_np(Linv: np.ndarray, sq_norms: np.ndarray, distances: np.ndarray) -> np.ndarray:

@@ -3,8 +3,14 @@
 Fit once on ``n`` pivots (the n(n-1)/2 inter-pivot distances measured with
 the original metric in float64, the simplex built on the host), then
 project any batch of pivot distances into the apex space ``(R^n, l2)`` in
-float64 on the projector's device, through the kernel K4
-(``repro_torch.kernels.apex_project``; its plain version on the CPU).
+float64 on the projector's device.  Three projection modes, equal up to
+rounding (the tests hold them to each other):
+
+  * ``mode="gemm"``  — one product against ``L⁻¹``, the kernel K4
+    (``repro_torch.kernels.apex_project``; its plain version on the CPU).
+    The default, and the only mode the indexes use.
+  * ``mode="paper"`` — Algorithm 2 row by row (``simplex.apex_addition``).
+  * ``mode="solve"`` — one batched triangular solve (``simplex.apex_solve``).
 """
 
 from __future__ import annotations
@@ -22,19 +28,20 @@ from repro_torch.metrics import Metric
 
 __all__ = ["NSimplexProjector", "select_pivots", "truncate_apexes_np"]
 
+_MODES = ("gemm", "paper", "solve")
+
 
 class NSimplexProjector:
     """φ_n : (U, d) → (R^n, l2) with two-sided bound guarantees.
 
     Host state (float64 numpy): ``pivots`` (n, dim) in the corpus dtype,
     ``sigma`` (n, n-1), ``L``/``Linv`` (n-1, n-1), ``sq_norms`` (n-1,).
-    Device twins of ``pivots``, ``Linv`` and ``sq_norms`` feed the batch
+    Device twins of ``pivots``, ``Linv`` and ``sq_norms`` (and of ``sigma``
+    or ``L`` in the ``paper`` and ``solve`` modes) feed the batch
     projection.
     """
 
-    mode = "gemm"
-
-    def __init__(self, pivots, metric: Metric, *, device="cuda"):
+    def __init__(self, pivots, metric: Metric, *, mode: str = "gemm", device="cuda"):
         pivots = np.asarray(pivots)
         if pivots.shape[0] < 2:
             raise ValueError("need at least 2 pivots")
@@ -51,10 +58,10 @@ class NSimplexProjector:
                 f"degenerate pivot set: vertices {bad + 2} have ~zero altitude; "
                 "re-sample pivots"
             )
-        self._set(pivots, metric, sigma, np.linalg.inv(L), np.sum(L**2, axis=1), device)
+        self._set(pivots, metric, sigma, np.linalg.inv(L), np.sum(L**2, axis=1), device, mode)
 
     @classmethod
-    def from_fitted(cls, pivots, metric: Metric, sigma, Linv, sq_norms, *, device="cuda"):
+    def from_fitted(cls, pivots, metric: Metric, sigma, Linv, sq_norms, *, mode: str = "gemm", device="cuda"):
         """Restore a fitted projector without measuring any distance."""
         proj = object.__new__(cls)
         proj._set(
@@ -64,10 +71,14 @@ class NSimplexProjector:
             np.asarray(Linv, dtype=np.float64),
             np.asarray(sq_norms, dtype=np.float64),
             resolve_device(device),
+            mode,
         )
         return proj
 
-    def _set(self, pivots, metric, sigma, Linv, sq_norms, device):
+    def _set(self, pivots, metric, sigma, Linv, sq_norms, device, mode):
+        if mode not in _MODES:
+            raise ValueError(f"unknown mode {mode!r}; one of {_MODES}")
+        self.mode = mode
         self.pivots = pivots
         self.metric = metric
         self.sigma = sigma
@@ -79,10 +90,17 @@ class NSimplexProjector:
         self._Linv_t = torch.as_tensor(Linv, dtype=torch.float64, device=device)
         self._sq_norms_t = torch.as_tensor(sq_norms, dtype=torch.float64, device=device)
         self._device_index = self._Linv_t.get_device()   # -1 on the CPU
+        # the paper mode walks sigma, the solve mode solves against L
+        self._base_t = None if mode == "gemm" else torch.as_tensor(
+            sigma if mode == "paper" else self.L, dtype=torch.float64, device=device)
 
     @property
     def n_pivots(self) -> int:
         return self.pivots.shape[0]
+
+    @property
+    def out_dim(self) -> int:
+        return self.n_pivots
 
     def pivot_distances(self, X: torch.Tensor) -> torch.Tensor:
         """(B, n) float64 original-space distances from each row to each pivot."""
@@ -95,6 +113,11 @@ class NSimplexProjector:
         if not (isinstance(distances, torch.Tensor) and distances.dtype is torch.float64
                 and distances.get_device() == self._device_index):
             distances = torch.as_tensor(distances, dtype=torch.float64, device=self.device)
+        if self.mode == "paper":
+            return _sx.apex_addition(self._base_t, distances)
+        if self.mode == "solve":
+            out = _sx.apex_solve(self._base_t, self._sq_norms_t, distances)
+            return out[0] if distances.ndim == 1 else out
         if distances.ndim == 1:
             return _apex_project_vector(distances, self._Linv_t, self._sq_norms_t)
         return apex_project(distances, self._Linv_t, self._sq_norms_t)
@@ -114,8 +137,13 @@ class NSimplexProjector:
             self.sigma[:k, : k - 1],
             self.Linv[: k - 1, : k - 1],
             self.sq_norms[: k - 1],
+            mode=self.mode,
             device=self.device,
         )
+
+    def truncated(self, m: int) -> "NSimplexProjector":
+        """The JAX package's older spelling of :meth:`truncate`."""
+        return self.truncate(m)
 
 
 def truncate_apexes_np(apexes: np.ndarray, dims: int) -> np.ndarray:

@@ -28,8 +28,9 @@ import threading
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, tuning
 from repro_torch.kernels.ref import SENTINEL_ID, TOPK_KEYS
+from repro_torch.kernels.tuning import DEFAULT_CONFIG, KernelConfig
 
 __all__ = [
     "LAUNCHES",
@@ -201,12 +202,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _slices(sms: int, blocks_per_slice: int, N: int) -> int:
+#: the most row slices a selection launch takes
+_MAX_SLICES = 64
+
+
+def _slices(sms: int, blocks_per_slice: int, N: int, waves: int = 2, slice_rows: int = 8192) -> int:
     """Row slices of the selection kernels, for ``blocks_per_slice`` blocks
-    over each slice (one per query group): enough blocks for two waves over
-    the card, at least 8192 rows each."""
-    want = -(-2 * sms // max(blocks_per_slice, 1))
-    return int(max(1, min(want, -(-N // 8192), 64)))
+    over each slice (one per query group): enough blocks for ``waves``
+    waves over the card, at least ``slice_rows`` rows each, at most 64
+    slices (the defaults: two waves, 8192 rows)."""
+    want = -(-waves * sms // max(blocks_per_slice, 1))
+    return int(max(1, min(want, -(-N // slice_rows), _MAX_SLICES)))
 
 
 #: shared memory K2 gives the selection state (running selection and
@@ -218,19 +224,24 @@ _TOPK_MAX_GROUP = 32
 _TOPK_MIN_CAND = 512
 
 
-def topk_plan(k: int, Q: int, N: int, sms: int) -> tuple:
+def _topk_max_group(k: int) -> int:
+    """The most K2 queries whose selection state fits one block's 64 KiB."""
+    wp = 1 << (k - 1).bit_length()
+    return min(_TOPK_MAX_GROUP, _TOPK_GROUP_BYTES // ((wp + max(wp, _TOPK_MIN_CAND)) * 8))
+
+
+def topk_plan(k: int, Q: int, N: int, sms: int, config: KernelConfig = DEFAULT_CONFIG) -> tuple:
     """K2's launch plan ``(G, S)``: G queries per block, each holding a
     running selection of ``wp = next_pow2(k)`` keys and a candidate buffer of
-    ``max(wp, 512)``, as many as fit in 64 KiB (at most 32, at least 1),
-    balanced over the ``ceil(Q / G)`` groups; and S row slices so that groups
-    x slices fill the card.  The table is read once per group; G = 1 runs
+    ``max(wp, 512)``, as many as fit in 64 KiB (at most ``config.max_group``,
+    32 by default, at least 1), balanced over the ``ceil(Q / G)`` groups; and
+    S row slices so that groups x slices fill the card (``_slices`` under
+    the config's slice rule).  The table is read once per group; G = 1 runs
     the one-query-per-block kernel K3 also uses."""
-    wp = 1 << (k - 1).bit_length()
-    per_query = (wp + max(wp, _TOPK_MIN_CAND)) * 8
-    G = max(1, min(_TOPK_MAX_GROUP, _TOPK_GROUP_BYTES // per_query, Q))
+    G = max(1, min(config.max_group, _topk_max_group(k), Q))
     groups = -(-Q // G)
     G = -(-Q // groups)
-    return G, _slices(sms, groups, N)
+    return G, _slices(sms, groups, N, config.waves, config.slice_rows)
 
 
 #: K3's group budget, candidate buffer length and slices per gather block:
@@ -241,26 +252,29 @@ _THR_CAND = 512
 _THR_GATHER = 8
 
 
-def threshold_plan(cap: int, Q: int, N: int, sms: int) -> tuple:
+def threshold_plan(cap: int, Q: int, N: int, sms: int, config: KernelConfig = DEFAULT_CONFIG) -> tuple:
     """K3's launch plan ``(G, S)``: G queries per block, as many 512-key
     candidate buffers as fit in 64 KiB (16; the keys a query keeps live in
-    its slot of the global scratch, so G does not depend on ``cap``),
-    balanced over the ``ceil(Q / G)`` groups; and S row slices so that
-    groups x slices fill the card.  One query is a group of one, which on
-    the H100 was faster than one query per block at half-cap thresholds and
+    its slot of the global scratch, so G does not depend on ``cap``), at
+    most ``config.max_group``, balanced over the ``ceil(Q / G)`` groups; and
+    S row slices so that groups x slices fill the card (``_slices`` under
+    the config's slice rule).  One query is a group of one, which on the
+    H100 was faster than one query per block at half-cap thresholds and
     slower by a tenth at k-NN pass B's at cap 512 (PERF.md).  G = 0, one
-    query per block (the first design), is never chosen here; a caller may
-    force it to time against it."""
-    G = max(1, min(_TOPK_MAX_GROUP, _THR_GROUP_BYTES // (_THR_CAND * 8), Q))
+    query per block (the first design), comes only from a config with
+    ``max_group=0`` (a tuned cache entry) or a caller's forced plan."""
+    if config.max_group == 0:
+        return 0, _slices(sms, Q, N, config.waves, config.slice_rows)
+    G = max(1, min(config.max_group, _THR_GROUP_BYTES // (_THR_CAND * 8), Q))
     groups = -(-Q // G)
     G = -(-Q // groups)
-    return G, _slices(sms, groups, N)
+    return G, _slices(sms, groups, N, config.waves, config.slice_rows)
 
 
 #: K1's launch plans: ``"stream"`` (one thread per row, row in registers,
-#: 64-query chunks), which the wrapper runs at every Q, and ``"tile"`` (table
-#: tile x 16-query tile, the first design), which only a caller that forces
-#: it runs
+#: 64-query chunks), which the wrapper runs at every Q by default, and
+#: ``"tile"`` (table tile x 16-query tile, the first design), which a tuned
+#: cache entry or a caller that forces it runs
 _K1_PLANS = {"tile": 0, "stream": 1}
 
 
@@ -291,9 +305,10 @@ def apex_bounds(table: torch.Tensor, query: torch.Tensor):
 
 def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int = None, _plan: str = None):
     """K1: (lwb, upb), each (Q, N), of a (Q, n or dims) query block against
-    an (N, n) table; ``dims=k`` gives the truncated k-prefix bounds.  The
-    private ``_plan`` forces ``"tile"``, the first design, on the card
-    (timing and tests; by default ``"stream"``); both give the same bits."""
+    an (N, n) table; ``dims=k`` gives the truncated k-prefix bounds.  On the
+    card the plan is the tuning cache's for (n, dims, dtype)
+    (``tuning.lookup``; ``"stream"`` without a cache); the private ``_plan``
+    forces one (``"tile"`` is the first design); both give the same bits."""
     if queries.ndim == 1:   # cheaper than torch.atleast_2d on this per-query path
         queries = queries[None]
     dims = _check_table(table, queries, dims)
@@ -307,7 +322,9 @@ def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int =
     lwb, upb = torch.empty((2, Q, N), dtype=table.dtype, device=table.device)   # one allocation
     lib = library()
     fn = lib.repro_apex_bounds_batch_f32 if table.dtype == torch.float32 else lib.repro_apex_bounds_batch_f64
-    code = _K1_PLANS[_plan or "stream"]
+    if _plan is None:
+        _plan = tuning.lookup("apex_bounds_batch", n, dims, table.dtype).plan
+    code = _K1_PLANS[_plan]
     _check(
         fn(table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, code, lwb.data_ptr(), upb.data_ptr(),
            _stream(table.device)),
@@ -356,14 +373,21 @@ def _check_width(width: int, what: str):
         )
 
 
-def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = None, rowmask=None):
+def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = None, rowmask=None,
+                     _plan: tuple = None):
     """K2: per query the ``k`` rows with the smallest ``(key, id)``, sorted,
     as (ids int32, lwb, upb), each (Q, k); ``k`` is clamped to N.  Masked
-    rows never enter; a short selection pads with ``SENTINEL_ID`` and +inf."""
+    rows never enter; a short selection pads with ``SENTINEL_ID`` and +inf.
+    On the card the plan is ``topk_plan`` under the tuning cache's config for
+    (n, dims, float32) (``DEFAULT_CONFIG`` without a cache); the private
+    ``_plan`` forces a launch plan ``(G, S)`` (timing, tuning and tests);
+    every plan gives the same result."""
     queries = torch.atleast_2d(queries)
     if key not in TOPK_KEYS:
         raise ValueError(f"key must be one of {TOPK_KEYS}; got {key!r}")
     k = int(min(k, table.shape[0]))
+    _check_plan(_plan, _plan is None or (len(_plan) == 2 and 1 <= _plan[0] <= _topk_max_group(max(k, 1))
+                                         and _plan[1] >= 1), "apex_bounds_topk")
     dims = _check_select(table, queries, dims, k, "apex_bounds_topk")
     mask = _mask_operand(rowmask, table.shape[0], table.device)
     if not _on_cuda(table, queries):
@@ -373,7 +397,8 @@ def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = No
 
     table, queries = table.contiguous(), queries.contiguous()
     (N, n), (Q, qw) = table.shape, queries.shape
-    G, S = topk_plan(k, Q, N, _sm_count(table.device.index or 0))
+    G, S = _plan or topk_plan(k, Q, N, _sm_count(table.device.index or 0),
+                              tuning.lookup("apex_topk", n, dims, table.dtype))
     part = _scratch(Q, S, k, table.device)
     ids, lwb, upb = _select_outputs(Q, k, table.device)
     _check(
@@ -412,7 +437,8 @@ def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = N
 
     table, queries, thresholds = table.contiguous(), queries.contiguous(), thresholds.contiguous()
     (N, n), (Q, qw) = table.shape, queries.shape
-    G, S = _plan or threshold_plan(cap, Q, N, _sm_count(table.device.index or 0))
+    G, S = _plan or threshold_plan(cap, Q, N, _sm_count(table.device.index or 0),
+                                   tuning.lookup("apex_threshold", n, dims, table.dtype))
     part = _threshold_scratch(Q, S, cap, table.device)
     part_counts = torch.empty((Q, S), dtype=torch.int32, device=table.device)
     ids, lwb, upb = _select_outputs(Q, cap, table.device)

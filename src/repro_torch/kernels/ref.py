@@ -19,6 +19,8 @@ __all__ = [
     "apex_project_ref",
     "apex_threshold_ref",
     "apex_topk_ref",
+    "threshold_from_bounds",
+    "topk_from_bounds",
     "jsd_pairwise_ref",
     "l1_normalise",
     "pack_keys",
@@ -93,23 +95,36 @@ def _live(rowmask, N: int, device) -> torch.Tensor:
     return rowmask.to(torch.bool).reshape(1, N)
 
 
-def apex_topk_ref(table, queries, k: int, key: str, dims: int, rowmask=None):
-    """K2: per query the ``k`` rows with the smallest (key, id), sorted."""
-    lwb, upb = apex_bounds_batch_ref(table, queries, dims)
+def topk_from_bounds(lwb, upb, k: int, key: str, rowmask=None):
+    """K2's selection over given (Q, N) bound matrices: per query the ``k``
+    rows with the smallest (key, id), sorted."""
     keys = {"lwb": lwb, "upb": upb}.get(key)
     if keys is None:
         keys = 0.5 * (lwb + upb)
-    live = _live(rowmask, table.shape[0], table.device).expand_as(lwb)
+    live = _live(rowmask, lwb.shape[1], lwb.device).expand_as(lwb)
     return _take(pack_keys(keys, live), lwb, upb, k)
+
+
+def threshold_from_bounds(lwb, upb, thresholds, cap: int, rowmask=None):
+    """K3's selection over given (Q, N) bound matrices: per query the
+    ``cap`` smallest (lwb, id) among rows with ``lwb <= thresholds[q]``,
+    plus the exact count of such rows."""
+    hit = _live(rowmask, lwb.shape[1], lwb.device) & (lwb <= thresholds[:, None])
+    ids, l, u = _take(pack_keys(lwb, hit), lwb, upb, cap)
+    return ids, l, u, hit.sum(dim=1).to(torch.int32)
+
+
+def apex_topk_ref(table, queries, k: int, key: str, dims: int, rowmask=None):
+    """K2: per query the ``k`` rows with the smallest (key, id), sorted."""
+    lwb, upb = apex_bounds_batch_ref(table, queries, dims)
+    return topk_from_bounds(lwb, upb, k, key, rowmask)
 
 
 def apex_threshold_ref(table, queries, thresholds, cap: int, dims: int, rowmask=None):
     """K3: per query the ``cap`` smallest (lwb, id) among rows with
     ``lwb <= thresholds[q]``, plus the exact count of such rows."""
     lwb, upb = apex_bounds_batch_ref(table, queries, dims)
-    hit = _live(rowmask, table.shape[0], table.device) & (lwb <= thresholds[:, None])
-    ids, l, u = _take(pack_keys(lwb, hit), lwb, upb, cap)
-    return ids, l, u, hit.sum(dim=1).to(torch.int32)
+    return threshold_from_bounds(lwb, upb, thresholds, cap, rowmask)
 
 
 def apex_project_ref(distances: torch.Tensor, Linv: torch.Tensor, sq_norms: torch.Tensor) -> torch.Tensor:

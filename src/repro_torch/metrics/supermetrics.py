@@ -7,6 +7,10 @@ operands lie on:
 
 * ``one_to_many(q, X)`` — distances from one vector to each row of ``X``.
 * ``cross(X, Y)``       — the (B, M) cross-distance matrix, always float64.
+* ``dist(x, y)``        — the distance of one pair of vectors (a 0-d
+                          tensor), or of each row pair of two (B, d)
+                          blocks ((B,), row-wise: no (B, B) cross is formed).
+* ``pairwise(X)``       — ``cross(X, X)``.
 
 Their dtypes follow the reference's host forms (``one_to_many_np`` /
 ``cross_np``), which the index uses for pivot distances and refinement:
@@ -16,6 +20,14 @@ Their dtypes follow the reference's host forms (``one_to_many_np`` /
   triangular and the quadratic form, but Euclidean keeps the operands'
   promoted dtype: a float32 corpus is refined in float32, exactly as the
   reference does.
+
+``dist`` keeps ``one_to_many``'s dtype rule; its row-wise forms are plain
+PyTorch for every metric (Jensen-Shannon's too: a row pair is not a cross).
+
+The metrics take tensors, not numpy arrays, and there is no
+``one_to_many_np`` / ``cross_np``: rows live on the device the caller put
+them on, and the host forms of the JAX package are these same functions on
+CPU tensors.
 
 Jensen-Shannon goes through ``repro_torch.kernels.jsd_pairwise`` in
 float64: the kernel K5 on CUDA tensors, its plain version on the CPU.  That
@@ -79,6 +91,24 @@ class Metric:
             out[i] = self.one_to_many(X[i], Y)
         return out
 
+    def pairwise(self, X: torch.Tensor) -> torch.Tensor:
+        """Float64 (B, B) distances among the rows of ``X``."""
+        return self.cross(X, X)
+
+    def dist(self, x, y) -> torch.Tensor:
+        """d(x, y) of two (d,) vectors as a 0-d tensor, or of each row pair
+        of (B, d) blocks as (B,) (a (d,) operand pairs with every row)."""
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        if x.ndim == 1 and y.ndim == 1:
+            return self._rows(x[None], y[None])[0]
+        X, Y = torch.broadcast_tensors(torch.atleast_2d(x), torch.atleast_2d(y))
+        return self._rows(X, Y)
+
+    def _rows(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        """(B,) distances of the row pairs (X[b], Y[b]); the generic form
+        runs ``one_to_many`` once per pair."""
+        return torch.stack([self.one_to_many(X[b], Y[b:b + 1])[0] for b in range(X.shape[0])])
+
     def cost_flops(self, dim: int) -> float:
         return 3.0 * dim
 
@@ -92,6 +122,10 @@ class EuclideanMetric(Metric):
     def one_to_many(self, q, X):
         diff = X - q[None, :]
         return torch.sqrt(torch.clamp_min((diff * diff).sum(dim=1), 0.0))
+
+    def _rows(self, X, Y):
+        diff = X - Y
+        return torch.sqrt(torch.clamp_min((diff * diff).sum(dim=-1), 0.0))
 
     def cross(self, X, Y):
         X, Y = _f64(X), _f64(Y)
@@ -130,6 +164,10 @@ class CosineMetric(Metric):
         cos = torch.clamp(Xn @ Yn.T, -1.0, 1.0)
         return torch.sqrt(torch.clamp_min(2.0 - 2.0 * cos, 0.0))
 
+    def _rows(self, X, Y):
+        cos = torch.clamp((_l2_normalise(_f64(X)) * _l2_normalise(_f64(Y))).sum(dim=-1), -1.0, 1.0)
+        return torch.sqrt(torch.clamp_min(2.0 - 2.0 * cos, 0.0))
+
     def cost_flops(self, dim: int) -> float:
         return 5.0 * dim
 
@@ -159,6 +197,11 @@ class JensenShannonMetric(Metric):
     def cross(self, X, Y):
         return jsd_pairwise(_f64(X), _f64(Y))
 
+    def _rows(self, X, Y):
+        P, Q = _l1_normalise(_f64(X)), _l1_normalise(_f64(Y))
+        jsd_nats = (0.5 * _xlogx(P) + 0.5 * _xlogx(Q) - _xlogx(0.5 * (P + Q))).sum(dim=-1)
+        return torch.sqrt(torch.clamp(jsd_nats / _LN2, 0.0, 1.0))
+
     def cost_flops(self, dim: int) -> float:
         # three transcendental logs per component; ~30 flops-equivalent each
         return 100.0 * dim
@@ -179,6 +222,10 @@ class TriangularMetric(Metric):
     def one_to_many(self, q, X):
         p = _l1_normalise(q.to(torch.float64))[None, :]
         td = _triangular_terms(p, _l1_normalise(_f64(X)))
+        return torch.sqrt(torch.clamp(0.5 * td, 0.0, 1.0))
+
+    def _rows(self, X, Y):
+        td = _triangular_terms(_l1_normalise(_f64(X)), _l1_normalise(_f64(Y)))
         return torch.sqrt(torch.clamp(0.5 * td, 0.0, 1.0))
 
     def cross(self, X, Y):
@@ -213,6 +260,11 @@ class QuadraticFormMetric(Metric):
 
     def one_to_many(self, q, X):
         diff = _f64(X) - q.to(torch.float64)[None, :]
+        d2 = ((diff @ self._w(diff.device)) * diff).sum(dim=1)
+        return torch.sqrt(torch.clamp_min(d2, 0.0))
+
+    def _rows(self, X, Y):
+        diff = _f64(X) - _f64(Y)
         d2 = ((diff @ self._w(diff.device)) * diff).sum(dim=1)
         return torch.sqrt(torch.clamp_min(d2, 0.0))
 

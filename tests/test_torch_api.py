@@ -287,6 +287,14 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.train.apply_updates(repro_torch.train.AdamWConfig(), params, g, opt)\n"
         "plan = repro_torch.launch.steps.build_cell('qwen2-1.5b', 'train_4k', repro_torch.launch.mesh.make_production_mesh())\n"
         "assert plan.kind == 'train' and bool(torch.isfinite(loss))\n"
+        "from repro_torch.core import NSimplexProjector, measure_distortion\n"
+        "from repro_torch.baselines import jl_project\n"
+        "from repro_torch.launch import dryrun, op_walk, roofline\n"
+        "from repro_torch.kernels import tuning\n"
+        "proj = NSimplexProjector(x[:5], __import__('repro_torch.metrics').metrics.get_metric('euclidean'), mode='solve', device='cpu')\n"
+        "assert measure_distortion(proj.metric, x, proj, n_pairs=100, device='cpu')[0] >= 1.0\n"
+        "assert tuning.lookup('apex_topk', 20, 10, torch.float32) == tuning.DEFAULT_CONFIG\n"
+        "assert roofline.roofline_terms(flops_per_device=1.0, bytes_per_device=1.0, collective_bytes_per_chip=0.0, n_chips=1, model_flops=1.0)['dominant']\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

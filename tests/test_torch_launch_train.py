@@ -13,11 +13,27 @@ import pytest
 import torch
 
 from repro_torch.launch import train
+from repro_torch.train import loop as loop_mod
 
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def test_smoke_run_lowers_the_loss_and_resumes(tmp_path, capsys):
+class FakeClock:
+    """A stand-in for the ``time`` module of ``repro_torch.train.loop``:
+    every ``perf_counter`` call advances one tick, so every step lasts the
+    same and the straggler count does not hang on the host's load."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        t = self.now
+        self.now += 1e-3
+        return t
+
+
+def test_smoke_run_lowers_the_loss_and_resumes(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(loop_mod, "time", FakeClock())
     args = ["--arch", "qwen2-1.5b", "--smoke", "--steps", "12", "--seq", "32", "--batch", "4",
             "--device", "cpu", "--ckpt-dir", str(tmp_path), "--checkpoint-every", "5"]
     m = train.main(args)

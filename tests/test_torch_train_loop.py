@@ -3,21 +3,55 @@ the CPU: the ``tests/test_train_infra.py::TestFaultTolerantLoop`` cases on
 the same toy (a 3-weight least-squares fit, AdamW lr 0.05, checkpoints
 every 5 steps) with the same failure hooks, run by both packages on the
 same batches.  ``steps_run``, ``failures_recovered``, ``straggler_steps``
-and ``restored_from`` are equal, and the losses agree at rtol 1e-5."""
+and ``restored_from`` are equal, and the losses agree at rtol 1e-5.
+
+Both loops read one deterministic clock (``FakeClock``, patched in as the
+``time`` of both loop modules): every ``perf_counter`` call advances it one
+tick, so every step lasts one tick and the straggler watchdog's count is
+exact, not a matter of the host's load."""
 
 import jax
 import jax.numpy as jnp
+import repro.train.loop as ref_loop_mod
 import numpy as np
 import pytest
 import torch
 
 from repro.train import AdamWConfig as RAdamW, LoopConfig as RLoopConfig, TrainLoop as RTrainLoop
 from repro.train import apply_updates as rapply, init_state as rinit
+import repro_torch.train.loop as port_loop_mod
 from repro_torch.models.params import value_and_grad
 from repro_torch.train import AdamWConfig, LoopConfig, LoopMetrics, TrainLoop, apply_updates, init_state
 
 LOSS_RTOL = 1e-5
 TARGET = np.array([1.0, -2.0, 3.0], np.float32)
+
+
+class FakeClock:
+    """A stand-in for the ``time`` module: ``perf_counter`` returns the
+    current reading and then advances it one tick; ``stall(n)`` adds n ticks
+    to the step in progress."""
+
+    TICK = 1e-3
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        t = self.now
+        self.now += self.TICK
+        return t
+
+    def stall(self, ticks):
+        self.now += ticks * self.TICK
+
+
+@pytest.fixture(autouse=True)
+def clock(monkeypatch):
+    fake = FakeClock()
+    monkeypatch.setattr(ref_loop_mod, "time", fake)
+    monkeypatch.setattr(port_loop_mod, "time", fake)
+    return fake
 
 
 def _batch(step):
@@ -103,6 +137,22 @@ def test_restart_resumes_from_checkpoint(tmp_path):
     ref, got = _both(tmp_path, total=15)
     _agree(ref, got)
     assert got.restored_from == 10 and got.steps_run == 5  # only the remaining steps
+
+
+def test_one_slow_step_is_one_straggler(tmp_path, clock):
+    """Step 12 lasts ten ticks against a median of one: both watchdogs count
+    exactly one straggler (the straggler factor is 3)."""
+    def make_hook():
+        def slow(step):
+            if step == 12:
+                clock.stall(9)
+        return slow
+
+    ref, got = _both(tmp_path, make_hook)
+    for f in ("steps_run", "failures_recovered", "restored_from"):
+        assert getattr(got, f) == getattr(ref, f), f
+    assert ref.straggler_steps == 1 and got.straggler_steps == 1
+    np.testing.assert_allclose(got.losses, ref.losses, rtol=LOSS_RTOL)
 
 
 def test_repeated_failure_aborts(tmp_path):
