@@ -15,6 +15,8 @@
     python3 chip_smoke.py --train-only
     python3 chip_smoke.py --tools-only
     python3 chip_smoke.py --tune-only
+    python3 chip_smoke.py --select-only
+    python3 chip_smoke.py --sharded-train-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -85,8 +87,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 rarest shops) a 64-query k-NN (k=10) and range batch under
                 the planner's choice (its strategy printed; the CPU tests
                 hold it to the JAX package's plan at these stats) and under
-                each forced strategy (the rarest shops' forced-postfilter
-                k-NN batch: 8 queries), one approximate pushdown batch (dims 10, refine
+                each forced strategy (a forced-postfilter k-NN batch: 16
+                queries, 8 under the rarest shops), one approximate pushdown batch (dims 10, refine
                 64) and 8 1-D pushdown requests; walls, ``original_calls``
                 and overflows printed.  After the counts are read every
                 exact answer is held to an f64 brute force over the
@@ -119,7 +121,7 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 layouts ``{"replicas": 2}`` and ``{"rows": "replicated"}``
                 (both must clamp to the 1 x 1 grid and answer alike), an
                 ``apex_dims=10, refine=64`` sharded batch, 8 1-D k-NN and
-                range requests, 256 requests through ``SearchService`` under
+                range requests, 128 requests through ``SearchService`` under
                 overlapped and sequential fan-out (wall, p50, p99 and
                 ``original_calls``), a mutable ``shards=4`` index through
                 rounds of 2,048 adds, 1,024 removes and 256 upserts
@@ -205,8 +207,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 refine=64``) and 8 timed 1-D exact k-NN requests; then
                 ``ExactSearchEngine`` over the first 112,682 rows (the
                 paper's colors size) with all five mechanisms, per
-                mechanism an 8-query range batch (query 0's 1e-3 distance
-                quantile), an 8-query k-NN batch and two 1-D requests of
+                mechanism a 4-query range batch (query 0's 1e-3 distance
+                quantile), a 4-query k-NN batch and two 1-D requests of
                 each, printing calls per query (the paper's Table 3), wall
                 ms per query (batched and 1-D) and build seconds.  After
                 the counts are read: the card's LAESA ``bounds_batch`` bit-equal
@@ -348,6 +350,28 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 space and valid, no invalid winner, and with no cache file
                 every ``lookup`` the default (hard).  No cache is written;
                 the memo is reset at the end;
+ 12. select — K2/K3 over their whole contract (``phase_select``; the full
+                run drives it right after the approx phase, on the e2e
+                euclidean index, the launch counts set to 0 before and read
+                after): exact k-NN at k = 300 (pass B's K3 at 4,800, past
+                the 4,096 of the shared-memory plans), approximate k-NN at
+                refine = 8,192 (K2 8,192 wide), the device filter at 8,192
+                slots over the 1M-row table, and K2 (64, 10, upb, 20) and
+                K3 (64, 512, 20) on the index's 1M x 20 f64 table, K2
+                (64, 8,192, upb, 20) and K3 (64, 16,384, 20) on its f32
+                one; every class launched (hard), each direct call and the
+                filter equal to their plain versions, 8 queries of each
+                k-NN batch held to the brute force; its kernel rows
+                (``{"select_kernels": [...]}``, tagged ``launch_phase:
+                "select"``; f64 classes end in ``"float64"``) join the
+                kernels line;
+ 13. sharded_train — ``python -m repro_torch.launch.process_train`` with one
+                NCCL process per visible card on a (cards, 1) mesh (a world
+                of one on a one-card machine), the reference's sharded
+                test's reduced mixtral, 4 steps, held to the one-process
+                step on the card at 1e-5
+                (parameters, losses, gradient norms), shards gathering back
+                to their leaves, the loss falling; after the train phase;
 then the full run's seconds (and each phase's, ``phase_seconds``), the
 ``kernels`` line, the card's ``nvidia-smi`` line, and last the device
 contract line.  The run points the tuning cache
@@ -373,7 +397,8 @@ alone, with their checks, and print ``{"filtered_kernels": [...]}``,
 the 1M-row JSD exact index, the serve step's K3 (64, 256, 20) always among
 them).
 ``--models-only`` runs phase 8 alone, with its checks; ``--train-only``
-phase 9; ``--tools-only`` phase 10; ``--tune-only`` phase 11.
+phase 9; ``--tools-only`` phase 10; ``--tune-only`` phase 11;
+``--select-only`` phase 12; ``--sharded-train-only`` phase 13.
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -515,8 +540,9 @@ def roofline(bytes_, ops, flops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def select_bound(Q_, rows, n_, dims, q_numel, out_bytes, kept, squares=1, mask_bytes=0):
-    """Bound of a fused f32 selection scan (K2, K3): the ``rows`` table rows
+def select_bound(Q_, rows, n_, dims, q_numel, out_bytes, kept, squares=1, mask_bytes=0, itemsize=4):
+    """Bound of a fused selection scan (K2, K3; ``itemsize`` 4 for an f32
+    table against the f32 peak, 8 for f64 against the f64 peak): the ``rows`` table rows
     the answer needs (every row, or a row mask's allowed rows), the queries
     and the ``mask_bytes`` of a uint8 row mask read once and the selection
     written once, against the operations the answer needs.  Per (query,
@@ -525,8 +551,9 @@ def select_bound(Q_, rows, n_, dims, q_numel, out_bytes, kept, squares=1, mask_b
     ``squares`` is 2 for K2's mid key, else 1); no square root, since a
     squared bound decides every row that does not enter.  Per kept row: the
     other square and the two square roots, 6."""
-    return roofline(rows * n_ * 4 + q_numel * 4 + mask_bytes + out_bytes,
-                    Q_ * rows * (2 * (dims - 1) + 3 + 3 * squares) + kept * 6, F32_FLOPS)
+    return roofline(rows * n_ * itemsize + q_numel * itemsize + mask_bytes + out_bytes,
+                    Q_ * rows * (2 * (dims - 1) + 3 + 3 * squares) + kept * 6,
+                    F64_FLOPS if itemsize == 8 else F32_FLOPS)
 
 
 def bound(Q_, N_, n_, itemsize, out_bytes, flops_per_s):
@@ -885,7 +912,10 @@ def current_plan(ops, name, cls, N_, sms):
     if name == "apex_bounds_batch":
         return "stream"
     if name == "apex_threshold":
-        return list(ops.threshold_plan(cls[1], cls[0], N_, sms))
+        kb = 16 if "float64" in cls else 8
+        if cls[1] > ops.MAX_SELECT_WIDTH:
+            return list(ops.wide_plan(cls[1], cls[0], N_, sms, key_bytes=kb)[:2])
+        return list(ops.threshold_plan(cls[1], cls[0], N_, sms, key_bytes=kb))
     return ops.apex_project_plan(cls[0], cls[1], sms)
 #: why K2-K5 have no one-call PyTorch counterpart (``library_ms`` null)
 NO_LIBRARY = {
@@ -944,9 +974,18 @@ class ShapeInputs:
         self.tab = inner._kernel_table()
         self.data = inner.data if corpus is None else corpus
         self.queries = torch.as_tensor(queries_np, device=self.tab.device)
-        self.ap = inner.query_apex_batch(queries_np).float().contiguous()
+        self.ap64 = inner.query_apex_batch(queries_np).contiguous()
+        self.ap = self.ap64.float().contiguous()
         self.sms = torch.cuda.get_device_properties(self.tab.device).multi_processor_count
         self._floor = None
+
+    def select_operands(self, cls, width):
+        """(table, class without its dtype tag, itemsize) of a K2/K3 class:
+        a class tagged ``"float64"`` runs on the index's own f64 apex table
+        (``inner.table``), the others on its f32 kernel table."""
+        if cls[-1] == "float64":
+            return self.inner.table.contiguous(), tuple(cls[:-1]), 8
+        return self.tab, tuple(cls), 4
 
     def launch_floor_ms(self):
         """CUDA-event ms per launch of the library's empty kernel, called
@@ -965,14 +1004,17 @@ class ShapeInputs:
         check(count <= self.data.shape[0], f"a class of {count} rows needs a larger corpus")
         return self.queries[:count] if count <= self.queries.shape[0] else self.data[:count]
 
-    def apexes(self, Q_, dims):
-        """``Q_`` query apexes folded to ``dims``; above the query rows they
-        repeat (the same work per query)."""
-        ap = self.ap.repeat(-(-Q_ // self.ap.shape[0]), 1)
+    def apexes(self, Q_, dims, itemsize=4):
+        """``Q_`` query apexes folded to ``dims`` (f64 for ``itemsize`` 8);
+        above the query rows they repeat (the same work per query)."""
+        base = self.ap64 if itemsize == 8 else self.ap
+        ap = base.repeat(-(-Q_ // base.shape[0]), 1)
         return truncated(self.torch, self.ref, ap[:Q_], dims)
 
     def selection_want(self, L, U, keys, live, width):
-        return self.ref._take(self.ref.pack_keys(keys, live), L, U, width)
+        """The plain selection over K1's own matrices, in their dtype (packed
+        keys in f32, the stable sort in f64)."""
+        return self.ref._select(keys, live, L, U, width)
 
     def time_row(self, name, cls, plan=None) -> dict:
         """The wrapper at ``cls`` as the main path calls it (under launch
@@ -1006,9 +1048,10 @@ class ShapeInputs:
             lib_ms = self.cdist_ms(q, dims)
             b = roofline(N_ * n_ * 4 + q.numel() * 4 + 2 * Q_ * N_ * 4, Q_ * N_ * (2 * (dims - 1) + 12), F32_FLOPS)
         elif name == "apex_topk":
-            Q_, k, key, dims = cls[:4]
-            mask, allowed = self.class_mask(cls, 4)
-            q = self.apexes(Q_, dims)
+            tab, core, size = self.select_operands(cls, 4)
+            Q_, k, key, dims = core[:4]
+            mask, allowed = self.class_mask(core, 4)
+            q = self.apexes(Q_, dims, size)
             L, U = ops.apex_bounds_batch(tab, q, dims=dims)
             keys = {"lwb": L, "upb": U}.get(key)
             keys = 0.5 * (L + U) if keys is None else keys
@@ -1019,12 +1062,13 @@ class ShapeInputs:
             err = 0.0
             run = lambda: ops.apex_bounds_topk(tab, q, k, key=key, dims=dims, rowmask=mask)  # noqa: E731
             plain = lambda: ref.apex_topk_ref(tab, q, k, key, dims, mask)  # noqa: E731
-            b = select_bound(Q_, int(allowed.sum()), n_, dims, q.numel(), Q_ * k * 12, Q_ * k,
-                             squares=2 if key == "mid" else 1, mask_bytes=0 if mask is None else N_)
+            b = select_bound(Q_, int(allowed.sum()), n_, dims, q.numel(), Q_ * k * (4 + 2 * size), Q_ * k,
+                             squares=2 if key == "mid" else 1, mask_bytes=0 if mask is None else N_, itemsize=size)
         elif name == "apex_threshold":
-            Q_, cap, dims = cls[:3]
-            mask, allowed = self.class_mask(cls, 3)
-            q = self.apexes(Q_, dims)
+            tab, core, size = self.select_operands(cls, 3)
+            Q_, cap, dims = core[:3]
+            mask, allowed = self.class_mask(core, 3)
+            q = self.apexes(Q_, dims, size)
             L, U = ops.apex_bounds_batch(tab, q, dims=dims)
             # each query's threshold at rank cap / 2 among the allowed rows
             # (the selection fills half), and k-NN pass B's: the K-th
@@ -1050,8 +1094,8 @@ class ShapeInputs:
             run_b = lambda: ops.apex_bounds_threshold(tab, q, thr_b, cap, dims=dims, rowmask=mask, **kw)  # noqa: E731
             extra.update(pass_b_ms=time_ms(torch, run_b), pass_b_device_ms=device_ms(torch, run_b))
             plain = lambda: ref.apex_threshold_ref(tab, q, thr, cap, dims, mask)  # noqa: E731
-            b = select_bound(Q_, n_allowed, n_, dims, q.numel(), Q_ * (cap * 12 + 4), kept,
-                             mask_bytes=0 if mask is None else N_)
+            b = select_bound(Q_, n_allowed, n_, dims, q.numel(), Q_ * (cap * (4 + 2 * size) + 4), kept,
+                             mask_bytes=0 if mask is None else N_, itemsize=size)
         elif name == "apex_project":
             B, n, dtype = cls
             p = self.inner.projector if n == self.inner.n_pivots else self.inner._prefix_projector(n)
@@ -1590,8 +1634,10 @@ ONLINE_ADD, ONLINE_REMOVE, ONLINE_UPSERT = 2048, 1024, 256
 ONLINE_ROUNDS = {"euclidean": 3, "jensen_shannon": 1}
 #: queries of the filtered phase's forced-postfilter k-NN batch under the
 #: rarest predicate (64 until the durable phase joined the run: 46 s eu and
-#: 154 s JSD of per-query doubling fetches, PERF.md section 5)
-RARE_POSTFILTER_Q = 8
+#: 154 s JSD of per-query doubling fetches, PERF.md section 5), and under
+#: the others (64 until the select and sharded_train phases joined the run:
+#: 28 s of the baseline's doubling fetches the planner never chooses)
+RARE_POSTFILTER_Q, POSTFILTER_Q = 8, 16
 
 
 def make_attributes(n: int, seed: int) -> dict:
@@ -1669,8 +1715,9 @@ def phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod, indexes, queri
     jensen_shannon) with the 1M-row attribute store attached, the launch
     counts set to 0 before and read after: per metric and predicate a
     64-query exact k-NN (k=10) and range batch under the planner's choice
-    and under each forced strategy (the ten rarest shops' forced-postfilter
-    k-NN batch: 8 queries), one approximate k-NN batch (dims 10, refine 64)
+    and under each forced strategy (a forced-postfilter k-NN batch:
+    ``POSTFILTER_Q`` queries, ``RARE_POSTFILTER_Q`` under the ten rarest
+    shops), one approximate k-NN batch (dims 10, refine 64)
     under pushdown and 8 1-D k-NN requests under pushdown.
     ``store`` holds ``attrs``, the generated columns.  Returns what
     ``verify_filtered`` checks."""
@@ -1691,8 +1738,10 @@ def phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod, indexes, queri
                 for task, spec in (("knn_batch", Query.knn(K, where=pred, filter_mode=mode)),
                                    ("range_batch", Query.range(t_range, where=pred, filter_mode=mode))):
                     strategy = index.plan(spec).filter_strategy
-                    rare = (pname, mode, task) == ("shop_rare10", "postfilter", "knn_batch")
-                    res, wall, over = run_batch(torch, index, qs[:RARE_POSTFILTER_Q] if rare else qs, spec)
+                    n_q = Q
+                    if (mode, task) == ("postfilter", "knn_batch"):
+                        n_q = RARE_POSTFILTER_Q if pname == "shop_rare10" else POSTFILTER_Q
+                    res, wall, over = run_batch(torch, index, qs[:n_q], spec)
                     emit(phase="filtered", metric=metric, predicate=pname, selectivity=sel, mode=mode or "auto",
                          strategy=strategy, task=task, queries=len(res), wall_ms=wall * 1e3,
                          original_calls_per_query=calls_per_query(res), overflow_queries=over)
@@ -2007,6 +2056,11 @@ DURABLE_FSYNC_EVERY, DURABLE_DRIFT = 8, 0.25
 #: (after the euclidean rounds' 7,040 rows, 20,000-30,000 shifted rows raise
 #: the statistic past 0.25)
 DURABLE_SHIFTED = 65_536
+#: rows per add record of that shifted stream (128 until the select and
+#: sharded_train phases joined the run: at 3 euclidean rounds the stream
+#: took 269 records before drift_pending, and an add's cost is mostly per
+#: record)
+DURABLE_SHIFTED_RECORD = 1024
 #: queries of the crash, swap and persistence equality checks (bit-equal
 #: answers of two indexes over the same rows)
 DURABLE_CHECK_Q = 16
@@ -2342,7 +2396,7 @@ def durable_maintenance(torch, api, store_mod, index, oracle, pool, pool_attrs, 
                         report) -> dict:
     """A ``BackgroundCompactor`` and a reader thread on ``index`` while the
     main thread writes a shifted stream (``np.roll(colors_like, 112 // 3)``,
-    as the JAX package's drift tests do) in 128-row add records until
+    as the JAX package's drift tests do) in 1,024-row add records until
     ``drift_pending``, then same-distribution records while the compactor
     refits (fold, new pivots, a 1M-row K5/K4 rebuild off the write lock,
     catch-up replay, swap, checkpoint); then an explicit ``compact()``
@@ -2372,12 +2426,12 @@ def durable_maintenance(torch, api, store_mod, index, oracle, pool, pool_attrs, 
     t_drift = None
     try:
         while not index.drift_pending and bg.counters["refits"] == 0:
-            check(n_shifted < len(shifted) // DURABLE_RECORD, "the shifted stream never raised drift_pending")
-            block = slice(n_shifted * DURABLE_RECORD, (n_shifted + 1) * DURABLE_RECORD)
+            check(n_shifted < len(shifted) // DURABLE_SHIFTED_RECORD, "the shifted stream never raised drift_pending")
+            block = slice(n_shifted * DURABLE_SHIFTED_RECORD, (n_shifted + 1) * DURABLE_SHIFTED_RECORD)
             # rows with no attribute row (the store's host put would cost
             # ~0.2 s per record at 1M rows): they never match a predicate
             ids = index.add(shifted[block])
-            oracle.add(np.asarray(ids, dtype=np.int64), shifted[block], no_attributes(DURABLE_RECORD))
+            oracle.add(np.asarray(ids, dtype=np.int64), shifted[block], no_attributes(DURABLE_SHIFTED_RECORD))
             n_shifted += 1
             stat_pending = index.drift_stat()
         t_drift = time.perf_counter()
@@ -2454,6 +2508,9 @@ def durable_kernel_rows(torch, ops, ref, rec, queries_np, log) -> list:
 #: and one more round), and the save / load round trip at the paper's size
 SHARDS, MAX_CAND = 4, 256
 SHARDED_ROUNDS = {"euclidean": 2, "jensen_shannon": 1}
+#: requests through the service under each fan-out policy: 2 batches of 64
+#: (256 until the select and sharded_train phases joined the run)
+SHARDED_SERVE_REQUESTS = 128
 #: the device filter's K3 shape class: every query against the flat table
 FILTER_CLASS = (Q, MAX_CAND, N_PIVOTS)
 
@@ -2475,7 +2532,7 @@ def run_sharded(torch, index, qs, spec):
 
 
 def serve(torch, service_mod, index, qs, spec, workers):
-    """256 requests through ``SearchService(max_batch=64)`` under the fan-out
+    """``SHARDED_SERVE_REQUESTS`` requests through ``SearchService(max_batch=64)`` under the fan-out
     policy ``workers``: (results, wall s, service stats); the results must
     equal a direct batch's ids and distances."""
     with service_mod.SearchService(index, max_batch=64, max_wait_s=0.005, fanout_workers=workers) as svc:
@@ -2498,7 +2555,7 @@ def phase_sharded(ops, torch, api, service_mod, ref, metrics_mod, data_np, queri
     under ``device_filter=False``, one range batch under each of the layouts
     ``{"replicas": 2}`` and ``{"rows": "replicated"}`` (clamped to the 1 x 1
     grid of one card), an approximate k-NN batch of an ``apex_dims=10,
-    refine=64`` build, 8 1-D k-NN and range requests, 256 requests through
+    refine=64`` build, 8 1-D k-NN and range requests, 128 requests through
     ``SearchService`` under overlapped and sequential fan-out; a mutable
     ``shards=4`` index through rounds of 2,048 adds, 1,024 removes and 256
     upserts (euclidean 2, JSD 1), each followed by k-NN and range batches,
@@ -2562,7 +2619,7 @@ def phase_sharded(ops, torch, api, service_mod, ref, metrics_mod, data_np, queri
             report(task=task, queries=len(res), wall_ms_per_query=wall * 1e3 / len(res),
                    original_calls_per_query=calls_per_query(res), shard_overflow_queries=over)
             tasks.append((task, spec, qs[:8], res))
-        served = queries_np[:256]
+        served = queries_np[:SHARDED_SERVE_REQUESTS]
         for label, workers in (("overlapped", SHARDS), ("sequential", 0)):
             res, wall, st = serve(torch, service_mod, index, served, Query.knn(K), workers)
             report(task=f"service_knn_{label}", requests=len(served), fanout_workers=workers, wall_ms=wall * 1e3,
@@ -3263,7 +3320,8 @@ def kernel_rows(torch, ops, inputs, hist, launch_phase=None, selection_inputs=No
         (name, m), = time_shapes(torch, ops, inp.ref, inp, [pair], **tag)
         n, share = next((n, share) for cls, n, share in hist[name] if list(cls) == m["shape"])
         row = kernel_row(name, m, n, share)
-        if name in PREVIOUS_DESIGN:
+        wide = pair[0] in ("apex_topk", "apex_threshold") and pair[1][1] > ops.MAX_SELECT_WIDTH
+        if name in PREVIOUS_DESIGN and not wide:   # the global-memory plan had no earlier design
             label, plan_of = PREVIOUS_DESIGN[name]
             cls = tuple(m["shape"])
             prev = inp.time_row(name, cls, plan_of(ops, cls, N_, inp.sms))
@@ -3273,6 +3331,8 @@ def kernel_rows(torch, ops, inputs, hist, launch_phase=None, selection_inputs=No
             row.update({f"previous_design_{key}": prev[key] for key in ("pass_b_ms", "device_ms") if key in prev})
             row.update(previous_design=label, previous_design_ms=prev["ms"],
                        plan=current_plan(ops, name, cls, N_, inp.sms))
+        elif name == "apex_threshold":
+            row["plan"] = current_plan(ops, name, tuple(m["shape"]), N_, inp.sms)
         rows.append(dict(row, table_rows=N_, **tag))
     return rows
 
@@ -4541,6 +4601,206 @@ def phase_tune(ops, torch, api, ref, data_np, queries_np) -> dict:
     return dict(sweeps=sweeps, seconds=seconds)
 
 
+# -- the select phase (K2/K3's whole contract) and the sharded train step ----
+
+#: the select phase: exact k-NN at k = 300 (pass B's K3 at min(N, 16k) =
+#: 4,800, past 4,096), approximate k-NN at refine = 8,192 (K2 8,192 wide on
+#: the 10-wide prefix), the device filter at 8,192 slots over the 1M-row
+#: table (one grid position of the card), and direct calls of K2 and K3 on
+#: the index's own 1M x 20 f64 table and 8,192 / 16,384 wide on its f32 one
+SELECT_KNN_K, SELECT_REFINE, SELECT_SLOTS = 300, 8192, 8192
+SELECT_DIRECT = [
+    ("apex_topk", (Q, K, "upb", N_PIVOTS, "float64")),
+    ("apex_threshold", (Q, 512, N_PIVOTS, "float64")),
+    ("apex_topk", (Q, 8192, "upb", N_PIVOTS)),
+    ("apex_threshold", (Q, 16384, N_PIVOTS)),
+]
+
+
+def select_direct(torch, ops, ref, inner, queries_np) -> list:
+    """K2 and K3 called as a user calls them, at ``SELECT_DIRECT``'s classes:
+    each result held to the plain selection over K1's own matrices (in the
+    table's dtype); K3's thresholds at rank cap / 2 for even queries and at
+    rank 2 cap (the cap overflows) for odd ones."""
+    out = []
+    for name, cls in SELECT_DIRECT:
+        f64 = cls[-1] == "float64"
+        tab = inner.table.contiguous() if f64 else inner._kernel_table()
+        ap = inner.query_apex_batch(queries_np[:cls[0]])
+        ap = ap.contiguous() if f64 else ap.float().contiguous()
+        L, U = ops.apex_bounds_batch(tab, ap)
+        if name == "apex_topk":
+            got = ops.apex_bounds_topk(tab, ap, cls[1], key=cls[2])
+            want = ref.topk_from_bounds(L, U, cls[1], cls[2])
+            extra = {}
+        else:
+            cap = cls[1]
+            thr = torch.kthvalue(L, cap // 2, dim=1).values
+            thr[1::2] = torch.kthvalue(L, min(2 * cap, L.shape[1]), dim=1).values[1::2]
+            got = ops.apex_bounds_threshold(tab, ap, thr, cap)
+            want = ref.threshold_from_bounds(L, U, thr, cap)
+            extra = dict(overflowing_queries=int((got[3] > cap).sum()))
+            check(bool((got[3] > cap).any()) and bool((got[3] <= cap).any()),
+                  f"K3 at {cls} must hold queries below and above its cap")
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{name} at {cls} differs from the plain selection over K1")
+        check(got[1].dtype == tab.dtype, f"{name} at {cls} must answer in the table's dtype")
+        emit(phase="select", task="direct", kernel=KERNEL_INFO[name][0], shape=list(cls), exact=True, **extra)
+        out.append((name, cls))
+        del L, U, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_select(ops, torch, api, ref, metrics_mod, data_np, queries_np, index) -> dict:
+    """Phase 12: K2/K3 at their whole contract through the entry points, the
+    launch counts set to 0 before and read after: ``index.query`` exact
+    k-NN at k = 300 and approximate k-NN at refine = 8,192 on the e2e
+    euclidean index (64 queries each; 8 held to the f64 brute force, the
+    approximate answers to the K2 candidates of a plain selection over K1's
+    truncated matrices), ``build_distributed_filter`` at 8,192 slots on the
+    1M-row f32 table (held bit-equal to its plain version,
+    ``selection="sort"``, and its histogram to K1's counts), and the direct
+    calls of ``select_direct``."""
+    from repro_torch.search import distributed
+    from repro_torch.sharding import ShardLayout, make_scaleout_mesh
+
+    report = lambda **f: emit(phase="select", **f)  # noqa: E731
+    inner = index._inner
+    brute = BruteForce(torch, ref, inner.data, metrics_mod.get_metric("euclidean"))
+    tol = refine_tol(torch, "euclidean", inner.data)
+    qs = queries_np[:Q]
+    ops.reset_launches()
+
+    def run(task, spec):
+        before = inner.overflow_queries
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = list(index.query(qs, spec))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        report(task=task, queries=len(res), wall_ms=wall * 1e3, overflow_queries=inner.overflow_queries - before,
+               original_calls_per_query=float(np.mean([r.stats.original_calls for r in res])))
+        return res
+
+    knn = run("knn_k300", api.Query.knn(SELECT_KNN_K))
+    approx = run("approx_refine8192", api.Query.knn(K, mode="approx", dims=APPROX_DIMS, refine=SELECT_REFINE))
+    # the device filter: per query a threshold at the 4,096th lwb (below the
+    # slots) or the 20,000th (above), the filter's own f32 bands
+    grid = make_scaleout_mesh(ShardLayout(), [torch.device(DEVICE)])
+    tab = inner._kernel_table()
+    ap32 = inner.query_apex_batch(qs).float().contiguous()
+    L, U = ops.apex_bounds_batch(tab, ap32)
+    ranks = torch.tensor([4096 if q % 2 else 20_000 for q in range(Q)], device=DEVICE)
+    t_hi = torch.sort(L, dim=1).values.gather(1, ranks[:, None])[:, 0].contiguous()
+    t_lo = (t_hi * 0.5).contiguous()
+    topk = distributed.build_distributed_filter(grid, max_candidates=SELECT_SLOTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = topk(tab, ap32, t_hi, t_lo)
+    torch.cuda.synchronize()
+    filter_ms = (time.perf_counter() - t0) * 1e3
+    direct = select_direct(torch, ops, ref, inner, queries_np)
+    launches = dict(ops.LAUNCHES)
+    hist = launch_histogram({name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name in ("apex_topk", "apex_threshold"):
+        emit(phase="launch_shapes", launch_phase="select", kernel=KERNEL_INFO[name][0], name=name,
+             launches=launches[name], classes=[[list(c), n, share] for c, n, share in hist[name]])
+    launched = {(name, tuple(c)) for name in hist for c, _, _ in hist[name]}
+    cap300 = min(N_ROWS, 16 * SELECT_KNN_K)
+    for pair in [("apex_threshold", (Q, cap300, N_PIVOTS)), ("apex_topk", (Q, SELECT_REFINE, "mid", APPROX_DIMS)),
+                 ("apex_threshold", (Q, SELECT_SLOTS, N_PIVOTS))] + direct:
+        check(pair in launched, f"{pair} was not launched by the select phase")
+
+    # checks (after the counts are read)
+    want = distributed.build_distributed_filter(grid, max_candidates=SELECT_SLOTS, selection="sort")(
+        tab, ap32, t_hi, t_lo)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "the filter's 8,192 slots differ from its plain version")
+    counts = got[0][:, 1] + got[0][:, 2]
+    check(torch.equal(counts, (L <= t_hi[:, None]).sum(1)), "the filter's histogram differs from K1's counts")
+    check(bool((counts > SELECT_SLOTS).any()) and bool((counts <= SELECT_SLOTS).any()),
+          "the filter must hold queries below and above its slots")
+    report(task="device_filter_8192", rows=N_ROWS, queries=Q, slots=SELECT_SLOTS, wall_ms=filter_ms,
+           overflowing_queries=int((counts > SELECT_SLOTS).sum()))
+    del L, U, got, want
+    swaps = 0
+    for q, r in zip(qs[:8], knn[:8]):
+        ids, d64 = brute.knn(q, SELECT_KNN_K)
+        swaps += agree_knn(r, ids, d64, tol)
+    prefix = inner._prefix_projector(APPROX_DIMS)
+    qpd = brute.cross(qs[:8], prefix.pivots_t)
+    apexes = ref.apex_project_ref(qpd, prefix._Linv_t, prefix._sq_norms_t).float().contiguous()
+    Lt, Ut = ops.apex_bounds_batch(tab, apexes, dims=APPROX_DIMS)
+    cand = ref.topk_from_bounds(Lt, Ut, SELECT_REFINE, "mid")[0].cpu().numpy()
+    recall = []
+    for qi, (q, r) in enumerate(zip(qs[:8], approx[:8])):
+        d64 = brute.dists(q).cpu().numpy()
+        c = cand[qi].astype(np.int64)
+        check(bool(np.isin(r.ids, c).all()), "approximate k-NN answered outside K2's 8,192 candidates")
+        swaps += agree_knn(r, c[np.lexsort((c, d64[c]))][:K], d64, tol)
+        check(r.stats.original_calls == APPROX_DIMS + SELECT_REFINE, "original_calls must be dims + refine")
+        recall.append(len(np.intersect1d(r.ids, host_select(d64[None, :], None, K)[0])) / K)
+    report(task="checks", knn_k300_checked=8, approx_checked=8, near_tie_differences=swaps,
+           approx_recall_at_10=float(np.mean(recall)))
+    del Lt, Ut
+    torch.cuda.empty_cache()
+    return dict(hist=hist, must=direct)
+
+
+def select_kernel_rows(torch, ops, ref, rec, index, queries_np, log) -> list:
+    """The select phase's kernel rows: every class it launched, timed on the
+    e2e euclidean index's tables (f64 classes on its 1M x 20 f64 table)."""
+    inputs = ShapeInputs(torch, ops, ref, index, queries_np, log)
+    return kernel_rows(torch, ops, inputs, rec["hist"], "select", must=rec["must"])
+
+
+#: the sharded train step on the card: one NCCL process per visible card on
+#: a (cards, 1) mesh, the reference's sharded test's reduced mixtral (d_model
+#: 64, d_ff 128, vocab 512, batch 8 x 32), 4 steps, against the one-process
+#: step on the card (the qwen2 smoke config too until the run needed its 20 s;
+#: the CPU tests run both)
+SHARDED_TRAIN = [
+    ("mixtral-8x7b", ["--d-model", "64", "--d-ff", "128", "--vocab", "512"]),
+]
+SHARDED_TRAIN_TOL, SHARDED_TRAIN_TIMEOUT = 1e-5, 300
+
+
+def phase_sharded_train(torch) -> list:
+    """Phase 13: ``python -m repro_torch.launch.process_train`` (one NCCL
+    rank per visible card, ``--check``) for each ``SHARDED_TRAIN`` config:
+    every rank exits 0, every leaf's shards gather back to it, the
+    parameters after 4 steps are the one-process step's within 1e-5, the
+    losses and gradient norms agree, int8 compression of shards equals the
+    whole tree's, and the loss falls."""
+    from repro_torch.launch import process_train
+
+    src = str(Path(__file__).resolve().parent / "src")
+    os.environ["PYTHONPATH"] = src + (os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else "")
+    cards = torch.cuda.device_count()
+    out = []
+    for arch, over in SHARDED_TRAIN:
+        argv = ["--arch", arch, "--smoke", *over, "--data", str(cards), "--model", "1", "--backend", "nccl",
+                "--steps", "4", "--check"]
+        t0 = time.perf_counter()
+        results = process_train.spawn(cards, argv, SHARDED_TRAIN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(results):
+            check(rc == 0, f"sharded train rank {r} of {arch} exited {rc}:\n{text[-3000:]}")
+        rec = json.loads(results[0][1].strip().splitlines()[-1])
+        check(rec["shards_rebuild_leaves"], f"{arch}: shards do not gather back to their leaves")
+        check(rec["max_param_diff"] <= SHARDED_TRAIN_TOL,
+              f"{arch}: parameters differ from the one-process step by {rec['max_param_diff']}")
+        check(bool(np.allclose(rec["losses"], rec["one_process_losses"], rtol=SHARDED_TRAIN_TOL)),
+              f"{arch}: losses differ from the one-process step")
+        check(bool(np.allclose(rec["grad_norms"], rec["one_process_grad_norms"], rtol=SHARDED_TRAIN_TOL)),
+              f"{arch}: gradient norms differ from the one-process step")
+        check(rec["compress_max_diff"] == 0.0, f"{arch}: int8 compression of shards differs")
+        check(rec["losses"][-1] < rec["losses"][0], f"{arch}: the loss did not fall")
+        emit(phase="sharded_train", arch=arch, wall_s=wall, **rec)
+        out.append(rec)
+    return out
+
+
 class Laps:
     """Seconds between successive calls, by the name given at each call."""
 
@@ -4616,6 +4876,13 @@ def run(argv=None) -> int:
     parser.add_argument("--tune-only", action="store_true",
                         help="only run the tune phase (the launch-plan tuner over K1, K2 and K3 on the 1M-row "
                              "table at Q = 1 and 64) and its checks")
+    parser.add_argument("--select-only", action="store_true",
+                        help="only run the select phase (K2/K3 in f64 and wider than 4,096 through exact k-NN at "
+                             "k = 300, approximate k-NN at refine = 8,192, the device filter at 8,192 slots and "
+                             "direct calls) and its checks")
+    parser.add_argument("--sharded-train-only", action="store_true",
+                        help="only run the sharded train phase (one NCCL process per visible card on a (cards, 1) "
+                             "mesh against the one-process step on the card)")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
@@ -4662,6 +4929,11 @@ def run(argv=None) -> int:
         return 0
     if args.train_only:
         phase_train(ops, torch)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
+    if args.sharded_train_only:
+        phase_sharded_train(torch)
         emit(phase="host", host_yardstick_s=host_yardstick())
         print(smi, flush=True)
         return 0
@@ -4761,6 +5033,13 @@ def run(argv=None) -> int:
         print(smi, flush=True)
         return 0
 
+    if args.select_only:
+        sel = phase_select(ops, torch, api, ref, metrics_mod, data_np, queries_np, euclid)
+        print(json.dumps({"select_kernels": select_kernel_rows(torch, ops, ref, sel, euclid, queries_np, log)}),
+              flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
     mods = (torch, api, metrics_mod, service_mod, ref, data_np, queries_np)
     if args.approx_only:
         approx_runs = [phase_approx(*mods, "euclidean", index=euclid), phase_approx(*mods, "jensen_shannon")]
@@ -4792,6 +5071,13 @@ def run(argv=None) -> int:
     for rec in approx_runs:
         verify_approx(torch, ops, ref, rec)
     lap("kernels_e2e_approx")
+    # K2/K3 in f64 and wider than 4,096, on the e2e euclidean index
+    sel = phase_select(ops, torch, api, ref, metrics_mod, data_np, queries_np, euclid)
+    select_rows = select_kernel_rows(torch, ops, ref, sel, euclid, queries_np, log)
+    print(json.dumps({"select_kernels": select_rows}), flush=True)
+    del sel
+    torch.cuda.empty_cache()
+    lap("select")
     # filtered search on the same two exact indexes, then the online index
     filtered = phase_filtered(ops, torch, api, filter_mod, ref, metrics_mod,
                               {"euclidean": euclid, "jensen_shannon": jsd_exact}, queries_np, store, attrs)
@@ -4832,7 +5118,7 @@ def run(argv=None) -> int:
     torch.cuda.empty_cache()
     durable_rows = durable_kernel_rows(torch, ops, ref, durable, queries_np, log)
     print(json.dumps({"durable_kernels": durable_rows}), flush=True)
-    rows += durable_rows
+    rows += durable_rows + select_rows
     del durable
     torch.cuda.empty_cache()
     serving_rows = serving_kernel_rows(torch, ops, ref, serving, queries_np, log)
@@ -4854,6 +5140,8 @@ def run(argv=None) -> int:
     train = phase_train(ops, torch, data_np)
     torch.cuda.empty_cache()
     lap("train")
+    phase_sharded_train(torch)
+    lap("sharded_train")
     rows += phase_tools(ops, torch, api, ref, log, train)["rows"]
     torch.cuda.empty_cache()
     lap("tools")

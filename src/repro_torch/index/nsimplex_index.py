@@ -40,7 +40,6 @@ from repro_torch.index.knn import knn_refine, knn_refine_candidates
 from repro_torch.index.rows import DeviceRows, device_rows
 from repro_torch.index.stats import QueryStats
 from repro_torch.kernels import (
-    MAX_SELECT_WIDTH,
     SENTINEL_ID,
     apex_bounds,
     apex_bounds_batch,
@@ -92,8 +91,8 @@ class NSimplexIndex(DeviceRows):
         self._table_f32 = None      # float32 twin of the table (kernel operand)
         self._row_sq_max = None     # max squared row norm (slack bound)
         self._trunc = {}            # dims -> prefix projector
-        #: queries answered by the per-query K1 route (capacity overflow or
-        #: a selection wider than the kernels hold, exact or approximate)
+        #: queries answered by the per-query K1 route: those whose K3 count
+        #: exceeds its capacity (k-NN pass B, range)
         self.overflow_queries = 0
 
     @property
@@ -439,13 +438,6 @@ class NSimplexIndex(DeviceRows):
         hint = np.full(Q, np.inf) if radius_hint is None else np.asarray(radius_hint, dtype=np.float64)
         apexes_np = apexes.cpu().numpy()
         cap = int(min(N, max(512, 16 * k_eff)))
-        if max(k_eff, cap) > MAX_SELECT_WIDTH:
-            # wider than the kernels hold: every query takes the capacity-
-            # overflow route (per-query K1 plus exact refinement)
-            return [
-                self._knn_overflow(q_t[qi], apexes[qi], apexes_np[qi], k, pivot_calls, hint[qi], sel)
-                for qi in range(Q)
-            ]
         tab = self._kernel_table()
         ap32 = apexes.to(torch.float32)
         mask_t = self._device_mask(mask)
@@ -563,29 +555,15 @@ class NSimplexIndex(DeviceRows):
     def _mid_candidates(self, apexes: torch.Tensor, m: int, dims: int, mask):
         """Per query the ``m`` rows with the smallest f32 ``(mid, id)`` key on
         the ``dims``-truncated table, as (ids, lwb, upb) host arrays (bounds
-        float64), through K2.  A selection wider than K2 holds takes
-        per-query K1 and the same f32 ``(mid, id)`` selection on the host, so
-        its candidates equal K2's; those queries count in
-        ``overflow_queries``."""
+        float64), through K2 at any ``m``."""
         tab = self._kernel_table()
         ap32 = apexes.to(torch.float32)
-        if m <= MAX_SELECT_WIDTH:
-            ids_k, lwb_k, upb_k = self._host(*apex_bounds_topk(tab, ap32, m, key="mid", dims=dims,
-                                                                   rowmask=self._device_mask(mask)))
-            out = []
-            for ids, lwb, upb in zip(ids_k, lwb_k, upb_k):
-                live = ids != SENTINEL_ID
-                out.append((ids[live].astype(np.int64), lwb[live].astype(np.float64), upb[live].astype(np.float64)))
-            return out
-        sel = np.arange(self.n_rows) if mask is None else np.flatnonzero(mask)
+        ids_k, lwb_k, upb_k = self._host(*apex_bounds_topk(tab, ap32, m, key="mid", dims=dims,
+                                                               rowmask=self._device_mask(mask)))
         out = []
-        for qi in range(ap32.shape[0]):
-            self.overflow_queries += 1
-            lwb, upb = self._host(*apex_bounds_batch(tab, ap32[qi][None, :], dims=dims))
-            lwb, upb = lwb[0][sel], upb[0][sel]
-            mid = np.float32(0.5) * (lwb + upb)          # K2's f32 key, bit for bit
-            order = np.lexsort((sel, mid))[:m]
-            out.append((sel[order].astype(np.int64), lwb[order].astype(np.float64), upb[order].astype(np.float64)))
+        for ids, lwb, upb in zip(ids_k, lwb_k, upb_k):
+            live = ids != SENTINEL_ID
+            out.append((ids[live].astype(np.int64), lwb[live].astype(np.float64), upb[live].astype(np.float64)))
         return out
 
     def search_approx(self, q, threshold: float, *, dims: int, refine: int, qpd=None, rowmask=None):

@@ -4,7 +4,6 @@ device of their operands (``ops.py``)."""
 
 from repro_torch.kernels.ops import (
     LAUNCHES,
-    MAX_SELECT_WIDTH,
     SENTINEL_ID,
     apex_bounds,
     apex_bounds_batch,
@@ -17,7 +16,6 @@ from repro_torch.kernels.ops import (
 
 __all__ = [
     "LAUNCHES",
-    "MAX_SELECT_WIDTH",
     "SENTINEL_ID",
     "apex_bounds",
     "apex_bounds_batch",

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (plain C interface, ``ctypes``).
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a``; the objects are linked into one shared
+started together, for ``sm_90a`` (``select_epilogue.cu`` by one process per
+part of its entry points, ``_PARTS``); the objects are linked into one shared
 library under ``build/repro_torch_kernels/<hash>/`` at the repository root,
 keyed by a hash of the sources and flags, so a checkout builds everything
 at first use and a rebuilt source never loads a stale library.
@@ -34,6 +35,11 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
+#: sources compiled once per part (``-DREPRO_SELECT_PART=<part>``): the
+#: f32 and f64 K2, K3 and wide-plan entry points, whose instantiations make
+#: the longest single nvcc job when compiled together
+_PARTS = {"select_epilogue.cu": 6}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -42,8 +48,18 @@ _SIGNATURES = {
     "repro_apex_bounds_batch_f32": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "repro_apex_bounds_batch_f64": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "repro_apex_topk": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "repro_apex_topk_f64": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "repro_apex_threshold": [
         _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+    ],
+    "repro_apex_threshold_f64": [
+        _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+    ],
+    "repro_select_wide_f32": [
+        _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ],
+    "repro_select_wide_f64": [
+        _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ],
     "repro_apex_project_f32": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
     "repro_apex_project_f64": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
@@ -73,7 +89,7 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(_PARTS.items()))).encode())
     srcs, headers = _sources()
     for p in srcs + headers:
         h.update(p.name.encode())
@@ -90,20 +106,27 @@ def build_library() -> Path:
     work = out.parent / f"tmp-{os.getpid()}-{threading.get_ident()}"
     work.mkdir(parents=True, exist_ok=True)
     srcs, _ = _sources()
-    objs = [work / (s.stem + ".o") for s in srcs]
+    jobs = []  # (source, object, extra flags)
+    for s in srcs:
+        parts = _PARTS.get(s.name)
+        if parts is None:
+            jobs.append((s, work / (s.stem + ".o"), []))
+        else:
+            jobs += [(s, work / f"{s.stem}.part{i}.o", [f"-DREPRO_SELECT_PART={i}"]) for i in range(parts)]
+    objs = [o for _, o, _ in jobs]
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+            [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(o)],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
         )
-        for s, o in zip(srcs, objs)
+        for s, o, extra in jobs
     ]
     failed = []
-    for s, p in zip(srcs, procs):
+    for (s, o, _), p in zip(jobs, procs):
         log, _ = p.communicate()
         if p.returncode != 0:
-            failed.append(f"{s.name}:\n{log.decode(errors='replace')}")
+            failed.append(f"{o.name} ({s.name}):\n{log.decode(errors='replace')}")
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     tmp_lib = work / _LIB_NAME

@@ -4,11 +4,17 @@
 //   K2 apex_topk_pallas      — per query, the k rows with the smallest
 //                              (key, id), key in {lwb, upb, mid};
 //   K3 apex_threshold_pallas — per query, the cap smallest (lwb, id) among
-//                              rows with lwb <= t[q] (f32 compare), plus the
-//                              exact count of such rows, even when it
-//                              overflows cap.
+//                              rows with lwb <= t[q], plus the exact count
+//                              of such rows, even when it overflows cap.
+// Both work in the table's dtype, as the TPU kernels do: every kernel below
+// is a template on the scalar T (float or double) and its packed key K.  An
+// f32 key is the u64 (bits(|key|) << 32) | id; an f64 key is the 96-bit
+// (bits(|key|) << 32) | id, held in an unsigned __int128, and the radix
+// passes walk its 96 bits.  f64 bounds come from pair_bounds<double>, the
+// rounding routine K1's f64 scan uses (--fmad=false, no TF32), and K3's f64
+// thresholds are compared in f64.
 // Bound on this card: operations at 64 queries (bytes for one query, and
-// for K3 at dims 10).  Both read the f32 table once (N * n * 4 bytes) and
+// for K3 at dims 10).  Both read the table once (N * n * 4 bytes) and
 // need per (query, row) pair the head dot product and the squared bound the
 // key is decided on, 2(dims-1) + 6 operations (+ 3 for K2's mid key, which
 // needs both), no sqrt; only O(Q * width) triples leave the kernel.  What
@@ -82,37 +88,75 @@
 // come out as the sentinel id 2^31 - 1 with +inf bounds.  The output does not
 // depend on block order: a selection of distinct packed keys is unique.
 //
-// Largest selection width held: kMaxWidth = 4096 (shared memory of the
-// one-query-per-block kernel and of the merges: two buffers of 4096 uint64,
-// 64 KB).  Wider requests
-// are refused here; the index routes them to per-query K1 plus exact
-// refinement, as the reference does on capacity overflow.
+// Widths.  Up to kMaxWidth = 4096 the plans above hold a query's selection
+// in shared memory (the one-query-per-block kernel and the merges keep two
+// buffers of next_pow2(width) keys: 64 KB of f32 keys, 128 KB of f64 keys).
+// Any wider selection takes the global-memory plan (run_wide), for K2 and
+// K3 alike:
+//   * group_scan_kernel with SPILL (K3's scan; K2 with its own key and a
+//     count of the slice's live rows): each (query, slice) spills into a
+//     slot of min(wp + max(wp, 512), slice rows) keys in global memory and
+//     is cut to its width smallest keys by select_compact when full;
+//   * wide_gather_kernel, grid (Q, ceil(slices / 8)): moves 8 slices' kept
+//     keys together and keeps the width smallest (a radix select of the
+//     width-th key and a compaction of the keys at or below it);
+//   * wide_sort_kernel, grid (Q): the same over the gather blocks' keys,
+//     then an LSD radix sort of the kept keys (8-bit digits, stable block
+//     scatter) through two global buffers of width keys;
+//   * select_write_kernel, grid (ceil(width / 256), Q): ids and lwb/upb
+//     recomputed by pair_bounds(), and K3's counts.
+// The scratch is the caller's (ops.py sizes it and splits the queries into
+// chunks that fit its budget).
 #include "tile_math.cuh"
 
 namespace {
 
 typedef unsigned long long u64;
+typedef unsigned __int128 u128;
 
 constexpr int kThreads = 256;
 constexpr int kMinCand = 1024;   // candidate buffer length floor
 constexpr int kMaxWidth = 4096;
-constexpr u64 kEmpty = ~0ull;
 constexpr int kSentinelId = 0x7fffffff;
 
 enum Mode { kLwb = 0, kUpb = 1, kMid = 2, kThreshold = 3 };
+
+// The packed key of a scalar type, and the bits its radix passes walk.
+template <typename T> struct KeyOf;
+template <> struct KeyOf<float> {
+    typedef u64 type;
+    static constexpr int kBits = 64;
+};
+template <> struct KeyOf<double> {
+    typedef u128 type;
+    static constexpr int kBits = 96;
+};
+
+// The empty key: larger than every packed (key, id).
+template <typename K>
+__host__ __device__ __forceinline__ K key_empty() { return ~(K)0; }
 
 __device__ __forceinline__ u64 pack_key(float key, int id) {
     const unsigned int bits = __float_as_uint(key) & 0x7fffffffu;
     return ((u64)bits << 32) | (unsigned int)id;
 }
 
+__device__ __forceinline__ u128 pack_key(double key, int id) {
+    const u64 bits = (u64)__double_as_longlong(key) & 0x7fffffffffffffffull;
+    return ((u128)bits << 32) | (unsigned int)id;
+}
+
+template <typename T>
+__device__ __forceinline__ T scalar_inf() { return (T)__int_as_float(0x7f800000); }
+
 // One compare-exchange network stage over a[0:len) (len a power of two).
-__device__ __forceinline__ void bitonic_stage(u64* a, int len, int size, int stride) {
+template <typename K>
+__device__ __forceinline__ void bitonic_stage(K* a, int len, int size, int stride) {
     for (int i = threadIdx.x; i < len / 2; i += blockDim.x) {
         const int lo = 2 * i - (i & (stride - 1));
         const int hi = lo + stride;
         const bool up = (lo & size) == 0;
-        const u64 x = a[lo], y = a[hi];
+        const K x = a[lo], y = a[hi];
         if ((x > y) == up) {
             a[lo] = y;
             a[hi] = x;
@@ -121,48 +165,53 @@ __device__ __forceinline__ void bitonic_stage(u64* a, int len, int size, int str
     __syncthreads();
 }
 
-__device__ void bitonic_sort(u64* a, int len) {
+template <typename K>
+__device__ void bitonic_sort(K* a, int len) {
     __syncthreads();
     for (int size = 2; size <= len; size <<= 1)
         for (int stride = size >> 1; stride > 0; stride >>= 1) bitonic_stage(a, len, size, stride);
 }
 
 // Sort a bitonic sequence a[0:len) ascending.
-__device__ void bitonic_merge(u64* a, int len) {
+template <typename K>
+__device__ void bitonic_merge(K* a, int len) {
     __syncthreads();
     for (int stride = len >> 1; stride > 0; stride >>= 1) bitonic_stage(a, len, len, stride);
 }
 
 // run[0:wp) sorted ascending, cand[0:wp) sorted ascending: keep the wp
 // smallest of the union in run, sorted.
-__device__ void merge_sorted(u64* run, const u64* cand, int wp) {
+template <typename K>
+__device__ void merge_sorted(K* run, const K* cand, int wp) {
     __syncthreads();
     for (int i = threadIdx.x; i < wp; i += blockDim.x) {
-        const u64 v = cand[wp - 1 - i];
+        const K v = cand[wp - 1 - i];
         if (v < run[i]) run[i] = v;
     }
     bitonic_merge(run, wp);
 }
 
 // Fold cand[0:nc) (unsorted) into the sorted running selection run[0:wp).
-__device__ void flush(u64* run, u64* cand, int nc, int wp, int tl) {
-    for (int i = nc + threadIdx.x; i < tl; i += blockDim.x) cand[i] = kEmpty;
+template <typename K>
+__device__ void flush(K* run, K* cand, int nc, int wp, int tl) {
+    for (int i = nc + threadIdx.x; i < tl; i += blockDim.x) cand[i] = key_empty<K>();
     bitonic_sort(cand, tl);
     merge_sorted(run, cand, wp);
 }
 
-template <int MODE>
-__global__ void select_partial_kernel(const float* __restrict__ table, int N, int n,
-                                      const float* __restrict__ queries, int qw, int hd,
+template <typename T, int MODE>
+__global__ void select_partial_kernel(const T* __restrict__ table, int N, int n,
+                                      const T* __restrict__ queries, int qw, int hd,
                                       const uint8_t* __restrict__ rowmask,
-                                      const float* __restrict__ thresholds, int width, int wp,
+                                      const T* __restrict__ thresholds, int width, int wp,
                                       int tl, int slice_rows, int slot,
-                                      u64* __restrict__ part_keys,
+                                      typename KeyOf<T>::type* __restrict__ part_keys,
                                       int* __restrict__ part_counts) {
+    typedef typename KeyOf<T>::type K;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    u64* run = reinterpret_cast<u64*>(smem_raw);  // wp
-    u64* cand = run + wp;                          // tl
-    float* qs = reinterpret_cast<float*>(cand + tl);
+    K* run = reinterpret_cast<K*>(smem_raw);  // wp
+    K* cand = run + wp;                        // tl
+    T* qs = reinterpret_cast<T*>(cand + tl);
     __shared__ int ncand;
     __shared__ int count;
 
@@ -170,38 +219,38 @@ __global__ void select_partial_kernel(const float* __restrict__ table, int N, in
     const int S = gridDim.x;
     const int q = blockIdx.y;
     for (int i = threadIdx.x; i < qw; i += blockDim.x) qs[i] = queries[(size_t)q * qw + i];
-    for (int i = threadIdx.x; i < wp; i += blockDim.x) run[i] = kEmpty;
+    for (int i = threadIdx.x; i < wp; i += blockDim.x) run[i] = key_empty<K>();
     if (threadIdx.x == 0) {
         ncand = 0;
         count = 0;
     }
     __syncthreads();
-    float q2, qa;
+    T q2, qa;
     row_terms(qs, hd, qw, q2, qa);
-    const float t = MODE == kThreshold ? thresholds[q] : 0.0f;
+    const T t = MODE == kThreshold ? thresholds[q] : T(0);
 
     const int r0 = s * slice_rows;
     const int r1 = min(N, r0 + slice_rows);
     int my_count = 0;
-    u64 thr = kEmpty;  // the running width-th best key: only smaller keys matter
+    K thr = key_empty<K>();  // the running width-th best key: only smaller keys matter
     for (int base = r0; base < r1; base += blockDim.x) {
         const int row = base + threadIdx.x;
         if (row < r1 && (rowmask == nullptr || rowmask[row])) {
-            const float* x = table + (size_t)row * n;
-            float x2, xa, l, u;
+            const T* x = table + (size_t)row * n;
+            T x2, xa, l, u;
             row_terms(x, hd, n, x2, xa);
             pair_bounds(qs, q2, qa, x, x2, xa, hd, l, u);
             bool pass = true;
-            float key;
+            T key;
             if (MODE == kThreshold) {
                 pass = l <= t;
                 my_count += pass;
                 key = l;
             } else {
-                key = MODE == kLwb ? l : (MODE == kUpb ? u : op_mul(0.5f, op_add(l, u)));
+                key = MODE == kLwb ? l : (MODE == kUpb ? u : op_mul(T(0.5), op_add(l, u)));
             }
             if (pass) {
-                const u64 pk = pack_key(key, row);
+                const K pk = pack_key(key, row);
                 if (pk < thr) cand[atomicAdd(&ncand, 1)] = pk;
             }
         }
@@ -218,7 +267,7 @@ __global__ void select_partial_kernel(const float* __restrict__ table, int N, in
     if (nc > 0) flush(run, cand, nc, wp, tl);
     atomicAdd(&count, my_count);
     __syncthreads();
-    u64* out = part_keys + ((size_t)q * S + s) * slot;
+    K* out = part_keys + ((size_t)q * S + s) * slot;
     for (int i = threadIdx.x; i < wp; i += blockDim.x) out[i] = run[i];
     if (threadIdx.x == 0 && part_counts != nullptr) part_counts[(size_t)q * S + s] = count;
 }
@@ -227,19 +276,20 @@ __global__ void select_partial_kernel(const float* __restrict__ table, int N, in
 // key, whose two squared bounds per slot cost registers (at 16 the kernel
 // keeps fewer blocks on an SM and runs slower)
 __host__ __device__ constexpr int group_regs(int mode) { return mode == kMid ? 8 : 16; }
-// K2's group plan: a group's selection state, G * (wp + tl) * 8 bytes with
-// tl = max(wp, kMinCandGroup), fits kGroupBytes, and G <= kMaxGroup.
-// ops.topk_plan picks G under the same constants (_TOPK_MIN_CAND,
-// _TOPK_GROUP_BYTES, _TOPK_MAX_GROUP; a CPU test holds them equal), and
-// run_topk refuses a G that breaks them.
+// K2's group plan: a group's selection state, G * (wp + tl) * sizeof(key)
+// bytes with tl = max(wp, kMinCandGroup), fits kGroupBytes, and
+// G <= kMaxGroup.  ops.topk_plan picks G under the same constants
+// (_TOPK_MIN_CAND, _TOPK_GROUP_BYTES, _TOPK_MAX_GROUP; a CPU test holds them
+// equal), and run_topk refuses a G that breaks them.
 constexpr int kMinCandGroup = 512;  // candidate buffer length floor of K2
 constexpr int kGroupBytes = 65536;  // 64 KiB
 constexpr int kMaxGroup = 32;
-// K3's group plan: a group's candidate buffers, G * kThrCand * 8 bytes, fit
-// kThrGroupBytes, and G <= kMaxGroup (the keys a query keeps live in its
-// part_keys slots).  ops.threshold_plan picks G under the same constants
+// K3's group plan (and the wide plan's, K2 too): a group's candidate
+// buffers, G * kThrCand * sizeof(key) bytes, fit kThrGroupBytes, and
+// G <= kMaxGroup (the keys a query keeps live in its part_keys slots).
+// ops.threshold_plan and ops.wide_plan pick G under the same constants
 // (_THR_GROUP_BYTES, _THR_CAND; a CPU test holds them equal), and
-// run_threshold refuses a G that breaks them.
+// run_threshold and run_wide refuse a G that breaks them.
 constexpr int kThrCand = 512;          // K3's candidate buffer length
 constexpr int kThrGroupBytes = 65536;  // 64 KiB: three blocks on an SM
 // K3's slot per (query, slice) holds thr_slot(wp) = wp + max(wp, kThrCand)
@@ -251,7 +301,8 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Append the lanes' passing keys to one candidate buffer with one shared
 // atomic per warp.  Every lane of the warp must call it.
-__device__ __forceinline__ void warp_append(bool pass, u64 pk, u64* cand, int* ncand) {
+template <typename K>
+__device__ __forceinline__ void warp_append(bool pass, K pk, K* cand, int* ncand) {
     const unsigned m = __ballot_sync(kFull, pass);
     if (m == 0) return;
     const int lane = threadIdx.x & 31;
@@ -263,61 +314,92 @@ __device__ __forceinline__ void warp_append(bool pass, u64 pk, u64* cand, int* n
 }
 
 // K2's squared-domain pre-filter.  For a running width-th best key t (the
-// high word of the packed key), sq_cut(t, c) >= every float s >= 0 with
-// sqrt_rn(s) <= c * t (c = 1 or 2): sqrt_rn(s) <= c t gives
+// high word of the packed key), sq_cut(t, c) >= every s >= 0 with
+// sqrt_rn(s) <= c * t (c = 1 or 2).  f32: sqrt_rn(s) <= c t gives
 // s <= (c t + ulp(c t) / 2)^2 <= (c t)^2 (1 + 2^-22) for a normal c t, and
-// the 2^-140 covers a subnormal one.  A row whose squared bound exceeds it
-// cannot enter the selection, so its sqrts are skipped; the rows that pass
-// take the exact sqrt and pack, so every kept key has K1's bits.  A t of
-// +inf, or a bound whose high word is no finite float, cuts nothing.
+// the 2^-140 covers a subnormal one.  f64: (c t)^2 rounded up, times
+// 1 + 2^-48 rounded up (the sqrt's half ulp and the mid key's sum are each
+// below 2^-52 relative), plus 2^-1000 for a subnormal c t.  A row whose
+// squared bound exceeds the cut cannot enter the selection, so its sqrts are
+// skipped; the rows that pass take the exact sqrt and pack, so every kept
+// key has K1's bits.  A t of +inf, or a bound whose high word is no finite
+// float, cuts nothing.
 __device__ __forceinline__ float sq_cut(u64 thr, float c) {
-    if ((unsigned int)(thr >> 32) >= 0x7f800000u) return __int_as_float(0x7f800000);  // kEmpty too
+    if ((unsigned int)(thr >> 32) >= 0x7f800000u) return __int_as_float(0x7f800000);  // empty too
     const double t = (double)c * (double)__uint_as_float((unsigned int)(thr >> 32));
     return __double2float_ru(t * t * (1.0 + 0x1p-20) + 0x1p-140);
 }
 
-// K3's exact squared threshold: the largest float s with sqrt_rn(s) <= t, so
+__device__ __forceinline__ double sq_cut(u128 thr, double c) {
+    const u64 hb = (u64)(thr >> 32);
+    if (hb >= 0x7ff0000000000000ull) return __longlong_as_double(0x7ff0000000000000ll);  // empty too
+    const double t = __dmul_ru(c, __longlong_as_double((long long)hb));
+    return __dadd_ru(__dmul_ru(__dmul_ru(t, t), 1.0 + 0x1p-48), 0x1p-1000);
+}
+
+__device__ __forceinline__ float step_bits(float s, int d) { return __int_as_float(__float_as_int(s) + d); }
+__device__ __forceinline__ double step_bits(double s, int d) {
+    return __longlong_as_double(__double_as_longlong(s) + d);
+}
+
+// K3's exact squared threshold: the largest s with sqrt_rn(s) <= t, so
 // that for every squared bound s (>= -0, or NaN) sqrt_rn(s) <= t exactly when
 // s <= sq_max(t).  A t below 0 or NaN passes nothing (-1); +inf passes every
 // non-NaN s.  Starting from the rounded t * t, the preimage of t under
 // sqrt_rn is a few ulps wide, so each loop steps a few times at most.
-__device__ float sq_max(float t) {
-    const float inf = __int_as_float(0x7f800000);
-    if (!(t >= 0.0f)) return -1.0f;
+template <typename T>
+__device__ T sq_max(T t) {
+    const T inf = scalar_inf<T>();
+    if (!(t >= T(0))) return T(-1);
     if (t == inf) return inf;
-    float s = op_mul(t, t);
+    T s = op_mul(t, t);
     while (s < inf) {
-        const float up = __int_as_float(__float_as_int(s) + 1);
+        const T up = step_bits(s, 1);
         if (!(op_sqrt(up) <= t)) break;
         s = up;
     }
-    while (op_sqrt(s) > t) s = __int_as_float(__float_as_int(s) - 1);  // stops at +0: sqrt(0) <= t
+    while (op_sqrt(s) > t) s = step_bits(s, -1);  // stops at +0: sqrt(0) <= t
     return s;
 }
 
-// K3: keep the k smallest of the n distinct keys in slot[0:n) (global
+template <typename T>
+__device__ __forceinline__ T min_of(T a, T b) { return b < a ? b : a; }
+
+// Keep the k smallest of the n distinct keys in slot[0:n) (global or shared
 // memory, n > k >= 1), moved to slot[0:k) in any order.  A radix select
-// over 8-bit digits from the top finds the k-th smallest key, or stops at
-// the first bucket that holds exactly the keys still needed; every thread
-// gets back `bound`, the k-th key or the largest key of that bucket, and
-// exactly k keys are <= bound.  Each pass over the slot loads kSelBatch
-// keys per thread before using them, so the passes wait on L2 once per
-// batch, not once per key.  hist: 256 ints; scratch: 3 + warps ints.
+// over 8-bit digits from the top of the key's KBITS finds the k-th smallest
+// key, or stops at the first bucket that holds exactly the keys still
+// needed; every thread gets back `bound`, the k-th key or the largest key
+// of that bucket, and exactly k keys are <= bound.  Each pass over the slot
+// loads kSelBatch keys per thread before using them, so the passes wait on
+// L2 once per batch, not once per key.  hist: 256 ints; scratch: 3 + warps
+// ints.
 constexpr int kSelBatch = 6;
 
-__device__ u64 select_compact(u64* slot, int n, int k, int* hist, int* scratch) {
+// The key's low KBITS bits set.
+template <typename K, int KBITS>
+__device__ __forceinline__ K low_bits() {
+    if constexpr (KBITS == 8 * (int)sizeof(K)) {
+        return ~(K)0;
+    } else {
+        return ((K)1 << KBITS) - 1;
+    }
+}
+
+template <typename K, int KBITS>
+__device__ K select_compact(K* slot, int n, int k, int* hist, int* scratch) {
     const int tid = threadIdx.x, T = blockDim.x, lane = tid & 31, warp = tid >> 5;
-    u64 prefix = 0, mask = 0;
+    K prefix = 0, mask = 0;
     int need = k;
-    for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int shift = KBITS - 8; shift >= 0; shift -= 8) {
         for (int i = tid; i < 256; i += T) hist[i] = 0;
         __syncthreads();
         for (int base = 0; base < n; base += kSelBatch * T) {
-            u64 key[kSelBatch];
+            K key[kSelBatch];
 #pragma unroll
             for (int r = 0; r < kSelBatch; ++r) {
                 const int i = base + r * T + tid;
-                key[r] = i < n ? slot[i] : kEmpty;
+                key[r] = i < n ? slot[i] : key_empty<K>();
             }
 #pragma unroll
             for (int r = 0; r < kSelBatch; ++r) {
@@ -355,24 +437,26 @@ __device__ u64 select_compact(u64* slot, int n, int k, int* hist, int* scratch) 
             }
         }
         __syncthreads();
-        prefix |= (u64)scratch[0] << shift;
-        mask |= (u64)255 << shift;
+        prefix |= (K)scratch[0] << shift;
+        mask |= (K)255 << shift;
         need = scratch[1];
         const bool done = scratch[2] == need;
         __syncthreads();
         if (done) break;
     }
-    const u64 bound = prefix | ~mask;
+    // the digits not searched are free below the prefix; bits above KBITS
+    // are 0 in every packed key (the empty key never lies in a slot)
+    const K bound = prefix | (~mask & low_bits<K, KBITS>());
     // in-place compaction: a kept key moves to an index no larger than its
     // own, and a batch is loaded in full before any of its writes
     int* wcount = scratch + 3;
     int out = 0;
     for (int base = 0; base < n; base += kSelBatch * T) {
-        u64 key[kSelBatch];
+        K key[kSelBatch];
 #pragma unroll
         for (int r = 0; r < kSelBatch; ++r) {
             const int i = base + r * T + tid;
-            key[r] = i < n ? slot[i] : kEmpty;
+            key[r] = i < n ? slot[i] : key_empty<K>();
         }
         __syncthreads();
 #pragma unroll
@@ -394,56 +478,120 @@ __device__ u64 select_compact(u64* slot, int n, int k, int* hist, int* scratch) 
     return bound;
 }
 
-// Shared memory of group_scan_kernel, in order: the group's head coordinates
-// i-major qsT[i * Gp + g] (Gp = G rounded up to kGR, zero-padded), their
-// |q|^2, altitudes and two cuts; for K3 also its thresholds, per-warp counts
-// and select_compact's histogram and scratch; then (16-byte aligned) per
-// query the running selection (K2 only: K3 keeps its kept keys in its
-// part_keys slot in global memory), the candidate buffer, the running
-// width-th best key, the candidate count and (K3) the slot's fill.
-__host__ __device__ inline size_t group_words(int mode, int Gp, int hd, int warps) {
-    return (size_t)Gp * (hd + 4) + (mode == kThreshold ? (size_t)Gp * (1 + warps) + 256 + 3 + warps : 0);
-}
-__host__ __device__ inline size_t group_smem_bytes(int mode, int G, int Gp, int hd, int wp, int tl,
-                                                   int warps) {
-    const bool thr = mode == kThreshold;
-    return (group_words(mode, Gp, hd, warps) * sizeof(float) + 15) / 16 * 16 +
-           (size_t)G * ((thr ? 0 : wp) + tl + 1) * sizeof(u64) + (size_t)G * (thr ? 2 : 1) * sizeof(int);
+// Move src[0:ns) to dst[0:ns), dst <= src, overlapping or not: each batch
+// is loaded in full (a barrier) before any of its stores, and a store of
+// batch b lands below every key of the later batches.
+template <typename K>
+__device__ void move_keys(K* dst, const K* src, int ns) {
+    if (dst == src) return;
+    const int T = blockDim.x, tid = threadIdx.x;
+    for (int base = 0; base < ns; base += kSelBatch * T) {
+        K key[kSelBatch];
+#pragma unroll
+        for (int r = 0; r < kSelBatch; ++r) {
+            const int i = base + r * T + tid;
+            if (i < ns) key[r] = src[i];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < kSelBatch; ++r) {
+            const int i = base + r * T + tid;
+            if (i < ns) dst[i] = key[r];
+        }
+    }
+    __syncthreads();
 }
 
-// K2 and K3 (G > 1): one block per (query group, slice).  cut1 is the
-// selection's pre-filter cut; cut2 is K2's mid-key cut on the upper bound,
-// and K3's exact count cut sq_max(t).  NW > 0 (K3 at the widths the index
-// uses): the table width n == NW at compile time, so each row is read once
-// into registers (as float4 loads when `vec`: NW % 4 == 0 and the table
-// 16-byte aligned) and the i loops unroll; NW == 0 reads the row's
-// coordinates from global memory in each query chunk.
-template <int MODE, int NW, int kGR = group_regs(MODE)>
-__global__ void group_scan_kernel(const float* __restrict__ table, int N, int n,
-                                  const float* __restrict__ queries, int Q, int qw, int hd,
+// One head-coordinate step of kGR dot products: q from shared memory as
+// 16-byte broadcasts (float4 or double2).
+template <int kGR>
+__device__ __forceinline__ void dot_step(const float* qrow, float xi, float (&dot)[kGR]) {
+    const float4* qv = reinterpret_cast<const float4*>(qrow);
+#pragma unroll
+    for (int v = 0; v < kGR / 4; ++v) {
+        const float4 qq = qv[v];
+        dot[4 * v] = op_fma(qq.x, xi, dot[4 * v]);
+        dot[4 * v + 1] = op_fma(qq.y, xi, dot[4 * v + 1]);
+        dot[4 * v + 2] = op_fma(qq.z, xi, dot[4 * v + 2]);
+        dot[4 * v + 3] = op_fma(qq.w, xi, dot[4 * v + 3]);
+    }
+}
+
+template <int kGR>
+__device__ __forceinline__ void dot_step(const double* qrow, double xi, double (&dot)[kGR]) {
+    const double2* qv = reinterpret_cast<const double2*>(qrow);
+#pragma unroll
+    for (int v = 0; v < kGR / 2; ++v) {
+        const double2 qq = qv[v];
+        dot[2 * v] = op_fma(qq.x, xi, dot[2 * v]);
+        dot[2 * v + 1] = op_fma(qq.y, xi, dot[2 * v + 1]);
+    }
+}
+
+// Shared memory of group_scan_kernel, in order: the group's head coordinates
+// i-major qsT[i * Gp + g] (Gp = G rounded up to kGR, zero-padded), their
+// |q|^2, altitudes and two cuts (scalars T); for K3 also its thresholds (T);
+// with SPILL per-warp counts, select_compact's histogram and scratch (ints);
+// then (16-byte aligned) per query the running selection (K2 without SPILL
+// only: a spilling query keeps its kept keys in its part_keys slot in global
+// memory), the candidate buffer, the running width-th best key, the
+// candidate count and (SPILL) the slot's fill.  f32 K3 keeps the layout
+// (and bytes) of the f32-only kernel.
+template <typename T>
+__host__ __device__ inline size_t group_head_bytes(int mode, bool spill, int Gp, int hd, int warps) {
+    const size_t scalars = (size_t)Gp * (hd + 4) + (mode == kThreshold ? (size_t)Gp : 0);
+    const size_t ints = spill ? (size_t)Gp * warps + 256 + 3 + warps : 0;
+    return (scalars * sizeof(T) + ints * sizeof(int) + 15) / 16 * 16;
+}
+template <typename T>
+__host__ __device__ inline size_t group_smem_bytes(int mode, bool spill, int G, int Gp, int hd, int wp,
+                                                   int tl, int warps) {
+    typedef typename KeyOf<T>::type K;
+    return group_head_bytes<T>(mode, spill, Gp, hd, warps) +
+           (size_t)G * ((spill ? 0 : wp) + tl + 1) * sizeof(K) + (size_t)G * (spill ? 2 : 1) * sizeof(int);
+}
+
+// K2 and K3 (G > 1, and every G of the wide plan): one block per (query
+// group, slice).  cut1 is the selection's pre-filter cut; cut2 is K2's
+// mid-key cut on the upper bound, and K3's exact count cut sq_max(t).  NW > 0
+// (K3 at the widths the index uses): the table width n == NW at compile
+// time, so each row is read once into registers (16-byte loads when `vec`:
+// NW * sizeof(T) % 16 == 0 and the table 16-byte aligned) and the i loops
+// unroll; NW == 0 reads the row's coordinates from global memory in each
+// query chunk.  SPILL (K3 always; K2 in the wide plan) keeps each query's
+// keys in its global slot instead of a shared-memory selection, and counts
+// per (query, slice): K3 its passing rows, K2 the slice's live rows, so the
+// slot ends with min(count, width) keys either way.
+template <typename T, int MODE, int NW, bool SPILL, int kGR = group_regs(MODE)>
+__global__ void group_scan_kernel(const T* __restrict__ table, int N, int n,
+                                  const T* __restrict__ queries, int Q, int qw, int hd,
                                   const uint8_t* __restrict__ rowmask,
-                                  const float* __restrict__ thresholds, int width, int wp, int tl,
+                                  const T* __restrict__ thresholds, int width, int wp, int tl,
                                   int G, int slice_rows, int slot, bool vec,
-                                  u64* __restrict__ part_keys, int* __restrict__ part_counts) {
+                                  typename KeyOf<T>::type* __restrict__ part_keys,
+                                  int* __restrict__ part_counts) {
+    typedef typename KeyOf<T>::type K;
+    constexpr int KBITS = KeyOf<T>::kBits;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     constexpr bool kThr = MODE == kThreshold;
+    static_assert(SPILL || !kThr, "K3 always spills");
     const int Gp = (G + kGR - 1) / kGR * kGR;
-    const int T = blockDim.x;
-    const int warps = T / 32;
-    float* qsT = reinterpret_cast<float*>(smem_raw);  // hd * Gp
-    float* q2s = qsT + (size_t)hd * Gp;               // Gp
-    float* qas = q2s + Gp;                             // Gp
-    float* cut1 = qas + Gp;                            // Gp
-    float* cut2 = cut1 + Gp;                           // Gp
-    float* tq = cut2 + Gp;                             // Gp (K3)
-    int* wcnt = reinterpret_cast<int*>(tq + (kThr ? Gp : 0));   // warps * Gp (K3)
-    int* hist = wcnt + (kThr ? (size_t)warps * Gp : 0);         // 256 (K3)
-    int* sscr = hist + (kThr ? 256 : 0);                        // 3 + warps (K3)
-    u64* run_s = reinterpret_cast<u64*>(smem_raw + (group_words(MODE, Gp, hd, warps) * sizeof(float) + 15) / 16 * 16);
-    u64* cand = run_s + (kThr ? 0 : (size_t)G * wp);  // G * tl (run_s: G * wp, K2)
-    u64* thr = cand + (size_t)G * tl;                 // G
-    int* ncand = reinterpret_cast<int*>(thr + G);     // G
-    int* filled = ncand + G;                          // G (K3)
+    const int T_ = blockDim.x;
+    const int warps = T_ / 32;
+    T* qsT = reinterpret_cast<T*>(smem_raw);  // hd * Gp
+    T* q2s = qsT + (size_t)hd * Gp;           // Gp
+    T* qas = q2s + Gp;                         // Gp
+    T* cut1 = qas + Gp;                        // Gp
+    T* cut2 = cut1 + Gp;                       // Gp
+    T* tq = cut2 + Gp;                         // Gp (K3)
+    int* wcnt = reinterpret_cast<int*>(tq + (kThr ? Gp : 0));    // warps * Gp (SPILL)
+    int* hist = wcnt + (SPILL ? (size_t)warps * Gp : 0);          // 256 (SPILL)
+    int* sscr = hist + (SPILL ? 256 : 0);                         // 3 + warps (SPILL)
+    K* run_s = reinterpret_cast<K*>(smem_raw + group_head_bytes<T>(MODE, SPILL, Gp, hd, warps));
+    K* cand = run_s + (SPILL ? 0 : (size_t)G * wp);  // G * tl (run_s: G * wp, K2 without SPILL)
+    K* thr = cand + (size_t)G * tl;                  // G
+    int* ncand = reinterpret_cast<int*>(thr + G);    // G
+    int* filled = ncand + G;                         // G (SPILL)
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
@@ -452,65 +600,75 @@ __global__ void group_scan_kernel(const float* __restrict__ table, int N, int n,
     const int s = blockIdx.y;
     const int S = gridDim.y;
     auto slot_of = [&](int g) { return part_keys + ((size_t)(q0 + g) * S + s) * slot; };
-    // K3: move g's candidates to its slot; when they would overflow it,
+    // SPILL: move g's candidates to its slot; when they would overflow it,
     // first keep the slot's `width` smallest keys (select_compact) and
-    // tighten g's cut to them
+    // tighten g's cuts to them
     auto spill = [&](int g, int nc) {
-        u64* sl = slot_of(g);
+        K* sl = slot_of(g);
         int f = filled[g];
         if (f + nc > slot) {
-            const u64 b = select_compact(sl, f, width, hist, sscr);
+            const K b = select_compact<K, KBITS>(sl, f, width, hist, sscr);
             f = width;
             if (tid == 0) {
                 thr[g] = b;
-                cut1[g] = fminf(cut2[g], sq_cut(b, 1.0f));
+                if (kThr) {
+                    cut1[g] = min_of(cut2[g], sq_cut(b, T(1)));
+                } else {
+                    cut1[g] = sq_cut(b, T(1));
+                    cut2[g] = sq_cut(b, T(2));
+                }
             }
         }
-        for (int i = tid; i < nc; i += T) sl[f + i] = cand[(size_t)g * tl + i];
+        for (int i = tid; i < nc; i += T_) sl[f + i] = cand[(size_t)g * tl + i];
         __syncthreads();
         if (tid == 0) {
             filled[g] = f + nc;
             ncand[g] = 0;
         }
     };
-    for (int e = tid; e < hd * Gp; e += T) {
+    for (int e = tid; e < hd * Gp; e += T_) {
         const int i = e / Gp, g = e % Gp;
-        qsT[e] = g < gq ? queries[(size_t)(q0 + g) * qw + i] : 0.0f;
+        qsT[e] = g < gq ? queries[(size_t)(q0 + g) * qw + i] : T(0);
     }
-    for (int g = tid; g < Gp; g += T) {
-        float a = 0.0f, b = 0.0f;
+    for (int g = tid; g < Gp; g += T_) {
+        T a = T(0), b = T(0);
         if (g < gq) row_terms(queries + (size_t)(q0 + g) * qw, hd, qw, a, b);
         q2s[g] = a;
         qas[g] = b;
         // padded slots never pass the pre-filter
         if (kThr) {
-            const float t = g < gq ? thresholds[q0 + g] : -1.0f;
+            const T t = g < gq ? thresholds[q0 + g] : T(-1);
             tq[g] = t;
             cut1[g] = cut2[g] = sq_max(t);
         } else {
-            cut1[g] = cut2[g] = g < gq ? sq_cut(kEmpty, 1.0f) : -1.0f;
+            cut1[g] = cut2[g] = g < gq ? scalar_inf<T>() : T(-1);
         }
     }
-    if (kThr) {
-        for (int i = tid; i < warps * Gp; i += T) wcnt[i] = 0;
+    if (SPILL) {
+        for (int i = tid; i < warps * Gp; i += T_) wcnt[i] = 0;
     } else {
-        for (int i = tid; i < G * wp; i += T) run_s[i] = kEmpty;
+        for (int i = tid; i < G * wp; i += T_) run_s[i] = key_empty<K>();
     }
-    for (int g = tid; g < G; g += T) {
-        thr[g] = kEmpty;
+    for (int g = tid; g < G; g += T_) {
+        thr[g] = key_empty<K>();
         ncand[g] = 0;
-        if (kThr) filled[g] = 0;
+        if (SPILL) filled[g] = 0;
     }
     __syncthreads();
 
     const int r0 = s * slice_rows;
     const int r1 = min(N, r0 + slice_rows);
-    for (int base = r0; base < r1; base += T) {
+    for (int base = r0; base < r1; base += T_) {
         const int row = base + tid;
         const bool valid = row < r1 && (rowmask == nullptr || rowmask[row]);
-        const float* x = table + (size_t)min(row, r1 - 1) * n;   // past r1: computed, never kept
-        float x2, xa;
-        float xr[NW > 0 ? NW : 1];
+        if (SPILL && !kThr) {
+            // K2's count: the slice's live rows, the same for every query
+            const unsigned b = __ballot_sync(kFull, valid);
+            if (lane == 0) wcnt[(size_t)(tid >> 5) * Gp] += __popc(b);
+        }
+        const T* x = table + (size_t)min(row, r1 - 1) * n;   // past r1: computed, never kept
+        T x2, xa;
+        T xr[NW > 0 ? NW : 1];
         if constexpr (NW > 0) {
             load_row(x, vec, xr);
             row_terms_reg(xr, hd, x2, xa);
@@ -518,39 +676,17 @@ __global__ void group_scan_kernel(const float* __restrict__ table, int N, int n,
             row_terms(x, hd, n, x2, xa);
         }
         for (int g0 = 0; g0 < gq; g0 += kGR) {
-            float dot[kGR];
+            T dot[kGR];
 #pragma unroll
-            for (int r = 0; r < kGR; ++r) dot[r] = 0.0f;
+            for (int r = 0; r < kGR; ++r) dot[r] = T(0);
             if constexpr (NW > 0) {
 #pragma unroll
                 for (int i = 0; i < NW; ++i) {
-                    if (i < hd) {
-                        const float xi = xr[i];
-                        const float4* qv = reinterpret_cast<const float4*>(qsT + (size_t)i * Gp + g0);
-#pragma unroll
-                        for (int v = 0; v < kGR / 4; ++v) {
-                            const float4 qq = qv[v];
-                            dot[4 * v] = op_fma(qq.x, xi, dot[4 * v]);
-                            dot[4 * v + 1] = op_fma(qq.y, xi, dot[4 * v + 1]);
-                            dot[4 * v + 2] = op_fma(qq.z, xi, dot[4 * v + 2]);
-                            dot[4 * v + 3] = op_fma(qq.w, xi, dot[4 * v + 3]);
-                        }
-                    }
+                    if (i < hd) dot_step<kGR>(qsT + (size_t)i * Gp + g0, xr[i], dot);
                 }
             } else {
 #pragma unroll 4
-                for (int i = 0; i < hd; ++i) {
-                    const float xi = x[i];
-                    const float4* qv = reinterpret_cast<const float4*>(qsT + (size_t)i * Gp + g0);
-#pragma unroll
-                    for (int v = 0; v < kGR / 4; ++v) {
-                        const float4 qq = qv[v];
-                        dot[4 * v] = op_fma(qq.x, xi, dot[4 * v]);
-                        dot[4 * v + 1] = op_fma(qq.y, xi, dot[4 * v + 1]);
-                        dot[4 * v + 2] = op_fma(qq.z, xi, dot[4 * v + 2]);
-                        dot[4 * v + 3] = op_fma(qq.w, xi, dot[4 * v + 3]);
-                    }
-                }
+                for (int i = 0; i < hd; ++i) dot_step<kGR>(qsT + (size_t)i * Gp + g0, x[i], dot);
             }
             // the squared-domain pre-filter of all kGR slots first (straight-
             // line code), then one vote: most tiles have no candidate at all.
@@ -559,7 +695,7 @@ __global__ void group_scan_kernel(const float* __restrict__ table, int N, int n,
 #pragma unroll
             for (int r = 0; r < kGR; ++r) {
                 const int g = g0 + r;
-                float lsq, usq;
+                T lsq, usq;
                 bound_squares(q2s[g], qas[g], x2, xa, dot[r], lsq, usq);
                 const bool m = MODE == kLwb || kThr ? lsq <= cut1[g]
                                : MODE == kUpb       ? usq <= cut1[g]
@@ -581,18 +717,18 @@ __global__ void group_scan_kernel(const float* __restrict__ table, int N, int n,
                     const int g = g0 + r;
                     const bool m = (maybe >> r) & 1u;
                     if (__any_sync(kFull, m)) {   // g < gq: padded slots never pass
-                        u64 pk = kEmpty;
+                        K pk = key_empty<K>();
                         bool keep = m;
                         if (m) {
-                            float lsq, usq;
+                            T lsq, usq;
                             bound_squares(q2s[g], qas[g], x2, xa, dot[r], lsq, usq);
-                            const float l = op_sqrt(lsq);
-                            float key = l;
+                            const T l = op_sqrt(lsq);
+                            T key = l;
                             if (kThr) {
-                                keep = l <= tq[g];   // the f32 compare itself
+                                keep = l <= tq[g];   // the compare itself, in T
                             } else if (MODE != kLwb) {
-                                const float u = op_sqrt(usq);
-                                key = MODE == kUpb ? u : op_mul(0.5f, op_add(l, u));
+                                const T u = op_sqrt(usq);
+                                key = MODE == kUpb ? u : op_mul(T(0.5), op_add(l, u));
                             }
                             pk = pack_key(key, row);
                         }
@@ -602,40 +738,40 @@ __global__ void group_scan_kernel(const float* __restrict__ table, int N, int n,
             }
         }
         __syncthreads();
-        // fold (K3: spill) a buffer that might not hold the next tile; K2
+        // fold (SPILL: spill) a buffer that might not hold the next tile; K2
         // also folds its first candidates as soon as they fill the selection
         // (that sets a threshold early)
         for (int g = 0; g < gq; ++g) {
             const int nc = ncand[g];
-            if (kThr) {
-                if (nc > tl - T) spill(g, nc);
-            } else if (nc > tl - T || (thr[g] == kEmpty && nc >= width)) {
-                u64* run = run_s + (size_t)g * wp;
+            if (SPILL) {
+                if (nc > tl - T_) spill(g, nc);
+            } else if (nc > tl - T_ || (thr[g] == key_empty<K>() && nc >= width)) {
+                K* run = run_s + (size_t)g * wp;
                 int len = wp;
                 while (len < nc) len <<= 1;
                 flush(run, cand + (size_t)g * tl, nc, wp, len);
                 if (tid == 0) {
                     ncand[g] = 0;
                     thr[g] = run[width - 1];
-                    cut1[g] = sq_cut(thr[g], 1.0f);
-                    cut2[g] = sq_cut(thr[g], 2.0f);
+                    cut1[g] = sq_cut(thr[g], T(1));
+                    cut2[g] = sq_cut(thr[g], T(2));
                 }
             }
         }
         __syncthreads();
     }
-    if (kThr) {
+    if (SPILL) {
         // the slot ends with the slice's min(count, width) best keys, in
         // any order, where the gather reads them
         for (int g = 0; g < gq; ++g) {
             const int nc = ncand[g];
             if (nc > 0) spill(g, nc);
             __syncthreads();
-            if (filled[g] > width) select_compact(slot_of(g), filled[g], width, hist, sscr);
+            if (filled[g] > width) select_compact<K, KBITS>(slot_of(g), filled[g], width, hist, sscr);
         }
-        for (int g = tid; g < gq; g += T) {
+        for (int g = tid; g < gq; g += T_) {
             int c = 0;
-            for (int w = 0; w < warps; ++w) c += wcnt[(size_t)w * Gp + g];
+            for (int w = 0; w < warps; ++w) c += wcnt[(size_t)w * Gp + (kThr ? g : 0)];
             part_counts[(size_t)(q0 + g) * S + s] = c;
         }
     } else {
@@ -649,8 +785,8 @@ __global__ void group_scan_kernel(const float* __restrict__ table, int N, int n,
         }
         __syncthreads();
         for (int g = 0; g < gq; ++g) {
-            u64* out = slot_of(g);
-            for (int i = tid; i < wp; i += T) out[i] = run_s[(size_t)g * wp + i];
+            K* out = slot_of(g);
+            for (int i = tid; i < wp; i += T_) out[i] = run_s[(size_t)g * wp + i];
         }
     }
 }
@@ -662,70 +798,55 @@ __global__ void group_scan_kernel(const float* __restrict__ table, int N, int n,
 // select_compact, sorts them in shared memory and writes them, padded empty
 // to wp, to gather[q, m].  M blocks per query share a query's slices, so a
 // query whose count overflows cap does not merge S slices of cap keys alone.
-__global__ void select_gather_kernel(u64* __restrict__ part_keys,
-                                     const int* __restrict__ part_counts, int S, int width,
-                                     int wp, int slot, u64* __restrict__ gather) {
+// Slice s's keys land in [n, n + ns) with n <= (s - s0) * wp, at or before
+// its own slot ((s - s0) * slot, slot >= 2 wp).
+template <typename K, int KBITS>
+__global__ void select_gather_kernel(K* __restrict__ part_keys, const int* __restrict__ part_counts,
+                                     int S, int width, int wp, int slot, K* __restrict__ gather) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    u64* keys = reinterpret_cast<u64*>(smem_raw);  // wp
+    K* keys = reinterpret_cast<K*>(smem_raw);  // wp
     __shared__ int hist[256];
     __shared__ int scratch[3 + 32];
     const int q = blockIdx.x, m = blockIdx.y, M = gridDim.y;
     const int T = blockDim.x, tid = threadIdx.x;
     const int s0 = m * S / M, s1 = (m + 1) * S / M;
-    u64* region = part_keys + ((size_t)q * S + s0) * slot;
-    // slice s's keys land in [n, n + ns) with n <= (s - s0) * wp, before its
-    // own slot ((s - s0) * slot, slot >= 2 wp); a barrier after each slice
-    // keeps the next slice's writes behind this slice's reads
+    K* region = part_keys + ((size_t)q * S + s0) * slot;
     int n = 0;
     for (int s = s0; s < s1; ++s) {
         const int ns = min(part_counts[(size_t)q * S + s], width);
-        const u64* src = region + (size_t)(s - s0) * slot;
-        if (s > s0) {
-            for (int base = 0; base < ns; base += kSelBatch * T) {
-                u64 key[kSelBatch];
-#pragma unroll
-                for (int r = 0; r < kSelBatch; ++r) {
-                    const int i = base + r * T + tid;
-                    key[r] = i < ns ? src[i] : kEmpty;
-                }
-#pragma unroll
-                for (int r = 0; r < kSelBatch; ++r) {
-                    const int i = base + r * T + tid;
-                    if (i < ns) region[n + i] = key[r];
-                }
-            }
-        }
+        move_keys(region + n, region + (size_t)(s - s0) * slot, ns);
         n += ns;
-        __syncthreads();
     }
     if (n > width) {
-        select_compact(region, n, width, hist, scratch);
+        select_compact<K, KBITS>(region, n, width, hist, scratch);
         n = width;
     }
     int len = 1;
     while (len < n) len <<= 1;
-    for (int i = tid; i < len; i += T) keys[i] = i < n ? region[i] : kEmpty;
+    for (int i = tid; i < len; i += T) keys[i] = i < n ? region[i] : key_empty<K>();
     bitonic_sort(keys, len);
-    u64* out = gather + ((size_t)q * M + m) * wp;
-    for (int i = tid; i < wp; i += T) out[i] = i < len ? keys[i] : kEmpty;
+    K* out = gather + ((size_t)q * M + m) * wp;
+    for (int i = tid; i < wp; i += T) out[i] = i < len ? keys[i] : key_empty<K>();
 }
 
 // Final merge: grid (Q).  Merges the query's P sorted partials of wp keys
 // (K2: its slices' selections; K3: the gather's), sums part_counts over S
 // slices in slice order (K3), and writes ids with their lwb/upb recomputed
 // by pair_bounds() from the table row.
-__global__ void select_merge_kernel(const float* __restrict__ table, int n,
-                                    const float* __restrict__ queries, int qw, int hd,
-                                    const u64* __restrict__ parts, int P,
+template <typename T>
+__global__ void select_merge_kernel(const T* __restrict__ table, int n,
+                                    const T* __restrict__ queries, int qw, int hd,
+                                    const typename KeyOf<T>::type* __restrict__ parts, int P,
                                     const int* __restrict__ part_counts, int S, int width, int wp,
-                                    int* __restrict__ ids, float* __restrict__ lwb,
-                                    float* __restrict__ upb, int* __restrict__ counts) {
+                                    int* __restrict__ ids, T* __restrict__ lwb,
+                                    T* __restrict__ upb, int* __restrict__ counts) {
+    typedef typename KeyOf<T>::type K;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    u64* run = reinterpret_cast<u64*>(smem_raw);  // wp
-    u64* cand = run + wp;                          // wp
-    float* qs = reinterpret_cast<float*>(cand + wp);
+    K* run = reinterpret_cast<K*>(smem_raw);  // wp
+    K* cand = run + wp;                        // wp
+    T* qs = reinterpret_cast<T*>(cand + wp);
     const int q = blockIdx.x;
-    const u64* part = parts + (size_t)q * P * wp;
+    const K* part = parts + (size_t)q * P * wp;
     for (int i = threadIdx.x; i < wp; i += blockDim.x) run[i] = part[i];
     for (int i = threadIdx.x; i < qw; i += blockDim.x) qs[i] = queries[(size_t)q * qw + i];
     for (int p = 1; p < P; ++p) {
@@ -734,19 +855,19 @@ __global__ void select_merge_kernel(const float* __restrict__ table, int n,
         merge_sorted(run, cand, wp);
     }
     __syncthreads();
-    float q2, qa;
+    T q2, qa;
     row_terms(qs, hd, qw, q2, qa);
     for (int i = threadIdx.x; i < width; i += blockDim.x) {
-        const u64 key = run[i];
+        const K key = run[i];
         const size_t o = (size_t)q * width + i;
-        if (key == kEmpty) {
+        if (key == key_empty<K>()) {
             ids[o] = kSentinelId;
-            lwb[o] = __int_as_float(0x7f800000);
-            upb[o] = __int_as_float(0x7f800000);
+            lwb[o] = scalar_inf<T>();
+            upb[o] = scalar_inf<T>();
         } else {
-            const int row = (int)(key & 0xffffffffull);
-            const float* x = table + (size_t)row * n;
-            float x2, xa, l, u;
+            const int row = (int)(key & 0xffffffffu);
+            const T* x = table + (size_t)row * n;
+            T x2, xa, l, u;
             row_terms(x, hd, n, x2, xa);
             pair_bounds(qs, q2, qa, x, x2, xa, hd, l, u);
             ids[o] = row;
@@ -761,75 +882,279 @@ __global__ void select_merge_kernel(const float* __restrict__ table, int n,
     }
 }
 
+// The wide plan's first merge level: grid (Q, M).  Block (q, m) moves the
+// kept keys of slices [m * S / M, (m + 1) * S / M) (each slice's first
+// min(count, width)) to the front of the first slot and keeps the width
+// smallest there (select_compact), unsorted; gcount[q, m] is how many it
+// kept.  Slice s's keys land at or before its own slot: the earlier slices
+// left at most one slot's keys each.
+template <typename K, int KBITS>
+__global__ void wide_gather_kernel(K* __restrict__ part_keys, const int* __restrict__ part_counts,
+                                   int S, int width, int slot, int* __restrict__ gcount) {
+    __shared__ int hist[256];
+    __shared__ int scratch[3 + 32];
+    const int q = blockIdx.x, m = blockIdx.y, M = gridDim.y;
+    const int s0 = m * S / M, s1 = (m + 1) * S / M;
+    K* region = part_keys + ((size_t)q * S + s0) * slot;
+    int n = 0;
+    for (int s = s0; s < s1; ++s) {
+        const int ns = min(part_counts[(size_t)q * S + s], width);
+        move_keys(region + n, region + (size_t)(s - s0) * slot, ns);
+        n += ns;
+    }
+    if (n > width) {
+        select_compact<K, KBITS>(region, n, width, hist, scratch);
+        n = width;
+    }
+    if (threadIdx.x == 0) gcount[(size_t)q * M + m] = n;
+}
+
+// One stable LSD radix pass of a block over src[0:n) -> dst by the 8-bit
+// digit at `shift`: a histogram, its exclusive scan, then tiles of blockDim
+// keys scattered in their order (a key's place among its digit's keys of
+// the tile is its rank in its warp plus the counts of the earlier warps).
+// hist, base: 256 ints; wdig: warps * 256 ints, zero on entry and on exit.
+template <typename K>
+__device__ void radix_pass(const K* src, K* dst, int n, int shift, int* hist, int* base, int* wdig) {
+    const int tid = threadIdx.x, T = blockDim.x, lane = tid & 31, warp = tid >> 5, warps = T / 32;
+    for (int i = tid; i < 256; i += T) hist[i] = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < n; i0 += T) {
+        const int i = i0 + tid;
+        const int d = i < n ? (int)(src[i] >> shift) & 255 : -1;
+        const unsigned peers = __match_any_sync(kFull, d);
+        if (d >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
+    }
+    __syncthreads();
+    if (warp == 0) {
+        int c[8], sum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += (c[j] = hist[lane * 8 + j]);
+        int incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(kFull, incl, o);
+            if (lane >= o) incl += v;
+        }
+        int before = incl - sum;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            base[lane * 8 + j] = before;
+            before += c[j];
+        }
+    }
+    __syncthreads();
+    for (int i0 = 0; i0 < n; i0 += T) {
+        const int i = i0 + tid;
+        K key = 0;
+        int d = -1;
+        if (i < n) {
+            key = src[i];
+            d = (int)(key >> shift) & 255;
+        }
+        const unsigned peers = __match_any_sync(kFull, d);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        if (d >= 0 && lane == __ffs(peers) - 1) wdig[warp * 256 + d] = __popc(peers);
+        __syncthreads();
+        if (d >= 0) {
+            int off = base[d] + rank;
+            for (int w = 0; w < warp; ++w) off += wdig[w * 256 + d];
+            dst[off] = key;
+        }
+        __syncthreads();
+        for (int dd = tid; dd < 256; dd += T) {
+            int add = 0;
+            for (int w = 0; w < warps; ++w) {
+                add += wdig[w * 256 + dd];
+                wdig[w * 256 + dd] = 0;
+            }
+            base[dd] += add;
+        }
+        __syncthreads();
+    }
+}
+
+// The wide plan's last merge level: grid (Q).  Moves the query's M gather
+// blocks' keys together (block m's keys lie at the start of its first
+// slice's slot, past every earlier block's), keeps the width smallest
+// (select_compact), and sorts them with KBITS / 8 stable radix passes from
+// the low digit up, region -> buf_a -> buf_b -> ... -> buf_b (an even number
+// of passes ends in buf_b).  nsel[q] is how many keys it kept.
+template <typename K, int KBITS>
+__global__ void wide_sort_kernel(K* __restrict__ part_keys, const int* __restrict__ gcount, int S, int M,
+                                 int width, int slot, K* __restrict__ buf_a, K* __restrict__ buf_b,
+                                 int* __restrict__ nsel) {
+    static_assert((KBITS / 8) % 2 == 0, "the passes end in buf_b");
+    __shared__ int hist[256];
+    __shared__ int base[256];
+    __shared__ int scratch[3 + 32];
+    __shared__ int wdig[(kThreads / 32) * 256];
+    const int q = blockIdx.x;
+    K* region = part_keys + (size_t)q * S * slot;
+    int n = 0;
+    for (int m = 0; m < M; ++m) {
+        const int c = gcount[(size_t)q * M + m];
+        move_keys(region + n, region + (size_t)(m * S / M) * slot, c);
+        n += c;
+    }
+    if (n > width) {
+        select_compact<K, KBITS>(region, n, width, hist, scratch);
+        n = width;
+    }
+    for (int i = threadIdx.x; i < (kThreads / 32) * 256; i += blockDim.x) wdig[i] = 0;
+    __syncthreads();
+    K* a = buf_a + (size_t)q * width;
+    K* b = buf_b + (size_t)q * width;
+    const K* src = region;
+    for (int shift = 0; shift < KBITS; shift += 8) {
+        K* dst = (shift / 8) % 2 == 0 ? a : b;
+        radix_pass(src, dst, n, shift, hist, base, wdig);
+        src = dst;
+    }
+    if (threadIdx.x == 0) nsel[q] = n;
+}
+
+// The wide plan's output: grid (ceil(width / blockDim), Q).  Slot i of
+// query q is sorted[q, i] (i < nsel[q]) with its lwb/upb recomputed by
+// pair_bounds() from the table row, else the sentinel with +inf bounds; K3's
+// count is the sum of part_counts over the S slices in slice order.
+template <typename T>
+__global__ void select_write_kernel(const T* __restrict__ table, int n, const T* __restrict__ queries,
+                                    int qw, int hd, const typename KeyOf<T>::type* __restrict__ sorted,
+                                    const int* __restrict__ nsel, int width,
+                                    const int* __restrict__ part_counts, int S, int* __restrict__ ids,
+                                    T* __restrict__ lwb, T* __restrict__ upb, int* __restrict__ counts) {
+    const int q = blockIdx.y;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (counts != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+        int c = 0;
+        for (int s = 0; s < S; ++s) c += part_counts[(size_t)q * S + s];
+        counts[q] = c;
+    }
+    if (i >= width) return;
+    const size_t o = (size_t)q * width + i;
+    if (i >= nsel[q]) {
+        ids[o] = kSentinelId;
+        lwb[o] = scalar_inf<T>();
+        upb[o] = scalar_inf<T>();
+        return;
+    }
+    const T* qq = queries + (size_t)q * qw;
+    T q2, qa;
+    row_terms(qq, hd, qw, q2, qa);
+    const int row = (int)(sorted[(size_t)q * width + i] & 0xffffffffu);
+    const T* x = table + (size_t)row * n;
+    T x2, xa, l, u;
+    row_terms(x, hd, n, x2, xa);
+    pair_bounds(qq, q2, qa, x, x2, xa, hd, l, u);
+    ids[o] = row;
+    lwb[o] = l;
+    upb[o] = u;
+}
+
 int next_pow2(int w) {
     int p = 1;
     while (p < w) p <<= 1;
     return p;
 }
 
-template <int MODE>
-int launch_partial(dim3 grid, size_t smem, cudaStream_t st, const float* table, int N, int n,
-                   const float* queries, int qw, int hd, const uint8_t* rowmask,
-                   const float* thresholds, int width, int wp, int tl, int slice_rows, int slot,
-                   u64* part_keys, int* part_counts) {
-    cudaFuncSetAttribute(select_partial_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    select_partial_kernel<MODE><<<grid, kThreads, smem, st>>>(table, N, n, queries, qw, hd,
-                                                             rowmask, thresholds, width, wp, tl,
-                                                             slice_rows, slot, part_keys,
-                                                             part_counts);
-    return (int)cudaGetLastError();
-}
-
-int launch_merge(cudaStream_t st, const float* table, int n, const float* queries, int Q, int qw,
-                 int hd, const u64* parts, int P, const int* part_counts, int slices, int width,
-                 int wp, int* ids, float* lwb, float* upb, int* counts) {
-    const size_t q_bytes = ((size_t)qw * sizeof(float) + 15) / 16 * 16;
-    const size_t msmem = (size_t)2 * wp * sizeof(u64) + q_bytes;
-    cudaFuncSetAttribute(select_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)msmem);
-    select_merge_kernel<<<Q, kThreads, msmem, st>>>(table, n, queries, qw, hd, parts, P,
-                                                    part_counts, slices, width, wp, ids, lwb, upb,
-                                                    counts);
-    return (int)cudaGetLastError();
-}
-
-int launch_gather(cudaStream_t st, u64* part_keys, const int* part_counts, int Q, int slices, int M,
-                  int width, int wp, int slot, u64* gather) {
-    const size_t gsmem = (size_t)wp * sizeof(u64);
-    cudaFuncSetAttribute(select_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)gsmem);
-    select_gather_kernel<<<dim3(Q, M), kThreads, gsmem, st>>>(part_keys, part_counts, slices, width,
-                                                               wp, slot, gather);
-    return (int)cudaGetLastError();
-}
-
-template <int MODE, int NW>
-int launch_group(dim3 grid, size_t smem, cudaStream_t st, const float* table, int N, int n,
-                 const float* queries, int Q, int qw, int hd, const uint8_t* rowmask,
-                 const float* thresholds, int width, int wp, int tl, int G, int slice_rows,
-                 int slot, u64* part_keys, int* part_counts) {
+template <typename T, int MODE>
+int launch_partial(dim3 grid, size_t smem, cudaStream_t st, const T* table, int N, int n,
+                   const T* queries, int qw, int hd, const uint8_t* rowmask, const T* thresholds,
+                   int width, int wp, int tl, int slice_rows, int slot,
+                   typename KeyOf<T>::type* part_keys, int* part_counts) {
     if (smem > 232448) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(group_scan_kernel<MODE, NW>,
+    cudaError_t e = cudaFuncSetAttribute(select_partial_kernel<T, MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    select_partial_kernel<T, MODE><<<grid, kThreads, smem, st>>>(table, N, n, queries, qw, hd, rowmask,
+                                                                 thresholds, width, wp, tl, slice_rows,
+                                                                 slot, part_keys, part_counts);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_merge(cudaStream_t st, const T* table, int n, const T* queries, int Q, int qw, int hd,
+                 const typename KeyOf<T>::type* parts, int P, const int* part_counts, int slices,
+                 int width, int wp, int* ids, T* lwb, T* upb, int* counts) {
+    typedef typename KeyOf<T>::type K;
+    const size_t q_bytes = ((size_t)qw * sizeof(T) + 15) / 16 * 16;
+    const size_t msmem = (size_t)2 * wp * sizeof(K) + q_bytes;
+    if (msmem > 232448) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(select_merge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)msmem);
+    if (e != cudaSuccess) return (int)e;
+    select_merge_kernel<T><<<Q, kThreads, msmem, st>>>(table, n, queries, qw, hd, parts, P, part_counts,
+                                                       slices, width, wp, ids, lwb, upb, counts);
+    return (int)cudaGetLastError();
+}
+
+template <typename K, int KBITS>
+int launch_gather(cudaStream_t st, K* part_keys, const int* part_counts, int Q, int slices, int M,
+                  int width, int wp, int slot, K* gather) {
+    const size_t gsmem = (size_t)wp * sizeof(K);
+    cudaError_t e = cudaFuncSetAttribute(select_gather_kernel<K, KBITS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsmem);
+    if (e != cudaSuccess) return (int)e;
+    select_gather_kernel<K, KBITS><<<dim3(Q, M), kThreads, gsmem, st>>>(part_keys, part_counts, slices,
+                                                                        width, wp, slot, gather);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int MODE, int NW, bool SPILL>
+int launch_group(dim3 grid, size_t smem, cudaStream_t st, const T* table, int N, int n,
+                 const T* queries, int Q, int qw, int hd, const uint8_t* rowmask,
+                 const T* thresholds, int width, int wp, int tl, int G, int slice_rows, int slot,
+                 typename KeyOf<T>::type* part_keys, int* part_counts) {
+    if (smem > 232448) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(group_scan_kernel<T, MODE, NW, SPILL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const bool vec = reinterpret_cast<uintptr_t>(table) % 16 == 0;
-    group_scan_kernel<MODE, NW><<<grid, kThreads, smem, st>>>(table, N, n, queries, Q, qw, hd, rowmask,
-                                                              thresholds, width, wp, tl, G, slice_rows,
-                                                              slot, vec, part_keys, part_counts);
+    group_scan_kernel<T, MODE, NW, SPILL><<<grid, kThreads, smem, st>>>(
+        table, N, n, queries, Q, qw, hd, rowmask, thresholds, width, wp, tl, G, slice_rows, slot, vec,
+        part_keys, part_counts);
     return (int)cudaGetLastError();
+}
+
+// The spilling scan (K3, and K2 in the wide plan) at the table widths the
+// index uses, with the row in registers; other widths read it per chunk.
+template <typename T, int MODE>
+int launch_spill_scan(dim3 grid, size_t smem, cudaStream_t st, const T* table, int N, int n,
+                      const T* queries, int Q, int qw, int hd, const uint8_t* rowmask,
+                      const T* thresholds, int width, int wp, int G, int slice_rows, int slot,
+                      typename KeyOf<T>::type* part_keys, int* part_counts) {
+#define SPILL_LAUNCH(NW)                                                                          \
+    launch_group<T, MODE, NW, true>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask,      \
+                                    thresholds, width, wp, kThrCand, G, slice_rows, slot,         \
+                                    part_keys, part_counts)
+    if constexpr (MODE != kThreshold) {
+        return SPILL_LAUNCH(0);
+    } else {
+        switch (n) {
+            case 10: return SPILL_LAUNCH(10);
+            case 16: return SPILL_LAUNCH(16);
+            case 20: return SPILL_LAUNCH(20);
+            case 32: return SPILL_LAUNCH(32);
+            default: return SPILL_LAUNCH(0);
+        }
+    }
+#undef SPILL_LAUNCH
 }
 
 // K3: grouped scan (G >= 1) or one query per block (G = 0), then the gather
 // (M = ceil(slices / kGatherSlices) blocks per query) and the merge.
 // part_keys holds Q * slices slots of thr_slot(cap) keys, then the
 // gather's Q * M * next_pow2(cap) keys.
-int run_threshold(const float* table, int N, int n, const float* queries, int Q, int qw,
-                  int dims, const uint8_t* rowmask, const float* thresholds, int width, int G,
-                  int slices, u64* part_keys, int* part_counts, int* ids, float* lwb, float* upb,
+template <typename T>
+int run_threshold(const T* table, int N, int n, const T* queries, int Q, int qw, int dims,
+                  const uint8_t* rowmask, const T* thresholds, int width, int G, int slices,
+                  typename KeyOf<T>::type* part_keys, int* part_counts, int* ids, T* lwb, T* upb,
                   int* counts, void* stream) {
+    typedef typename KeyOf<T>::type K;
+    constexpr int KBITS = KeyOf<T>::kBits;
     if (width < 1 || width > kMaxWidth || width > N || slices < 1 || G < 0 || G > kMaxGroup ||
-        (size_t)G * kThrCand * sizeof(u64) > (size_t)kThrGroupBytes)
+        (size_t)G * kThrCand * sizeof(K) > (size_t)kThrGroupBytes)
         return (int)cudaErrorInvalidValue;
     if (Q == 0) return (int)cudaGetLastError();
     const cudaStream_t st = (cudaStream_t)stream;
@@ -840,105 +1165,214 @@ int run_threshold(const float* table, int N, int n, const float* queries, int Q,
     int err;
     if (G == 0) {
         const int tl = wp > kMinCand ? wp : kMinCand;
-        const size_t q_bytes = ((size_t)qw * sizeof(float) + 15) / 16 * 16;
-        const size_t smem = (size_t)(wp + tl) * sizeof(u64) + q_bytes;
-        err = launch_partial<kThreshold>(dim3(slices, Q), smem, st, table, N, n, queries, qw, hd,
-                                         rowmask, thresholds, width, wp, tl, slice_rows, slot,
-                                         part_keys, part_counts);
+        const size_t q_bytes = ((size_t)qw * sizeof(T) + 15) / 16 * 16;
+        const size_t smem = (size_t)(wp + tl) * sizeof(K) + q_bytes;
+        err = launch_partial<T, kThreshold>(dim3(slices, Q), smem, st, table, N, n, queries, qw, hd,
+                                            rowmask, thresholds, width, wp, tl, slice_rows, slot,
+                                            part_keys, part_counts);
     } else {
         constexpr int gr = group_regs(kThreshold);
         const int Gp = (G + gr - 1) / gr * gr;
-        const size_t smem = group_smem_bytes(kThreshold, G, Gp, hd, wp, kThrCand, kThreads / 32);
+        const size_t smem = group_smem_bytes<T>(kThreshold, true, G, Gp, hd, wp, kThrCand, kThreads / 32);
         const dim3 grid((Q + G - 1) / G, slices);
-#define K3_LAUNCH(NW)                                                                            \
-    launch_group<kThreshold, NW>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask,      \
-                                 thresholds, width, wp, kThrCand, G, slice_rows, slot,          \
-                                 part_keys, part_counts)
-        switch (n) {
-            case 10: err = K3_LAUNCH(10); break;
-            case 16: err = K3_LAUNCH(16); break;
-            case 20: err = K3_LAUNCH(20); break;
-            case 32: err = K3_LAUNCH(32); break;
-            default: err = K3_LAUNCH(0); break;
-        }
-#undef K3_LAUNCH
+        err = launch_spill_scan<T, kThreshold>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask,
+                                               thresholds, width, wp, G, slice_rows, slot, part_keys,
+                                               part_counts);
     }
     if (err != 0) return err;
     const int M = (slices + kGatherSlices - 1) / kGatherSlices;
-    u64* gather = part_keys + (size_t)Q * slices * slot;
-    err = launch_gather(st, part_keys, part_counts, Q, slices, M, width, wp, slot, gather);
+    K* gather = part_keys + (size_t)Q * slices * slot;
+    err = launch_gather<K, KBITS>(st, part_keys, part_counts, Q, slices, M, width, wp, slot, gather);
     if (err != 0) return err;
-    return launch_merge(st, table, n, queries, Q, qw, hd, gather, M, part_counts, slices, width,
-                        wp, ids, lwb, upb, counts);
+    return launch_merge<T>(st, table, n, queries, Q, qw, hd, gather, M, part_counts, slices, width, wp,
+                           ids, lwb, upb, counts);
 }
 
 // K2: grouped scan, then the shared merge.
-int run_topk(int mode, const float* table, int N, int n, const float* queries, int Q, int qw,
-             int dims, const uint8_t* rowmask, int width, int G, int slices, u64* part_keys,
-             int* ids, float* lwb, float* upb, void* stream) {
+template <typename T>
+int run_topk(int mode, const T* table, int N, int n, const T* queries, int Q, int qw, int dims,
+             const uint8_t* rowmask, int width, int G, int slices, typename KeyOf<T>::type* part_keys,
+             int* ids, T* lwb, T* upb, void* stream) {
+    typedef typename KeyOf<T>::type K;
     if (width < 1 || width > kMaxWidth || width > N || slices < 1 || G < 1 || G > kMaxGroup)
         return (int)cudaErrorInvalidValue;
     const int wp = next_pow2(width);
     const int tl = wp > kMinCandGroup ? wp : kMinCandGroup;
-    if ((size_t)G * (wp + tl) * sizeof(u64) > (size_t)kGroupBytes) return (int)cudaErrorInvalidValue;
+    if (G > 1 && (size_t)G * (wp + tl) * sizeof(K) > (size_t)kGroupBytes) return (int)cudaErrorInvalidValue;
     if (Q == 0) return (int)cudaGetLastError();
     const cudaStream_t st = (cudaStream_t)stream;
     const int hd = dims - 1;
     const int slice_rows = (N + slices - 1) / slices;
+    int err;
     if (G == 1) {
         // one query per block (select_partial_kernel)
         const int tl1 = wp > kMinCand ? wp : kMinCand;
-        const size_t q_bytes = ((size_t)qw * sizeof(float) + 15) / 16 * 16;
-        const size_t smem1 = (size_t)(wp + tl1) * sizeof(u64) + q_bytes;
+        const size_t q_bytes = ((size_t)qw * sizeof(T) + 15) / 16 * 16;
+        const size_t smem1 = (size_t)(wp + tl1) * sizeof(K) + q_bytes;
         dim3 grid(slices, Q);
-        int err;
         switch (mode) {
-            case kLwb: err = launch_partial<kLwb>(grid, smem1, st, table, N, n, queries, qw, hd, rowmask, nullptr, width, wp, tl1, slice_rows, wp, part_keys, nullptr); break;
-            case kUpb: err = launch_partial<kUpb>(grid, smem1, st, table, N, n, queries, qw, hd, rowmask, nullptr, width, wp, tl1, slice_rows, wp, part_keys, nullptr); break;
-            case kMid: err = launch_partial<kMid>(grid, smem1, st, table, N, n, queries, qw, hd, rowmask, nullptr, width, wp, tl1, slice_rows, wp, part_keys, nullptr); break;
+            case kLwb: err = launch_partial<T, kLwb>(grid, smem1, st, table, N, n, queries, qw, hd, rowmask, nullptr, width, wp, tl1, slice_rows, wp, part_keys, nullptr); break;
+            case kUpb: err = launch_partial<T, kUpb>(grid, smem1, st, table, N, n, queries, qw, hd, rowmask, nullptr, width, wp, tl1, slice_rows, wp, part_keys, nullptr); break;
+            case kMid: err = launch_partial<T, kMid>(grid, smem1, st, table, N, n, queries, qw, hd, rowmask, nullptr, width, wp, tl1, slice_rows, wp, part_keys, nullptr); break;
             default: return (int)cudaErrorInvalidValue;
         }
-        if (err != 0) return err;
-        return launch_merge(st, table, n, queries, Q, qw, hd, part_keys, slices, nullptr, slices,
-                            width, wp, ids, lwb, upb, nullptr);
-    }
-    const int gr = group_regs(mode);
-    const int Gp = (G + gr - 1) / gr * gr;
-    const size_t smem = group_smem_bytes(mode, G, Gp, hd, wp, tl, kThreads / 32);
-    dim3 grid((Q + G - 1) / G, slices);
-    int err;
-    switch (mode) {
-        case kLwb: err = launch_group<kLwb, 0>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, tl, G, slice_rows, wp, part_keys, nullptr); break;
-        case kUpb: err = launch_group<kUpb, 0>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, tl, G, slice_rows, wp, part_keys, nullptr); break;
-        case kMid: err = launch_group<kMid, 0>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, tl, G, slice_rows, wp, part_keys, nullptr); break;
-        default: return (int)cudaErrorInvalidValue;
+    } else {
+        const int gr = group_regs(mode);
+        const int Gp = (G + gr - 1) / gr * gr;
+        const size_t smem = group_smem_bytes<T>(mode, false, G, Gp, hd, wp, tl, kThreads / 32);
+        dim3 grid((Q + G - 1) / G, slices);
+        switch (mode) {
+            case kLwb: err = launch_group<T, kLwb, 0, false>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, tl, G, slice_rows, wp, part_keys, nullptr); break;
+            case kUpb: err = launch_group<T, kUpb, 0, false>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, tl, G, slice_rows, wp, part_keys, nullptr); break;
+            case kMid: err = launch_group<T, kMid, 0, false>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, tl, G, slice_rows, wp, part_keys, nullptr); break;
+            default: return (int)cudaErrorInvalidValue;
+        }
     }
     if (err != 0) return err;
-    return launch_merge(st, table, n, queries, Q, qw, hd, part_keys, slices, nullptr, slices, width,
-                        wp, ids, lwb, upb, nullptr);
+    return launch_merge<T>(st, table, n, queries, Q, qw, hd, part_keys, slices, nullptr, slices, width,
+                           wp, ids, lwb, upb, nullptr);
+}
+
+// The global-memory plan of K2 (mode 0-2) and K3 (mode 3) at any width:
+// the spilling scan into Q * slices slots of `slot` keys (slot >=
+// min(thr_slot(wp), slice rows)), the gather, the select and sort, the
+// write.  buf_a, buf_b: Q * width keys each; gcount: Q * ceil(slices / 8)
+// ints; nsel: Q ints.
+template <typename T>
+int run_wide(int mode, const T* table, int N, int n, const T* queries, int Q, int qw, int dims,
+             const uint8_t* rowmask, const T* thresholds, int width, int G, int slices, int slot,
+             typename KeyOf<T>::type* part_keys, typename KeyOf<T>::type* buf_a,
+             typename KeyOf<T>::type* buf_b, int* part_counts, int* gcount, int* nsel, int* ids, T* lwb,
+             T* upb, int* counts, void* stream) {
+    typedef typename KeyOf<T>::type K;
+    constexpr int KBITS = KeyOf<T>::kBits;
+    if (mode < kLwb || mode > kThreshold || width < 1 || width > N || slices < 1 || G < 1 ||
+        G > kMaxGroup || (size_t)G * kThrCand * sizeof(K) > (size_t)kThrGroupBytes || Q > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int wp = next_pow2(width);
+    const int slice_rows = (N + slices - 1) / slices;
+    const int need = thr_slot(wp) < slice_rows ? thr_slot(wp) : slice_rows;
+    if (slot < need) return (int)cudaErrorInvalidValue;
+    if (Q == 0) return (int)cudaGetLastError();
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int hd = dims - 1;
+    const int gr = group_regs(mode);
+    const int Gp = (G + gr - 1) / gr * gr;
+    const size_t smem = group_smem_bytes<T>(mode, true, G, Gp, hd, wp, kThrCand, kThreads / 32);
+    const dim3 grid((Q + G - 1) / G, slices);
+    int err;
+    switch (mode) {
+        case kLwb: err = launch_spill_scan<T, kLwb>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, G, slice_rows, slot, part_keys, part_counts); break;
+        case kUpb: err = launch_spill_scan<T, kUpb>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, G, slice_rows, slot, part_keys, part_counts); break;
+        case kMid: err = launch_spill_scan<T, kMid>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, nullptr, width, wp, G, slice_rows, slot, part_keys, part_counts); break;
+        default: err = launch_spill_scan<T, kThreshold>(grid, smem, st, table, N, n, queries, Q, qw, hd, rowmask, thresholds, width, wp, G, slice_rows, slot, part_keys, part_counts); break;
+    }
+    if (err != 0) return err;
+    const int M = (slices + kGatherSlices - 1) / kGatherSlices;
+    wide_gather_kernel<K, KBITS><<<dim3(Q, M), kThreads, 0, st>>>(part_keys, part_counts, slices, width,
+                                                                  slot, gcount);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    wide_sort_kernel<K, KBITS><<<Q, kThreads, 0, st>>>(part_keys, gcount, slices, M, width, slot, buf_a,
+                                                       buf_b, nsel);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    select_write_kernel<T><<<dim3((width + kThreads - 1) / kThreads, Q), kThreads, 0, st>>>(
+        table, n, queries, qw, hd, buf_b, nsel, width, part_counts, slices, ids, lwb, upb,
+        mode == kThreshold ? counts : nullptr);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The entry points fall in six parts, each an instantiation of its own
+// kernels: the build compiles this file once per part (-DREPRO_SELECT_PART=
+// 0..5, one nvcc each, all started together) and links the six objects;
+// without the macro every part is compiled.
+#ifdef REPRO_SELECT_PART
+#define SELECT_PART(p) (REPRO_SELECT_PART == (p))
+#else
+#define SELECT_PART(p) 1
+#endif
+
 // K2.  key_mode: 0 lwb, 1 upb, 2 mid; group: queries per block (G);
-// part_keys: (Q, slices, next_pow2(k)) scratch.
+// part_keys: (Q, slices, next_pow2(k)) scratch of packed keys (u64 for an
+// f32 table, 16-byte keys for an f64 table).
+#if SELECT_PART(0)
 extern "C" int repro_apex_topk(const float* table, int N, int n, const float* queries, int Q,
                                int qw, int dims, const uint8_t* rowmask, int key_mode, int k,
-                               int group, int slices, unsigned long long* part_keys, int* ids,
+                               int group, int slices, void* part_keys, int* ids,
                                float* lwb, float* upb, void* stream) {
-    return run_topk(key_mode, table, N, n, queries, Q, qw, dims, rowmask, k, group, slices,
-                    part_keys, ids, lwb, upb, stream);
+    return run_topk<float>(key_mode, table, N, n, queries, Q, qw, dims, rowmask, k, group, slices,
+                           (u64*)part_keys, ids, lwb, upb, stream);
 }
+
+#endif
+
+#if SELECT_PART(1)
+extern "C" int repro_apex_topk_f64(const double* table, int N, int n, const double* queries, int Q,
+                                   int qw, int dims, const uint8_t* rowmask, int key_mode, int k,
+                                   int group, int slices, void* part_keys, int* ids,
+                                   double* lwb, double* upb, void* stream) {
+    return run_topk<double>(key_mode, table, N, n, queries, Q, qw, dims, rowmask, k, group, slices,
+                            (u128*)part_keys, ids, lwb, upb, stream);
+}
+
+#endif
 
 // K3.  group: queries per block (G >= 1), or 0 for one query per block (the
 // first design); part_keys: Q * slices * thr_slot(wp)
 // + Q * ceil(slices / 8) * wp keys, wp = next_pow2(cap); part_counts:
 // (Q, slices).
+#if SELECT_PART(2)
 extern "C" int repro_apex_threshold(const float* table, int N, int n, const float* queries, int Q,
                                     int qw, int dims, const uint8_t* rowmask,
                                     const float* thresholds, int cap, int group, int slices,
-                                    unsigned long long* part_keys, int* part_counts, int* ids,
+                                    void* part_keys, int* part_counts, int* ids,
                                     float* lwb, float* upb, int* counts, void* stream) {
-    return run_threshold(table, N, n, queries, Q, qw, dims, rowmask, thresholds, cap, group,
-                         slices, part_keys, part_counts, ids, lwb, upb, counts, stream);
+    return run_threshold<float>(table, N, n, queries, Q, qw, dims, rowmask, thresholds, cap, group,
+                                slices, (u64*)part_keys, part_counts, ids, lwb, upb, counts, stream);
 }
+
+#endif
+
+#if SELECT_PART(3)
+extern "C" int repro_apex_threshold_f64(const double* table, int N, int n, const double* queries, int Q,
+                                        int qw, int dims, const uint8_t* rowmask,
+                                        const double* thresholds, int cap, int group, int slices,
+                                        void* part_keys, int* part_counts, int* ids,
+                                        double* lwb, double* upb, int* counts, void* stream) {
+    return run_threshold<double>(table, N, n, queries, Q, qw, dims, rowmask, thresholds, cap, group,
+                                 slices, (u128*)part_keys, part_counts, ids, lwb, upb, counts, stream);
+}
+
+#endif
+
+// K2 (mode 0-2, thresholds and counts null) and K3 (mode 3) at any width:
+// the global-memory plan (run_wide).
+#if SELECT_PART(4)
+extern "C" int repro_select_wide_f32(int mode, const float* table, int N, int n, const float* queries,
+                                     int Q, int qw, int dims, const uint8_t* rowmask,
+                                     const float* thresholds, int width, int group, int slices, int slot,
+                                     void* part_keys, void* buf_a, void* buf_b, int* part_counts,
+                                     int* gcount, int* nsel, int* ids, float* lwb, float* upb,
+                                     int* counts, void* stream) {
+    return run_wide<float>(mode, table, N, n, queries, Q, qw, dims, rowmask, thresholds, width, group,
+                           slices, slot, (u64*)part_keys, (u64*)buf_a, (u64*)buf_b, part_counts, gcount,
+                           nsel, ids, lwb, upb, counts, stream);
+}
+
+#endif
+
+#if SELECT_PART(5)
+extern "C" int repro_select_wide_f64(int mode, const double* table, int N, int n, const double* queries,
+                                     int Q, int qw, int dims, const uint8_t* rowmask,
+                                     const double* thresholds, int width, int group, int slices, int slot,
+                                     void* part_keys, void* buf_a, void* buf_b, int* part_counts,
+                                     int* gcount, int* nsel, int* ids, double* lwb, double* upb,
+                                     int* counts, void* stream) {
+    return run_wide<double>(mode, table, N, n, queries, Q, qw, dims, rowmask, thresholds, width, group,
+                            slices, slot, (u128*)part_keys, (u128*)buf_a, (u128*)buf_b, part_counts,
+                            gcount, nsel, ids, lwb, upb, counts, stream);
+}
+#endif

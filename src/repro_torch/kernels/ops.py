@@ -34,7 +34,6 @@ from repro_torch.kernels.tuning import DEFAULT_CONFIG, KernelConfig
 
 __all__ = [
     "LAUNCHES",
-    "MAX_SELECT_WIDTH",
     "SHAPE_LAUNCHES",
     "SENTINEL_ID",
     "TOPK_KEYS",
@@ -50,10 +49,12 @@ __all__ = [
     "shape_class",
     "threshold_plan",
     "topk_plan",
+    "wide_plan",
 ]
 
-#: widest selection (k of K2, cap of K3) the CUDA kernels hold in shared
-#: memory; ``select_epilogue.cu`` states the same limit
+#: widest selection (k of K2, cap of K3) whose plans hold a query's keys in
+#: shared memory (``kMaxWidth`` in select_epilogue.cu); a wider one takes the
+#: global-memory plan (``wide_plan``).  Only the wrappers switch on it.
 MAX_SELECT_WIDTH = 4096
 
 #: kernel launches per wrapper since the last ``reset_launches``
@@ -99,13 +100,16 @@ def shape_class(name: str, **s) -> tuple:
     ====================  =====================================
 
     A K2 or K3 launch under a row mask (``masked=True``) counts in its own
-    class, the tuple above followed by ``"masked"``.
+    class, the tuple above followed by ``"masked"``; one on an f64 table
+    (``dtype="float64"``) in another, followed by ``"float64"``.
     """
     if name == "apex_bounds":
         return (s["n"], s["dtype"])
     if name == "apex_bounds_batch":
         return (s["Q"], s["dims"])
     masked = ("masked",) if s.get("masked") else ()
+    if s.get("dtype") == "float64":
+        masked += ("float64",)
     if name == "apex_topk":
         return (s["Q"], s["k"], s["key"], s["dims"]) + masked
     if name == "apex_threshold":
@@ -224,21 +228,28 @@ _TOPK_MAX_GROUP = 32
 _TOPK_MIN_CAND = 512
 
 
-def _topk_max_group(k: int) -> int:
+#: bytes of one packed selection key: (bits << 32) | id in a u64 for an f32
+#: table, the 96-bit key in 16 bytes for an f64 table
+_KEY_BYTES = {torch.float32: 8, torch.float64: 16}
+
+
+def _topk_max_group(k: int, key_bytes: int = 8) -> int:
     """The most K2 queries whose selection state fits one block's 64 KiB."""
     wp = 1 << (k - 1).bit_length()
-    return min(_TOPK_MAX_GROUP, _TOPK_GROUP_BYTES // ((wp + max(wp, _TOPK_MIN_CAND)) * 8))
+    return min(_TOPK_MAX_GROUP, _TOPK_GROUP_BYTES // ((wp + max(wp, _TOPK_MIN_CAND)) * key_bytes))
 
 
-def topk_plan(k: int, Q: int, N: int, sms: int, config: KernelConfig = DEFAULT_CONFIG) -> tuple:
+def topk_plan(k: int, Q: int, N: int, sms: int, config: KernelConfig = DEFAULT_CONFIG,
+              key_bytes: int = 8) -> tuple:
     """K2's launch plan ``(G, S)``: G queries per block, each holding a
     running selection of ``wp = next_pow2(k)`` keys and a candidate buffer of
-    ``max(wp, 512)``, as many as fit in 64 KiB (at most ``config.max_group``,
-    32 by default, at least 1), balanced over the ``ceil(Q / G)`` groups; and
-    S row slices so that groups x slices fill the card (``_slices`` under
-    the config's slice rule).  The table is read once per group; G = 1 runs
-    the one-query-per-block kernel K3 also uses."""
-    G = max(1, min(config.max_group, _topk_max_group(k), Q))
+    ``max(wp, 512)`` keys of ``key_bytes`` (8 for f32, 16 for f64), as many
+    as fit in 64 KiB (at most ``config.max_group``, 32 by default, at least
+    1), balanced over the ``ceil(Q / G)`` groups; and S row slices so that
+    groups x slices fill the card (``_slices`` under the config's slice
+    rule).  The table is read once per group; G = 1 runs the
+    one-query-per-block kernel K3 also uses."""
+    G = max(1, min(config.max_group, _topk_max_group(k, key_bytes), Q))
     groups = -(-Q // G)
     G = -(-Q // groups)
     return G, _slices(sms, groups, N, config.waves, config.slice_rows)
@@ -252,11 +263,18 @@ _THR_CAND = 512
 _THR_GATHER = 8
 
 
-def threshold_plan(cap: int, Q: int, N: int, sms: int, config: KernelConfig = DEFAULT_CONFIG) -> tuple:
+def _thr_max_group(key_bytes: int = 8) -> int:
+    """The most K3 queries whose candidate buffers fit one block's 64 KiB."""
+    return _THR_GROUP_BYTES // (_THR_CAND * key_bytes)
+
+
+def threshold_plan(cap: int, Q: int, N: int, sms: int, config: KernelConfig = DEFAULT_CONFIG,
+                   key_bytes: int = 8) -> tuple:
     """K3's launch plan ``(G, S)``: G queries per block, as many 512-key
-    candidate buffers as fit in 64 KiB (16; the keys a query keeps live in
-    its slot of the global scratch, so G does not depend on ``cap``), at
-    most ``config.max_group``, balanced over the ``ceil(Q / G)`` groups; and
+    candidate buffers as fit in 64 KiB (16 of f32 keys, 8 of f64 keys; the
+    keys a query keeps live in its slot of the global scratch, so G does not
+    depend on ``cap``), at most ``config.max_group``, balanced over the
+    ``ceil(Q / G)`` groups; and
     S row slices so that groups x slices fill the card (``_slices`` under
     the config's slice rule).  One query is a group of one, which on the
     H100 was faster than one query per block at half-cap thresholds and
@@ -265,10 +283,47 @@ def threshold_plan(cap: int, Q: int, N: int, sms: int, config: KernelConfig = DE
     ``max_group=0`` (a tuned cache entry) or a caller's forced plan."""
     if config.max_group == 0:
         return 0, _slices(sms, Q, N, config.waves, config.slice_rows)
-    G = max(1, min(config.max_group, _THR_GROUP_BYTES // (_THR_CAND * 8), Q))
+    G = max(1, min(config.max_group, _thr_max_group(key_bytes), Q))
     groups = -(-Q // G)
     G = -(-Q // groups)
     return G, _slices(sms, groups, N, config.waves, config.slice_rows)
+
+
+#: device bytes the global-memory plan's scratch may take per launch; the
+#: queries are split into chunks that fit it
+_WIDE_SCRATCH_BYTES = 1 << 30
+
+
+def _wide_slot(width: int, N: int, S: int) -> int:
+    """Keys of one (query, slice) slot of the wide plan: ``wp + max(wp,
+    512)`` (a select frees room for a full candidate buffer), or the slice's
+    rows where fewer (a slice never holds more keys than rows)."""
+    wp = 1 << (width - 1).bit_length()
+    return min(wp + max(wp, _THR_CAND), -(-N // S))
+
+
+def _wide_query_bytes(width: int, N: int, S: int, key_bytes: int) -> int:
+    """Scratch bytes of one query in the wide plan: S slots, the two sort
+    buffers of ``width`` keys, and the (slice, gather, kept) counts."""
+    return (S * _wide_slot(width, N, S) + 2 * width) * key_bytes + (S + -(-S // _THR_GATHER) + 1) * 4
+
+
+def wide_plan(width: int, Q: int, N: int, sms: int, config: KernelConfig = DEFAULT_CONFIG,
+              key_bytes: int = 8) -> tuple:
+    """The launch plan ``(G, S, chunk)`` of K2 and K3 wider than
+    ``MAX_SELECT_WIDTH`` (the global-memory plan): G queries per block as in
+    ``threshold_plan`` (a query's keys live in its global slots, so G does
+    not depend on the width; a config's G = 0 means the default here), S
+    row slices under the config's slice rule, and queries taken ``chunk`` at
+    a time so that one chunk's scratch (``_wide_query_bytes`` each: at most
+    about N + S keys of slots per query, since a slot holds no more keys than
+    its slice has rows) stays within ``_WIDE_SCRATCH_BYTES`` (1 GiB)."""
+    G = max(1, min(config.max_group or _TOPK_MAX_GROUP, _thr_max_group(key_bytes), Q))
+    groups = -(-Q // G)
+    G = -(-Q // groups)
+    S = _slices(sms, groups, N, config.waves, config.slice_rows)
+    chunk = int(max(1, min(Q, 65535, _WIDE_SCRATCH_BYTES // _wide_query_bytes(width, N, S, key_bytes))))
+    return min(G, chunk), S, chunk
 
 
 #: K1's launch plans: ``"stream"`` (one thread per row, row in registers,
@@ -336,122 +391,183 @@ def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int =
 
 def _check_select(table, queries, dims, width: int, what: str):
     dims = _check_table(table, queries, dims)
-    if table.dtype != torch.float32:
-        raise TypeError(f"{what} takes a float32 table only; got {table.dtype}")
     if width < 1:
         raise ValueError(f"{what} width must be >= 1; got {width}")
     return dims
 
 
-def _scratch(Q: int, S: int, width: int, device):
+def _key_words(dtype) -> int:
+    """int64 words of one packed key: 1 for f32, 2 for f64."""
+    return _KEY_BYTES[dtype] // 8
+
+
+def _scratch(Q: int, S: int, width: int, device, dtype=torch.float32):
     wp = 1 << (width - 1).bit_length()
-    return torch.empty((Q, S, wp), dtype=torch.int64, device=device)
+    return torch.empty((Q, S, wp * _key_words(dtype)), dtype=torch.int64, device=device)
 
 
-def _threshold_scratch(Q: int, S: int, cap: int, device):
+def _threshold_scratch(Q: int, S: int, cap: int, device, dtype=torch.float32):
     """K3's key scratch: per (query, slice) a slot of ``wp + max(wp, 512)``
     keys, then per query ``ceil(S / 8)`` gathered selections of ``wp``
     (``thr_slot`` and ``kGatherSlices`` in select_epilogue.cu)."""
     wp = 1 << (cap - 1).bit_length()
     slot = wp + max(wp, _THR_CAND)
-    return torch.empty(Q * S * slot + Q * -(-S // _THR_GATHER) * wp, dtype=torch.int64, device=device)
+    keys = Q * S * slot + Q * -(-S // _THR_GATHER) * wp
+    return torch.empty(keys * _key_words(dtype), dtype=torch.int64, device=device)
 
 
-def _select_outputs(Q: int, width: int, device):
+def _select_outputs(Q: int, width: int, device, dtype=torch.float32):
     return (
         torch.empty((Q, width), dtype=torch.int32, device=device),
-        torch.empty((Q, width), dtype=torch.float32, device=device),
-        torch.empty((Q, width), dtype=torch.float32, device=device),
+        torch.empty((Q, width), dtype=dtype, device=device),
+        torch.empty((Q, width), dtype=dtype, device=device),
     )
 
 
-def _check_width(width: int, what: str):
-    if width > MAX_SELECT_WIDTH:
-        raise ValueError(
-            f"{what} width {width} exceeds the kernel's {MAX_SELECT_WIDTH}; "
-            "route wider selections through per-query apex_bounds_batch"
+def _select_fn(name: str, dtype):
+    lib = _library()
+    return getattr(lib, name if dtype == torch.float32 else name + "_f64")
+
+
+def _library():
+    from repro_torch.kernels.build import library
+
+    return library()
+
+
+def _run_wide(mode: int, table, queries, thresholds, width: int, dims: int, mask, plan, ids, lwb, upb, counts):
+    """K2 (mode 0-2) or K3 (mode 3) wider than ``MAX_SELECT_WIDTH``: the
+    global-memory plan (``wide_plan``), one chunk of queries per launch
+    sequence, into the given outputs."""
+    (N, n), (Q, qw) = table.shape, queries.shape
+    if Q == 0:
+        return
+    kb = _KEY_BYTES[table.dtype]
+    G, S, chunk = wide_plan(width, Q, N, _sm_count(table.device.index or 0),
+                            tuning.lookup("apex_threshold" if mode == 3 else "apex_topk", n, dims, table.dtype),
+                            key_bytes=kb)
+    if plan is not None:
+        G, S = plan
+    slot = _wide_slot(width, N, S)
+    M = -(-S // _THR_GATHER)
+    kw = kb // 8
+    Qc = min(chunk, Q)
+    keys = torch.empty((Qc * (S * slot + 2 * width)) * kw, dtype=torch.int64, device=table.device)
+    ints = torch.empty(Qc * (S + M + 1), dtype=torch.int32, device=table.device)
+    base = keys.data_ptr()
+    part_keys, buf_a, buf_b = base, base + Qc * S * slot * kb, base + (Qc * S * slot + Qc * width) * kb
+    ib = ints.data_ptr()
+    part_counts, gcount, nsel = ib, ib + Qc * S * 4, ib + Qc * (S + M) * 4
+    fn = _library().repro_select_wide_f32 if table.dtype == torch.float32 else _library().repro_select_wide_f64
+    stream = _stream(table.device)
+    for lo in range(0, Q, Qc):
+        hi = min(Q, lo + Qc)
+        _check(
+            fn(mode, table.data_ptr(), N, n, queries[lo].data_ptr(), hi - lo, qw, dims, _ptr(mask),
+               None if thresholds is None else thresholds[lo].data_ptr(), width, G, S, slot,
+               part_keys, buf_a, buf_b, part_counts, gcount, nsel,
+               ids[lo].data_ptr(), lwb[lo].data_ptr(), upb[lo].data_ptr(),
+               None if counts is None else counts[lo].data_ptr(), stream),
+            "apex_bounds_threshold" if mode == 3 else "apex_bounds_topk",
         )
+
+
+def _valid_plan(plan, width: int, key_bytes: int, topk: bool) -> bool:
+    """A forced ``_plan`` ``(G, S)`` fits the plan that ``width`` takes:
+    K2's shared-memory budget, K3's (G = 0 allowed), or the wide plan's."""
+    if plan is None:
+        return True
+    if len(plan) != 2 or plan[1] < 1:
+        return False
+    if width > MAX_SELECT_WIDTH:
+        return 1 <= plan[0] <= _thr_max_group(key_bytes)
+    if topk:
+        return 1 <= plan[0] <= _topk_max_group(width, key_bytes)
+    return 0 <= plan[0] <= _TOPK_MAX_GROUP
 
 
 def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = None, rowmask=None,
                      _plan: tuple = None):
     """K2: per query the ``k`` rows with the smallest ``(key, id)``, sorted,
-    as (ids int32, lwb, upb), each (Q, k); ``k`` is clamped to N.  Masked
-    rows never enter; a short selection pads with ``SENTINEL_ID`` and +inf.
-    On the card the plan is ``topk_plan`` under the tuning cache's config for
-    (n, dims, float32) (``DEFAULT_CONFIG`` without a cache); the private
-    ``_plan`` forces a launch plan ``(G, S)`` (timing, tuning and tests);
-    every plan gives the same result."""
+    as (ids int32, lwb, upb), each (Q, k), bounds in the table's dtype (f32
+    or f64); ``k`` is clamped to N.  Masked rows never enter; a short
+    selection pads with ``SENTINEL_ID`` and +inf.  On the card the plan is
+    ``topk_plan`` up to ``MAX_SELECT_WIDTH`` and ``wide_plan`` above, under
+    the tuning cache's config for (n, dims, dtype) (``DEFAULT_CONFIG``
+    without a cache); the private ``_plan`` forces a launch plan ``(G, S)``
+    (timing, tuning and tests); every plan gives the same result."""
     queries = torch.atleast_2d(queries)
     if key not in TOPK_KEYS:
         raise ValueError(f"key must be one of {TOPK_KEYS}; got {key!r}")
     k = int(min(k, table.shape[0]))
-    _check_plan(_plan, _plan is None or (len(_plan) == 2 and 1 <= _plan[0] <= _topk_max_group(max(k, 1))
-                                         and _plan[1] >= 1), "apex_bounds_topk")
     dims = _check_select(table, queries, dims, k, "apex_bounds_topk")
+    kb = _KEY_BYTES[table.dtype]
+    _check_plan(_plan, _valid_plan(_plan, k, kb, topk=True), "apex_bounds_topk")
     mask = _mask_operand(rowmask, table.shape[0], table.device)
     if not _on_cuda(table, queries):
         return ref.apex_topk_ref(table, queries, k, key, dims, mask)
-    _check_width(k, "apex_bounds_topk")
-    from repro_torch.kernels.build import library
-
     table, queries = table.contiguous(), queries.contiguous()
     (N, n), (Q, qw) = table.shape, queries.shape
-    G, S = _plan or topk_plan(k, Q, N, _sm_count(table.device.index or 0),
-                              tuning.lookup("apex_topk", n, dims, table.dtype))
-    part = _scratch(Q, S, k, table.device)
-    ids, lwb, upb = _select_outputs(Q, k, table.device)
-    _check(
-        library().repro_apex_topk(
-            table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), _KEY_MODE[key], k, G, S,
-            part.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device),
-        ),
-        "apex_bounds_topk",
-    )
-    _counted("apex_topk", Q=Q, k=k, key=key, dims=dims, masked=mask is not None)
+    ids, lwb, upb = _select_outputs(Q, k, table.device, table.dtype)
+    if k > MAX_SELECT_WIDTH:
+        _run_wide(_KEY_MODE[key], table, queries, None, k, dims, mask, _plan, ids, lwb, upb, None)
+    else:
+        G, S = _plan or topk_plan(k, Q, N, _sm_count(table.device.index or 0),
+                                  tuning.lookup("apex_topk", n, dims, table.dtype), key_bytes=kb)
+        part = _scratch(Q, S, k, table.device, table.dtype)
+        _check(
+            _select_fn("repro_apex_topk", table.dtype)(
+                table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), _KEY_MODE[key], k, G, S,
+                part.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device),
+            ),
+            "apex_bounds_topk",
+        )
+    _counted("apex_topk", Q=Q, k=k, key=key, dims=dims, masked=mask is not None, dtype=_dtype_name(table))
     return ids, lwb, upb
 
 
 def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = None, rowmask=None,
                           _plan: tuple = None):
     """K3: per query the up-to-``cap`` smallest ``(lwb, id)`` among rows with
-    ``lwb <= thresholds[q]`` (f32 compare), sorted, as (ids, lwb, upb), each
-    (Q, cap), plus the exact per-query count of passing rows — a count above
-    ``cap`` flags overflow.  ``cap`` is clamped to N.  The private ``_plan``
-    forces a launch plan ``(G, S)`` on the card (timing and tests; by
-    default ``threshold_plan``; G = 0 is the first design, one query per
-    block); every plan gives the same result."""
+    ``lwb <= thresholds[q]`` (compared in the table's dtype), sorted, as
+    (ids, lwb, upb), each (Q, cap), plus the exact per-query count of passing
+    rows — a count above ``cap`` flags overflow.  ``cap`` is clamped to N.
+    On the card the plan is ``threshold_plan`` up to ``MAX_SELECT_WIDTH``
+    and ``wide_plan`` above.  The private ``_plan`` forces a launch plan
+    ``(G, S)`` on the card (timing and tests; G = 0 is the first design, one
+    query per block, at widths up to ``MAX_SELECT_WIDTH``); every plan gives
+    the same result."""
     queries = torch.atleast_2d(queries)
-    _check_plan(_plan, _plan is None or (len(_plan) == 2 and 0 <= _plan[0] <= _TOPK_MAX_GROUP and _plan[1] >= 1),
-                "apex_bounds_threshold")
     cap = int(min(cap, table.shape[0]))
     dims = _check_select(table, queries, dims, cap, "apex_bounds_threshold")
-    thresholds = torch.as_tensor(thresholds, dtype=torch.float32, device=table.device).reshape(-1)
+    kb = _KEY_BYTES[table.dtype]
+    _check_plan(_plan, _valid_plan(_plan, cap, kb, topk=False), "apex_bounds_threshold")
+    thresholds = torch.as_tensor(thresholds, dtype=table.dtype, device=table.device).reshape(-1)
     if thresholds.shape[0] != queries.shape[0]:
         raise ValueError(f"need one threshold per query; got {thresholds.shape[0]} for {queries.shape[0]}")
     mask = _mask_operand(rowmask, table.shape[0], table.device)
     if not _on_cuda(table, queries):
         return ref.apex_threshold_ref(table, queries, thresholds, cap, dims, mask)
-    _check_width(cap, "apex_bounds_threshold")
-    from repro_torch.kernels.build import library
-
     table, queries, thresholds = table.contiguous(), queries.contiguous(), thresholds.contiguous()
     (N, n), (Q, qw) = table.shape, queries.shape
-    G, S = _plan or threshold_plan(cap, Q, N, _sm_count(table.device.index or 0),
-                                   tuning.lookup("apex_threshold", n, dims, table.dtype))
-    part = _threshold_scratch(Q, S, cap, table.device)
-    part_counts = torch.empty((Q, S), dtype=torch.int32, device=table.device)
-    ids, lwb, upb = _select_outputs(Q, cap, table.device)
+    ids, lwb, upb = _select_outputs(Q, cap, table.device, table.dtype)
     counts = torch.empty(Q, dtype=torch.int32, device=table.device)
-    _check(
-        library().repro_apex_threshold(
-            table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), thresholds.data_ptr(), cap, G, S,
-            part.data_ptr(), part_counts.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(),
-            counts.data_ptr(), _stream(table.device),
-        ),
-        "apex_bounds_threshold",
-    )
-    _counted("apex_threshold", Q=Q, cap=cap, dims=dims, masked=mask is not None)
+    if cap > MAX_SELECT_WIDTH:
+        _run_wide(3, table, queries, thresholds, cap, dims, mask, _plan, ids, lwb, upb, counts)
+    else:
+        G, S = _plan or threshold_plan(cap, Q, N, _sm_count(table.device.index or 0),
+                                       tuning.lookup("apex_threshold", n, dims, table.dtype), key_bytes=kb)
+        part = _threshold_scratch(Q, S, cap, table.device, table.dtype)
+        part_counts = torch.empty((Q, S), dtype=torch.int32, device=table.device)
+        _check(
+            _select_fn("repro_apex_threshold", table.dtype)(
+                table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), thresholds.data_ptr(), cap,
+                G, S, part.data_ptr(), part_counts.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(),
+                counts.data_ptr(), _stream(table.device),
+            ),
+            "apex_bounds_threshold",
+        )
+    _counted("apex_threshold", Q=Q, cap=cap, dims=dims, masked=mask is not None, dtype=_dtype_name(table))
     return ids, lwb, upb, counts
 
 

@@ -79,14 +79,40 @@ def _take(packed: torch.Tensor, lwb: torch.Tensor, upb: torch.Tensor, width: int
     """The ``width`` smallest packed keys per row as (ids, lwb, upb)."""
     top, pos = torch.sort(packed, dim=1)
     top, pos = top[:, :width], pos[:, :width]
-    empty = top == _EMPTY_KEY
+    return _gathered(top == _EMPTY_KEY, pos, lwb, upb)
+
+
+def _gathered(empty: torch.Tensor, pos: torch.Tensor, lwb: torch.Tensor, upb: torch.Tensor):
+    """(ids, lwb, upb) of the selected row positions ``pos``; an ``empty``
+    slot is the sentinel id with +inf bounds."""
     inf = torch.tensor(float("inf"), dtype=lwb.dtype, device=lwb.device)
-    ids = torch.where(empty, SENTINEL_ID, top & 0xFFFFFFFF).to(torch.int32)
+    ids = torch.where(empty, SENTINEL_ID, pos).to(torch.int32)
     return (
         ids,
         torch.where(empty, inf, torch.gather(lwb, 1, pos)),
         torch.where(empty, inf, torch.gather(upb, 1, pos)),
     )
+
+
+def _take_stable(keys: torch.Tensor, live: torch.Tensor, lwb: torch.Tensor, upb: torch.Tensor, width: int):
+    """The f64 selection: f64 bits do not fit beside an id in 64 bits, so
+    the rows are ordered by a stable sort on the key over ascending ids
+    (``-0.0`` equal to ``0.0``), then by a stable sort that puts
+    every dead row after every live one (a live ``+inf`` key included).
+    The keys' sign is dropped, as the kernels' packed order drops it."""
+    pos = torch.sort(keys.abs(), dim=1, stable=True).indices
+    dead = ~torch.gather(live, 1, pos)
+    pos = torch.gather(pos, 1, torch.sort(dead.to(torch.uint8), dim=1, stable=True).indices)[:, :width]
+    return _gathered(~torch.gather(live, 1, pos), pos, lwb, upb)
+
+
+def _select(keys: torch.Tensor, live: torch.Tensor, lwb: torch.Tensor, upb: torch.Tensor, width: int):
+    """The ``width`` smallest live (key, id) per row, in the keys' dtype:
+    packed keys for f32 (the kernels' order, bit for bit), the stable sort
+    for f64."""
+    if keys.dtype == torch.float32:
+        return _take(pack_keys(keys, live), lwb, upb, width)
+    return _take_stable(keys, live, lwb, upb, width)
 
 
 def _live(rowmask, N: int, device) -> torch.Tensor:
@@ -97,20 +123,20 @@ def _live(rowmask, N: int, device) -> torch.Tensor:
 
 def topk_from_bounds(lwb, upb, k: int, key: str, rowmask=None):
     """K2's selection over given (Q, N) bound matrices: per query the ``k``
-    rows with the smallest (key, id), sorted."""
+    rows with the smallest (key, id), sorted, in the bounds' dtype."""
     keys = {"lwb": lwb, "upb": upb}.get(key)
     if keys is None:
         keys = 0.5 * (lwb + upb)
     live = _live(rowmask, lwb.shape[1], lwb.device).expand_as(lwb)
-    return _take(pack_keys(keys, live), lwb, upb, k)
+    return _select(keys, live, lwb, upb, k)
 
 
 def threshold_from_bounds(lwb, upb, thresholds, cap: int, rowmask=None):
     """K3's selection over given (Q, N) bound matrices: per query the
-    ``cap`` smallest (lwb, id) among rows with ``lwb <= thresholds[q]``,
-    plus the exact count of such rows."""
-    hit = _live(rowmask, lwb.shape[1], lwb.device) & (lwb <= thresholds[:, None])
-    ids, l, u = _take(pack_keys(lwb, hit), lwb, upb, cap)
+    ``cap`` smallest (lwb, id) among rows with ``lwb <= thresholds[q]``
+    (compared in the bounds' dtype), plus the exact count of such rows."""
+    hit = _live(rowmask, lwb.shape[1], lwb.device) & (lwb <= thresholds.to(lwb.dtype)[:, None])
+    ids, l, u = _select(lwb, hit, lwb, upb, cap)
     return ids, l, u, hit.sum(dim=1).to(torch.int32)
 
 

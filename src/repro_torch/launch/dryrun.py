@@ -16,9 +16,9 @@ records a failed compile.  Every model cell of the registry runs on meta
 tensors as it is (the MoE dispatch writes into a fixed-shape buffer, with
 no ``nonzero`` and no host sync), so none needs a ``FakeTensorMode``.
 
-``--mesh single`` is one card.  The multi-card mesh waits for the sharded
-train step (ROADMAP item 11c); ``--mesh multi`` and ``both`` exit with a
-message saying so.
+``--mesh single`` is one card.  The multi-card dry run (the sharded step's
+collectives in the roofline, ROADMAP item 11c.5) is not ported;
+``--mesh multi`` and ``both`` exit with a message saying so.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun                  # every cell
@@ -40,8 +40,8 @@ import torch
 
 __all__ = ["calibrate_cell", "main", "run_cell"]
 
-MULTI_CARD_REFUSAL = ("the multi-card dry run needs the sharded train step, ROADMAP item 11c, which is not "
-                      "ported; run --mesh single")
+MULTI_CARD_REFUSAL = ("the multi-card dry run (the step's collectives in the roofline) is ROADMAP item 11c.5, "
+                      "not ported; run --mesh single")
 
 
 def _card_mesh():
@@ -213,7 +213,7 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"],
-                    help="single: one card (multi and both wait for ROADMAP item 11c)")
+                    help="single: one card (multi and both wait for ROADMAP item 11c.5)")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--opt", action="store_true",
                     help="apply the §Perf optimization levers (chunked attention/CE, local MoE dispatch)")

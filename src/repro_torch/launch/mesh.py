@@ -4,18 +4,23 @@ Single pod: (data=16, model=16) = 256 devices; multi-pod: (pod=2, data=16,
 model=16) = 512, the ``pod`` axis carrying pure data parallelism.  The
 production meshes are abstract (they list the meta device): ``build_cell``
 and the sharding rules read only their axis names and sizes.
-``make_host_mesh`` builds a small mesh over real devices.
+``make_host_mesh`` builds a small mesh over real devices, one process;
+``make_process_mesh`` a mesh of processes, one per rank under
+``torch.distributed`` (gloo on the CPU, NCCL with one card per rank), which
+the sharded train step runs on.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.sharding.rules import DeviceMesh
+from repro_torch.sharding.rules import DeviceMesh, ProcessMesh, process_groups
 
-__all__ = ["make_production_mesh", "make_host_mesh"]
+__all__ = ["make_production_mesh", "make_host_mesh", "make_process_mesh"]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
@@ -40,3 +45,38 @@ def make_host_mesh(data: int = 1, model: int = 1, devices: Optional[Sequence] = 
     if len(devs) < data * model:
         raise ValueError(f"a ({data}, {model}) mesh needs {data * model} devices; {len(devs)} given")
     return DeviceMesh(("data", "model"), (data, model), tuple(devs[:data * model]))
+
+
+def make_process_mesh(data: int = 1, model: int = 1, backend: Optional[str] = None) -> ProcessMesh:
+    """This process's place on a ``(data, model)`` mesh of processes.
+
+    Reads the torchrun-style environment: ``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR`` (default ``localhost``), ``MASTER_PORT`` and, for a card
+    per rank, ``LOCAL_RANK`` (default ``RANK``).  ``backend``: ``"gloo"``
+    runs every rank on the CPU, ``"nccl"`` on card ``LOCAL_RANK`` (made the
+    current device); the default is NCCL when a card is visible.  Joins the
+    default process group (``tcp://MASTER_ADDR:MASTER_PORT``) unless this
+    process already has one, checks ``WORLD_SIZE == data * model``, and
+    builds every axis group (a collective: every rank calls this once, in
+    the same order as its other collectives)."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if world != data * model:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks; WORLD_SIZE is {world}")
+    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local)
+        mine = torch.device("cuda", local)
+        devices = tuple(torch.device("cuda", r % max(torch.cuda.device_count(), 1)) for r in range(world))
+    elif backend == "gloo":
+        mine = torch.device("cpu")
+        devices = (mine,) * world
+    else:
+        raise ValueError(f"backend must be gloo or nccl; got {backend!r}")
+    if not dist.is_initialized():
+        addr = os.environ.get("MASTER_ADDR", "localhost")
+        dist.init_process_group(backend, init_method=f"tcp://{addr}:{os.environ['MASTER_PORT']}",
+                                world_size=world, rank=rank)
+    names, sizes = ("data", "model"), (data, model)
+    devices = devices[:rank] + (mine,) + devices[rank + 1:]
+    return ProcessMesh(names, sizes, devices, rank=rank, groups=process_groups(names, sizes, rank))

@@ -14,8 +14,8 @@ search kernels, which compute in those types (``chip_smoke.py``'s bounds).
 buffer bytes: all-reduce counts twice (reduce-scatter then all-gather),
 the rest once.  The JAX package parses those bytes out of compiled HLO
 text; eager PyTorch produces no HLO, so the port has no such parser: a
-caller sums the buffers of its own ``torch.distributed`` calls (none yet:
-the multi-card step is ROADMAP item 11c).
+caller sums the buffers of its own ``torch.distributed`` calls (the
+sharded step's: ROADMAP item 11c.5, not yet counted).
 """
 
 from __future__ import annotations

@@ -19,9 +19,19 @@ Conventions:
     ``(replica, data)`` grid.
 
 The port's transformer parameters keep one tree per layer, so each layer
-spec is the reference's without its leading (n_layers,) entry.  Sharded
-execution over several devices is not ported: ``to_named_shardings``
-raises for a mesh of several distinct devices.
+spec is the reference's without its leading (n_layers,) entry.
+
+Sharded execution runs one process per rank on a ``ProcessMesh``
+(``repro_torch.launch.mesh.make_process_mesh``), for the LM train cells
+without ``opt`` (``lm_train_step``): parameters and moments stay in the
+spec's layout at rest, each rank takes its slice of the batch over
+``pod``/``data``, gathers the parameters whole to compute, and its
+gradients are averaged over the batch axes and reduce-scattered to each
+leaf's shard, which reproduces the reference's GSPMD numbers in its
+layout.  Compute is replicated over ``model`` (tensor-parallel compute is
+ROADMAP item 11c.2); an ``opt`` or ``moe_local`` cell (11c.3) and the GCN
+and RecSys cells (11c.4) refuse a ProcessMesh.  A mesh of several distinct
+devices in one process still refuses (``to_named_shardings``).
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.base import ArchSpec, ShapeSpec
@@ -38,16 +49,19 @@ from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.params import tree_leaves, tree_map, value_and_grad
 from repro_torch.sharding.rules import (
+    NamedSharding,
     PartitionSpec as P,
+    ProcessMesh,
     batch_spec,
     gcn_param_specs,
     kv_cache_specs,
     lm_param_specs,
     recsys_param_specs,
+    to_named_shardings,
 )
 from repro_torch.train.optimizer import AdamWConfig, apply_updates
 
-__all__ = ["CellPlan", "all_cells", "build_cell"]
+__all__ = ["CellPlan", "all_cells", "build_cell", "lm_train_step"]
 
 
 @dataclasses.dataclass
@@ -116,9 +130,59 @@ def _accumulated_grads(params, loss_of, microbatches):
     return grads, torch.mean(torch.stack(losses))
 
 
+def _process_refusal(mesh, what: str, item: str):
+    if isinstance(mesh, ProcessMesh):
+        raise NotImplementedError(f"{what} on a ProcessMesh is ROADMAP item {item}, not ported")
+
+
 # ===========================================================================
 # LM cells
 # ===========================================================================
+
+def lm_train_step(cfg, opt_cfg: AdamWConfig, mesh: Optional[ProcessMesh] = None, param_specs=None):
+    """The LM train cell's step ``(params, opt_state, tokens, labels) ->
+    (params, opt_state, {"loss", "grad_norm", "lr"})`` for tokens and labels
+    of shape (accum, B, S): microbatch gradients summed in the parameter
+    dtype and divided by ``accum``, then one AdamW update in place.
+
+    ``mesh``: a ``ProcessMesh``; ``param_specs``: the parameters' spec tree
+    (default ``lm_param_specs``), which the moments share.  Then params and
+    opt_state are this rank's shards, tokens and labels its
+    (accum, B / batch shards, S) slice, and per step the parameters are
+    all-gathered whole, each microbatch's loss takes the batch axes'
+    group (MoE capacity and statistics of the whole batch), gradients are
+    averaged over the batch axes and reduce-scattered to the shards, and
+    the loss is the batch's mean."""
+    loss_of = lambda p, mb: tf_mod.loss_fn(p, cfg, *mb)[0]  # noqa: E731
+    if mesh is None:
+        def step(params, opt_state, tokens, labels):
+            grads, loss = _accumulated_grads(params, loss_of, zip(tokens, labels))
+            params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state)
+            return params, opt_state, {"loss": loss, **om}
+
+        return step
+    if cfg.moe is not None and cfg.moe.dispatch == "local":
+        raise NotImplementedError("local MoE dispatch on a ProcessMesh is ROADMAP item 11c.3, not ported")
+    if param_specs is None:
+        param_specs = lm_param_specs(tf_mod.init_params_abstract(cfg), mesh, n_experts=_n_experts(cfg))
+    shardings = to_named_shardings(param_specs, mesh)
+    batch = _batch_axes(mesh)
+
+    def step(params, opt_state, tokens, labels):
+        group = mesh.group(batch) if batch else None
+        full = tree_map(lambda p, s: s.gather(p), params, shardings)
+        grads, loss = _accumulated_grads(
+            full, lambda p, mb: tf_mod.loss_fn(p, cfg, *mb, group=group)[0], zip(tokens, labels))
+        del full
+        grads = tree_map(lambda g, s: s.reduce_scatter(g, batch), grads, shardings)
+        if batch:
+            dist.all_reduce(loss, group=group)
+            loss = loss / mesh.axis_size(batch)
+        params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state, shardings)
+        return params, opt_state, {"loss": loss, **om}
+
+    return step
+
 
 def _lm_opt_cfg(cfg, mesh):
     """§Perf levers: chunked attention + chunked CE + local MoE dispatch."""
@@ -159,11 +223,11 @@ def _lm_train(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, accum_ov
     labels = _sds((accum, micro, S), torch.int32)
     dspec = P(None, _batch_axes(mesh), None)
 
-    def step(params, opt_state, tokens, labels):
-        grads, loss = _accumulated_grads(
-            params, lambda p, mb: tf_mod.loss_fn(p, cfg, *mb)[0], zip(tokens, labels))
-        params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state)
-        return params, opt_state, {"loss": loss, **om}
+    if isinstance(mesh, ProcessMesh) and opt:
+        raise NotImplementedError(
+            "an opt (moe_local) LM train cell on a ProcessMesh is ROADMAP item 11c.3, not ported; "
+            "run opt=False")
+    step = lm_train_step(cfg, opt_cfg, mesh if isinstance(mesh, ProcessMesh) else None, pspecs)
 
     return CellPlan(
         arch.arch_id, shape.name, "train", step,
@@ -261,6 +325,7 @@ def _train_step(opt_cfg, loss_of):
 
 
 def _gcn_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPlan:
+    _process_refusal(mesh, "a GCN cell", "11c.4")
     base: gcn_mod.GCNConfig = arch.model_cfg
     s = shape.sizes
     edge_axes = _batch_axes(mesh)
@@ -334,6 +399,7 @@ def _recsys_batch_abstract(cfg: rec_mod.RecsysConfig, B: int) -> dict:
 
 
 def _recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPlan:
+    _process_refusal(mesh, "a RecSys cell", "11c.4")
     cfg: rec_mod.RecsysConfig = arch.model_cfg
     init_fn, fwd_fn, loss_fn = rec_mod.get_model_fns(cfg)
     params_abs = init_fn(cfg, device="meta")
@@ -518,6 +584,7 @@ def build_cell(arch_id: str, shape_name: str, mesh, *, n_layers=None, accum_over
         if shape.kind == "train":
             return _lm_train(arch, shape, mesh, n_layers=n_layers, accum_override=accum_override, unroll=unroll,
                              opt=opt, opt_cfg=opt_cfg)
+        _process_refusal(mesh, f"an LM {shape.kind} cell", "11c.2")
         if shape.kind == "prefill":
             return _lm_prefill(arch, shape, mesh, n_layers=n_layers, unroll=unroll, opt=opt)
         if shape.kind == "decode":
@@ -527,6 +594,7 @@ def build_cell(arch_id: str, shape_name: str, mesh, *, n_layers=None, accum_over
     if arch.family == "recsys":
         return _recsys_cell(arch, shape, mesh, opt_cfg)
     if arch.family == "metricsearch":
+        _process_refusal(mesh, "the search serve cell", "11c.4")
         return _nsimplex_cell(arch, shape, mesh, opt=opt)
     raise KeyError((arch_id, shape_name))
 

@@ -17,6 +17,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
@@ -259,6 +260,15 @@ def swiglu_mlp(params, x):
     return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
 
 
+def _rank_offsets(totals: torch.Tensor, group) -> torch.Tensor:
+    """(1, E) per-expert token counts of the ranks of ``group`` before this
+    one, from this rank's (1, E) ``totals``."""
+    R = dist.get_world_size(group)
+    every = totals.new_empty((R * totals.shape[0],) + tuple(totals.shape[1:]))
+    dist.all_gather_into_tensor(every, totals.contiguous(), group=group)
+    return every.reshape((R,) + tuple(totals.shape))[: dist.get_rank(group)].sum(dim=0)
+
+
 # ---------------------------------------------------------------------------
 # MoE (top-k, capacity-based dispatch; GShard/Mixtral style)
 # ---------------------------------------------------------------------------
@@ -294,7 +304,7 @@ def moe_init(generator, d_model: int, cfg: MoEConfig, dtype=torch.float32, devic
     )
 
 
-def moe_ffn(params, x, cfg: MoEConfig):
+def moe_ffn(params, x, cfg: MoEConfig, group=None):
     """x: (T, D) -> (y: (T, D), aux: load-balance loss).
 
     Per expert the first C tokens (in token order, per shard) are kept;
@@ -311,15 +321,27 @@ def moe_ffn(params, x, cfg: MoEConfig):
     dispatch="local": tokens reshape to (S, T/S, D) with S = n_batch_shards
     and each shard has its own capacity (S falls back to 1 when it does not
     divide T).
+
+    ``group`` (a ``torch.distributed`` process group; global dispatch only):
+    x is this rank's slice of the batch's tokens, the slices of the group's
+    ranks in rank order, as a sharded train step runs it; the capacity is
+    the whole batch's, a token's slot counts the earlier ranks'
+    tokens of its expert (an all-gather of per-expert counts), and the
+    load-balance means are the batch's (an all-reduce that carries
+    gradients: its backward sums the ranks' gradients, which the step's
+    mean over ranks turns back into the batch's).
     """
     T, D = x.shape
+    if group is not None and cfg.dispatch == "local":
+        raise ValueError("moe_ffn: a batch group takes global dispatch only")
     S = cfg.n_batch_shards if cfg.dispatch == "local" else 1
     if T % S:
         S = 1
     Tl = T // S
     E, K = cfg.n_experts, cfg.top_k
-    C = max(4, int(Tl * K / E * cfg.capacity_factor))
-    C = min(C, Tl)
+    R = 1 if group is None else dist.get_world_size(group)
+    C = max(4, int(Tl * R * K / E * cfg.capacity_factor))
+    C = min(C, Tl * R)
 
     xs = x.reshape(S, Tl, D)
     logits = xs.to(torch.float32) @ params["w_router"]          # (S, Tl, E)
@@ -329,8 +351,16 @@ def moe_ffn(params, x, cfg: MoEConfig):
     gate_vals = gate_vals / torch.clamp_min(torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
 
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean(torch.sum(F.one_hot(gate_idx, E).to(torch.float32), dim=2), dim=(0, 1)) / K
+    if group is None:
+        me = torch.mean(probs, dim=(0, 1))
+        ce = torch.mean(torch.sum(F.one_hot(gate_idx, E).to(torch.float32), dim=2), dim=(0, 1)) / K
+    else:
+        import torch.distributed.nn.functional as dfn
+
+        me = dfn.all_reduce(torch.sum(probs, dim=(0, 1)), group=group) / (T * R)
+        ce = torch.sum(F.one_hot(gate_idx, E).to(torch.float32), dim=(0, 1, 2))
+        dist.all_reduce(ce, group=group)
+        ce = ce / (T * R) / K
     aux = E * torch.sum(me * ce)
 
     y = torch.zeros_like(xs)
@@ -341,6 +371,8 @@ def moe_ffn(params, x, cfg: MoEConfig):
         # each token's position among its expert's tokens, in token order
         counts = torch.cumsum(F.one_hot(e_idx, E), dim=1)                  # (S, Tl, E)
         pos = torch.gather(counts, 2, e_idx[..., None])[..., 0] - 1
+        if group is not None:
+            pos = pos + _rank_offsets(counts[:, -1], group)[0][e_idx]
         keep = pos < C
         expert_in = xs.new_zeros((S, E, C + 1, D))
         expert_in[s_i, e_idx, torch.clamp_max(pos, C)] = xs               # row C: dropped tokens

@@ -202,24 +202,25 @@ def _attend(layer_p, z, cfg: TransformerConfig, positions):
     return attention(layer_p["attn"], z, cfg.attn, positions)
 
 
-def _ffn(layer_p, z, cfg: TransformerConfig):
+def _ffn(layer_p, z, cfg: TransformerConfig, group=None):
     """The block's FFN on z (B, S, D): SwiGLU, or MoE (plus the dense
-    residual for Arctic) over the B·S tokens.  Returns (y, aux)."""
+    residual for Arctic) over the B·S tokens, with ``group`` as
+    ``moe_ffn``'s.  Returns (y, aux)."""
     if cfg.moe is None:
         return swiglu_mlp(layer_p["mlp"], z), torch.zeros((), dtype=torch.float32, device=z.device)
     B, S, D = z.shape
-    y, aux = moe_ffn(layer_p["moe"], z.reshape(B * S, D), cfg.moe)
+    y, aux = moe_ffn(layer_p["moe"], z.reshape(B * S, D), cfg.moe, group=group)
     y = y.reshape(B, S, D)
     if cfg.moe.dense_residual:
         y = y + swiglu_mlp(layer_p["mlp"], z)
     return y, aux
 
 
-def _block(layer_p, x, cfg: TransformerConfig, positions):
+def _block(layer_p, x, cfg: TransformerConfig, positions, group=None):
     """One layer: returns (x, aux, (k, v))."""
     h, kv = _attend(layer_p, rms_norm(x, layer_p["ln_attn"]), cfg, positions)
     x = x + h
-    y, aux = _ffn(layer_p, rms_norm(x, layer_p["ln_mlp"]), cfg)
+    y, aux = _ffn(layer_p, rms_norm(x, layer_p["ln_mlp"]), cfg, group)
     return x + y, aux, kv
 
 
@@ -227,8 +228,13 @@ def _remat(cfg: TransformerConfig) -> bool:
     return cfg.remat and torch.is_grad_enabled()
 
 
-def forward(params, cfg: TransformerConfig, tokens, positions=None):
-    """tokens: (B, S) integer -> hidden states (B, S, D) and total aux loss."""
+def forward(params, cfg: TransformerConfig, tokens, positions=None, group=None):
+    """tokens: (B, S) integer -> hidden states (B, S, D) and total aux loss.
+
+    ``group``: the process group of the batch axes when tokens are this
+    rank's slice of a batch split over its ranks (a sharded train step):
+    MoE layers then take the whole batch's capacity and statistics
+    (``moe_ffn``)."""
     x = params["embed"][tokens]
     if positions is None:
         B, S = tokens.shape
@@ -237,9 +243,10 @@ def forward(params, cfg: TransformerConfig, tokens, positions=None):
     remat = _remat(cfg)
     for layer_p in params["layers"]:
         if remat:
-            x, aux, _ = checkpoint(_block, layer_p, x, cfg, positions, use_reentrant=False, preserve_rng_state=False)
+            x, aux, _ = checkpoint(_block, layer_p, x, cfg, positions, group, use_reentrant=False,
+                                   preserve_rng_state=False)
         else:
-            x, aux, _ = _block(layer_p, x, cfg, positions)
+            x, aux, _ = _block(layer_p, x, cfg, positions, group)
         aux_total = aux_total + aux
     return rms_norm(x, params["ln_f"]), aux_total
 
@@ -277,9 +284,10 @@ def _chunked_ce(params, cfg: TransformerConfig, hidden, labels):
     return total / (B * S)
 
 
-def loss_fn(params, cfg: TransformerConfig, tokens, labels):
-    """The LM loss: (CE + aux_loss_weight · aux, parts)."""
-    hidden, aux = forward(params, cfg, tokens)
+def loss_fn(params, cfg: TransformerConfig, tokens, labels, group=None):
+    """The LM loss: (CE + aux_loss_weight · aux, parts); ``group`` as
+    ``forward``'s."""
+    hidden, aux = forward(params, cfg, tokens, group=group)
     if cfg.loss_impl == "chunked":
         loss = _chunked_ce(params, cfg, hidden, labels)
         return loss + cfg.aux_loss_weight * aux, {"ce": loss, "aux": aux}

@@ -37,7 +37,6 @@ from repro_torch.core.bounds import ACCEPT, EXCLUDE, RECHECK
 from repro_torch.core.simplex import apex_addition
 from repro_torch.device import on_device
 from repro_torch.kernels import (
-    MAX_SELECT_WIDTH,
     SENTINEL_ID,
     apex_bounds_batch,
     apex_bounds_threshold,
@@ -78,10 +77,8 @@ def _accepted(table, queries, t_hi, t_lo) -> torch.Tensor:
 def _sort_select(table, queries, t_hi, t_lo, width: int):
     """The full-argsort selection: K1 bounds in row tiles, codes and the
     histogram per tile, and a running stable sort of ``where(code !=
-    EXCLUDE, lwb, inf)`` that keeps the ``width`` smallest (key, row).
-    The reference's ``selection="sort"`` baseline, and the route of a
-    selection wider than K3 holds (``MAX_SELECT_WIDTH``), where the
-    reference's ``lax.top_k`` has no cap."""
+    EXCLUDE, lwb, inf)`` that keeps the ``width`` smallest (key, row):
+    the reference's ``selection="sort"`` baseline."""
     Q = queries.shape[0]
     dev = table.device
     hist = torch.zeros((Q, 3), dtype=torch.int64, device=dev)
@@ -131,12 +128,12 @@ def _local_filter(table, query, t_hi, t_lo, max_candidates: int, selection: str 
     selection width (every row fits) and pads back to K empty slots, so the
     gathered shape and the caller's overflow test are unchanged.
 
-    ``selection="topk"`` is K3 (the default); ``"sort"`` is the full-argsort
-    baseline (``_sort_select``), which a selection wider than K3's
-    ``MAX_SELECT_WIDTH`` also takes.
+    ``selection="topk"`` is K3 at any width (the default, as the
+    reference's ``lax.top_k``); ``"sort"`` is the full-argsort baseline
+    (``_sort_select``).
     """
     k_eff = min(int(max_candidates), table.shape[0])
-    if selection == "topk" and 0 < k_eff <= MAX_SELECT_WIDTH:
+    if selection == "topk" and k_eff > 0:
         hist, idx, code = _threshold_select(table, query, t_hi, t_lo, k_eff)
     else:
         hist, idx, code = _sort_select(table, query, t_hi, t_lo, k_eff)

@@ -28,26 +28,35 @@ stays unsharded; the port keeps one tree per layer, so each layer spec is
 the reference's without its first entry.
 
 ``to_named_shardings`` turns specs into placements.  One process holds a
-tensor on one device, so a placement puts a leaf whole on its mesh's
-device when the mesh has one distinct device (a card, or the CPU listed n
-times in the tests), and raises ``NotImplementedError`` where it would
-have to split or replicate a leaf over several distinct devices: that is
-the multi-device sharded train step, not yet ported.
+tensor on one device, so over a ``DeviceMesh`` a placement puts a leaf
+whole on its mesh's device when the mesh has one distinct device (a card,
+or the CPU listed n times in the tests), and raises
+``NotImplementedError`` where it would have to split or replicate a leaf
+over several distinct devices.  Over a ``ProcessMesh``
+(``repro_torch.launch.mesh.make_process_mesh``: one process per rank under
+``torch.distributed``) each rank holds its own slice: ``place`` cuts it
+from a whole leaf, ``gather`` rebuilds the leaf (all-gathers over the
+split axes) and ``reduce_scatter`` averages a whole gradient over the
+batch axes and leaves this rank its shard.  That is the layout the sharded
+train step keeps at rest (``repro_torch.launch.steps``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import itertools
+from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = [
     "DeviceGrid",
     "DeviceMesh",
     "NamedSharding",
     "PartitionSpec",
+    "ProcessMesh",
     "ShardLayout",
     "apex_table_specs",
     "batch_spec",
@@ -184,6 +193,74 @@ class DeviceMesh:
         n_rows = int(np.prod([self.shape[a] for a in rows]))
         grid = grid.transpose(order).reshape(-1, n_rows)
         return DeviceGrid(tuple(tuple(r) for r in grid), ("data",) if len(grid) == 1 else ("replica", "data"))
+
+
+@dataclass(frozen=True)
+class ProcessMesh(DeviceMesh):
+    """A ``DeviceMesh`` of processes: rank ``r`` of the default
+    ``torch.distributed`` group sits at the row-major coordinate
+    ``np.unravel_index(r, sizes)`` and computes on ``devices[r]``.  This
+    process is ``rank``; ``groups`` maps each non-empty set of axes (a tuple
+    in mesh order) to the process group of the ranks that share this rank's
+    coordinates on every other axis, ordered row-major over the set (group
+    rank = the chunk index over those axes).  Built by
+    ``repro_torch.launch.mesh.make_process_mesh``."""
+
+    rank: int = 0
+    groups: dict = field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def coords(self) -> tuple:
+        return tuple(int(c) for c in np.unravel_index(self.rank, self.sizes))
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        return self.devices[self.rank]
+
+    def _axes(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if any(a not in self.axis_names for a in axes):
+            raise ValueError(f"axes {axes} are not all in the mesh's {self.axis_names}")
+        ordered = tuple(a for a in self.axis_names if a in axes)
+        if ordered != axes:
+            raise NotImplementedError(f"axes {axes} out of the mesh's order {self.axis_names}")
+        return axes
+
+    def axis_size(self, axes) -> int:
+        return int(np.prod([self.shape[a] for a in self._axes(axes)], dtype=np.int64))
+
+    def axis_index(self, axes) -> int:
+        """This rank's chunk index over ``axes``: row-major over their
+        coordinates, as ``jax.sharding`` splits a dim over a tuple."""
+        axes = self._axes(axes)
+        c = dict(zip(self.axis_names, self.coords))
+        return int(np.ravel_multi_index([c[a] for a in axes], [self.shape[a] for a in axes])) if axes else 0
+
+    def group(self, axes):
+        """The process group of ``axes`` (see the class)."""
+        return self.groups[self._axes(axes)]
+
+
+def process_groups(axis_names: Sequence[str], sizes: Sequence[int], rank: int) -> dict:
+    """Every rank's call that builds the groups of ``ProcessMesh.groups``:
+    ``torch.distributed.new_group`` is collective, so each rank creates every
+    group of every axis set, in the same order, and keeps its own."""
+    names = tuple(axis_names)
+    grid = np.arange(int(np.prod(sizes))).reshape(tuple(sizes))
+    mine = np.unravel_index(rank, tuple(sizes))
+    out = {}
+    for r in range(1, len(names) + 1):
+        for axes in itertools.combinations(range(len(names)), r):
+            rest = [i for i in range(len(names)) if i not in axes]
+            moved = np.transpose(grid, rest + list(axes)).reshape(
+                [sizes[i] for i in rest] + [int(np.prod([sizes[i] for i in axes]))])
+            for other in itertools.product(*[range(sizes[i]) for i in rest]):
+                ranks = [int(x) for x in moved[other]]
+                g = dist.group.WORLD if len(ranks) == grid.size else dist.new_group(ranks)
+                if all(mine[i] == o for i, o in zip(rest, other)):
+                    out[tuple(names[i] for i in axes)] = g
+    return out
 
 
 def make_scaleout_mesh(layout: Optional[ShardLayout] = None,
@@ -368,28 +445,120 @@ def _split_size(mesh, spec: PartitionSpec) -> int:
     return n
 
 
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 @dataclass(frozen=True)
 class NamedSharding:
-    """A leaf's placement: ``spec`` over ``mesh``.  ``place(t)`` puts the
-    leaf whole on the mesh's one distinct device."""
+    """A leaf's placement: ``spec`` over ``mesh``.  Over a ``DeviceMesh``
+    ``place(t)`` puts the leaf whole on the mesh's one distinct device; over
+    a ``ProcessMesh`` it cuts this rank's shard (each split dim divided into
+    equal chunks, one per coordinate over its axes; replicated dims whole),
+    ``gather`` rebuilds the leaf from every rank's shard and
+    ``reduce_scatter`` turns a whole per-rank gradient into this rank's
+    shard of its mean over the batch axes."""
 
     mesh: DeviceMesh
     spec: PartitionSpec
 
     def __post_init__(self):
+        if isinstance(self.mesh, ProcessMesh):
+            return
         distinct = self.mesh.distinct_devices
         if len(distinct) > 1:
             how = "split" if _split_size(self.mesh, self.spec) > 1 else "replicated"
             raise NotImplementedError(
                 f"{self.spec} would be {how} over {len(distinct)} distinct devices; one process holds a "
-                "tensor on one device, and the multi-device sharded train step is not ported")
+                "tensor on one device: run one process per device on a ProcessMesh "
+                "(repro_torch.launch.mesh.make_process_mesh)")
 
     @property
     def device(self) -> torch.device:
+        if isinstance(self.mesh, ProcessMesh):
+            return self.mesh.device
         return self.mesh.distinct_devices[0]
 
+    @property
+    def replicas(self) -> int:
+        """Ranks that hold each element (the mesh's size over the split)."""
+        return int(np.prod(self.mesh.sizes)) // _split_size(self.mesh, self.spec)
+
+    def _split(self, t: torch.Tensor):
+        """(dim, axes) of each split dim of ``t``, checked to divide."""
+        if len(self.spec) > t.ndim:
+            raise ValueError(f"{self.spec} has more entries than a {t.ndim}-d leaf")
+        out = []
+        for d, entry in enumerate(self.spec):
+            axes = _entry_axes(entry)
+            if axes:
+                k = self.mesh.axis_size(axes)
+                if t.shape[d] % k:
+                    raise ValueError(f"dim {d} of a {tuple(t.shape)} leaf does not split into {k} over {axes}")
+                out.append((d, axes))
+        return out
+
     def place(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device)
+        if not isinstance(self.mesh, ProcessMesh):
+            return t.to(self.device)
+        t = t.to(self.device)
+        for d, axes in self._split(t):
+            per = t.shape[d] // self.mesh.axis_size(axes)
+            t = t.narrow(d, self.mesh.axis_index(axes) * per, per)
+        return t.contiguous()
+
+    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's ``shard`` (all-gathers over each
+        split dim's axes; a collective of the ranks of those groups)."""
+        if not isinstance(self.mesh, ProcessMesh):
+            return shard
+        for d, entry in enumerate(self.spec):
+            axes = _entry_axes(entry)
+            if not axes:
+                continue
+            k = self.mesh.axis_size(axes)
+            src = shard.movedim(d, 0).contiguous()
+            out = src.new_empty((k * src.shape[0],) + tuple(src.shape[1:]))
+            dist.all_gather_into_tensor(out, src, group=self.mesh.group(axes))
+            shard = out.movedim(0, d)
+        return shard.contiguous()
+
+    def reduce_scatter(self, full: torch.Tensor, mean_over: Sequence[str]) -> torch.Tensor:
+        """This rank's shard of the mean over the ranks of ``mean_over``
+        (the batch axes) of each rank's whole ``full`` gradient: dims split
+        over other axes are cut locally (their ranks hold the same batch),
+        dims split over batch axes are reduce-scattered over those axes, the
+        batch axes that split no dim are all-reduced."""
+        if not isinstance(self.mesh, ProcessMesh):
+            return full
+        over = tuple(a for a in self.mesh.axis_names if a in tuple(mean_over))
+        used = []
+        t = full
+        for d, axes in self._split(full):
+            if set(axes) <= set(over):
+                continue
+            if set(axes) & set(over):
+                raise NotImplementedError(f"{self.spec}: dim {d} mixes batch and other axes")
+            per = t.shape[d] // self.mesh.axis_size(axes)
+            t = t.narrow(d, self.mesh.axis_index(axes) * per, per)
+        t = t.contiguous()
+        for d, axes in self._split(full):
+            if not set(axes) <= set(over):
+                continue
+            k = self.mesh.axis_size(axes)
+            src = t.movedim(d, 0).contiguous()
+            out = src.new_empty((src.shape[0] // k,) + tuple(src.shape[1:]))
+            dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=self.mesh.group(axes))
+            t = out.movedim(0, d).contiguous()
+            used.extend(axes)
+        rest = tuple(a for a in over if a not in used)
+        if rest:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.mesh.group(rest))
+        if over:
+            t.div_(self.mesh.axis_size(over))
+        return t
 
 
 def to_named_shardings(spec_tree, mesh: DeviceMesh):

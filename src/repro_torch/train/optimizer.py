@@ -19,6 +19,13 @@ parameter and moment tensors under ``torch.no_grad()`` and returns the
 same trees with a new step counter.  It reads nothing back to the host:
 the clip factor, the learning rate and the bias corrections stay on the
 device.
+
+On shards (``shardings``: a tree of ``NamedSharding``s over a
+``ProcessMesh``, one per leaf) every elementwise step is the one-process
+step on this rank's slice; the two statistics that span a leaf are taken
+over the whole leaf: the clip's global norm counts each element once (a
+shard's sum of squares over its leaf's replica count, summed over every
+rank) and int8 compression scales by the leaf's global max.
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding.rules import NamedSharding, ProcessMesh
 
 __all__ = [
     "AdamWConfig",
@@ -86,17 +95,31 @@ def init_state(cfg: AdamWConfig, params) -> dict:
     return state
 
 
-def _global_norm(tree) -> torch.Tensor:
+def _shardings(shardings) -> list:
+    return tree_leaves(shardings, is_leaf=lambda x: isinstance(x, NamedSharding))
+
+
+def _sharded(shardings) -> bool:
+    return shardings is not None and any(isinstance(s.mesh, ProcessMesh) for s in _shardings(shardings))
+
+
+def _global_norm(tree, shardings=None) -> torch.Tensor:
     leaves = tree_leaves(tree)
-    return torch.sqrt(torch.sum(torch.stack([torch.sum(l.to(torch.float32) ** 2) for l in leaves])))
+    if not _sharded(shardings):
+        return torch.sqrt(torch.sum(torch.stack([torch.sum(l.to(torch.float32) ** 2) for l in leaves])))
+    total = torch.sum(torch.stack([torch.sum(l.to(torch.float32) ** 2) / s.replicas
+                                   for l, s in zip(leaves, _shardings(shardings))]))
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 # -- int8 gradient compression with error feedback ---------------------------
 
-def quantize_int8(x: torch.Tensor):
+def quantize_int8(x: torch.Tensor, amax: torch.Tensor = None):
     """(q int8, scale f32 0-dim): x ≈ q · scale, |q| <= 127; ``torch.round``
-    rounds half to even, as ``jnp.round`` does."""
-    amax = torch.clamp_min(torch.max(torch.abs(x)), 1e-12)
+    rounds half to even, as ``jnp.round`` does.  ``amax``: the max |x| to
+    scale by (a shard passes its whole leaf's); x's own by default."""
+    amax = torch.clamp_min(torch.max(torch.abs(x)) if amax is None else amax, 1e-12)
     scale = amax / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -106,11 +129,19 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def compress_tree(grads, ef):
-    """Returns (quantised tree of (q, scale), new error-feedback residual)."""
+def compress_tree(grads, ef, shardings=None):
+    """Returns (quantised tree of (q, scale), new error-feedback residual).
+    With ``shardings`` over a ``ProcessMesh`` the leaves are shards and each
+    scale is the whole leaf's (an all-reduce max over every rank)."""
+    sharded = _sharded(shardings)
+
     def one(g, e):
         x = g.to(torch.float32) + e.to(torch.float32)
-        q, s = quantize_int8(x)
+        amax = None
+        if sharded:
+            amax = torch.max(torch.abs(x))
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+        q, s = quantize_int8(x, amax)
         deq = dequantize_int8(q, s)
         return (q, s), (x - deq).to(e.dtype)
 
@@ -129,11 +160,12 @@ def decompress_tree(qtree):
 # -- update -------------------------------------------------------------------
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: dict):
+def apply_updates(cfg: AdamWConfig, params, grads, state: dict, shardings=None):
     """One AdamW step, in place.  Returns (params, new_state, metrics) with
     metrics ``{"grad_norm", "lr"}`` as device tensors (the norm before
-    clipping)."""
-    gnorm = _global_norm(grads)
+    clipping).  ``shardings``: the leaves' placements when params, grads
+    and moments are this rank's shards (the norm is then the whole tree's)."""
+    gnorm = _global_norm(grads, shardings)
     clip = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
     step = state["step"] + 1
     lr = lr_at(cfg, step)

@@ -34,7 +34,9 @@ from repro.metrics import get_metric as rget
 from repro_torch.api import Query, QueryOptions, build_index, load_index
 from repro_torch.index import NSimplexIndex
 from repro_torch.index import approx as tapprox
-from repro_torch.kernels import MAX_SELECT_WIDTH, apex_bounds_batch
+from repro_torch.index import nsimplex_index
+from repro_torch.kernels import apex_bounds_batch
+from repro_torch.kernels.ops import MAX_SELECT_WIDTH
 from repro_torch.launch.service import SearchService
 from repro_torch.metrics import get_metric
 
@@ -217,7 +219,8 @@ def test_k_zero_and_empty_mask(trio):
 
 @pytest.fixture(scope="module")
 def big():
-    """N > 4096, so a refine budget above K2's width takes the host route."""
+    """N > 4096, so a refine budget above 4096 is a K2 selection wider than
+    its shared-memory plans."""
     X = np.random.default_rng(11).normal(size=(4300 + 3, 12))
     data, queries = X[:4300], X[4300:]
     pivots = rselect(data, 8, seed=4)
@@ -227,16 +230,22 @@ def big():
 
 
 @pytest.mark.parametrize("masked", [False, True])
-def test_refine_wider_than_k2_takes_the_host_route(big, masked):
-    """m > MAX_SELECT_WIDTH: per-query K1 plus the same f32 (mid, id) host
-    selection; the candidate set, answers and ledger equal the reference's
-    K2 run, and each query counts as an overflow query."""
+def test_refine_wider_than_k2_takes_the_host_route(big, masked, monkeypatch):
+    """m > MAX_SELECT_WIDTH (the name is that of the route it once took):
+    one K2 call at that width, as the reference; the candidate set, answers
+    and ledger equal the reference's K2 run, and no query counts as an
+    overflow query (neither package has a host route here)."""
     port, ref, queries = big
     mask = (np.arange(4300) % 50 != 0) if masked else None
     refine = MAX_SELECT_WIDTH + 100
+    calls = []
+    for name in ("apex_bounds_topk", "apex_bounds_batch"):
+        fn = getattr(nsimplex_index, name)
+        monkeypatch.setattr(nsimplex_index, name, lambda *a, _n=name, _f=fn, **k: (calls.append(_n), _f(*a, **k))[1])
     before = port.overflow_queries
     got = port.knn_approx_batch(queries, K, dims=4, refine=refine, rowmask=mask)
-    assert port.overflow_queries - before == len(queries)
+    assert port.overflow_queries == before
+    assert calls == ["apex_bounds_topk"]
     want = ref.knn_approx_batch(queries, K, dims=4, refine=refine, rowmask=mask)
     apexes = port.query_apex_batch(queries, dims=4).numpy()
     wtol = 4 * EPS32 * (float(np.sqrt((port.table.numpy() ** 2).sum(axis=1).max()))

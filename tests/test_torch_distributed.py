@@ -147,8 +147,10 @@ def test_overflowing_histogram_is_completed_exactly(apexes):
 
 
 def test_wider_than_the_kernel_takes_k1_and_a_stable_sort(monkeypatch):
-    """``max_candidates`` past K3's 4,096 slots: K1 plus a stable sort, the
-    same slots as the reference's ``lax.top_k``; K3 is not called."""
+    """``max_candidates`` past 4,096 slots (the name is that of the route
+    it once took): K3 at that width, as the reference's ``lax.top_k`` has no
+    cap, and the same slots and histogram as the reference; the running
+    sort (``_sort_select``) is not called."""
     rng = np.random.default_rng(9)
     table = (rng.normal(size=(9000, 6)) * 0.3).astype(np.float32)
     table[:, -1] = np.abs(table[:, -1])
@@ -159,10 +161,15 @@ def test_wider_than_the_kernel_takes_k1_and_a_stable_sort(monkeypatch):
         jnp.asarray(table), jnp.asarray(queries), jnp.float32(t))]
 
     def refuse(*a, **k):
-        raise AssertionError("K3 called past its width")
+        raise AssertionError("the running sort called at selection='topk'")
 
-    monkeypatch.setattr(distributed, "apex_bounds_threshold", refuse)
+    widths = []
+    k3 = distributed.apex_bounds_threshold
+    monkeypatch.setattr(distributed, "_sort_select", refuse)
+    monkeypatch.setattr(distributed, "apex_bounds_threshold",
+                        lambda *a, **k: (widths.append(a[3]), k3(*a, **k))[1])
     got = _run(table, queries, t, [CPU], k=5000)
+    assert widths == [5000]
     assert ((got[1] >= 0).sum(2) > 4096).any()
     np.testing.assert_array_equal(got[0], want[0])
     for q in range(4):

@@ -389,28 +389,25 @@ def test_attributes_default_device_raises_without_a_card():
         build_index(_vectors(40), n_pivots=4, attributes=store)
 
 
-def test_masked_overflow_route_equals_reference():
-    """A masked exact k-NN batch wider than the selection kernels hold (k =
-    300: pass B's cap 16k = 4,800 > 4,096) takes the per-query K1 route on
-    every query; the row mask is applied before the k-th upper bound and
-    the candidate filter there, so a masked row never sets the radius.
-    Ids, distances and ``original_calls`` equal the reference's (whose
-    selection has no width cap); ``candidates`` may differ by a boundary
-    row, since the reference's interpret-mode bounds and the port's plain
-    bounds differ in the last f32 ulp (ROADMAP queue 3), so it is held
-    within 0.2%."""
+def _masked_knn_300(n_pivots, allowed_share):
+    """Port and reference exact k-NN at k = 300 over 5,000 colors rows under
+    a row mask allowing ``allowed_share`` of them: the number of queries each
+    package sends to its per-query route, and the answers held equal."""
     from repro.data import colors_like
 
     X = colors_like(n=5016, seed=41)
     data, qs = X[:5000], X[5000:]
-    mask = np.random.default_rng(3).random(5000) < 0.3
+    mask = np.random.default_rng(3).random(5000) < allowed_share
     with enable_x64(True):
-        ref = rbuild(data, "euclidean", n_pivots=8, seed=3, use_kernel=True)
-    port = build_index(data, "euclidean", n_pivots=8, seed=3, device="cpu")
+        ref = rbuild(data, "euclidean", n_pivots=n_pivots, seed=3, use_kernel=True)
+    port = build_index(data, "euclidean", n_pivots=n_pivots, seed=3, device="cpu")
     got = port._inner.knn_batch(qs, 300, rowmask=mask)
-    assert port._inner.overflow_queries == len(qs)
+    dense, one = [], ref._inner._knn_one
+    ref._inner._knn_one = lambda *a, **k: (dense.append(1), one(*a, **k))[1]
+    want = ref._inner.knn_batch(qs, 300, rowmask=mask)
+    assert port._inner.overflow_queries == len(dense)
     allowed = np.flatnonzero(mask)
-    for q, (gi, gd, gs), (wi, wd, ws) in zip(qs, got, ref._inner.knn_batch(qs, 300, rowmask=mask)):
+    for q, (gi, gd, gs), (wi, wd, ws) in zip(qs, got, want):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_allclose(gd, wd, rtol=1e-6, atol=1e-12)
         assert set(gi.tolist()) <= set(allowed.tolist())
@@ -418,6 +415,29 @@ def test_masked_overflow_route_equals_reference():
         assert abs(gs.candidates - ws.candidates) <= 0.002 * ws.candidates
         d = METRIC.one_to_many_np(q, data[allowed])
         np.testing.assert_array_equal(gi, allowed[np.lexsort((allowed, d))[:300]])
+    return len(dense), len(qs)
+
+
+def test_masked_overflow_route_equals_reference():
+    """A masked exact k-NN batch at k = 300 (pass B's cap 16k = 4,800, past
+    4,096): K3 runs at that cap, as the reference's, and exactly the queries
+    whose masked count exceeds it take the per-query K1 route (the name is
+    that of the route every query once took; here, 30% of the rows allowed,
+    none does); the row mask is applied before the k-th upper bound and the
+    candidate filter, so a masked row never sets the radius.  Ids,
+    distances and ``original_calls`` equal the reference's; ``candidates``
+    may differ by a boundary row, since the reference's interpret-mode
+    bounds and the port's plain bounds differ in the last f32 ulp (ROADMAP
+    queue 3), so it is held within 0.2%."""
+    _masked_knn_300(8, 0.3)
+
+
+def test_masked_overflow_route_past_the_cap():
+    """The same with 4 pivots and 98% of the rows allowed: some queries'
+    masked counts exceed 4,800 and take the per-query K1 route with the
+    mask, the others stay on K3's selection, in both packages alike."""
+    dense, n = _masked_knn_300(4, 0.98)
+    assert 0 < dense < n
 
 
 #: the chip smoke run's filtered phase: its planner stats (colors-1M, 20

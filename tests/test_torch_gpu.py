@@ -8,7 +8,8 @@ tests).  Run on a card with:
 
 Tolerances: rtol = atol = 2e-5 in float32, 1e-12 in float64 for K1 and K6
 (and K1's two launch plans bit-equal to each other); K2 and K3 must equal a
-selection over K1's own float32 matrices exactly;
+selection over K1's own matrices exactly, in f32 and f64 and on both sides
+of 4,096 (the global-memory plan above it);
 K4's plans bit-equal to its first design, and at 3e-4 in float32 (``tests/test_kernels.py::TestApexProject``) and K5 at
 1e-4 (``TestJsdPairwise``, here squared, before the final sqrt), both at
 1e-12 in float64.
@@ -324,12 +325,121 @@ def test_k3_plan_outside_its_budget_is_refused(cuda, k2_table):
         ops.apex_bounds_threshold(table, queries, thr, 4096, _plan=(17, 4))
 
 
-def test_wider_than_kernel_refused(cuda):
-    table, queries = _apexes(5000, 8, 1, torch.float32, cuda), _apexes(2, 8, 2, torch.float32, cuda)
-    with pytest.raises(ValueError, match="exceeds"):
-        ops.apex_bounds_topk(table, queries, ops.MAX_SELECT_WIDTH + 1, key="lwb")
-    with pytest.raises(TypeError):
-        ops.apex_bounds_topk(table.double(), queries.double(), 3, key="lwb")
+#: selection widths on both sides of MAX_SELECT_WIDTH (the shared-memory
+#: plans up to it, the global-memory plan above)
+WIDE_WIDTHS = [4096, 4097, 5000, 8192, 8193, 16384]
+#: f64 widths at every plan of the f64 key (16 bytes: half the f32 groups)
+F64_WIDTHS = [1, 10, 33, 257, 1025, 2049, 4096, 4097, 8193]
+
+
+@pytest.fixture(scope="module")
+def wide_tables():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with -m gpu")
+    return {dt: (_apexes(30_011, 20, 5, dt, "cuda"), _apexes(64, 20, 6, dt, "cuda"))
+            for dt in (torch.float32, torch.float64)}
+
+
+def _f64_or_wide_cases():
+    return [(torch.float64, w) for w in F64_WIDTHS] + [(torch.float32, w) for w in WIDE_WIDTHS]
+
+
+@pytest.mark.parametrize("dtype,k", _f64_or_wide_cases())
+@pytest.mark.parametrize("key", ["lwb", "upb", "mid"])
+@pytest.mark.parametrize("Q", [1, 19, 64])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dims", [None, 11])
+def test_k2_f64_and_wide_equal_selection_over_k1(cuda, wide_tables, dtype, k, key, Q, masked, dims):
+    """f64 tables at every plan and f32 selections wider than 4096 (the
+    global-memory plan): equal to the plain selection over K1's own matrices
+    (ids and bounds), with and without a rowmask, dims None and 11."""
+    table, queries = wide_tables[dtype][0], wide_tables[dtype][1][:Q]
+    mask = torch.rand(30_011, generator=torch.Generator().manual_seed(7)).lt(0.3).to(cuda) if masked else None
+    before = LAUNCHES["apex_topk"]
+    got = ops.apex_bounds_topk(table, queries, k, key=key, dims=dims, rowmask=mask)
+    assert LAUNCHES["apex_topk"] == before + 1
+    assert got[1].dtype == dtype and got[2].dtype == dtype
+    L, U = ops.apex_bounds_batch(table, queries, dims=dims)
+    for g, w in zip(got, ref.topk_from_bounds(L, U, k, key, mask)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,cap", _f64_or_wide_cases())
+@pytest.mark.parametrize("Q", [1, 19, 64])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dims", [None, 10])
+def test_k3_f64_and_wide_equal_selection_over_k1(cuda, wide_tables, dtype, cap, Q, masked, dims):
+    """K3 the same way, with exact counts and thresholds of every kind of
+    ``_k3_thresholds`` (in the table's dtype)."""
+    table, queries = wide_tables[dtype][0], wide_tables[dtype][1][:Q]
+    mask = torch.rand(30_011, generator=torch.Generator().manual_seed(3)).lt(0.6).to(cuda) if masked else None
+    L, U = ops.apex_bounds_batch(table, queries, dims=dims)
+    thr = _k3_thresholds(L, cap, Q + cap)
+    assert thr.dtype == dtype
+    before = LAUNCHES["apex_threshold"]
+    got = ops.apex_bounds_threshold(table, queries, thr, cap, dims=dims, rowmask=mask)
+    assert LAUNCHES["apex_threshold"] == before + 1
+    for g, w in zip(got, ref.threshold_from_bounds(L, U, thr, cap, mask)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("plan", [(1, 1), (2, 2), (3, 5), (8, 3)])
+@pytest.mark.parametrize("width", [4097, 6000])
+def test_wide_plan_compacts_inside_the_scan(cuda, dtype, plan, width):
+    """Forced wide plans of few slices over 200,003 rows: each slice has more
+    rows than its slot (2 wp keys), so the scan's own select runs, for K2's
+    upb key and for K3 at +inf and at a rank past the cap."""
+    table = _apexes(200_003, 20, 21, dtype, cuda)
+    queries = _apexes(8, 20, 22, dtype, cuda)
+    S = plan[1]
+    assert -(-200_003 // S) > 2 * (1 << (width - 1).bit_length())
+    L, U = ops.apex_bounds_batch(table, queries)
+    got = ops.apex_bounds_topk(table, queries, width, key="upb", _plan=plan)
+    for g, w in zip(got, ref.topk_from_bounds(L, U, width, "upb")):
+        assert torch.equal(g, w)
+    thr = torch.sort(L, dim=1).values[:, 3 * width]
+    thr[::2] = float("inf")
+    got = ops.apex_bounds_threshold(table, queries, thr, width, _plan=plan)
+    assert bool((got[3] > width).all())
+    for g, w in zip(got, ref.threshold_from_bounds(L, U, thr, width)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_plan_in_query_chunks(cuda, wide_tables, dtype, monkeypatch):
+    """A scratch budget of a few queries splits a 64-query call into chunks
+    (one count); the result is the one-chunk result."""
+    table, queries = wide_tables[dtype]
+    L, U = ops.apex_bounds_batch(table, queries)
+    thr = _k3_thresholds(L, 5000, 1)
+    whole = ops.apex_bounds_topk(table, queries, 5000, key="mid"), ops.apex_bounds_threshold(table, queries, thr, 5000)
+    _, S, _ = ops.wide_plan(5000, 64, table.shape[0], ops._sm_count(0), key_bytes=ops._KEY_BYTES[dtype])
+    monkeypatch.setattr(ops, "_WIDE_SCRATCH_BYTES", 5 * ops._wide_query_bytes(5000, table.shape[0], S,
+                                                                             ops._KEY_BYTES[dtype]))
+    assert ops.wide_plan(5000, 64, table.shape[0], ops._sm_count(0), key_bytes=ops._KEY_BYTES[dtype])[2] == 5
+    before = dict(LAUNCHES)
+    parts = ops.apex_bounds_topk(table, queries, 5000, key="mid"), ops.apex_bounds_threshold(table, queries, thr, 5000)
+    assert LAUNCHES["apex_topk"] == before["apex_topk"] + 1
+    assert LAUNCHES["apex_threshold"] == before["apex_threshold"] + 1
+    for a, b in zip(whole, parts):
+        for g, w in zip(a, b):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_selection_duplicate_keys_break_by_id_in_every_plan(cuda, dtype):
+    """Every row four times: equal keys leave the f64 and the wide plans by
+    id."""
+    table = _apexes(5003, 12, 11, dtype, cuda).repeat_interleave(4, dim=0).contiguous()
+    queries = _apexes(19, 12, 12, dtype, cuda)
+    L, U = ops.apex_bounds_batch(table, queries)
+    for k in (10, 257, 4097, 9000):
+        for g, w in zip(ops.apex_bounds_topk(table, queries, k, key="mid"), ref.topk_from_bounds(L, U, k, "mid")):
+            assert torch.equal(g, w)
+        thr = _k3_thresholds(L, k, 1)
+        for g, w in zip(ops.apex_bounds_threshold(table, queries, thr, k), ref.threshold_from_bounds(L, U, thr, k)):
+            assert torch.equal(g, w)
 
 
 def _fitted(n, seed, device):

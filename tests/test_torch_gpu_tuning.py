@@ -71,8 +71,9 @@ def test_cache_entry_reaches_the_wrappers(cuda, monkeypatch):
     tuning.reset_lookup_memo()
     seen = []
     real_topk, real_thr = ops.topk_plan, ops.threshold_plan
-    monkeypatch.setattr(ops, "topk_plan", lambda *a: (seen.append(("topk", a[-1])), real_topk(*a))[1])
-    monkeypatch.setattr(ops, "threshold_plan", lambda *a: (seen.append(("thr", a[-1])), real_thr(*a))[1])
+    # the config is the fifth argument; the key's bytes follow by keyword
+    monkeypatch.setattr(ops, "topk_plan", lambda *a, **k: (seen.append(("topk", a[4])), real_topk(*a, **k))[1])
+    monkeypatch.setattr(ops, "threshold_plan", lambda *a, **k: (seen.append(("thr", a[4])), real_thr(*a, **k))[1])
     L, U = ops.apex_bounds_batch(table, q)
     torch.testing.assert_close(L, ops.apex_bounds_batch(table, q, _plan="stream")[0], rtol=0, atol=0)
     got = ops.apex_bounds_topk(table, q, 10, key="upb")

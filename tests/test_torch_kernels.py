@@ -208,11 +208,18 @@ class TestFusedTopK:
             assert np.all(np.isinf(lwb_k[q, 4:])) and np.all(np.isinf(upb_k[q, 4:]))
 
     def test_f64_table_raises(self):
+        """An f64 table is answered in f64 (the reference works in the
+        table's dtype); it raises only beside f32 queries, as every kernel
+        raises on operands of two dtypes."""
         table = _t(_apexes(20, 6, seed=1, dtype=np.float64))
         with pytest.raises(TypeError):
-            ops.apex_bounds_topk(table, table[:2], 3, key="lwb")
+            ops.apex_bounds_topk(table, table[:2].float(), 3, key="lwb")
         with pytest.raises(TypeError):
-            ops.apex_bounds_threshold(table, table[:2], np.ones(2), 3)
+            ops.apex_bounds_threshold(table, table[:2].float(), np.ones(2), 3)
+        ids, lwb, _ = ops.apex_bounds_topk(table, table[:2], 3, key="lwb")
+        assert lwb.dtype == torch.float64 and ids[:, 0].tolist() == [0, 1]
+        _, lwb, _, counts = ops.apex_bounds_threshold(table, table[:2], np.ones(2), 3)
+        assert lwb.dtype == torch.float64 and counts.dtype == torch.int32
 
     def test_negative_zero_key_packs_smallest(self):
         keys = torch.tensor([[0.5, -0.0, 0.25]], dtype=torch.float32)
