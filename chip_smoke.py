@@ -143,7 +143,7 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 from the base's own mixture), 8 remove records of 128 ids
                 and 2 upsert records of 128, then a 64-query exact k-NN,
                 range and filtered (``shop_top``, the planner's choice)
-                batch, the last round also 8 1-D k-NN requests (euclidean 3
+                batch, the last round also 8 1-D k-NN requests (euclidean 2
                 rounds, JSD 1); one more add record, ``flush()`` and two
                 copies of the open directory: copy A reopened with
                 ``open_durable`` answers bit-equal to the live index (ids,
@@ -207,8 +207,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 refine=64``) and 8 timed 1-D exact k-NN requests; then
                 ``ExactSearchEngine`` over the first 112,682 rows (the
                 paper's colors size) with all five mechanisms, per
-                mechanism a 4-query range batch (query 0's 1e-3 distance
-                quantile), a 4-query k-NN batch and two 1-D requests of
+                mechanism an 8-query range batch (query 0's 1e-3 distance
+                quantile), an 8-query k-NN batch and two 1-D requests of
                 each, printing calls per query (the paper's Table 3), wall
                 ms per query (batched and 1-D) and build seconds.  After
                 the counts are read: the card's LAESA ``bounds_batch`` bit-equal
@@ -371,7 +371,26 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 test's reduced mixtral, 4 steps, held to the one-process
                 step on the card at 1e-5
                 (parameters, losses, gradient norms), shards gathering back
-                to their leaves, the loss falling; after the train phase;
+                to their leaves, the loss falling (its launcher in the
+                background, beside the rest of the phase); one start of two
+                gloo ranks on card 0 (``--device cuda``: all-gathers and
+                reduce-scatters staged through host memory, the printed
+                ``transport``) for three runs (``--then``): on (1, 2),
+                tensor-parallel over ``model``, qwen2-1.5b at full width
+                cut to 2 of 28 layers (f32), 4 train steps, a prefill at
+                B 2 x S 2,048 and 16 decode steps, and mixtral-8x7b at
+                full width cut to 1 of 32 layers (f32, 8 experts over
+                ``model``), 4 train steps; on (2, 1) the opt train cell of
+                the reference's reduced mixtral, each rank dispatching its
+                own tokens with per-shard capacity; the ranks' shards
+                written under ``build/tp_smoke/`` (removed) and held after
+                they exit to the one-process port (parameters 1e-5, or
+                1e-4 of each leaf's largest magnitude for the full-width
+                mixtral; logits and the cache 1e-4); each run's step,
+                prefill and decode ms, every rank's
+                ``max_memory_allocated`` and parameter bytes and the
+                collective bytes per decode step printed; after the train
+                phase;
 then the full run's seconds (and each phase's, ``phase_seconds``), the
 ``kernels`` line, the card's ``nvidia-smi`` line, and last the device
 contract line.  The run points the tuning cache
@@ -413,6 +432,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -429,11 +449,11 @@ Q, K, CAP = 64, 10, 4096
 #: the approximate phase's truncation and re-rank budget
 APPROX_DIMS, REFINE = 10, 64
 #: the mechanisms phase's engine: the paper's colors size (SISAP colors,
-#: 112,682 rows), 8 queries per task (16 until the tools and tune phases
-#: joined the run: the tree mechanisms' host path takes 0.3-1.5 s a query,
-#: and the full run must stay well inside its time limit), range at a 1e-3
-#: selectivity
-ENGINE_ROWS, ENGINE_Q, ENGINE_SELECTIVITY = 112_682, 8, 1e-3
+#: 112,682 rows), 8 queries per task and 2 1-D requests (16 queries until
+#: the tools and tune phases joined the run: the tree mechanisms' host path
+#: takes 0.3-1.5 s a query, and the full run must stay well inside its time
+#: limit), range at a 1e-3 selectivity
+ENGINE_ROWS, ENGINE_Q, ENGINE_1D, ENGINE_SELECTIVITY = 112_682, 8, 2, 1e-3
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 / f64
 #: FLOP/s outside the tensor cores and dense bf16 FLOP/s; bound in main()
 #: from their one home, ``repro_torch.launch.roofline``
@@ -1550,8 +1570,8 @@ def phase_engine(torch, search_mod, metrics_mod, ref, data_np, queries_np, metri
     """``ExactSearchEngine`` over the paper's colors size with all five
     mechanisms: per mechanism an ``ENGINE_Q``-query range batch at the 1e-3 selectivity
     of ``benchmarks/bench_batch_search.py`` (query 0's distance quantile),
-    a k-NN batch of as many and two 1-D requests of each, every answer held to
-    the brute force.  Prints the paper's Table 3 per mechanism: calls per
+    a k-NN batch of as many and ``ENGINE_1D`` 1-D requests of each, every
+    answer held to the brute force.  Prints the paper's Table 3 per mechanism: calls per
     query, wall ms per query and the build seconds."""
     data, qs = data_np[:ENGINE_ROWS], queries_np[:ENGINE_Q]
     eng, wall = timed(torch, lambda: search_mod.ExactSearchEngine(data, metric_name, n_pivots=N_PIVOTS,
@@ -1568,11 +1588,11 @@ def phase_engine(torch, search_mod, metrics_mod, ref, data_np, queries_np, metri
         for task in ("range", "knn"):
             if task == "range":
                 reps, wall = timed(torch, lambda: eng.search_batch(mech, qs, t))
-                singles, wall_1d = timed(torch, lambda: [eng.search(mech, q, t) for q in qs[:2]])
+                singles, wall_1d = timed(torch, lambda: [eng.search(mech, q, t) for q in qs[:ENGINE_1D]])
             else:
                 reps, wall = timed(torch, lambda: eng.knn_batch(mech, qs, K))
-                singles, wall_1d = timed(torch, lambda: [eng.knn(mech, q, K) for q in qs[:2]])
-            for q, rep in zip(list(qs) + list(qs[:2]), reps + singles):
+                singles, wall_1d = timed(torch, lambda: [eng.knn(mech, q, K) for q in qs[:ENGINE_1D]])
+            for q, rep in zip(list(qs) + list(qs[:ENGINE_1D]), reps + singles):
                 got = SimpleNamespace(ids=rep.results, distances=rep.distances)
                 if task == "range":
                     ids, d64 = brute.range(q, t)
@@ -1589,8 +1609,9 @@ def phase_engine(torch, search_mod, metrics_mod, ref, data_np, queries_np, metri
             )
         emit(phase="mechanisms", part="engine", metric=metric_name, mechanism=mech, threshold=t, k=K,
              queries=len(qs), build_s=eng.build_s[mech], **row)
-    emit(phase="mechanisms", part="engine", metric=metric_name, checked=f"{len(qs) + 2} range + {len(qs) + 2} k-NN "
-         "per mechanism", near_tie_differences=swaps)
+    n = len(qs) + ENGINE_1D
+    emit(phase="mechanisms", part="engine", metric=metric_name, checked=f"{n} range + {n} k-NN per mechanism",
+         near_tie_differences=swaps)
     return eng
 
 
@@ -2047,13 +2068,15 @@ def verify_online(torch, ref, metrics_mod, rec, phase="online"):
 
 #: the durable phase: colors-1M behind a WAL (``build_index(durable=True)``);
 #: per round 16 add records of 128 rows with attributes, 8 remove records of
-#: 128 ids and 2 upsert records of 128 rows, then the query batches
+#: 128 ids and 2 upsert records of 128 rows, then the query batches; 2
+#: euclidean rounds (3 until phase 13's tensor-parallel runs joined the run:
+#: a round and its share of the two crash copies' replay cost ~20 s)
 DURABLE_RECORD, DURABLE_ADDS, DURABLE_REMOVES, DURABLE_UPSERTS = 128, 16, 8, 2
-DURABLE_ROUNDS = {"euclidean": 3, "jensen_shannon": 1}
+DURABLE_ROUNDS = {"euclidean": 2, "jensen_shannon": 1}
 DURABLE_FSYNC_EVERY, DURABLE_DRIFT = 8, 0.25
 #: the most shifted rows the maintenance writes before drift_pending: the
 #: detector pools every row since the fit, so the rounds' rows dilute it
-#: (after the euclidean rounds' 7,040 rows, 20,000-30,000 shifted rows raise
+#: (after 3 euclidean rounds' 7,040 rows, 20,000-30,000 shifted rows raise
 #: the statistic past 0.25)
 DURABLE_SHIFTED = 65_536
 #: rows per add record of that shifted stream (128 until the select and
@@ -2249,7 +2272,7 @@ def phase_durable(ops, torch, api, filter_mod, store_mod, ref, metrics_mod, data
     and a reader thread while a shifted stream drives the drift detector to
     a refit, then an explicit ``compact()`` racing the reader); then a timed
     ``checkpoint()``, ``save()`` and ``load_index`` with equal answers.
-    Euclidean 3 rounds, jensen_shannon 1.  Returns what ``verify_online``
+    Euclidean 2 rounds, jensen_shannon 1.  Returns what ``verify_online``
     checks (each round's answers and the quiesced ones against an f64 brute
     force over the oracle's rows) and the kernel-row inputs."""
     from repro_torch.data import colors_like
@@ -4763,30 +4786,67 @@ SHARDED_TRAIN = [
     ("mixtral-8x7b", ["--d-model", "64", "--d-ff", "128", "--vocab", "512"]),
 ]
 SHARDED_TRAIN_TOL, SHARDED_TRAIN_TIMEOUT = 1e-5, 300
+#: two gloo ranks on the one card (staged collectives), one start for the
+#: runs (``--then``): (arch, (data, model), arguments, parameter
+#: tolerance).  On (1, 2), tensor-parallel over model: qwen2-1.5b at full
+#: width cut to 2 of 28 layers (f32), 4 train steps, a prefill at B 2 x S
+#: 2,048 and 16 decode steps; mixtral-8x7b at full width cut to 1 of 32
+#: layers (f32, 8 experts over model), 4 train steps, its parameters held
+#: within 1e-4 of each leaf's largest magnitude.  On (2, 1) the opt train
+#: cell (local dispatch: each rank its own tokens, per-shard capacity) of
+#: the reference's reduced mixtral: at full width a (2, 1) mesh gathers the
+#: whole 6.85 GB layer over data through host memory every step.  Each
+#: checked by the launcher after the ranks exit; logits within 1e-4.
+TP_RUNS = [
+    ("qwen2-1.5b", (1, 2), ["--n-layers", "2", "--dtype", "float32", "--mode", "train,decode", "--batch", "2",
+                            "--seq", "2048", "--decode-steps", "16"], ("max_param_diff", 1e-5)),
+    ("mixtral-8x7b", (1, 2), ["--n-layers", "1", "--dtype", "float32", "--batch", "4", "--seq", "256"],
+     ("max_param_rel_diff", 1e-4)),
+    ("mixtral-8x7b", (2, 1), ["--smoke", "--d-model", "64", "--d-ff", "128", "--vocab", "512", "--opt"],
+     ("max_param_diff", 1e-5)),
+]
+TP_LOSS_TOL, TP_LOGIT_TOL = 1e-5, 1e-4
 
 
-def phase_sharded_train(torch) -> list:
-    """Phase 13: ``python -m repro_torch.launch.process_train`` (one NCCL
-    rank per visible card, ``--check``) for each ``SHARDED_TRAIN`` config:
-    every rank exits 0, every leaf's shards gather back to it, the
-    parameters after 4 steps are the one-process step's within 1e-5, the
-    losses and gradient norms agree, int8 compression of shards equals the
-    whole tree's, and the loss falls."""
-    from repro_torch.launch import process_train
-
-    src = str(Path(__file__).resolve().parent / "src")
-    os.environ["PYTHONPATH"] = src + (os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else "")
+def start_sharded_train_world(torch) -> list:
+    """Phase 13's NCCL runs, each started in the background through the
+    launcher's command line (its own process, so that it overlaps the
+    tensor-parallel runs): one rank per visible card on a (cards, 1) mesh
+    for each ``SHARDED_TRAIN`` config.  Returns (arch, process) pairs."""
     cards = torch.cuda.device_count()
-    out = []
+    procs = []
     for arch, over in SHARDED_TRAIN:
         argv = ["--arch", arch, "--smoke", *over, "--data", str(cards), "--model", "1", "--backend", "nccl",
-                "--steps", "4", "--check"]
-        t0 = time.perf_counter()
-        results = process_train.spawn(cards, argv, SHARDED_TRAIN_TIMEOUT)
-        wall = time.perf_counter() - t0
-        for r, (rc, text) in enumerate(results):
-            check(rc == 0, f"sharded train rank {r} of {arch} exited {rc}:\n{text[-3000:]}")
-        rec = json.loads(results[0][1].strip().splitlines()[-1])
+                "--steps", "4", "--check", "--timeout", str(SHARDED_TRAIN_TIMEOUT)]
+        procs.append((arch, subprocess.Popen([sys.executable, "-m", "repro_torch.launch.process_train", *argv],
+                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                             start_new_session=True)))
+    return procs
+
+
+def stop_group(proc) -> None:
+    """Kills ``proc``'s process group (a launcher and the ranks it started)
+    if it is still running, and reaps it."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def finish_sharded_train_world(procs) -> list:
+    """Waits for ``start_sharded_train_world``'s launchers (stopping any
+    that outlive their limit) and holds each run: every rank exits 0, the
+    shards gather back, the parameters after 4 steps within 1e-5 of the
+    one-process step's, the losses and gradient norms agree, int8
+    compression of shards equals the whole tree's, the loss falls."""
+    out = []
+    for arch, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=SHARDED_TRAIN_TIMEOUT + 120)
+        finally:
+            stop_group(proc)
+        check(proc.returncode == 0, f"sharded train of {arch}: the launcher exited {proc.returncode}:\n"
+                                    f"{stderr[-4000:]}")
+        rec = json.loads(stdout.strip().splitlines()[-1])
         check(rec["shards_rebuild_leaves"], f"{arch}: shards do not gather back to their leaves")
         check(rec["max_param_diff"] <= SHARDED_TRAIN_TOL,
               f"{arch}: parameters differ from the one-process step by {rec['max_param_diff']}")
@@ -4796,9 +4856,78 @@ def phase_sharded_train(torch) -> list:
               f"{arch}: gradient norms differ from the one-process step")
         check(rec["compress_max_diff"] == 0.0, f"{arch}: int8 compression of shards differs")
         check(rec["losses"][-1] < rec["losses"][0], f"{arch}: the loss did not fall")
-        emit(phase="sharded_train", arch=arch, wall_s=wall, **rec)
+        emit(phase="sharded_train", arch=arch, **rec)
         out.append(rec)
     return out
+
+
+def sharded_train_tp(torch, process_train) -> list:
+    """Phase 13's runs on one card (``TP_RUNS``): two ranks on card 0
+    (``--backend gloo --device cuda``), started once; every rank exits 0,
+    its shards gather back to their leaves (a split leaf 1/2 of it), the
+    transport is the staged one, the parameters after 4 steps, the losses
+    and gradient norms, the prefill and every decode step's logits and the
+    cache agree with the one-process port on the card, and the opt cell
+    dispatched locally over the two batch shards."""
+    root = Path(__file__).resolve().parent / "build" / "tp_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = []
+    for i, (arch, (data, model), over, _) in enumerate(TP_RUNS):
+        argv += ([process_train.THEN] if i else []) + [
+            "--arch", arch, *over, "--data", str(data), "--model", str(model), "--backend", "gloo",
+            "--device", "cuda", "--steps", "4", "--check", "--out", str(root / str(i)),
+            "--timeout", str(SHARDED_TRAIN_TIMEOUT)]
+    fresh_peak(torch)
+    t0 = time.perf_counter()
+    rc, recs, bad = process_train.launch(argv)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    check(rc == 0, f"tensor-parallel runs: ranks failed: {bad}")
+    for (arch, mesh, over, (key, tol)), rec in zip(TP_RUNS, recs, strict=True):
+        what = f"{arch} {mesh} {' '.join(over)}"
+        check(rec["mesh"] == list(mesh), f"{what}: ran on {rec['mesh']}")
+        check(rec["shards_rebuild_leaves"], f"{what}: shards do not gather back to their leaves")
+        check(all("staged" in r["transport"] for r in rec["ranks"]), f"{what}: transport {rec['transport']}")
+        check(all(r["param_bytes"] < r["whole_param_bytes"] for r in rec["ranks"]),
+              f"{what}: a rank holds the whole model")
+        check(rec["losses"][-1] < rec["losses"][0], f"{what}: the loss did not fall")
+        check(bool(np.allclose(rec["losses"], rec["one_process_losses"], rtol=TP_LOSS_TOL)),
+              f"{what}: losses {rec['losses']} against {rec['one_process_losses']}")
+        check(bool(np.allclose(rec["grad_norms"], rec["one_process_grad_norms"], rtol=TP_LOSS_TOL)),
+              f"{what}: gradient norms {rec['grad_norms']} against {rec['one_process_grad_norms']}")
+        check(rec[key] <= tol, f"{what}: parameters differ by {rec[key]} ({key})")
+        check(rec["compress_max_diff"] == 0.0, f"{what}: int8 compression of shards differs")
+        if "--opt" in over:
+            check(rec["moe_dispatch"] == {"dispatch": "local", "n_batch_shards": mesh[0]},
+                  f"{what}: dispatch {rec['moe_dispatch']}")
+        if "prefill_ms" in rec:
+            check(rec["max_prefill_logit_diff"] <= TP_LOGIT_TOL, f"{what}: prefill logits differ")
+            check(max(rec["max_decode_logit_diff"]) <= TP_LOGIT_TOL, f"{what}: decode logits differ")
+            check(rec["max_cache_diff"] <= TP_LOGIT_TOL and rec["cache_pos_equal"]
+                  and rec["cache_is_its_spec_shard"], f"{what}: the cache differs")
+        emit(phase="sharded_train", arch=arch, mesh_shape=list(mesh), launch_wall_s=wall, **rec)
+    emit(phase="sharded_train", part="tp_launch", runs=len(recs), wall_s=wall,
+         chip_smoke_peak=torch.cuda.max_memory_allocated())
+    return recs
+
+
+def phase_sharded_train(torch) -> list:
+    """Phase 13: ``python -m repro_torch.launch.process_train`` with
+    ``--check``: the NCCL world (``start_sharded_train_world``) in the
+    background beside the runs of two ranks on one card
+    (``sharded_train_tp``)."""
+    from repro_torch.launch import process_train
+
+    src = str(Path(__file__).resolve().parent / "src")
+    os.environ["PYTHONPATH"] = src + (os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else "")
+    world = start_sharded_train_world(torch)
+    try:
+        tp = sharded_train_tp(torch, process_train)
+    except BaseException:
+        for _, proc in world:
+            stop_group(proc)
+        raise
+    return finish_sharded_train_world(world) + tp
 
 
 class Laps:

@@ -6,8 +6,8 @@ production meshes are abstract (they list the meta device): ``build_cell``
 and the sharding rules read only their axis names and sizes.
 ``make_host_mesh`` builds a small mesh over real devices, one process;
 ``make_process_mesh`` a mesh of processes, one per rank under
-``torch.distributed`` (gloo on the CPU, NCCL with one card per rank), which
-the sharded train step runs on.
+``torch.distributed`` (gloo on the CPU, NCCL with one card per rank, or
+gloo with several ranks on one card), which the sharded steps run on.
 """
 
 from __future__ import annotations
@@ -47,32 +47,51 @@ def make_host_mesh(data: int = 1, model: int = 1, devices: Optional[Sequence] = 
     return DeviceMesh(("data", "model"), (data, model), tuple(devs[:data * model]))
 
 
-def make_process_mesh(data: int = 1, model: int = 1, backend: Optional[str] = None) -> ProcessMesh:
+def make_process_mesh(data: int = 1, model: int = 1, backend: Optional[str] = None,
+                      device: Optional[str] = None) -> ProcessMesh:
     """This process's place on a ``(data, model)`` mesh of processes.
 
     Reads the torchrun-style environment: ``RANK``, ``WORLD_SIZE``,
     ``MASTER_ADDR`` (default ``localhost``), ``MASTER_PORT`` and, for a card
     per rank, ``LOCAL_RANK`` (default ``RANK``).  ``backend``: ``"gloo"``
     runs every rank on the CPU, ``"nccl"`` on card ``LOCAL_RANK`` (made the
-    current device); the default is NCCL when a card is visible.  Joins the
-    default process group (``tcp://MASTER_ADDR:MASTER_PORT``) unless this
-    process already has one, checks ``WORLD_SIZE == data * model``, and
-    builds every axis group (a collective: every rank calls this once, in
-    the same order as its other collectives)."""
+    current device; NCCL refuses two ranks on one card); the default is
+    NCCL when a card is visible.  ``backend="gloo", device="cuda"`` puts
+    several ranks on the visible cards (rank ``LOCAL_RANK`` on card
+    ``LOCAL_RANK`` modulo their count): every rank computes on its card, and
+    the all-gathers and reduce-scatters that gloo takes only for CPU
+    tensors are staged through host memory (``sharding.rules.staged``;
+    ``ProcessMesh.transport`` names the route).  Joins the default process
+    group (``tcp://MASTER_ADDR:MASTER_PORT``) unless this process already
+    has one, checks ``WORLD_SIZE == data * model``, and builds every axis
+    group (a collective: every rank calls this once, in the same order as
+    its other collectives)."""
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     if world != data * model:
         raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks; WORLD_SIZE is {world}")
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    local = int(os.environ.get("LOCAL_RANK", rank))
     if backend == "nccl":
-        local = int(os.environ.get("LOCAL_RANK", rank))
+        if device not in (None, "cuda"):
+            raise ValueError(f"nccl runs on the cards; got device={device!r}")
+        if world > torch.cuda.device_count():
+            raise ValueError(f"nccl takes one card per rank: {world} ranks, {torch.cuda.device_count()} cards; "
+                             "pass backend='gloo', device='cuda' for several ranks on one card")
         torch.cuda.set_device(local)
         mine = torch.device("cuda", local)
-        devices = tuple(torch.device("cuda", r % max(torch.cuda.device_count(), 1)) for r in range(world))
-    elif backend == "gloo":
+        devices = tuple(torch.device("cuda", r) for r in range(world))
+    elif backend == "gloo" and device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' needs a card; no CUDA device is visible")
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(local % cards)
+        mine = torch.device("cuda", local % cards)
+        devices = tuple(torch.device("cuda", r % cards) for r in range(world))
+    elif backend == "gloo" and device in (None, "cpu"):
         mine = torch.device("cpu")
         devices = (mine,) * world
     else:
-        raise ValueError(f"backend must be gloo or nccl; got {backend!r}")
+        raise ValueError(f"backend must be gloo or nccl, device cpu or cuda; got {backend!r}, {device!r}")
     if not dist.is_initialized():
         addr = os.environ.get("MASTER_ADDR", "localhost")
         dist.init_process_group(backend, init_method=f"tcp://{addr}:{os.environ['MASTER_PORT']}",

@@ -1,47 +1,87 @@
-"""The LM train step over a mesh of processes, one per rank.
+"""The LM train, prefill and decode steps over a mesh of processes, one per rank.
 
     PYTHONPATH=src python -m repro_torch.launch.process_train --arch mixtral-8x7b --smoke \\
         --d-model 64 --d-ff 128 --vocab 512 --data 2 --model 2 --backend gloo --steps 4 --check
+    PYTHONPATH=src python -m repro_torch.launch.process_train --arch qwen2-1.5b --smoke \\
+        --data 1 --model 4 --backend gloo --mode train,decode --check \\
+        --then --arch mixtral-8x7b --smoke --data 2 --model 2 --backend gloo --opt --check
 
 Run without ``RANK`` in the environment, the command is the launcher: it
 starts ``--data`` x ``--model`` copies of itself with torchrun's variables
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR=localhost``, a
 free ``MASTER_PORT``), waits for them within ``--timeout`` seconds (and
-stops every one on a failure or the timeout), and prints rank 0's JSON
-line.  Each rank joins the process mesh (``make_process_mesh``: gloo on
-the CPU, NCCL with one card per rank), builds the same parameters from
-seed 0, keeps its shards under the reference's ``lm_param_specs`` (every
-leaf's shards gathered back must equal the leaf), takes its slice of a
-``token_stream`` batch of 8 x 32 tokens and runs ``--steps`` steps of
-``steps.lm_train_step`` with AdamW (lr 1e-3 and, by default, f32
-moments, as the reference's sharded test; ``--moment-dtype bfloat16``
-for bf16).  ``--check``: rank 0 then runs the one-process step on the
-same parameters and batch on its own device and reports the largest
-parameter difference, both losses and both gradient norms, and the
-largest difference of int8 compression of a random tree on shards
-against the whole tree's.  ``--out DIR``: rank 0 writes
-``DIR/result.npz`` (the losses and every parameter after the last step,
-gathered whole, under its path).
+stops every one on a failure or the timeout), and prints one JSON line
+per run: rank 0's record with every rank's own figures under ``"ranks"``.
+``--then`` separates runs that one start of the ranks takes in turn (each
+with its own arguments and mesh, of one world size, backend and device;
+the launch's limit is the sum of their ``--timeout``).
+
+Each rank joins the process mesh (``make_process_mesh``: gloo on the CPU,
+NCCL with one card per rank, or ``--backend gloo --device cuda`` for
+several ranks on one card, whose all-gathers and reduce-scatters are
+staged through host memory; ``transport`` names the route), builds the
+whole parameters from seed 0 on its device, keeps its shards under the
+reference's specs (every leaf's shards gathered back must equal the leaf,
+and a split leaf holds 1 / its split of it) and, for each ``--mode``:
+
+* ``train``: takes its slice of a ``token_stream`` batch of ``--batch`` x
+  ``--seq`` tokens and runs ``--steps`` steps of ``steps.lm_train_step``
+  (tensor-parallel over ``model``) with AdamW (lr 1e-3 and, by default,
+  f32 moments, as the reference's sharded test; ``--moment-dtype
+  bfloat16`` for bf16);
+* ``prefill``: ``steps.lm_prefill_step`` on its slice of the batch's first
+  ``--seq`` tokens: logits whole, the cache its ``kv_cache_specs`` shard;
+* ``decode``: the prefill, then ``--decode-steps`` steps of
+  ``steps.lm_decode_step`` fed the batch's next tokens.
+
+``--opt``: the cells' §Perf levers (``steps.lm_cell_cfg``: chunked
+attention and CE, local MoE dispatch with per-shard capacity, expert
+weights replicated over ``data`` under ``moe_local`` while their moments
+stay sharded).  ``--smoke`` takes the arch's reduced config; without it
+the full config, ``--n-layers`` its one cut in depth; ``--d-model``,
+``--d-ff``, ``--d-head``, ``--vocab``, ``--n-experts`` and ``--dtype``
+replace fields.
+
+``--out DIR``: each rank writes ``DIR/rank{r}.pt`` and exits: its
+parameter shards after the last step by path (``"train"``), and the
+prefill and decode logits whole with its cache shard (``"serve"``).
+``--check``: the launcher then runs the one-process port on the same
+parameters and tokens on the ranks' kind of device and compares shard by
+shard (the largest differences of the parameters, the prefill and every
+decode step's logits and the cache, beside both losses and gradient
+norms); each rank also compresses a random tree to int8 on its shards,
+and the record gives the largest difference from the whole tree's
+compression cut to the shards.  Without ``--out`` the
+check's files go to a temporary directory, removed after it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
+import importlib
 import json
 import os
 import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-__all__ = ["main", "spawn"]
+__all__ = ["launch", "main", "spawn"]
 
-#: the batch (sequences x tokens) and the seed of the parameters and tokens
+#: separates the runs of one launch
+THEN = "--then"
+
+#: the default batch (sequences x tokens) and the seed of the parameters and tokens
 BATCH, SEQ, SEED = 8, 32, 0
+MODES = ("train", "prefill", "decode")
 
 
 def _free_port() -> int:
@@ -79,120 +119,504 @@ def _config(args):
 
     arch = get_arch(args.arch)
     if arch.family != "lm":
-        raise SystemExit(f"--arch {args.arch}: the sharded step trains LM archs (GCN and RecSys: ROADMAP item 11c.4)")
+        raise SystemExit(f"--arch {args.arch}: the sharded steps run LM archs (GCN and RecSys: ROADMAP item 11c.4)")
     cfg = arch.smoke_cfg if args.smoke else arch.model_cfg
-    over = {k: v for k, v in (("d_model", args.d_model), ("d_ff", args.d_ff), ("vocab", args.vocab))
+    over = {k: v for k, v in (("d_model", args.d_model), ("d_ff", args.d_ff), ("vocab", args.vocab),
+                              ("d_head", args.d_head), ("n_layers", args.n_layers), ("dtype", args.dtype))
             if v is not None}
+    if args.n_experts is not None:
+        if cfg.moe is None:
+            raise SystemExit(f"--n-experts: {args.arch} has no MoE layers")
+        over["moe"] = dataclasses.replace(cfg.moe, n_experts=args.n_experts)
     return dataclasses.replace(cfg, **over)
 
 
-def _run_rank(args) -> None:
-    import torch.distributed as dist
+def _modes(text: str) -> tuple:
+    modes = tuple(m for m in text.split(",") if m)
+    if not modes or any(m not in MODES for m in modes):
+        raise SystemExit(f"--mode takes a comma-separated subset of {MODES}; got {text!r}")
+    return modes
 
-    from repro_torch.data.synthetic import token_stream
-    from repro_torch.launch.mesh import make_process_mesh
-    from repro_torch.launch.steps import lm_train_step
-    from repro_torch.models import transformer as tf
-    from repro_torch.models.params import tree_flatten, tree_leaves, tree_map
-    from repro_torch.sharding.rules import NamedSharding, PartitionSpec, lm_param_specs, to_named_shardings
-    from repro_torch.train import AdamWConfig, init_state
-    from repro_torch.train.optimizer import compress_tree, decompress_tree
 
-    mesh = make_process_mesh(args.data, args.model, args.backend)
-    dev = mesh.device
-    if dev.type == "cpu":   # the ranks share the host's cores (and a test run's other workers)
+def _device(args) -> torch.device:
+    """The device of the one-process port: the ranks' kind."""
+    if args.device == "cuda" or args.backend == "nccl" or (args.backend is None and torch.cuda.is_available()):
+        return torch.device("cuda", 0)
+    return torch.device("cpu")
+
+
+@contextlib.contextmanager
+def _exact_math(dev: torch.device):
+    """f32 matmuls without TF32 and, on the CPU, one thread (the ranks
+    share the host's cores, and a test run's other workers); the settings
+    are restored on exit."""
+    saved = torch.get_num_threads(), torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    if dev.type == "cpu":
         torch.set_num_threads(1)
     torch.set_float32_matmul_precision("highest")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _config(args)
-    params = tf.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    pspecs = lm_param_specs(params, mesh, n_experts=cfg.moe.n_experts if cfg.moe else None)
-    shd = to_named_shardings(pspecs, mesh)
-    shards = tree_map(lambda p, s: s.place(p), params, shd)
-    rebuilt = all(torch.equal(s.gather(sh).cpu(), p) for p, s, sh in zip(
-        tree_leaves(params), tree_leaves(shd, is_leaf=lambda x: isinstance(x, NamedSharding)), tree_leaves(shards)))
-    opt_cfg = AdamWConfig(moment_dtype=args.moment_dtype, lr=1e-3)
-    opt = init_state(opt_cfg, shards)
-    toks, labs = token_stream(BATCH, SEQ, cfg.vocab, seed=SEED)
-    batch = NamedSharding(mesh, PartitionSpec(None, ("data",), None))
-    tokens = batch.place(torch.as_tensor(toks)[None])
-    labels = batch.place(torch.as_tensor(labs)[None])
-    step = lm_train_step(cfg, opt_cfg, mesh, pspecs)
-    losses, norms, seconds = [], [], []
-    for _ in range(args.steps):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved[0])
+        torch.set_float32_matmul_precision(saved[1])
+        torch.backends.cuda.matmul.allow_tf32 = saved[2]
+
+
+def _whole(cfg, dev):
+    """The whole parameters from the seed, drawn on ``dev``."""
+    from repro_torch.models import transformer as tf
+
+    return tf.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
+
+def _tokens(args, cfg, extra: int = 0):
+    from repro_torch.data.synthetic import token_stream
+
+    toks, labs = token_stream(args.batch, args.seq + extra, cfg.vocab, seed=SEED)
+    return torch.as_tensor(toks), torch.as_tensor(labs)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _paths(tree, cls=None) -> dict:
+    from repro_torch.models.params import tree_flatten
+
+    paths, leaves = tree_flatten(tree, is_leaf=None if cls is None else (lambda x: isinstance(x, cls)))
+    return {"/".join(map(str, p)): l for p, l in zip(paths, leaves)}
+
+
+def _leaves(tree, cls=None):
+    from repro_torch.models.params import tree_leaves
+
+    return tree_leaves(tree) if cls is None else tree_leaves(tree, is_leaf=lambda x: isinstance(x, cls))
+
+
+def _diff(pairs) -> tuple:
+    """(largest |a - b|, largest |a - b| over max |b| of its leaf) over
+    (got, want) pairs of tensors."""
+    ab, rel = 0.0, 0.0
+    for a, b in pairs:
+        if b.numel() == 0:
+            continue
+        d = float((a.detach().to(b.device, torch.float64) - b.detach().double()).abs().max())
+        ab, rel = max(ab, d), max(rel, d / max(float(b.detach().abs().max()), 1e-30))
+    return ab, rel
+
+
+class _Rank:
+    """One rank's run of the modes, with what the checks need."""
+
+    def __init__(self, args, mesh, cfg):
+        self.args, self.mesh, self.cfg, self.dev = args, mesh, cfg, mesh.device
+        self.batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        shards = int(np.prod([mesh.shape[a] for a in self.batch_axes]))
+        self.split = args.batch % shards == 0 and args.batch >= shards
+        self.rec = {"rank": mesh.rank, "coords": list(mesh.coords), "device": str(self.dev),
+                    "transport": mesh.transport}
+        self.saved, self.rebuilt = {}, set()
+
+    def _place(self, cfg, specs):
+        """This rank's shards of the seeded parameters and their shardings;
+        records whether every leaf's shards gather back to it, a split leaf
+        holding 1 / its split of it."""
+        from repro_torch.models.params import tree_map
+        from repro_torch.sharding.rules import NamedSharding, to_named_shardings
+
         t0 = time.perf_counter()
-        shards, opt, m = step(shards, opt, tokens, labels)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-        seconds.append(time.perf_counter() - t0)
-    whole = tree_map(lambda p, s: s.gather(p), shards, shd)
-    if args.check:
-        # int8 compression of a tree of shards scales by each whole leaf
-        noise = tree_map(lambda p: torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())), params)
-        q, _ = compress_tree(tree_map(lambda t, s: s.place(t), noise, shd),
-                             tree_map(lambda t, s: s.place(torch.zeros_like(t)), noise, shd), shd)
-        deq = tree_map(lambda t, s: s.gather(t), decompress_tree(q), shd)
-    if mesh.rank != 0:
-        dist.destroy_process_group()
-        return
-    paths, leaves = tree_flatten(whole)
-    out = {"world": int(np.prod(mesh.sizes)), "mesh": list(mesh.sizes), "backend": args.backend or "default",
-           "device": str(dev), "losses": losses, "grad_norms": norms, "step_seconds": seconds,
-           "shards_rebuild_leaves": bool(rebuilt)}
-    if args.check:
-        whole_noise = tree_map(lambda t: t.to(dev), noise)       # the same device as the shards
-        q1, _ = compress_tree(whole_noise, tree_map(torch.zeros_like, whole_noise))
-        out["compress_max_diff"] = max(float((a - b).abs().max()) for a, b in zip(
-            tree_leaves(deq), tree_leaves(decompress_tree(q1))))
-        ref = tf.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-        ref = tree_map(lambda p: p.to(dev), ref)
-        ref_opt = init_state(opt_cfg, ref)
-        one = lm_train_step(cfg, opt_cfg)
-        ref_losses, ref_norms = [], []
+        shd = to_named_shardings(specs, self.mesh)
+        whole = _whole(cfg, self.dev)
+        shards = tree_map(lambda p, s: s.place(p), whole, shd)
+        layout = tuple(s.spec for s in _leaves(shd, NamedSharding))
+        if layout not in self.rebuilt:      # a layout's gathers are checked once
+            world = int(np.prod(self.mesh.sizes))
+            ok = all(torch.equal(s.gather(sh), p) and sh.numel() * (world // s.replicas) == p.numel()
+                     for p, s, sh in zip(_leaves(whole), _leaves(shd, NamedSharding), _leaves(shards)))
+            self.rec["shards_rebuild_leaves"] = self.rec.get("shards_rebuild_leaves", True) and ok
+            self.rebuilt.add(layout)
+        self.rec["place_s"] = self.rec.get("place_s", 0.0) + time.perf_counter() - t0
+        return shards, shd
+
+    def _bytes(self, shards, cfg) -> None:
+        """This rank's parameter bytes beside the whole model's, in the
+        first mode's layout (train's under ``moe_local``)."""
+        from repro_torch.models import transformer as tf
+
+        self.rec.setdefault("param_bytes", sum(t.numel() * t.element_size() for t in _leaves(shards)))
+        self.rec.setdefault("whole_param_bytes", sum(t.numel() * t.element_size()
+                                                     for t in _leaves(tf.init_params_abstract(cfg))))
+
+    def _batch(self, dims: int):
+        """The sharding of a batch-leading tensor: over the batch axes, or
+        whole where the batch does not split."""
+        from repro_torch.sharding.rules import NamedSharding, PartitionSpec
+
+        return NamedSharding(self.mesh, PartitionSpec(self.batch_axes if self.split else None, *([None] * dims)))
+
+    def train(self):
+        from repro_torch.launch import steps
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.params import tree_map
+        from repro_torch.sharding.rules import NamedSharding, PartitionSpec, to_named_shardings
+        from repro_torch.train import AdamWConfig, init_state
+
+        args, mesh = self.args, self.mesh
+        if not self.split:
+            raise SystemExit(f"--batch {args.batch} must split over the batch axes to train")
+        cfg = steps.lm_cell_cfg(self.cfg, "train", mesh, opt=args.opt)
+        if cfg.moe is not None:
+            self.rec["moe_dispatch"] = {"dispatch": cfg.moe.dispatch, "n_batch_shards": cfg.moe.n_batch_shards}
+        pspecs, mspecs = steps.lm_step_specs(cfg, mesh)
+        shards, shd = self._place(cfg, pspecs)
+        self._bytes(shards, cfg)
+        # the moments' shards (ZeRO over data even under moe_local): zeros of their shapes
+        shapes = tree_map(lambda p, s: torch.empty(s.cut(p).shape, dtype=p.dtype, device=self.dev),
+                          tf.init_params_abstract(cfg), to_named_shardings(mspecs, mesh))
+        opt_cfg = AdamWConfig(moment_dtype=args.moment_dtype, lr=1e-3)
+        opt = init_state(opt_cfg, shapes)
+        del shapes
+        toks, labs = _tokens(args, cfg)
+        batch = NamedSharding(mesh, PartitionSpec(None, self.batch_axes, None))
+        tokens, labels = batch.place(toks[None].to(self.dev)), batch.place(labs[None].to(self.dev))
+        step = steps.lm_train_step(cfg, opt_cfg, mesh, pspecs, mspecs)
+        losses, norms, ms = [], [], []
         for _ in range(args.steps):
-            ref, ref_opt, m = one(ref, ref_opt, torch.as_tensor(toks)[None].to(dev), torch.as_tensor(labs)[None].to(dev))
-            ref_losses.append(float(m["loss"]))
-            ref_norms.append(float(m["grad_norm"]))
-        out["one_process_losses"] = ref_losses
-        out["one_process_grad_norms"] = ref_norms
-        out["max_param_diff"] = max(float((a - b).abs().max()) for a, b in zip(leaves, tree_leaves(ref)))
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        np.savez(os.path.join(args.out, "result.npz"), losses=np.asarray(losses),
-                 **{"param/" + "/".join(map(str, p)): l.detach().cpu().numpy() for p, l in zip(paths, leaves)})
-    print(json.dumps(out), flush=True)
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            shards, opt, m = step(shards, opt, tokens, labels)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        self.rec.update(losses=losses, grad_norms=norms, step_ms=ms)
+        if args.out:
+            self.saved["train"] = {k: v.detach().cpu() for k, v in _paths(shards).items()}
+        if args.check:
+            self.rec["compress_max_diff"] = self._compress(cfg, shd)
+
+    def _compress(self, cfg, shd) -> float:
+        """int8 compression of a random tree on shards against the whole
+        tree's cut to this rank's shards, leaf by leaf (a collective: each
+        scale is the whole leaf's)."""
+        from repro_torch.models import transformer as tf
+        from repro_torch.sharding.rules import NamedSharding
+        from repro_torch.train.optimizer import compress_tree, decompress_tree
+
+        worst = 0.0
+        for p, s in zip(_leaves(tf.init_params_abstract(cfg)), _leaves(shd, NamedSharding)):
+            noise = torch.randn(p.shape, generator=torch.Generator(device=self.dev).manual_seed(p.numel()),
+                                device=self.dev)
+            mine = s.place(noise)
+            q, _ = compress_tree({"x": mine}, {"x": torch.zeros_like(mine)}, {"x": s})
+            whole, _ = compress_tree({"x": noise}, {"x": torch.zeros_like(noise)})
+            worst = max(worst, float((decompress_tree(q)["x"] - s.cut(decompress_tree(whole)["x"])).abs().max()))
+        return worst
+
+    def serve(self, modes):
+        from repro_torch.launch import steps
+        from repro_torch.models import transformer as tf
+        from repro_torch.sharding.rules import kv_cache_specs, lm_param_specs, to_named_shardings
+
+        args, mesh, B, S = self.args, self.mesh, self.args.batch, self.args.seq
+        n_dec = args.decode_steps if "decode" in modes else 0
+        cfg = steps.lm_cell_cfg(self.cfg, "prefill", mesh, opt=args.opt, batch=B, seq=S)
+        n_exp = cfg.moe.n_experts if cfg.moe else None
+        pspecs = lm_param_specs(tf.init_params_abstract(cfg), mesh, n_experts=n_exp)
+        shards, _ = self._place(cfg, pspecs)
+        self._bytes(shards, cfg)
+        toks = self._batch(1).place(_tokens(args, cfg, n_dec)[0])
+        prefill = steps.lm_prefill_step(cfg, mesh, B, pspecs)
+        _sync(self.dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(shards, toks[:, :S])
+        _sync(self.dev)
+        self.rec["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        out = {"prefill_logits": self._batch(1).gather(logits).cpu()}
+        dcfg = steps.lm_cell_cfg(self.cfg, "decode", mesh, opt=args.opt)
+        if n_dec:
+            if dcfg.window is None:
+                cache = tf.extend_cache(dcfg, cache, S + n_dec)
+            decode = steps.lm_decode_step(dcfg, mesh, B, pspecs)
+            moved0 = dict(decode.tensor_parallel.moved) if decode.tensor_parallel else {}
+            dec_logits, ms = [], []
+            for i in range(n_dec):
+                pos = torch.full((toks.shape[0],), S + i, dtype=torch.int32, device=self.dev)
+                _sync(self.dev)
+                t0 = time.perf_counter()
+                lg, cache = decode(shards, toks[:, S + i].contiguous(), pos, cache)
+                _sync(self.dev)
+                ms.append(1e3 * (time.perf_counter() - t0))
+                dec_logits.append(self._batch(1).gather(lg).cpu())
+            out["decode_logits"] = torch.stack(dec_logits)
+            self.rec["decode_ms"] = ms
+            if decode.tensor_parallel:
+                moved = decode.tensor_parallel.moved
+                self.rec["model_collective_bytes_per_decode_step"] = {
+                    k: (moved[k] - moved0.get(k, 0)) / n_dec for k in moved}
+        whole = tf.init_cache(dcfg, B, cache["pos"].shape[-1], device="meta")
+        cshd = to_named_shardings(kv_cache_specs(whole, mesh, batch=B), mesh)
+        self.rec["cache_shard_shapes"] = {k: list(v.shape) for k, v in cache.items()}
+        self.rec["cache_is_its_spec_shard"] = all(cache[k].shape == cshd[k].cut(v).shape for k, v in whole.items())
+        if self.args.out:
+            self.saved["serve"] = dict(out, cache={k: v.cpu() for k, v in cache.items()})
+
+
+def _one_process(args, cfg, modes, dev):
+    """The one-process port's results on the seeded parameters and tokens:
+    the parameters after ``--steps`` train steps (by path), losses, gradient
+    norms, prefill logits, cache and decode logits."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import AdamWConfig, init_state
+
+    ref = {}
+    if "train" in modes:
+        tcfg = steps.lm_cell_cfg(cfg, "train", _one_mesh(args), opt=args.opt)
+        params = _whole(tcfg, dev)
+        opt_cfg = AdamWConfig(moment_dtype=args.moment_dtype, lr=1e-3)
+        opt = init_state(opt_cfg, params)
+        toks, labs = _tokens(args, tcfg)
+        one = steps.lm_train_step(tcfg, opt_cfg)
+        losses, norms = [], []
+        for _ in range(args.steps):
+            params, opt, m = one(params, opt, toks[None].to(dev), labs[None].to(dev))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        del opt
+        ref.update(losses=losses, grad_norms=norms, params=_paths(params))
+    if "prefill" in modes or "decode" in modes:
+        B, S = args.batch, args.seq
+        n_dec = args.decode_steps if "decode" in modes else 0
+        pcfg = steps.lm_cell_cfg(cfg, "prefill", _one_mesh(args), opt=args.opt, batch=B, seq=S)
+        dcfg = steps.lm_cell_cfg(cfg, "decode", _one_mesh(args), opt=args.opt)
+        params = _whole(pcfg, dev)
+        toks = _tokens(args, pcfg, n_dec)[0].to(dev)
+        with torch.no_grad():
+            ref["prefill_logits"], cache = tf.prefill(params, pcfg, toks[:, :S])
+            if n_dec:
+                if dcfg.window is None:
+                    cache = tf.extend_cache(dcfg, cache, S + n_dec)
+                dec = []
+                for i in range(n_dec):
+                    pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+                    lg, cache = tf.decode_step(params, dcfg, toks[:, S + i].contiguous(), pos, cache)
+                    dec.append(lg)
+                ref["decode_logits"] = torch.stack(dec)
+        ref["cache"] = cache
+    return ref
+
+
+def _one_mesh(args):
+    """A stand-in of the process mesh's axes and sizes (the cells' configs
+    read only those)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    n = args.data * args.model
+    return make_host_mesh(args.data, args.model, devices=[torch.device("meta")] * n)
+
+
+def _compare_serve(rec, got, ref, cache_pairs) -> None:
+    rec["max_prefill_logit_diff"] = _diff([(got["prefill_logits"], ref["prefill_logits"])])[0]
+    if "decode_logits" in ref:
+        rec["max_decode_logit_diff"] = [_diff([(a, b)])[0] for a, b in zip(got["decode_logits"], ref["decode_logits"])]
+    pairs = list(cache_pairs)
+    rec["max_cache_diff"] = _diff(p for p in pairs if p[1].is_floating_point())[0]
+    rec["cache_pos_equal"] = all(torch.equal(a.to(b.device), b) for a, b in pairs if not b.is_floating_point())
+
+
+def _run_rank(runs) -> None:
+    """This rank's runs in turn, one JSON line each; a mesh of a new shape
+    builds its groups (collectives: every rank runs the same runs)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_process_mesh
+
+    # torch.utils.checkpoint (the layers' remat) imports torch._dynamo on its
+    # first call, seconds of host time: import it beside the mesh's set-up
+    # and the placement instead of inside the first step
+    start = time.time()
+    threading.Thread(target=importlib.import_module, args=("torch._dynamo",), daemon=True).start()
+    meshes = {}
+    for i, args in enumerate(runs):
+        clock = {"start": start}
+        if (args.data, args.model) not in meshes:
+            meshes[args.data, args.model] = make_process_mesh(args.data, args.model, args.backend, args.device)
+        mesh = meshes[args.data, args.model]
+        clock["mesh"] = time.time()
+        with _exact_math(mesh.device):
+            rec = _rank_record(args, mesh)
+        clock["done"] = start = time.time()
+        print(json.dumps(dict(rec, run=i, clock=clock)), flush=True)
+        del rec
+        gc.collect()
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
     dist.destroy_process_group()
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
+def _rank_record(args, mesh) -> dict:
+    """This rank's run of the modes; its shards and results go to
+    ``--out`` for the launcher's check."""
+    import torch.distributed as dist
+
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    modes = _modes(args.mode)
+    run = _Rank(args, mesh, _config(args))
+    if "train" in modes:
+        run.train()
+    if "prefill" in modes or "decode" in modes:
+        run.serve(modes)
+    if mesh.device.type == "cuda":
+        run.rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(mesh.device)
+    rec = run.rec
+    if args.out:
+        t0 = time.perf_counter()
+        torch.save(run.saved, os.path.join(args.out, f"rank{mesh.rank}.pt"))
+        rec["save_s"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        rec.update(world=int(np.prod(mesh.sizes)), mesh=list(mesh.sizes), backend=dist.get_backend())
+    return rec
+
+
+def _check_saved(args, rec: dict) -> None:
+    """The one-process port against every rank's saved shards, in the
+    launcher after the ranks exit."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.rules import NamedSharding, PartitionSpec, ProcessMesh, kv_cache_specs
+
+    dev = _device(args)
+    cfg, modes = _config(args), _modes(args.mode)
+    t0 = time.perf_counter()
+    with _exact_math(dev):
+        ref = _one_process(args, cfg, modes, dev)
+    rec["one_process_s"] = time.perf_counter() - t0
+    n = args.data * args.model
+    names, sizes = ("data", "model"), (args.data, args.model)
+    saved = [torch.load(os.path.join(args.out, f"rank{r}.pt"), mmap=True) for r in range(n)]
+    meshes = [ProcessMesh(names, sizes, (torch.device("cpu"),) * n, rank=r) for r in range(n)]
+    if "train" in modes:
+        tcfg = steps.lm_cell_cfg(cfg, "train", meshes[0], opt=args.opt)
+        specs = _paths(steps.lm_step_specs(tcfg, meshes[0])[0], PartitionSpec)
+        rec["one_process_losses"], rec["one_process_grad_norms"] = ref["losses"], ref["grad_norms"]
+        rec["max_param_diff"], rec["max_param_rel_diff"] = _diff(
+            (s["train"][k], NamedSharding(m, specs[k]).cut(ref["params"][k]))
+            for m, s in zip(meshes, saved) for k in specs)
+    if "serve" in saved[0]:
+        pcfg = steps.lm_cell_cfg(cfg, "prefill", meshes[0], opt=args.opt, batch=args.batch, seq=args.seq)
+        cache_len = ref["cache"]["pos"].shape[-1]
+        cspecs = kv_cache_specs(tf.init_cache(pcfg, args.batch, cache_len, device="meta"), meshes[0],
+                                batch=args.batch)
+        _compare_serve(rec, saved[0]["serve"], ref, (
+            (s["serve"]["cache"][k], NamedSharding(m, cspecs[k]).cut(ref["cache"][k]))
+            for m, s in zip(meshes, saved) for k in cspecs))
+
+
+def _runs(argv) -> list:
+    """``argv`` split at ``--then`` into the runs' argument lists."""
+    runs = [[]]
+    for a in argv:
+        if a == THEN:
+            runs.append([])
+        else:
+            runs[-1].append(a)
+    return runs
+
+
+def launch(argv) -> tuple:
+    """The launcher: (exit code, every run's record, [(rank, exit code,
+    output tail)] of the ranks that failed)."""
+    runs = _runs(argv)
+    parsed = [_parser().parse_args(a) for a in runs]
+    first = parsed[0]
+    for a in parsed[1:]:
+        if (a.data * a.model, a.backend, a.device) != (first.data * first.model, first.backend, first.device):
+            raise SystemExit(f"{THEN}: every run takes the first run's world size, --backend and --device")
+    with contextlib.ExitStack() as stack:
+        for a, run in zip(parsed, runs):
+            if a.check and not a.out:
+                a.out = stack.enter_context(tempfile.TemporaryDirectory(prefix="process_train_"))
+                run += ["--out", a.out]
+            if a.out:
+                os.makedirs(a.out, exist_ok=True)
+        rank_argv = [x for i, run in enumerate(runs) for x in ([THEN] if i else []) + run]
+        t0, wall0 = time.perf_counter(), time.time()
+        results = spawn(first.data * first.model, rank_argv, sum(a.timeout for a in parsed))
+        ranks_s = time.perf_counter() - t0
+        bad = [(r, rc, out[-4000:]) for r, (rc, out) in enumerate(results) if rc != 0]
+        if bad:
+            return 1, [], bad
+        # each rank's records, one a run
+        lines = [[json.loads(x) for x in out.splitlines() if x.startswith('{"rank"')] for _, out in results]
+        recs = []
+        for i, a in enumerate(parsed):
+            ranks = [mine[i] for mine in lines]
+            rec = dict(ranks[0], ranks_s=ranks_s)
+            # seconds from the spawn to this run's start (the ranks' imports,
+            # or the previous run's end), its mesh, the end of its modes
+            rec["timeline_s"] = {k: v - wall0 for k, v in rec.pop("clock").items()}
+            rec["shards_rebuild_leaves"] = all(r["shards_rebuild_leaves"] for r in ranks)
+            if "compress_max_diff" in rec:
+                rec["compress_max_diff"] = max(r["compress_max_diff"] for r in ranks)
+            if a.check:
+                t0 = time.perf_counter()
+                _check_saved(a, rec)
+                rec["check_s"] = time.perf_counter() - t0
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+            rec["ranks"] = [{k: r[k] for k in ("rank", "coords", "transport", "param_bytes", "whole_param_bytes",
+                                               "max_memory_allocated", "step_ms", "prefill_ms", "decode_ms")
+                             if k in r} for r in ranks]
+            recs.append(rec)
+    return 0, recs, []
+
+
+def _parser():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--smoke", action="store_true", help="the arch's reduced smoke config")
+    ap.add_argument("--smoke", action="store_true", help="the arch's reduced smoke config (else its full config)")
+    ap.add_argument("--n-layers", type=int, help="the one cut of a full config: its depth")
     ap.add_argument("--d-model", type=int)
     ap.add_argument("--d-ff", type=int)
+    ap.add_argument("--d-head", type=int)
     ap.add_argument("--vocab", type=int)
+    ap.add_argument("--n-experts", type=int)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), help="the parameters' dtype (default: the config's)")
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--backend", choices=("gloo", "nccl"), help="default: nccl with a card, else gloo")
-    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--device", choices=("cpu", "cuda"),
+                    help="gloo only: cuda puts several ranks on the visible cards (default: cpu)")
+    ap.add_argument("--mode", default="train", help="comma-separated: train, prefill, decode")
+    ap.add_argument("--opt", action="store_true", help="the cells' perf levers (local MoE dispatch, moe_local)")
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--seq", type=int, default=SEQ)
+    ap.add_argument("--steps", type=int, default=4, help="train steps")
+    ap.add_argument("--decode-steps", type=int, default=4)
     ap.add_argument("--moment-dtype", choices=("float32", "bfloat16"), default="float32",
                     help="AdamW's moment dtype (the reference's sharded test keeps f32)")
-    ap.add_argument("--check", action="store_true", help="rank 0 also runs the one-process step")
-    ap.add_argument("--out", help="directory for rank 0's result.npz")
-    ap.add_argument("--timeout", type=float, default=600.0, help="the launcher's limit, seconds")
-    args = ap.parse_args(argv)
+    ap.add_argument("--check", action="store_true",
+                    help="the launcher compares the ranks' saved shards with the one-process port's")
+    ap.add_argument("--out", help="directory for every rank's shards and results (rank{r}.pt)")
+    ap.add_argument("--timeout", type=float, default=600.0, help="the launcher's limit for this run, seconds")
+    return ap
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     if "RANK" in os.environ:
-        _run_rank(args)
+        _run_rank([_parser().parse_args(a) for a in _runs(argv)])
         return 0
-    results = spawn(args.data * args.model, sys.argv[1:] if argv is None else list(argv), args.timeout)
-    bad = [(r, rc, out) for r, (rc, out) in enumerate(results) if rc != 0]
-    for r, rc, out in bad:
-        print(f"[rank {r}] exit {rc}\n{out[-4000:]}", file=sys.stderr)
-    if not bad:
-        print(results[0][1].strip().splitlines()[-1])
-    return 1 if bad else 0
+    rc, recs, bad = launch(argv)
+    for r, code, out in bad:
+        print(f"[rank {r}] exit {code}\n{out}", file=sys.stderr)
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    return rc
 
 
 if __name__ == "__main__":

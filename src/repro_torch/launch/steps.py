@@ -22,16 +22,21 @@ The port's transformer parameters keep one tree per layer, so each layer
 spec is the reference's without its leading (n_layers,) entry.
 
 Sharded execution runs one process per rank on a ``ProcessMesh``
-(``repro_torch.launch.mesh.make_process_mesh``), for the LM train cells
-without ``opt`` (``lm_train_step``): parameters and moments stay in the
-spec's layout at rest, each rank takes its slice of the batch over
-``pod``/``data``, gathers the parameters whole to compute, and its
-gradients are averaged over the batch axes and reduce-scattered to each
-leaf's shard, which reproduces the reference's GSPMD numbers in its
-layout.  Compute is replicated over ``model`` (tensor-parallel compute is
-ROADMAP item 11c.2); an ``opt`` or ``moe_local`` cell (11c.3) and the GCN
-and RecSys cells (11c.4) refuse a ProcessMesh.  A mesh of several distinct
-devices in one process still refuses (``to_named_shardings``).
+(``repro_torch.launch.mesh.make_process_mesh``) for the LM train,
+prefill and decode cells, ``opt`` or not: parameters, moments and caches
+stay in the spec's layout at rest, each rank takes its slice of the batch
+over ``pod``/``data`` (the whole batch where it does not divide),
+gathers the parameters over the batch axes only (FSDP) and computes in
+the tensor-parallel layout over ``model`` (``models.layers``: heads,
+``d_ff``, experts and vocabulary split, the conjugate collectives of the
+``model`` group), which reproduces the reference's GSPMD numbers in its
+layout.  Gradients are averaged over the batch axes and reduce-scattered
+to the moments' shards; under ``moe_local`` (the ``opt`` cells) the
+expert weights replicate over ``data`` while their moments stay sharded
+over it, and AdamW all-gathers each update into the replicated weight.
+The GCN and RecSys cells and the search serve cell (11c.4) refuse a
+ProcessMesh.  A mesh of several distinct devices in one process still
+refuses (``to_named_shardings``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.models import gcn as gcn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models.layers import TensorParallel
 from repro_torch.models.params import tree_leaves, tree_map, value_and_grad
 from repro_torch.sharding.rules import (
     NamedSharding,
@@ -61,7 +67,8 @@ from repro_torch.sharding.rules import (
 )
 from repro_torch.train.optimizer import AdamWConfig, apply_updates
 
-__all__ = ["CellPlan", "all_cells", "build_cell", "lm_train_step"]
+__all__ = ["CellPlan", "all_cells", "build_cell", "lm_cell_cfg", "lm_decode_step", "lm_prefill_step",
+           "lm_step_specs", "lm_train_step"]
 
 
 @dataclasses.dataclass
@@ -139,20 +146,46 @@ def _process_refusal(mesh, what: str, item: str):
 # LM cells
 # ===========================================================================
 
-def lm_train_step(cfg, opt_cfg: AdamWConfig, mesh: Optional[ProcessMesh] = None, param_specs=None):
+def _moe_local(cfg) -> bool:
+    return cfg.moe is not None and cfg.moe.dispatch == "local"
+
+
+def lm_step_specs(cfg, mesh, param_specs=None, moment_specs=None):
+    """(parameter specs, moment specs): ``lm_param_specs``, the parameters'
+    with ``moe_local`` for a local-dispatch config (expert weights
+    replicated over ``data``), the moments' without it (ZeRO-sharded)."""
+    abstract = tf_mod.init_params_abstract(cfg)
+    if param_specs is None:
+        param_specs = lm_param_specs(abstract, mesh, n_experts=_n_experts(cfg), moe_local=_moe_local(cfg))
+    if moment_specs is None:
+        moment_specs = lm_param_specs(abstract, mesh, n_experts=_n_experts(cfg))
+    return param_specs, moment_specs
+
+
+def _compute_params(params, shardings, batch):
+    """This rank's parameters in the layout the step computes in: gathered
+    over the batch axes (FSDP), this rank's chunk over ``model``."""
+    return tree_map(lambda p, s: s.gather(p, batch), params, shardings)
+
+
+def lm_train_step(cfg, opt_cfg: AdamWConfig, mesh: Optional[ProcessMesh] = None, param_specs=None,
+                  moment_specs=None):
     """The LM train cell's step ``(params, opt_state, tokens, labels) ->
     (params, opt_state, {"loss", "grad_norm", "lr"})`` for tokens and labels
     of shape (accum, B, S): microbatch gradients summed in the parameter
     dtype and divided by ``accum``, then one AdamW update in place.
 
-    ``mesh``: a ``ProcessMesh``; ``param_specs``: the parameters' spec tree
-    (default ``lm_param_specs``), which the moments share.  Then params and
-    opt_state are this rank's shards, tokens and labels its
+    ``mesh``: a ``ProcessMesh``; ``param_specs`` / ``moment_specs``: the
+    spec trees of the parameters and of the moments (``lm_step_specs``).  Then
+    params and opt_state are this rank's shards, tokens and labels its
     (accum, B / batch shards, S) slice, and per step the parameters are
-    all-gathered whole, each microbatch's loss takes the batch axes'
-    group (MoE capacity and statistics of the whole batch), gradients are
-    averaged over the batch axes and reduce-scattered to the shards, and
-    the loss is the batch's mean."""
+    all-gathered over the batch axes, each microbatch's loss runs
+    tensor-parallel over ``model`` with the batch axes' group (MoE capacity
+    and statistics of the whole batch), gradients (this rank's ``model``
+    chunks) are averaged over the batch axes and reduce-scattered to the
+    moments' shards, and the loss is the batch's mean.  The step's
+    ``tensor_parallel`` attribute is its ``TensorParallel`` (None without
+    a split ``model`` axis)."""
     loss_of = lambda p, mb: tf_mod.loss_fn(p, cfg, *mb)[0]  # noqa: E731
     if mesh is None:
         def step(params, opt_state, tokens, labels):
@@ -161,26 +194,70 @@ def lm_train_step(cfg, opt_cfg: AdamWConfig, mesh: Optional[ProcessMesh] = None,
             return params, opt_state, {"loss": loss, **om}
 
         return step
-    if cfg.moe is not None and cfg.moe.dispatch == "local":
-        raise NotImplementedError("local MoE dispatch on a ProcessMesh is ROADMAP item 11c.3, not ported")
-    if param_specs is None:
-        param_specs = lm_param_specs(tf_mod.init_params_abstract(cfg), mesh, n_experts=_n_experts(cfg))
+    param_specs, moment_specs = lm_step_specs(cfg, mesh, param_specs, moment_specs)
     shardings = to_named_shardings(param_specs, mesh)
+    mshardings = to_named_shardings(moment_specs, mesh)
     batch = _batch_axes(mesh)
+    tp = TensorParallel.of(mesh)
 
     def step(params, opt_state, tokens, labels):
         group = mesh.group(batch) if batch else None
-        full = tree_map(lambda p, s: s.gather(p), params, shardings)
+        full = _compute_params(params, shardings, batch)
         grads, loss = _accumulated_grads(
-            full, lambda p, mb: tf_mod.loss_fn(p, cfg, *mb, group=group)[0], zip(tokens, labels))
+            full, lambda p, mb: tf_mod.loss_fn(p, cfg, *mb, group=group, tp=tp)[0], zip(tokens, labels))
         del full
-        grads = tree_map(lambda g, s: s.reduce_scatter(g, batch), grads, shardings)
+        grads = tree_map(lambda g, s: s.reduce_scatter(g, batch, local=("model",)), grads, mshardings)
         if batch:
             dist.all_reduce(loss, group=group)
             loss = loss / mesh.axis_size(batch)
-        params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state, shardings)
+        params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state, shardings, mshardings)
         return params, opt_state, {"loss": loss, **om}
 
+    step.tensor_parallel = tp
+    return step
+
+
+def _batch_group(mesh, B: int):
+    """The batch axes' process group when a batch of B splits over them,
+    else None (every batch rank then runs the whole batch)."""
+    batch = _batch_axes(mesh)
+    return mesh.group(batch) if batch and B % _batch_shards(mesh) == 0 and B >= _batch_shards(mesh) else None
+
+
+def lm_prefill_step(cfg, mesh: Optional[ProcessMesh] = None, batch: int = 1, param_specs=None):
+    """The LM prefill cell's step ``(params, tokens) -> (logits, cache)``.
+    On a ``ProcessMesh``: params are this rank's shards, tokens its slice of
+    a batch of ``batch`` over the batch axes (the whole batch where it does
+    not divide), the logits whole over the vocabulary and the cache this
+    rank's ``kv_cache_specs`` shard; ``tensor_parallel`` as
+    ``lm_train_step``'s."""
+    if mesh is None:
+        return lambda params, tokens: tf_mod.prefill(params, cfg, tokens)
+    shardings = to_named_shardings(lm_step_specs(cfg, mesh, param_specs)[0], mesh)
+    axes, tp = _batch_axes(mesh), TensorParallel.of(mesh)
+
+    def step(params, tokens):
+        return tf_mod.prefill(_compute_params(params, shardings, axes), cfg, tokens, group=_batch_group(mesh, batch),
+                              tp=tp)
+
+    step.tensor_parallel = tp
+    return step
+
+
+def lm_decode_step(cfg, mesh: Optional[ProcessMesh] = None, batch: int = 1, param_specs=None):
+    """The LM decode cell's step ``(params, token, pos, cache) -> (logits,
+    cache)``; on a ``ProcessMesh`` as ``lm_prefill_step``'s (token and pos
+    this rank's batch slice, the cache its shard, updated in place)."""
+    if mesh is None:
+        return lambda params, token, pos, cache: tf_mod.decode_step(params, cfg, token, pos, cache)
+    shardings = to_named_shardings(lm_step_specs(cfg, mesh, param_specs)[0], mesh)
+    axes, tp = _batch_axes(mesh), TensorParallel.of(mesh)
+
+    def step(params, token, pos, cache):
+        return tf_mod.decode_step(_compute_params(params, shardings, axes), cfg, token, pos, cache,
+                                  group=_batch_group(mesh, batch), tp=tp)
+
+    step.tensor_parallel = tp
     return step
 
 
@@ -200,11 +277,30 @@ def _n_experts(cfg):
     return cfg.moe.n_experts if cfg.moe else None
 
 
+def lm_cell_cfg(cfg, kind: str, mesh, *, opt: bool = False, batch: int = 1, seq: int = 1):
+    """The config an LM cell of ``kind`` (train, prefill or decode) computes
+    with for a batch of ``batch`` x ``seq`` tokens: ``cfg`` itself, or under
+    ``opt`` the §Perf levers (``_lm_opt_cfg``), which a prefill extends with
+    the cache's batch axes and MoE dispatch in 4,096-token blocks (capacity
+    per block).  Decode is single-token: chunked attention and CE do not
+    apply."""
+    if not opt or kind == "decode":
+        return cfg
+    cfg = _lm_opt_cfg(cfg, mesh)
+    if kind == "prefill":
+        shards = _batch_shards(mesh)
+        cfg = dataclasses.replace(
+            cfg, cache_shard_axes=_batch_axes(mesh) if batch % shards == 0 and batch >= shards else ())
+        if cfg.moe is not None:
+            sub = max(1, (batch * seq) // shards // 4096)
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, n_batch_shards=cfg.moe.n_batch_shards * sub))
+    return cfg
+
+
 def _lm_train(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, accum_override=None, unroll=False,
               opt=False, opt_cfg=None) -> CellPlan:
-    cfg: tf_mod.TransformerConfig = arch.model_cfg
-    if opt:
-        cfg = _lm_opt_cfg(cfg, mesh)
+    cfg = lm_cell_cfg(arch.model_cfg, "train", mesh, opt=opt)
     if n_layers is not None or unroll:
         cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, scan_unroll=unroll)
     S = shape.sizes["seq_len"]
@@ -223,11 +319,8 @@ def _lm_train(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, accum_ov
     labels = _sds((accum, micro, S), torch.int32)
     dspec = P(None, _batch_axes(mesh), None)
 
-    if isinstance(mesh, ProcessMesh) and opt:
-        raise NotImplementedError(
-            "an opt (moe_local) LM train cell on a ProcessMesh is ROADMAP item 11c.3, not ported; "
-            "run opt=False")
-    step = lm_train_step(cfg, opt_cfg, mesh if isinstance(mesh, ProcessMesh) else None, pspecs)
+    process = mesh if isinstance(mesh, ProcessMesh) else None
+    step = lm_train_step(cfg, opt_cfg, process, pspecs, ospecs["m"])
 
     return CellPlan(
         arch.arch_id, shape.name, "train", step,
@@ -241,19 +334,8 @@ def _lm_train(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, accum_ov
 
 
 def _lm_prefill(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, unroll=False, opt=False) -> CellPlan:
-    cfg: tf_mod.TransformerConfig = arch.model_cfg
-    if opt:
-        cfg = _lm_opt_cfg(cfg, mesh)
-        B_ = shape.sizes["global_batch"]
-        shards_ = _batch_shards(mesh)
-        cfg = dataclasses.replace(
-            cfg, cache_shard_axes=_batch_axes(mesh) if B_ % shards_ == 0 and B_ >= shards_ else ())
-        if cfg.moe is not None:
-            # sub-block the dispatch to 4096-token blocks (capacity per block)
-            tokens_local = (shape.sizes["global_batch"] * shape.sizes["seq_len"]) // _batch_shards(mesh)
-            sub = max(1, tokens_local // 4096)
-            cfg = dataclasses.replace(
-                cfg, moe=dataclasses.replace(cfg.moe, n_batch_shards=cfg.moe.n_batch_shards * sub))
+    cfg = lm_cell_cfg(arch.model_cfg, "prefill", mesh, opt=opt, batch=shape.sizes["global_batch"],
+                      seq=shape.sizes["seq_len"])
     if n_layers is not None or unroll:
         cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, scan_unroll=unroll)
     S = shape.sizes["seq_len"]
@@ -262,9 +344,7 @@ def _lm_prefill(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, unroll
     pspecs = lm_param_specs(params_abs, mesh, n_experts=_n_experts(cfg))
     tokens = _sds((B, S), torch.int32)
 
-    def step(params, tokens):
-        return tf_mod.prefill(params, cfg, tokens)
-
+    step = lm_prefill_step(cfg, mesh if isinstance(mesh, ProcessMesh) else None, B, pspecs)
     cache_len = min(S, cfg.window) if cfg.window else S
     cspecs = kv_cache_specs(tf_mod.init_cache(cfg, B, cache_len, device="meta"), mesh, batch=B)
     return CellPlan(
@@ -278,8 +358,7 @@ def _lm_prefill(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, unroll
 
 
 def _lm_decode(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, unroll=False, opt=False) -> CellPlan:
-    cfg: tf_mod.TransformerConfig = arch.model_cfg
-    # decode is single-token: chunked attention/CE don't apply
+    cfg = lm_cell_cfg(arch.model_cfg, "decode", mesh, opt=opt)
     if n_layers is not None or unroll:
         cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, scan_unroll=unroll)
     S = shape.sizes["seq_len"]
@@ -295,9 +374,7 @@ def _lm_decode(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, unroll=
     token = _sds((B,), torch.int32)
     pos = _sds((B,), torch.int32)
 
-    def step(params, token, pos, cache):
-        return tf_mod.decode_step(params, cfg, token, pos, cache)
-
+    step = lm_decode_step(cfg, mesh if isinstance(mesh, ProcessMesh) else None, B, pspecs)
     return CellPlan(
         arch.arch_id, shape.name, "decode", step,
         (params_abs, token, pos, cache_abs),
@@ -584,7 +661,6 @@ def build_cell(arch_id: str, shape_name: str, mesh, *, n_layers=None, accum_over
         if shape.kind == "train":
             return _lm_train(arch, shape, mesh, n_layers=n_layers, accum_override=accum_override, unroll=unroll,
                              opt=opt, opt_cfg=opt_cfg)
-        _process_refusal(mesh, f"an LM {shape.kind} cell", "11c.2")
         if shape.kind == "prefill":
             return _lm_prefill(arch, shape, mesh, n_layers=n_layers, unroll=unroll, opt=opt)
         if shape.kind == "decode":

@@ -9,10 +9,25 @@ rotates split halves with f32 angles; attention masks with ``-1e30`` and
 takes its softmax in f32, casting to the activations' dtype before the PV
 product.  Parameters are ``Params`` modules holding the reference's names;
 initialisers take an explicit ``torch.Generator``.
+
+Tensor parallelism (``tp``, a ``TensorParallel``: this rank's place in
+the ``model`` group of a ``ProcessMesh``): each weight is this rank's
+shard under ``lm_param_specs`` (gathered over ``data`` by the step), and
+the layers compute in that layout with the conjugate collectives of the
+``model`` group: ``tp.copy`` (identity forward, sum backward) where a
+replicated activation enters a split region and ``tp.reduce`` (sum
+forward, identity backward) where partial sums leave it.  Attention runs
+this rank's heads (q, and k / v when ``n_kv`` divides ``|model|``; else
+k / v come from the weights gathered over ``model``, whose gradient the
+gather's backward sums and cuts), RoPE on whole heads, then ``wo``'s row
+shard; SwiGLU splits ``d_ff``; MoE runs this rank's experts on every token
+when ``n_experts >= |model|``, else every expert's ``d_ff`` slice.
+``tp=None`` is the one-process path, unchanged.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -22,13 +37,16 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.params import Params, generator_for, model_device, normal
+from repro_torch.sharding.rules import gather_dim, scatter_dim
 
 __all__ = [
     "AttnConfig",
     "MoEConfig",
+    "TensorParallel",
     "apply_rope",
     "attention",
     "attn_init",
+    "cache_heads",
     "chunked_attention",
     "decode_attention",
     "mlp_init",
@@ -76,6 +94,117 @@ def _positions(B: int, S: int, device):
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism over the ``model`` group
+# ---------------------------------------------------------------------------
+
+class TensorParallel:
+    """This rank's place in the ``model`` group: ``group``, ``size`` ranks,
+    this one's index ``rank``.  ``moved`` counts the bytes of each
+    collective's result on this rank, by kind (``"all_reduce"``,
+    ``"all_gather"``, ``"reduce_scatter"``), forward and backward."""
+
+    def __init__(self, group, size: int, rank: int):
+        self._group, self.size, self.rank = group, int(size), int(rank)
+        self.moved = collections.Counter()
+
+    @property
+    def group(self):
+        return self._group() if callable(self._group) else self._group
+
+    @classmethod
+    def of(cls, mesh) -> Optional["TensorParallel"]:
+        """The ``model`` group of a ``ProcessMesh`` (looked up at the first
+        collective, so that a plan builds on a stand-in mesh); None when it
+        has one rank (the one-process layers)."""
+        if mesh.shape.get("model", 1) == 1:
+            return None
+        return cls(lambda: mesh.group(("model",)), mesh.axis_size(("model",)), mesh.axis_index(("model",)))
+
+    def chunk(self, n: int) -> tuple:
+        """[start, stop) of this rank's chunk of ``n`` split ``size`` ways."""
+        per = n // self.size
+        return self.rank * per, (self.rank + 1) * per
+
+    def copy(self, x):
+        """Identity forward; the gradient summed over the group."""
+        return _CopyToModel.apply(x, self)
+
+    def reduce(self, x):
+        """The group's sum forward; the gradient passed through."""
+        return _ReduceFromModel.apply(x, self)
+
+    def gather(self, x, dim: int):
+        """The group's ``x`` concatenated along ``dim`` forward; the
+        gradient summed over the group and cut to this rank's chunk."""
+        return _GatherFromModel.apply(x, dim, self)
+
+    def all_reduce(self, x, op=dist.ReduceOp.SUM):
+        """In place, outside autograd."""
+        self.moved["all_reduce"] += x.numel() * x.element_size()
+        dist.all_reduce(x, op=op, group=self.group)
+        return x
+
+    def all_gather(self, x, dim: int):
+        """The group's ``x`` concatenated along ``dim``, outside autograd."""
+        out = gather_dim(x.contiguous(), dim, self.group, self.size)
+        self.moved["all_gather"] += out.numel() * out.element_size()
+        return out
+
+    def _scatter(self, x, dim):
+        self.moved["reduce_scatter"] += x.numel() * x.element_size()
+        return scatter_dim(x, dim, self.group, self.size)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.contiguous().clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return tp.all_gather(x, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._scatter(g, ctx.dim).contiguous(), None, None
+
+
+def _local_heads(cfg, tp) -> tuple:
+    """[start, stop) of this rank's query heads (all of them without tp)."""
+    if tp is None:
+        return 0, cfg.n_heads
+    if cfg.n_heads % tp.size:
+        raise NotImplementedError(
+            f"{cfg.n_heads} heads over a model axis of {tp.size}: an uneven split (GSPMD's padding) is "
+            "ROADMAP item 11c.2b, not ported")
+    return tp.chunk(cfg.n_heads)
+
+
+def _kv_split(cfg, tp) -> bool:
+    """Whether k / v run on this rank's kv heads (else on all of them, from
+    the weights gathered over ``model``)."""
+    return tp is not None and cfg.n_kv % tp.size == 0
+
+
+# ---------------------------------------------------------------------------
 # Attention (GQA, causal, optional sliding window, KV cache)
 # ---------------------------------------------------------------------------
 
@@ -108,17 +237,47 @@ def attn_init(generator, cfg: AttnConfig, dtype=torch.float32, device="cuda") ->
     return Params(**p)
 
 
-def _qkv(params, x, cfg: AttnConfig):
+def _qkv(params, x, cfg: AttnConfig, tp=None):
+    """q, k, v of shape (B, S, heads, Dh): every head without ``tp``; with
+    it this rank's query heads, and its kv heads or (``_kv_split`` false)
+    every kv head from ``wk`` / ``wv`` gathered over ``model``."""
     B, S, _ = x.shape
-    H, Hk, Dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    Dh = cfg.d_head
+    wk, wv = params["wk"], params["wv"]
+    bk, bv = (params["bk"], params["bv"]) if cfg.qkv_bias else (None, None)
+    if tp is not None:
+        _local_heads(cfg, tp)          # raises on a split inside a head
+        x = tp.copy(x)
+        if not _kv_split(cfg, tp):
+            wk, wv = tp.gather(wk, 1), tp.gather(wv, 1)
+            if cfg.qkv_bias:
+                bk, bv = tp.gather(bk, 0), tp.gather(bv, 0)
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = x @ wk
+    v = x @ wv
     if cfg.qkv_bias:
         q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    return q.reshape(B, S, H, Dh), k.reshape(B, S, Hk, Dh), v.reshape(B, S, Hk, Dh)
+        k = k + bk
+        v = v + bv
+    return q.reshape(B, S, -1, Dh), k.reshape(B, S, -1, Dh), v.reshape(B, S, -1, Dh)
+
+
+def _kv_for_heads(k, v, cfg: AttnConfig, tp):
+    """k and v for this rank's query heads: as they are where they hold the
+    rank's kv heads (or every head, one process); else each local query
+    head's kv head picked from every head (one kv head per query head)."""
+    if tp is None or _kv_split(cfg, tp):
+        return k, v
+    h0, h1 = _local_heads(cfg, tp)
+    idx = torch.arange(h0, h1, device=k.device) // (cfg.n_heads // cfg.n_kv)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _out_proj(params, out, tp):
+    """(B, S, heads · Dh) attention output through ``wo`` (its row shard
+    and the ``model`` sum with ``tp``)."""
+    h = out @ params["wo"]
+    return h if tp is None else tp.reduce(h)
 
 
 def _gqa_scores(q, k):
@@ -139,16 +298,17 @@ def _gqa_out(w, v):
     return o.reshape(B, S, H, v.shape[3])
 
 
-def attention(params, x, cfg: AttnConfig, positions=None):
+def attention(params, x, cfg: AttnConfig, positions=None, tp=None):
     """Full (training / prefill) self-attention. x: (B, S, D) ->
-    (out (B, S, D), (k, v) after RoPE)."""
+    (out (B, S, D), (k, v) after RoPE: the heads ``_qkv`` gives)."""
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(B, S, x.device)
-    q, k, v = _qkv(params, x, cfg)
+    q, k, v = _qkv(params, x, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    scores = _gqa_scores(q, k).to(torch.float32) * (cfg.d_head**-0.5)
+    kq, vq = _kv_for_heads(k, v, cfg, tp)
+    scores = _gqa_scores(q, kq).to(torch.float32) * (cfg.d_head**-0.5)
     i = torch.arange(S, device=x.device)[:, None]
     j = torch.arange(S, device=x.device)[None, :]
     mask = j <= i
@@ -156,11 +316,11 @@ def attention(params, x, cfg: AttnConfig, positions=None):
         mask = mask & (j > i - cfg.window)
     scores = torch.where(mask[None, None], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = _gqa_out(w, v)
-    return out.reshape(B, S, -1) @ params["wo"], (k, v)
+    out = _gqa_out(w, vq)
+    return _out_proj(params, out.reshape(B, S, -1), tp), (k, v)
 
 
-def chunked_attention(params, x, cfg: AttnConfig, positions=None, *, chunk_kv: int = 1024):
+def chunked_attention(params, x, cfg: AttnConfig, positions=None, *, chunk_kv: int = 1024, tp=None):
     """Flash-style training/prefill attention: online softmax over KV chunks.
 
     Never materialises the (B, H, S, S) score matrix: per chunk only
@@ -172,16 +332,17 @@ def chunked_attention(params, x, cfg: AttnConfig, positions=None, *, chunk_kv: i
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(B, S, x.device)
-    q, k, v = _qkv(params, x, cfg)
+    q, k, v = _qkv(params, x, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    H, Dh, Hk = cfg.n_heads, cfg.d_head, cfg.n_kv
+    kq, vq = _kv_for_heads(k, v, cfg, tp)
+    H, Dh, Hk = q.shape[2], cfg.d_head, kq.shape[2]
     G = H // Hk
     scale = Dh**-0.5
     n_chunks = (S + chunk_kv - 1) // chunk_kv
     Sp = n_chunks * chunk_kv
-    kp = F.pad(k, (0, 0, 0, 0, 0, Sp - S))
-    vp = F.pad(v, (0, 0, 0, 0, 0, Sp - S))
+    kp = F.pad(kq, (0, 0, 0, 0, 0, Sp - S))
+    vp = F.pad(vq, (0, 0, 0, 0, 0, Sp - S))
     qg = q.reshape(B, S, Hk, G, Dh)
     i_pos = torch.arange(S, device=x.device)
 
@@ -207,10 +368,27 @@ def chunked_attention(params, x, cfg: AttnConfig, positions=None, *, chunk_kv: i
         m = m_new
     out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(x.dtype)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * Dh)
-    return out @ params["wo"], (k, v)
+    return _out_proj(params, out, tp), (k, v)
 
 
-def decode_attention(params, x, cfg: AttnConfig, cache_k, cache_v, cache_pos, pos):
+def cache_heads(k, cfg: AttnConfig, tp):
+    """k (or v) of every kv head in the cache's ``d_head`` layout from the
+    heads ``_qkv`` gave: with ``tp``, this rank's kv heads are all-gathered
+    over ``model`` (outside autograd) and the ``d_head`` dim cut to this
+    rank's chunk when it splits (``kv_cache_specs``: head_dim over
+    ``model``).  The exchange between the weights' head split and the
+    cache's ``d_head`` split."""
+    if tp is None:
+        return k
+    if _kv_split(cfg, tp):
+        k = tp.all_gather(k, 2)
+    if cfg.d_head % tp.size == 0:
+        d0, d1 = tp.chunk(cfg.d_head)
+        k = k[..., d0:d1]
+    return k.contiguous()
+
+
+def decode_attention(params, x, cfg: AttnConfig, cache_k, cache_v, cache_pos, pos, tp=None):
     """One-token decode with a KV cache.
 
     x: (B, 1, D); cache_k/v: (B, C, Hk, Dh); cache_pos: (B, C) absolute
@@ -218,26 +396,47 @@ def decode_attention(params, x, cfg: AttnConfig, cache_k, cache_v, cache_pos, po
     The cache is a ring (slot = pos % C); for sliding-window configs
     C == window.  The new entry is written into the given cache tensors in
     place, and they are returned.
+
+    With ``tp`` the cache is this rank's ``d_head`` chunk of every kv head
+    (``cache_heads``): the step's q is all-gathered over ``model``, the
+    scores of every head summed over the ranks' ``d_head`` chunks (an
+    all-reduce of (B, H, 1, C) f32), and the ranks' chunks of the output
+    all-gathered before this rank's heads go through ``wo``.
     """
     B = x.shape[0]
     C = cache_k.shape[1]
-    q, k, v = _qkv(params, x, cfg)
+    q, k, v = _qkv(params, x, cfg, tp)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    k, v = cache_heads(k, cfg, tp), cache_heads(v, cfg, tp)
     slot = (pos % C).long()
     b = torch.arange(B, device=x.device)
     cache_k[b, slot] = k[:, 0]
     cache_v[b, slot] = v[:, 0]
     cache_pos[b, slot] = pos.to(cache_pos.dtype)
 
-    scores = _gqa_scores(q, cache_k).to(torch.float32) * (cfg.d_head**-0.5)
+    dh_split = tp is not None and cfg.d_head % tp.size == 0
+    if tp is not None:
+        q = tp.all_gather(q, 2)
+        if dh_split:
+            d0, d1 = tp.chunk(cfg.d_head)
+            q = q[..., d0:d1]
+    scores = _gqa_scores(q, cache_k).to(torch.float32)
+    if dh_split:
+        scores = tp.all_reduce(scores.contiguous())
+    scores = scores * (cfg.d_head**-0.5)
     valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
     if cfg.window is not None:
         valid = valid & (cache_pos > pos[:, None] - cfg.window)
     scores = torch.where(valid[:, None, None, :], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _gqa_out(w, cache_v)
-    out = out.reshape(B, 1, -1) @ params["wo"]
+    if tp is not None:
+        if dh_split:
+            out = tp.all_gather(out, 3)
+        h0, h1 = _local_heads(cfg, tp)
+        out = out[:, :, h0:h1]
+    out = _out_proj(params, out.reshape(B, 1, -1), tp)
     return out, (cache_k, cache_v, cache_pos)
 
 
@@ -256,16 +455,20 @@ def mlp_init(generator, d_model: int, d_ff: int, dtype=torch.float32, device="cu
     )
 
 
-def swiglu_mlp(params, x):
-    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+def swiglu_mlp(params, x, tp=None):
+    """With ``tp``: this rank's ``d_ff`` columns of ``w_gate`` / ``w_up`` and
+    rows of ``w_down``, summed over ``model``."""
+    if tp is None:
+        return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+    x = tp.copy(x)
+    return tp.reduce((F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"])
 
 
 def _rank_offsets(totals: torch.Tensor, group) -> torch.Tensor:
     """(1, E) per-expert token counts of the ranks of ``group`` before this
     one, from this rank's (1, E) ``totals``."""
     R = dist.get_world_size(group)
-    every = totals.new_empty((R * totals.shape[0],) + tuple(totals.shape[1:]))
-    dist.all_gather_into_tensor(every, totals.contiguous(), group=group)
+    every = gather_dim(totals.contiguous(), 0, group, R)
     return every.reshape((R,) + tuple(totals.shape))[: dist.get_rank(group)].sum(dim=0)
 
 
@@ -304,7 +507,29 @@ def moe_init(generator, d_model: int, cfg: MoEConfig, dtype=torch.float32, devic
     )
 
 
-def moe_ffn(params, x, cfg: MoEConfig, group=None):
+def _dispatch_shards(cfg: MoEConfig, T: int, R: int) -> tuple:
+    """(S, Tl, C, global_slots) of ``moe_ffn`` for T tokens on a rank of a
+    batch group of R ranks (R = 1: one process): S shards of Tl tokens each
+    with capacity C; ``global_slots``: capacity and slots are the whole
+    batch's (the ranks' tokens in rank order).  Local dispatch splits the
+    whole batch into ``n_batch_shards`` shards, ``n_batch_shards / R`` of
+    them on each rank; where they do not divide the rank's tokens, the
+    reference's fallback to one shard is the whole batch's global
+    dispatch."""
+    E, K = cfg.n_experts, cfg.top_k
+    if cfg.dispatch == "local":
+        if cfg.n_batch_shards % R:
+            raise ValueError(f"moe_ffn: local dispatch over a batch group of {R} ranks needs n_batch_shards "
+                             f"({cfg.n_batch_shards}) a multiple of {R}")
+        S = cfg.n_batch_shards // R
+        if T % S == 0:
+            Tl = T // S
+            return S, Tl, min(max(4, int(Tl * K / E * cfg.capacity_factor)), Tl), False
+    C = max(4, int(T * R * K / E * cfg.capacity_factor))
+    return 1, T, min(C, T * R), R > 1
+
+
+def moe_ffn(params, x, cfg: MoEConfig, group=None, tp=None):
     """x: (T, D) -> (y: (T, D), aux: load-balance loss).
 
     Per expert the first C tokens (in token order, per shard) are kept;
@@ -322,26 +547,26 @@ def moe_ffn(params, x, cfg: MoEConfig, group=None):
     and each shard has its own capacity (S falls back to 1 when it does not
     divide T).
 
-    ``group`` (a ``torch.distributed`` process group; global dispatch only):
-    x is this rank's slice of the batch's tokens, the slices of the group's
-    ranks in rank order, as a sharded train step runs it; the capacity is
-    the whole batch's, a token's slot counts the earlier ranks'
-    tokens of its expert (an all-gather of per-expert counts), and the
-    load-balance means are the batch's (an all-reduce that carries
-    gradients: its backward sums the ranks' gradients, which the step's
-    mean over ranks turns back into the batch's).
+    ``group`` (a ``torch.distributed`` process group): x is this rank's
+    slice of the batch's tokens, the slices of the group's ranks in rank
+    order, as a sharded step runs it.  Global dispatch: the capacity is the
+    whole batch's, a token's slot counts the earlier ranks' tokens of its
+    expert (an all-gather of per-expert counts).  Local dispatch: this
+    rank's ``n_batch_shards / |group|`` shards with their own capacity
+    (``_dispatch_shards``).  Either way the load-balance means are the
+    batch's (an all-reduce that carries gradients: its backward sums the
+    ranks' gradients, which the step's mean over ranks turns back into the
+    batch's).
+
+    ``tp``: the router runs on every rank (its input is replicated over
+    ``model``); the experts are this rank's (``n_experts >= |model|``:
+    tokens routed elsewhere add nothing here) or every expert's ``d_ff``
+    slice, and the partial outputs are summed over ``model``.
     """
     T, D = x.shape
-    if group is not None and cfg.dispatch == "local":
-        raise ValueError("moe_ffn: a batch group takes global dispatch only")
-    S = cfg.n_batch_shards if cfg.dispatch == "local" else 1
-    if T % S:
-        S = 1
-    Tl = T // S
-    E, K = cfg.n_experts, cfg.top_k
     R = 1 if group is None else dist.get_world_size(group)
-    C = max(4, int(Tl * R * K / E * cfg.capacity_factor))
-    C = min(C, Tl * R)
+    S, Tl, C, global_slots = _dispatch_shards(cfg, T, R)
+    E, K = cfg.n_experts, cfg.top_k
 
     xs = x.reshape(S, Tl, D)
     logits = xs.to(torch.float32) @ params["w_router"]          # (S, Tl, E)
@@ -363,6 +588,11 @@ def moe_ffn(params, x, cfg: MoEConfig, group=None):
         ce = ce / (T * R) / K
     aux = E * torch.sum(me * ce)
 
+    e0, E_loc = 0, E
+    if tp is not None:
+        xs, gate_vals = tp.copy(xs), tp.copy(gate_vals)
+        if E >= tp.size:
+            e0, E_loc = tp.chunk(E)[0], E // tp.size
     y = torch.zeros_like(xs)
     s_i = torch.arange(S, device=x.device)[:, None]                        # (S, 1)
     for slot in range(K):
@@ -371,10 +601,14 @@ def moe_ffn(params, x, cfg: MoEConfig, group=None):
         # each token's position among its expert's tokens, in token order
         counts = torch.cumsum(F.one_hot(e_idx, E), dim=1)                  # (S, Tl, E)
         pos = torch.gather(counts, 2, e_idx[..., None])[..., 0] - 1
-        if group is not None:
+        if global_slots:
             pos = pos + _rank_offsets(counts[:, -1], group)[0][e_idx]
         keep = pos < C
-        expert_in = xs.new_zeros((S, E, C + 1, D))
+        if E_loc < E:   # this rank's experts only
+            keep = keep & (e_idx >= e0) & (e_idx < e0 + E_loc)
+            e_idx = torch.clamp(e_idx - e0, 0, E_loc - 1)
+            pos = torch.where(keep, pos, C)
+        expert_in = xs.new_zeros((S, E_loc, C + 1, D))
         expert_in[s_i, e_idx, torch.clamp_max(pos, C)] = xs               # row C: dropped tokens
         expert_in = expert_in[:, :, :C]
         h = F.silu(torch.einsum("secd,edf->secf", expert_in, params["w_gate"])) * torch.einsum(
@@ -383,4 +617,6 @@ def moe_ffn(params, x, cfg: MoEConfig, group=None):
         expert_out = torch.einsum("secf,efd->secd", h, params["w_down"])
         picked = expert_out[s_i, e_idx, torch.clamp_max(pos, C - 1)]     # (S, Tl, D)
         y = y + (g * keep).to(x.dtype)[..., None] * picked
+    if tp is not None:
+        y = tp.reduce(y)
     return y.reshape(T, D), aux

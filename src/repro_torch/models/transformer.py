@@ -17,6 +17,15 @@ Entry points:
   init_cache(cfg, batch, cache_len, device)  -> cache
   decode_step(params, cfg, token, pos, cache) -> (logits, cache)
 
+Sharded (``tp``: a ``layers.TensorParallel``; ``group``: the batch
+axes' process group): each rank holds its ``lm_param_specs`` shards
+gathered over ``data``.  The embedding is a vocabulary-parallel lookup
+(a masked local take summed over ``model``, the reference's
+``sharded_lookup``), the head gives this rank's vocabulary slice of the
+logits, the cross-entropy takes its max, sum of exponentials and gold
+logit over ``model``, and prefill / decode keep the KV cache in its
+``kv_cache_specs`` layout (``layers.cache_heads``), their logits whole.
+
 Gradients: ``loss_fn`` is differentiable; the train path turns them on
 for its own tree (``repro_torch.models.params.value_and_grad``).  With
 ``cfg.remat`` and grad mode on, each layer and each chunk of the chunked
@@ -31,6 +40,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -39,6 +49,7 @@ from repro_torch.models.layers import (
     MoEConfig,
     attention,
     attn_init,
+    cache_heads,
     chunked_attention,
     decode_attention,
     mlp_init,
@@ -196,31 +207,31 @@ def init_params_abstract(cfg: TransformerConfig) -> Params:
 # forward / loss
 # ---------------------------------------------------------------------------
 
-def _attend(layer_p, z, cfg: TransformerConfig, positions):
+def _attend(layer_p, z, cfg: TransformerConfig, positions, tp=None):
     if cfg.attn_impl == "chunked":
-        return chunked_attention(layer_p["attn"], z, cfg.attn, positions, chunk_kv=cfg.attn_chunk)
-    return attention(layer_p["attn"], z, cfg.attn, positions)
+        return chunked_attention(layer_p["attn"], z, cfg.attn, positions, chunk_kv=cfg.attn_chunk, tp=tp)
+    return attention(layer_p["attn"], z, cfg.attn, positions, tp=tp)
 
 
-def _ffn(layer_p, z, cfg: TransformerConfig, group=None):
+def _ffn(layer_p, z, cfg: TransformerConfig, group=None, tp=None):
     """The block's FFN on z (B, S, D): SwiGLU, or MoE (plus the dense
-    residual for Arctic) over the B·S tokens, with ``group`` as
+    residual for Arctic) over the B·S tokens, with ``group`` and ``tp`` as
     ``moe_ffn``'s.  Returns (y, aux)."""
     if cfg.moe is None:
-        return swiglu_mlp(layer_p["mlp"], z), torch.zeros((), dtype=torch.float32, device=z.device)
+        return swiglu_mlp(layer_p["mlp"], z, tp), torch.zeros((), dtype=torch.float32, device=z.device)
     B, S, D = z.shape
-    y, aux = moe_ffn(layer_p["moe"], z.reshape(B * S, D), cfg.moe, group=group)
+    y, aux = moe_ffn(layer_p["moe"], z.reshape(B * S, D), cfg.moe, group=group, tp=tp)
     y = y.reshape(B, S, D)
     if cfg.moe.dense_residual:
-        y = y + swiglu_mlp(layer_p["mlp"], z)
+        y = y + swiglu_mlp(layer_p["mlp"], z, tp)
     return y, aux
 
 
-def _block(layer_p, x, cfg: TransformerConfig, positions, group=None):
+def _block(layer_p, x, cfg: TransformerConfig, positions, group=None, tp=None):
     """One layer: returns (x, aux, (k, v))."""
-    h, kv = _attend(layer_p, rms_norm(x, layer_p["ln_attn"]), cfg, positions)
+    h, kv = _attend(layer_p, rms_norm(x, layer_p["ln_attn"]), cfg, positions, tp)
     x = x + h
-    y, aux = _ffn(layer_p, rms_norm(x, layer_p["ln_mlp"]), cfg, group)
+    y, aux = _ffn(layer_p, rms_norm(x, layer_p["ln_mlp"]), cfg, group, tp)
     return x + y, aux, kv
 
 
@@ -228,14 +239,28 @@ def _remat(cfg: TransformerConfig) -> bool:
     return cfg.remat and torch.is_grad_enabled()
 
 
-def forward(params, cfg: TransformerConfig, tokens, positions=None, group=None):
+def _embed(params, tokens, tp=None):
+    """Rows of the embedding table; with ``tp`` this rank's vocabulary rows
+    looked up where a token falls in them (zeros elsewhere), summed over
+    ``model``."""
+    table = params["embed"]
+    if tp is None:
+        return table[tokens]
+    v0 = tp.rank * table.shape[0]
+    local = tokens.long() - v0
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.clamp(local, 0, table.shape[0] - 1)]
+    return tp.reduce(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)))
+
+
+def forward(params, cfg: TransformerConfig, tokens, positions=None, group=None, tp=None):
     """tokens: (B, S) integer -> hidden states (B, S, D) and total aux loss.
 
     ``group``: the process group of the batch axes when tokens are this
-    rank's slice of a batch split over its ranks (a sharded train step):
-    MoE layers then take the whole batch's capacity and statistics
-    (``moe_ffn``)."""
-    x = params["embed"][tokens]
+    rank's slice of a batch split over its ranks (a sharded step): MoE
+    layers then take the whole batch's capacity and statistics
+    (``moe_ffn``).  ``tp``: see the module."""
+    x = _embed(params, tokens, tp)
     if positions is None:
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
@@ -243,10 +268,10 @@ def forward(params, cfg: TransformerConfig, tokens, positions=None, group=None):
     remat = _remat(cfg)
     for layer_p in params["layers"]:
         if remat:
-            x, aux, _ = checkpoint(_block, layer_p, x, cfg, positions, group, use_reentrant=False,
+            x, aux, _ = checkpoint(_block, layer_p, x, cfg, positions, group, tp, use_reentrant=False,
                                    preserve_rng_state=False)
         else:
-            x, aux, _ = _block(layer_p, x, cfg, positions, group)
+            x, aux, _ = _block(layer_p, x, cfg, positions, group, tp)
         aux_total = aux_total + aux
     return rms_norm(x, params["ln_f"]), aux_total
 
@@ -255,18 +280,33 @@ def _head(params, cfg: TransformerConfig):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def logits_fn(params, cfg: TransformerConfig, hidden):
-    return hidden @ _head(params, cfg)
+def logits_fn(params, cfg: TransformerConfig, hidden, tp=None):
+    """hidden @ head; with ``tp`` the ranks' vocabulary slices all-gathered
+    (outside autograd: the serving paths' whole logits)."""
+    logits = hidden @ _head(params, cfg)
+    return logits if tp is None else tp.all_gather(logits, logits.ndim - 1)
 
 
-def _ce_chunk(h, head, lab):
-    logits = (h @ head).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+def _ce_chunk(h, head, lab, tp=None):
+    if tp is None:
+        logits = (h @ head).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        return torch.sum(lse - gold)
+    # vocabulary-parallel: this rank's slice of the logits, the max, the sum
+    # of exponentials and the gold logit taken over ``model``
+    logits = (tp.copy(h) @ head).to(torch.float32)
+    Vl = logits.shape[-1]
+    m = tp.all_reduce(torch.amax(logits.detach(), dim=-1).contiguous(), dist.ReduceOp.MAX)
+    lse = m + torch.log(tp.reduce(torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+    local = lab.long() - tp.rank * Vl
+    mine = (local >= 0) & (local < Vl)
+    gold = torch.gather(logits, -1, torch.clamp(local, 0, Vl - 1)[..., None])[..., 0]
+    gold = tp.reduce(torch.where(mine, gold, torch.zeros((), dtype=gold.dtype, device=gold.device)))
     return torch.sum(lse - gold)
 
 
-def _chunked_ce(params, cfg: TransformerConfig, hidden, labels):
+def _chunked_ce(params, cfg: TransformerConfig, hidden, labels, tp=None):
     """logsumexp-form CE over sequence chunks: never materialises the full
     (B, S, V) log-softmax; under ``remat`` the backward recomputes each
     chunk's logits."""
@@ -278,18 +318,22 @@ def _chunked_ce(params, cfg: TransformerConfig, hidden, labels):
     for lo in range(0, S, ck):
         h, lab = hidden[:, lo:lo + ck], labels[:, lo:lo + ck]
         if remat:
-            total = total + checkpoint(_ce_chunk, h, head, lab, use_reentrant=False, preserve_rng_state=False)
+            total = total + checkpoint(_ce_chunk, h, head, lab, tp, use_reentrant=False, preserve_rng_state=False)
         else:
-            total = total + _ce_chunk(h, head, lab)
+            total = total + _ce_chunk(h, head, lab, tp)
     return total / (B * S)
 
 
-def loss_fn(params, cfg: TransformerConfig, tokens, labels, group=None):
-    """The LM loss: (CE + aux_loss_weight · aux, parts); ``group`` as
-    ``forward``'s."""
-    hidden, aux = forward(params, cfg, tokens, group=group)
+def loss_fn(params, cfg: TransformerConfig, tokens, labels, group=None, tp=None):
+    """The LM loss: (CE + aux_loss_weight · aux, parts); ``group`` and
+    ``tp`` as ``forward``'s (with ``tp`` the CE is vocabulary-parallel in
+    both forms)."""
+    hidden, aux = forward(params, cfg, tokens, group=group, tp=tp)
     if cfg.loss_impl == "chunked":
-        loss = _chunked_ce(params, cfg, hidden, labels)
+        loss = _chunked_ce(params, cfg, hidden, labels, tp)
+        return loss + cfg.aux_loss_weight * aux, {"ce": loss, "aux": aux}
+    if tp is not None:
+        loss = _ce_chunk(hidden, _head(params, cfg), labels, tp) / labels.numel()
         return loss + cfg.aux_loss_weight * aux, {"ce": loss, "aux": aux}
     logits = logits_fn(params, cfg, hidden).to(torch.float32)
     logp = F.log_softmax(logits, dim=-1)
@@ -315,23 +359,25 @@ def init_cache(cfg: TransformerConfig, batch: int, cache_len: int, device="cuda"
     }
 
 
-def prefill(params, cfg: TransformerConfig, tokens):
+def prefill(params, cfg: TransformerConfig, tokens, group=None, tp=None):
     """Full-sequence forward; returns (last-position logits (B, V) f32,
     filled cache).  The cache holds the last min(S, window) positions (all
-    S without a window) in ring layout, slot = pos % cache_len."""
+    S without a window) in ring layout, slot = pos % cache_len.  ``group``
+    and ``tp`` as ``forward``'s: the cache is then this rank's
+    ``kv_cache_specs`` shard, the logits whole."""
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, tp)
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     cache_len = min(S, cfg.window) if cfg.window is not None else S
     shift = S % cache_len if cfg.window is not None else 0
     ks, vs = [], []
     for layer_p in params["layers"]:
-        x, _, (k, v) = _block(layer_p, x, cfg, positions)
-        ks.append(torch.roll(k[:, -cache_len:], shift, dims=1))
-        vs.append(torch.roll(v[:, -cache_len:], shift, dims=1))
+        x, _, (k, v) = _block(layer_p, x, cfg, positions, group, tp)
+        ks.append(cache_heads(torch.roll(k[:, -cache_len:], shift, dims=1), cfg.attn, tp))
+        vs.append(cache_heads(torch.roll(v[:, -cache_len:], shift, dims=1), cfg.attn, tp))
     pos_tail = torch.roll(positions[:, -cache_len:], shift, dims=1)
     x = rms_norm(x, params["ln_f"])
-    logits = logits_fn(params, cfg, x[:, -1:]).to(torch.float32)
+    logits = logits_fn(params, cfg, x[:, -1:], tp).to(torch.float32)
     cache = {
         "k": torch.stack(ks),
         "v": torch.stack(vs),
@@ -357,27 +403,27 @@ def extend_cache(cfg: TransformerConfig, cache, new_len: int):
     return {"k": nk, "v": nv, "pos": npos}
 
 
-def decode_step(params, cfg: TransformerConfig, token, pos, cache):
+def decode_step(params, cfg: TransformerConfig, token, pos, cache, group=None, tp=None):
     """token: (B,) integer; pos: (B,) integer; cache from init_cache,
     prefill or extend_cache, updated in place and returned.  Returns
-    (logits (B, V) f32, cache)."""
+    (logits (B, V) f32, cache).  ``group`` and ``tp`` as ``prefill``'s."""
     B = token.shape[0]
-    x = params["embed"][token[:, None]]
+    x = _embed(params, token[:, None], tp)
     for li, layer_p in enumerate(params["layers"]):
         h, _ = decode_attention(
             layer_p["attn"], rms_norm(x, layer_p["ln_attn"]), cfg.attn,
-            cache["k"][li], cache["v"][li], cache["pos"][li], pos,
+            cache["k"][li], cache["v"][li], cache["pos"][li], pos, tp=tp,
         )
         x = x + h
         z = rms_norm(x, layer_p["ln_mlp"])
         if cfg.moe is not None:
-            y, _ = moe_ffn(layer_p["moe"], z.reshape(B, -1), cfg.moe)
+            y, _ = moe_ffn(layer_p["moe"], z.reshape(B, -1), cfg.moe, group=group, tp=tp)
             y = y.reshape(B, 1, -1)
             if cfg.moe.dense_residual:
-                y = y + swiglu_mlp(layer_p["mlp"], z)
+                y = y + swiglu_mlp(layer_p["mlp"], z, tp)
         else:
-            y = swiglu_mlp(layer_p["mlp"], z)
+            y = swiglu_mlp(layer_p["mlp"], z, tp)
         x = x + y
     x = rms_norm(x, params["ln_f"])
-    logits = logits_fn(params, cfg, x).to(torch.float32)
+    logits = logits_fn(params, cfg, x, tp).to(torch.float32)
     return logits[:, 0], cache

@@ -36,9 +36,13 @@ over several distinct devices.  Over a ``ProcessMesh``
 (``repro_torch.launch.mesh.make_process_mesh``: one process per rank under
 ``torch.distributed``) each rank holds its own slice: ``place`` cuts it
 from a whole leaf, ``gather`` rebuilds the leaf (all-gathers over the
-split axes) and ``reduce_scatter`` averages a whole gradient over the
+split axes, or only over the batch axes: the layout a tensor-parallel
+step computes in) and ``reduce_scatter`` averages a gradient over the
 batch axes and leaves this rank its shard.  That is the layout the sharded
-train step keeps at rest (``repro_torch.launch.steps``).
+steps keep at rest (``repro_torch.launch.steps``).  Every all-gather and
+reduce-scatter goes through ``staged``, which takes CUDA tensors through
+host memory under gloo (several ranks on one card; NCCL takes one card per
+rank).
 """
 
 from __future__ import annotations
@@ -240,6 +244,16 @@ class ProcessMesh(DeviceMesh):
     def group(self, axes):
         """The process group of ``axes`` (see the class)."""
         return self.groups[self._axes(axes)]
+
+    @property
+    def transport(self) -> str:
+        """How this rank's collectives move: the backend, and for gloo with
+        CUDA tensors (several ranks on one card) that all-gathers and
+        reduce-scatters are staged through host memory."""
+        backend = dist.get_backend() if dist.is_initialized() else "none"
+        if backend == "gloo" and self.device.type == "cuda":
+            return "gloo (all-gather / reduce-scatter staged through host memory)"
+        return backend
 
 
 def process_groups(axis_names: Sequence[str], sizes: Sequence[int], rank: int) -> dict:
@@ -451,15 +465,49 @@ def _entry_axes(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def staged(collective, out: torch.Tensor, src: torch.Tensor, group) -> torch.Tensor:
+    """``collective(out, src, group=group)`` (``dist.all_gather_into_tensor``
+    or ``dist.reduce_scatter_tensor``, a sum), through host memory where
+    gloo takes only CPU tensors: CUDA tensors of several ranks sharing one
+    card (``make_process_mesh(backend="gloo", device="cuda")``)."""
+    if src.is_cuda and dist.get_backend(group) == "gloo":
+        host = torch.empty(out.shape, dtype=out.dtype)
+        collective(host, src.cpu(), group=group)
+        return out.copy_(host)
+    collective(out, src, group=group)
+    return out
+
+
+def gather_dim(t: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """The ``size`` ranks' ``t`` of ``group`` concatenated along ``dim``, in
+    group-rank order (``t`` itself for a group of one)."""
+    if size == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
+    return staged(dist.all_gather_into_tensor, out, src, group).movedim(0, dim)
+
+
+def scatter_dim(t: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of the ``size`` ranks'
+    ``t`` of ``group`` (``t`` itself for a group of one)."""
+    if size == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // size,) + tuple(src.shape[1:]))
+    return staged(dist.reduce_scatter_tensor, out, src, group).movedim(0, dim)
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A leaf's placement: ``spec`` over ``mesh``.  Over a ``DeviceMesh``
     ``place(t)`` puts the leaf whole on the mesh's one distinct device; over
     a ``ProcessMesh`` it cuts this rank's shard (each split dim divided into
     equal chunks, one per coordinate over its axes; replicated dims whole),
-    ``gather`` rebuilds the leaf from every rank's shard and
-    ``reduce_scatter`` turns a whole per-rank gradient into this rank's
-    shard of its mean over the batch axes."""
+    ``gather`` rebuilds the leaf from every rank's shard (or only its dims
+    split over chosen axes: the layout a tensor-parallel step computes in)
+    and ``reduce_scatter`` turns a per-rank gradient into this rank's shard
+    of its mean over the batch axes."""
 
     mesh: DeviceMesh
     spec: PartitionSpec
@@ -486,57 +534,72 @@ class NamedSharding:
         """Ranks that hold each element (the mesh's size over the split)."""
         return int(np.prod(self.mesh.sizes)) // _split_size(self.mesh, self.spec)
 
-    def _split(self, t: torch.Tensor):
-        """(dim, axes) of each split dim of ``t``, checked to divide."""
+    def _split(self, t: torch.Tensor, axes=None):
+        """(dim, axes) of each split dim of ``t`` (only those split over a
+        subset of ``axes`` when given), checked to divide; a dim split over
+        axes partly in ``axes`` raises."""
         if len(self.spec) > t.ndim:
             raise ValueError(f"{self.spec} has more entries than a {t.ndim}-d leaf")
         out = []
         for d, entry in enumerate(self.spec):
-            axes = _entry_axes(entry)
-            if axes:
-                k = self.mesh.axis_size(axes)
-                if t.shape[d] % k:
-                    raise ValueError(f"dim {d} of a {tuple(t.shape)} leaf does not split into {k} over {axes}")
-                out.append((d, axes))
+            own = _entry_axes(entry)
+            if not own:
+                continue
+            if axes is not None and not set(own) <= set(axes):
+                if set(own) & set(axes):
+                    raise NotImplementedError(f"{self.spec}: dim {d} mixes {tuple(axes)} and other axes")
+                continue
+            k = self.mesh.axis_size(own)
+            if t.shape[d] % k:
+                raise ValueError(f"dim {d} of a {tuple(t.shape)} leaf does not split into {k} over {own}")
+            out.append((d, own))
         return out
+
+    def _non_local(self, local: Sequence[str]) -> tuple:
+        """The mesh's axes less ``local``."""
+        return tuple(a for a in self.mesh.axis_names if a not in tuple(local))
+
+    def cut(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """This rank's chunk of each dim of ``t`` split over ``axes`` (every
+        split dim by default), contiguous; ``t`` is whole on those dims."""
+        for d, own in self._split(t, axes):
+            per = t.shape[d] // self.mesh.axis_size(own)
+            t = t.narrow(d, self.mesh.axis_index(own) * per, per)
+        return t.contiguous()
 
     def place(self, t: torch.Tensor) -> torch.Tensor:
         if not isinstance(self.mesh, ProcessMesh):
             return t.to(self.device)
-        t = t.to(self.device)
-        for d, axes in self._split(t):
-            per = t.shape[d] // self.mesh.axis_size(axes)
-            t = t.narrow(d, self.mesh.axis_index(axes) * per, per)
-        return t.contiguous()
+        return self.cut(t.to(self.device))
 
-    def gather(self, shard: torch.Tensor) -> torch.Tensor:
-        """The whole leaf from every rank's ``shard`` (all-gathers over each
-        split dim's axes; a collective of the ranks of those groups)."""
+    def gather(self, shard: torch.Tensor, axes=None) -> torch.Tensor:
+        """The leaf from every rank's ``shard``: all-gathers each split dim
+        over its axes (a collective of the ranks of those groups).  ``axes``:
+        only the dims split over a subset of them (``("data",)``: the FSDP
+        dims, leaving the dims split over ``model`` this rank's)."""
         if not isinstance(self.mesh, ProcessMesh):
             return shard
-        for d, entry in enumerate(self.spec):
-            axes = _entry_axes(entry)
-            if not axes:
-                continue
-            k = self.mesh.axis_size(axes)
-            src = shard.movedim(d, 0).contiguous()
-            out = src.new_empty((k * src.shape[0],) + tuple(src.shape[1:]))
-            dist.all_gather_into_tensor(out, src, group=self.mesh.group(axes))
-            shard = out.movedim(0, d)
+        whole = [(d, own) for d, own in enumerate(map(_entry_axes, self.spec)) if own]
+        if axes is not None:
+            whole = [(d, own) for d, own in whole if set(own) <= set(axes)]
+        for d, own in whole:
+            shard = gather_dim(shard, d, self.mesh.group(own), self.mesh.axis_size(own))
         return shard.contiguous()
 
-    def reduce_scatter(self, full: torch.Tensor, mean_over: Sequence[str]) -> torch.Tensor:
+    def reduce_scatter(self, full: torch.Tensor, mean_over: Sequence[str], local: Sequence[str] = ()) -> torch.Tensor:
         """This rank's shard of the mean over the ranks of ``mean_over``
-        (the batch axes) of each rank's whole ``full`` gradient: dims split
-        over other axes are cut locally (their ranks hold the same batch),
-        dims split over batch axes are reduce-scattered over those axes, the
-        batch axes that split no dim are all-reduced."""
+        (the batch axes) of each rank's ``full`` gradient: dims split over
+        other axes are cut locally (their ranks hold the same batch) unless
+        those axes are in ``local`` (the gradient is already this rank's
+        chunk there: a tensor-parallel step's ``model`` dims), dims split
+        over batch axes are reduce-scattered over those axes, the batch axes
+        that split no dim are all-reduced."""
         if not isinstance(self.mesh, ProcessMesh):
             return full
         over = tuple(a for a in self.mesh.axis_names if a in tuple(mean_over))
-        used = []
+        dims = self._split(full, self._non_local(local))
         t = full
-        for d, axes in self._split(full):
+        for d, axes in dims:
             if set(axes) <= set(over):
                 continue
             if set(axes) & set(over):
@@ -544,17 +607,13 @@ class NamedSharding:
             per = t.shape[d] // self.mesh.axis_size(axes)
             t = t.narrow(d, self.mesh.axis_index(axes) * per, per)
         t = t.contiguous()
-        for d, axes in self._split(full):
-            if not set(axes) <= set(over):
-                continue
-            k = self.mesh.axis_size(axes)
-            src = t.movedim(d, 0).contiguous()
-            out = src.new_empty((src.shape[0] // k,) + tuple(src.shape[1:]))
-            dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=self.mesh.group(axes))
-            t = out.movedim(0, d).contiguous()
-            used.extend(axes)
+        used = []
+        for d, axes in dims:
+            if set(axes) <= set(over):
+                t = scatter_dim(t, d, self.mesh.group(axes), self.mesh.axis_size(axes)).contiguous()
+                used.extend(axes)
         rest = tuple(a for a in over if a not in used)
-        if rest:
+        if rest and self.mesh.axis_size(rest) > 1:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.mesh.group(rest))
         if over:
             t.div_(self.mesh.axis_size(over))

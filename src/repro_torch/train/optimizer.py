@@ -25,7 +25,12 @@ On shards (``shardings``: a tree of ``NamedSharding``s over a
 step on this rank's slice; the two statistics that span a leaf are taken
 over the whole leaf: the clip's global norm counts each element once (a
 shard's sum of squares over its leaf's replica count, summed over every
-rank) and int8 compression scales by the leaf's global max.
+rank) and int8 compression scales by the leaf's global max.  Where the
+moments' shardings split a leaf over axes the parameter's do not (the
+``moe_local`` cells: expert weights replicated over ``data``, their
+moments ZeRO-sharded over it) a rank updates its moment shard and the
+matching slice of the parameter, and the updated slices are all-gathered
+over those axes into the replicated parameter.
 """
 
 from __future__ import annotations
@@ -159,13 +164,29 @@ def decompress_tree(qtree):
 
 # -- update -------------------------------------------------------------------
 
+def _moment_axes(ps: NamedSharding, ms: NamedSharding) -> tuple:
+    """The axes the moment sharding ``ms`` splits a leaf over beyond the
+    parameter sharding ``ps``'s, dim by dim (raises where the two disagree
+    otherwise)."""
+    extra = []
+    for d, (pe, me) in enumerate(zip(ps.spec, ms.spec)):
+        if pe == me:
+            continue
+        if pe is not None:
+            raise NotImplementedError(f"dim {d}: moments {ms.spec} against parameters {ps.spec}")
+        extra.extend(me if isinstance(me, tuple) else (me,))
+    return tuple(a for a in ms.mesh.axis_names if a in extra)
+
+
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: dict, shardings=None):
+def apply_updates(cfg: AdamWConfig, params, grads, state: dict, shardings=None, moment_shardings=None):
     """One AdamW step, in place.  Returns (params, new_state, metrics) with
     metrics ``{"grad_norm", "lr"}`` as device tensors (the norm before
     clipping).  ``shardings``: the leaves' placements when params, grads
-    and moments are this rank's shards (the norm is then the whole tree's)."""
-    gnorm = _global_norm(grads, shardings)
+    and moments are this rank's shards (the norm is then the whole tree's);
+    ``moment_shardings``: the moments' and the grads' placements where they
+    differ from the parameters' (see the module)."""
+    gnorm = _global_norm(grads, moment_shardings or shardings)
     clip = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
     step = state["step"] + 1
     lr = lr_at(cfg, step)
@@ -190,7 +211,18 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: dict, shardings=None):
         delta.add_(cfg.weight_decay * p32)
         p.copy_(p32.sub_(delta.mul_(lr)))
 
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"])):
-        upd(p, g, m, v)
+    leaves = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]))
+    if moment_shardings is None:
+        for p, g, m, v in leaves:
+            upd(p, g, m, v)
+    else:
+        for (p, g, m, v), ps, ms in zip(leaves, _shardings(shardings), _shardings(moment_shardings)):
+            axes = _moment_axes(ps, ms)
+            if not axes:
+                upd(p, g, m, v)
+                continue
+            part = ms.cut(p, axes)                     # the slice of p that this rank's moments cover
+            upd(part, g, m, v)
+            p.copy_(ms.gather(part, axes))
     new_state = dict(state, step=step)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -88,12 +88,15 @@ def test_sharded_step_matches_one_process_and_jax(tmp_path, capsys, arch, data, 
     np.testing.assert_allclose(got["grad_norms"], got["one_process_grad_norms"], rtol=1e-5)
     assert got["max_param_diff"] <= 1e-5
 
-    saved = np.load(tmp_path / "result.npz")
+    # every rank's saved shards against the one-process parameters' cuts
     paths, leaves = tree_flatten(params)
-    assert len(paths) == len([k for k in saved.files if k.startswith("param/")])
-    for p, leaf in zip(paths, leaves):
-        np.testing.assert_allclose(saved["param/" + "/".join(map(str, p))], leaf.detach().numpy(),
-                                   rtol=1e-5, atol=1e-5)
+    for mesh in _rank_meshes(data, model):
+        mine = torch.load(tmp_path / f"rank{mesh.rank}.pt")["train"]
+        specs = tree_leaves(steps.lm_step_specs(cfg, mesh)[0], is_leaf=lambda x: isinstance(x, PartitionSpec))
+        assert len(mine) == len(paths)
+        for p, leaf, spec in zip(paths, leaves, specs, strict=True):
+            np.testing.assert_allclose(mine["/".join(map(str, p))].numpy(),
+                                       NamedSharding(mesh, spec).cut(leaf.detach()).numpy(), rtol=1e-5, atol=1e-5)
 
     # the JAX package's loss on the same initial parameters and batch
     init = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -167,7 +170,6 @@ def test_place_refuses_a_dim_that_does_not_split():
 
 
 @pytest.mark.parametrize("arch,shape,item", [
-    ("qwen2-1.5b", "prefill_32k", "11c.2"),
     ("gcn-cora", None, "11c.4"),
     ("fm", None, "11c.4"),
 ])
@@ -178,12 +180,16 @@ def test_other_cells_refuse_a_process_mesh(arch, shape, item):
         steps.build_cell(arch, shape, mesh)
 
 
-def test_opt_lm_train_cell_refuses_a_process_mesh():
-    mesh = _rank_meshes(2, 2)[0]
-    with pytest.raises(NotImplementedError, match="11c.3"):
-        steps.build_cell("qwen2-1.5b", "train_4k", mesh, opt=True)
-    plan = steps.build_cell("qwen2-1.5b", "train_4k", mesh)
-    assert plan.kind == "train" and callable(plan.fn)
+@pytest.mark.parametrize("opt", [False, True])
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"), ("qwen2-1.5b", "decode_32k"),
+    ("mixtral-8x7b", "train_4k"), ("mixtral-8x7b", "prefill_32k"), ("mixtral-8x7b", "decode_32k"),
+])
+def test_lm_cells_build_on_a_process_mesh(arch, shape, opt):
+    """Every LM cell, opt or not, returns a step on a ProcessMesh (the
+    process groups are looked up only when a step runs)."""
+    plan = steps.build_cell(arch, shape, _rank_meshes(2, 2)[0], opt=opt)
+    assert plan.kind == get_arch(arch).shapes[shape].kind and callable(plan.fn)
 
 
 def test_several_devices_in_one_process_name_the_process_mesh():
@@ -203,11 +209,12 @@ def test_one_process_meshes_still_place_whole():
 
 
 def test_local_moe_dispatch_refuses_a_batch_group():
-    """A batch group is global dispatch's; per-shard capacity has no such
-    split, so moe_ffn refuses the pair rather than ignoring the group."""
+    """Local dispatch splits the whole batch into n_batch_shards shards,
+    n_batch_shards / |group| on each rank of the batch group: a group whose
+    size does not divide them is refused rather than given other shards."""
     from repro_torch.models import layers
 
     cfg = layers.MoEConfig(n_experts=4, top_k=2, d_ff=8, dispatch="local", n_batch_shards=2)
-    params = layers.moe_init(torch.Generator().manual_seed(0), 8, cfg, device="cpu")
-    with pytest.raises(ValueError, match="global dispatch"):
-        layers.moe_ffn(params, torch.zeros(4, 8), cfg, group=object())
+    with pytest.raises(ValueError, match="multiple of 3"):
+        layers._dispatch_shards(cfg, 4, 3)
+    assert layers._dispatch_shards(cfg, 4, 2) == (1, 4, 4, False)

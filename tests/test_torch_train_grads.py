@@ -91,12 +91,12 @@ def test_moe_drop_variant_drops_tokens(monkeypatch):
     seen = []
     real = tf.moe_ffn
 
-    def spy(p, x, cfg, group=None):
+    def spy(p, x, cfg, group=None, tp=None):
         probs = torch.softmax(x.detach().float() @ p["w_router"], dim=-1)
         idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :cfg.top_k]
         C = min(max(4, int(x.shape[0] * cfg.top_k / cfg.n_experts * cfg.capacity_factor)), x.shape[0])
         seen.append(max(int((idx[:, s] == e).sum()) for s in range(cfg.top_k) for e in range(cfg.n_experts)) - C)
-        return real(p, x, cfg, group=group)
+        return real(p, x, cfg, group=group, tp=tp)
 
     monkeypatch.setattr(tf, "moe_ffn", spy)
     for arch_id in ("mixtral-8x7b", "arctic-480b"):
