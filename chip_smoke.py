@@ -389,8 +389,25 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 mixtral; logits and the cache 1e-4); each run's step,
                 prefill and decode ms, every rank's
                 ``max_memory_allocated`` and parameter bytes and the
-                collective bytes per decode step printed; after the train
-                phase;
+                collective bytes per decode step printed; in the same start
+                of the two ranks the other families at full config
+                (``CELL_RUNS``): the search serve cell on (2, 1), baseline
+                and opt (1,000,000 colors rows under sqrt-JSD padded to
+                1,007,616 with rows of altitude +inf, 32 pivots, Q 1,024),
+                every rank's histograms and slots equal to the one-process
+                grid's, summing to the padded table, no padding row a
+                candidate, each rank's K4 / K3 / K1 launches counted from 0
+                in the step's first call and its K4, K3 and K1 outputs held
+                to their plain versions; fm (the 16,430,080-row table split
+                over model) training 2 steps and serving at B 512 and
+                sasrec's 1M-candidate retrieval on (1, 2); ogb_products at
+                its published size on (2, 1), 1 step; the NCCL world runs
+                the search cell's opt variant after its train run; then
+                eight ranks for qwen2-1.5b's 12 heads over a model axis of
+                8 (1 of 28 layers, f32, 2 steps, a prefill at B 2 x S 512,
+                8 decode steps); the search cell's K4 (1,024, 32), K3
+                (1,024, 8, 32) and K1 classes timed on rank 0's inputs in
+                this process join the kernels line; after the train phase;
 then the full run's seconds (and each phase's, ``phase_seconds``), the
 ``kernels`` line, the card's ``nvidia-smi`` line, and last the device
 contract line.  The run points the tuning cache
@@ -449,11 +466,13 @@ Q, K, CAP = 64, 10, 4096
 #: the approximate phase's truncation and re-rank budget
 APPROX_DIMS, REFINE = 10, 64
 #: the mechanisms phase's engine: the paper's colors size (SISAP colors,
-#: 112,682 rows), 8 queries per task and 2 1-D requests (16 queries until
-#: the tools and tune phases joined the run: the tree mechanisms' host path
-#: takes 0.3-1.5 s a query, and the full run must stay well inside its time
-#: limit), range at a 1e-3 selectivity
-ENGINE_ROWS, ENGINE_Q, ENGINE_1D, ENGINE_SELECTIVITY = 112_682, 8, 2, 1e-3
+#: 112,682 rows), 6 queries per task and 2 1-D requests (16 queries until
+#: the tools and tune phases joined the run, 8 until phase 13 ran every
+#: family on a ProcessMesh and took 115 s where it had taken 59: the tree
+#: mechanisms' host path takes 0.3-2.6 s a query, ~13 s a query over the
+#: engine's tasks, and the full run must stay well inside its time limit),
+#: range at a 1e-3 selectivity
+ENGINE_ROWS, ENGINE_Q, ENGINE_1D, ENGINE_SELECTIVITY = 112_682, 6, 2, 1e-3
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 / f64
 #: FLOP/s outside the tensor cores and dense bf16 FLOP/s; bound in main()
 #: from their one home, ``repro_torch.launch.roofline``
@@ -4781,10 +4800,13 @@ def select_kernel_rows(torch, ops, ref, rec, index, queries_np, log) -> list:
 #: a (cards, 1) mesh, the reference's sharded test's reduced mixtral (d_model
 #: 64, d_ff 128, vocab 512, batch 8 x 32), 4 steps, against the one-process
 #: step on the card (the qwen2 smoke config too until the run needed its 20 s;
-#: the CPU tests run both)
+#: the CPU tests run both); then, in the same start of the ranks, the search
+#: serve cell's opt variant at full config (a world of one on one card takes
+#: the path of many: the histogram all-reduce and the int64 all-gathers)
 SHARDED_TRAIN = [
     ("mixtral-8x7b", ["--d-model", "64", "--d-ff", "128", "--vocab", "512"]),
 ]
+NCCL_SEARCH = ["--arch", "nsimplex-colors", "--mode", "search", "--opt", "--steps", "3"]
 SHARDED_TRAIN_TOL, SHARDED_TRAIN_TIMEOUT = 1e-5, 300
 #: two gloo ranks on the one card (staged collectives), one start for the
 #: runs (``--then``): (arch, (data, model), arguments, parameter
@@ -4806,18 +4828,46 @@ TP_RUNS = [
      ("max_param_diff", 1e-5)),
 ]
 TP_LOSS_TOL, TP_LOGIT_TOL = 1e-5, 1e-4
+#: the other families' cells on a ProcessMesh (ROADMAP item 11c.4), in the
+#: same start of the two ranks after TP_RUNS, at full config: the search
+#: serve cell on (2, 1), baseline and opt (1,000,000 colors rows under
+#: sqrt-JSD padded to 1,007,616, 32 pivots, f32, Q 1,024, 3 timed calls
+#: after the first); fm on (1, 2) (the 16,430,080 x 10 padded table split
+#: over model), serve_p99 at B 512 and 2 train steps at B 512 (train_batch's
+#: 65,536 cut); sasrec's retrieval_cand on (1, 2) (1M candidates); gcn-cora's
+#: ogb_products at its published size on (2, 1) (2,449,029 nodes,
+#: 61,859,140 edges over data), 1 train step.  Parameters within 1e-4 of
+#: each leaf's largest magnitude of the one-process port on the card (GCN's
+#: sums add with atomics there), outputs within 1e-4; the search cell exact
+CELL_RUNS = [
+    ("nsimplex-colors", (2, 1), ["--mode", "search", "--steps", "3"]),
+    ("nsimplex-colors", (2, 1), ["--mode", "search", "--opt", "--steps", "3"]),
+    ("fm", (1, 2), ["--mode", "train,serve", "--size", "batch=512", "--steps", "2"]),
+    ("sasrec", (1, 2), ["--mode", "retrieval"]),
+    ("gcn-cora", (2, 1), ["--shape", "ogb_products", "--steps", "1"]),
+]
+CELL_TOL = 1e-4
+#: the uneven head split (ROADMAP item 11c.2b) in its own start of eight
+#: gloo ranks on the one card: qwen2-1.5b's 12 heads over a model axis of 8
+#: (2 heads on ranks 0-5, none on 6-7), full width cut to 1 of 28 layers,
+#: f32, 2 train steps, a prefill at B 2 x S 512 and 8 decode steps
+UNEVEN_RUN = ("qwen2-1.5b", (1, 8), ["--n-layers", "1", "--dtype", "float32", "--mode", "train,decode",
+                                     "--batch", "2", "--seq", "512", "--steps", "2", "--decode-steps", "8"],
+              ("max_param_diff", 1e-5))
 
 
 def start_sharded_train_world(torch) -> list:
     """Phase 13's NCCL runs, each started in the background through the
     launcher's command line (its own process, so that it overlaps the
     tensor-parallel runs): one rank per visible card on a (cards, 1) mesh
-    for each ``SHARDED_TRAIN`` config.  Returns (arch, process) pairs."""
+    for each ``SHARDED_TRAIN`` config, then (``--then``) the search cell
+    (``NCCL_SEARCH``).  Returns (arch, process) pairs."""
     cards = torch.cuda.device_count()
     procs = []
+    world = ["--data", str(cards), "--model", "1", "--backend", "nccl", "--check",
+             "--timeout", str(SHARDED_TRAIN_TIMEOUT)]
     for arch, over in SHARDED_TRAIN:
-        argv = ["--arch", arch, "--smoke", *over, "--data", str(cards), "--model", "1", "--backend", "nccl",
-                "--steps", "4", "--check", "--timeout", str(SHARDED_TRAIN_TIMEOUT)]
+        argv = ["--arch", arch, "--smoke", *over, "--steps", "4", *world, "--then", *NCCL_SEARCH, *world]
         procs.append((arch, subprocess.Popen([sys.executable, "-m", "repro_torch.launch.process_train", *argv],
                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                                              start_new_session=True)))
@@ -4837,16 +4887,17 @@ def finish_sharded_train_world(procs) -> list:
     that outlive their limit) and holds each run: every rank exits 0, the
     shards gather back, the parameters after 4 steps within 1e-5 of the
     one-process step's, the losses and gradient norms agree, int8
-    compression of shards equals the whole tree's, the loss falls."""
+    compression of shards equals the whole tree's, the loss falls; the
+    search cell as ``check_search``."""
     out = []
     for arch, proc in procs:
         try:
-            stdout, stderr = proc.communicate(timeout=SHARDED_TRAIN_TIMEOUT + 120)
+            stdout, stderr = proc.communicate(timeout=2 * SHARDED_TRAIN_TIMEOUT + 120)
         finally:
             stop_group(proc)
         check(proc.returncode == 0, f"sharded train of {arch}: the launcher exited {proc.returncode}:\n"
                                     f"{stderr[-4000:]}")
-        rec = json.loads(stdout.strip().splitlines()[-1])
+        rec, search = [json.loads(x) for x in stdout.strip().splitlines() if x.startswith('{"rank"')]
         check(rec["shards_rebuild_leaves"], f"{arch}: shards do not gather back to their leaves")
         check(rec["max_param_diff"] <= SHARDED_TRAIN_TOL,
               f"{arch}: parameters differ from the one-process step by {rec['max_param_diff']}")
@@ -4857,77 +4908,242 @@ def finish_sharded_train_world(procs) -> list:
         check(rec["compress_max_diff"] == 0.0, f"{arch}: int8 compression of shards differs")
         check(rec["losses"][-1] < rec["losses"][0], f"{arch}: the loss did not fall")
         emit(phase="sharded_train", arch=arch, **rec)
-        out.append(rec)
+        check_search("nsimplex-colors nccl opt", True, search)
+        emit(phase="sharded_train", arch="nsimplex-colors", **search)
+        out += [rec, search]
     return out
 
 
-def sharded_train_tp(torch, process_train) -> list:
-    """Phase 13's runs on one card (``TP_RUNS``): two ranks on card 0
-    (``--backend gloo --device cuda``), started once; every rank exits 0,
-    its shards gather back to their leaves (a split leaf 1/2 of it), the
-    transport is the staged one, the parameters after 4 steps, the losses
-    and gradient norms, the prefill and every decode step's logits and the
-    cache agree with the one-process port on the card, and the opt cell
-    dispatched locally over the two batch shards."""
-    root = Path(__file__).resolve().parent / "build" / "tp_smoke"
-    shutil.rmtree(root, ignore_errors=True)
+def _tp_argv(process_train, runs, backend_args, root) -> list:
+    """The launcher's arguments for ``runs`` (arch, mesh, arguments, ...)
+    in one start of the ranks, each checked, shards under ``root``."""
     argv = []
-    for i, (arch, (data, model), over, _) in enumerate(TP_RUNS):
+    for i, (arch, (data, model), over, *_) in enumerate(runs):
         argv += ([process_train.THEN] if i else []) + [
-            "--arch", arch, *over, "--data", str(data), "--model", str(model), "--backend", "gloo",
-            "--device", "cuda", "--steps", "4", "--check", "--out", str(root / str(i)),
-            "--timeout", str(SHARDED_TRAIN_TIMEOUT)]
-    fresh_peak(torch)
-    t0 = time.perf_counter()
-    rc, recs, bad = process_train.launch(argv)
-    wall = time.perf_counter() - t0
-    shutil.rmtree(root, ignore_errors=True)
-    check(rc == 0, f"tensor-parallel runs: ranks failed: {bad}")
-    for (arch, mesh, over, (key, tol)), rec in zip(TP_RUNS, recs, strict=True):
-        what = f"{arch} {mesh} {' '.join(over)}"
-        check(rec["mesh"] == list(mesh), f"{what}: ran on {rec['mesh']}")
+            "--arch", arch, *over, "--data", str(data), "--model", str(model), *backend_args, "--check",
+            "--out", str(root / str(i)), "--timeout", str(SHARDED_TRAIN_TIMEOUT)]
+    return argv
+
+
+def check_tp(arch, mesh, over, key, tol, rec) -> None:
+    """A tensor-parallel LM run: every rank exits 0, its shards gather back
+    to their leaves (a split leaf 1/|model| of it), the transport is the
+    staged one, the parameters after the train steps, the losses and
+    gradient norms, the prefill and every decode step's logits and the
+    cache agree with the one-process port on the card; an opt cell
+    dispatched locally over its batch shards."""
+    what = f"{arch} {mesh} {' '.join(over)}"
+    check(rec["mesh"] == list(mesh), f"{what}: ran on {rec['mesh']}")
+    check(rec["shards_rebuild_leaves"], f"{what}: shards do not gather back to their leaves")
+    check(all("staged" in r["transport"] for r in rec["ranks"]), f"{what}: transport {rec['transport']}")
+    check(all(r["param_bytes"] < r["whole_param_bytes"] for r in rec["ranks"]),
+          f"{what}: a rank holds the whole model")
+    check(bool(np.allclose(rec["losses"], rec["one_process_losses"], rtol=TP_LOSS_TOL)),
+          f"{what}: losses {rec['losses']} against {rec['one_process_losses']}")
+    check(bool(np.allclose(rec["grad_norms"], rec["one_process_grad_norms"], rtol=TP_LOSS_TOL)),
+          f"{what}: gradient norms {rec['grad_norms']} against {rec['one_process_grad_norms']}")
+    check(rec[key] <= tol, f"{what}: parameters differ by {rec[key]} ({key})")
+    check(rec["compress_max_diff"] == 0.0, f"{what}: int8 compression of shards differs")
+    if "--opt" in over:
+        check(rec["moe_dispatch"] == {"dispatch": "local", "n_batch_shards": mesh[0]},
+              f"{what}: dispatch {rec['moe_dispatch']}")
+    if "prefill_ms" in rec:
+        check(rec["max_prefill_logit_diff"] <= TP_LOGIT_TOL, f"{what}: prefill logits differ")
+        check(max(rec["max_decode_logit_diff"]) <= TP_LOGIT_TOL, f"{what}: decode logits differ")
+        check(rec["max_cache_diff"] <= TP_LOGIT_TOL and rec["cache_pos_equal"]
+              and rec["cache_is_its_spec_shard"], f"{what}: the cache differs")
+
+
+def check_search(what, opt, rec) -> None:
+    """The search serve cell: every rank's histograms and slots equal the
+    one-process grid's, summing to the padded table, no padding row a
+    candidate; each rank launched K4 and K3 (opt) or K1 (baseline), and
+    its K4, K3 and K1 outputs agree with their plain versions."""
+    check(rec["search_equal_one_process"], f"{what}: differs from the one-process grid")
+    check(rec["hist_sums_to_padded_rows"] and rec["padding_never_candidate"] and rec["padding_excluded"],
+          f"{what}: a padding row was counted or picked")
+    for r in rec["ranks"]:
+        kc, n = r["kernel_checks"], r["launches"]
+        if opt:
+            check(n.get("apex_project", 0) > 0 and n.get("apex_threshold", 0) > 0, f"{what}: launches {n}")
+            check(kc["apex_project"] <= K4_F32_TOL and kc["apex_threshold"]["equal_to_plain_selection"],
+                  f"{what}: K4 or K3 differs from its plain version: {kc}")
+        else:
+            check(n.get("apex_bounds_batch", 0) > 0, f"{what}: launches {n}")
+        if "apex_bounds_batch" in kc:
+            check(kc["apex_bounds_batch"]["max_abs_err"] <= F32_TOL, f"{what}: K1 differs from plain: {kc}")
+
+
+def check_cell(arch, mesh, over, rec) -> None:
+    """A RecSys or GCN cell: the parameters after the train steps within
+    ``CELL_TOL`` of each leaf's largest magnitude, losses and gradient
+    norms at 1e-5, serve and retrieval outputs within ``CELL_TOL``; each
+    rank's table rows 1/|model| of the whole."""
+    what = f"{arch} {mesh} {' '.join(over)}"
+    check(rec["mesh"] == list(mesh), f"{what}: ran on {rec['mesh']}")
+    if "losses" in rec:
         check(rec["shards_rebuild_leaves"], f"{what}: shards do not gather back to their leaves")
-        check(all("staged" in r["transport"] for r in rec["ranks"]), f"{what}: transport {rec['transport']}")
-        check(all(r["param_bytes"] < r["whole_param_bytes"] for r in rec["ranks"]),
-              f"{what}: a rank holds the whole model")
-        check(rec["losses"][-1] < rec["losses"][0], f"{what}: the loss did not fall")
+        check(rec["max_param_rel_diff"] <= CELL_TOL, f"{what}: parameters differ by {rec['max_param_rel_diff']}")
         check(bool(np.allclose(rec["losses"], rec["one_process_losses"], rtol=TP_LOSS_TOL)),
               f"{what}: losses {rec['losses']} against {rec['one_process_losses']}")
         check(bool(np.allclose(rec["grad_norms"], rec["one_process_grad_norms"], rtol=TP_LOSS_TOL)),
               f"{what}: gradient norms {rec['grad_norms']} against {rec['one_process_grad_norms']}")
-        check(rec[key] <= tol, f"{what}: parameters differ by {rec[key]} ({key})")
-        check(rec["compress_max_diff"] == 0.0, f"{what}: int8 compression of shards differs")
-        if "--opt" in over:
-            check(rec["moe_dispatch"] == {"dispatch": "local", "n_batch_shards": mesh[0]},
-                  f"{what}: dispatch {rec['moe_dispatch']}")
-        if "prefill_ms" in rec:
-            check(rec["max_prefill_logit_diff"] <= TP_LOGIT_TOL, f"{what}: prefill logits differ")
-            check(max(rec["max_decode_logit_diff"]) <= TP_LOGIT_TOL, f"{what}: decode logits differ")
-            check(rec["max_cache_diff"] <= TP_LOGIT_TOL and rec["cache_pos_equal"]
-                  and rec["cache_is_its_spec_shard"], f"{what}: the cache differs")
+    for mode in ("serve", "retrieval"):
+        if f"max_{mode}_rel_diff" in rec:
+            check(rec[f"max_{mode}_rel_diff"] <= CELL_TOL, f"{what}: {mode} differs by {rec[f'max_{mode}_rel_diff']}")
+    if mesh[1] > 1:
+        check(all(r["param_bytes"] < r["whole_param_bytes"] for r in rec["ranks"]), f"{what}: a rank holds it all")
+
+
+def sharded_train_tp(torch, process_train) -> tuple:
+    """Phase 13's runs on one card: two ranks on card 0 (``--backend gloo
+    --device cuda``), started once, for ``TP_RUNS`` and ``CELL_RUNS``; then
+    eight for ``UNEVEN_RUN``.  Each run checked (``check_tp``,
+    ``check_search``, ``check_cell``).  Returns (the records, the search
+    cell's kernel rows)."""
+    root = Path(__file__).resolve().parent / "build" / "tp_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    gloo = ["--backend", "gloo", "--device", "cuda"]
+    fresh_peak(torch)
+    t0 = time.perf_counter()
+    rc, recs, bad = process_train.launch(_tp_argv(process_train, TP_RUNS + CELL_RUNS, gloo, root))
+    wall = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    check(rc == 0, f"two ranks' runs: ranks failed: {bad}")
+    for (arch, mesh, over, *tol), rec in zip(TP_RUNS + CELL_RUNS, recs, strict=True):
+        if tol:
+            check_tp(arch, mesh, over, *tol[0], rec)
+        elif arch == "nsimplex-colors":
+            check_search(f"{arch} {mesh} {' '.join(over)}", "--opt" in over, rec)
+        else:
+            check_cell(arch, mesh, over, rec)
         emit(phase="sharded_train", arch=arch, mesh_shape=list(mesh), launch_wall_s=wall, **rec)
     emit(phase="sharded_train", part="tp_launch", runs=len(recs), wall_s=wall,
          chip_smoke_peak=torch.cuda.max_memory_allocated())
-    return recs
+    search = [rec for (arch, *_), rec in zip(CELL_RUNS, recs[len(TP_RUNS):]) if arch == "nsimplex-colors"]
+    rows = process_search_kernel_rows(torch, process_train, search)
+    fresh_peak(torch)
+    t0 = time.perf_counter()
+    rc, uneven, bad = process_train.launch(_tp_argv(process_train, [UNEVEN_RUN], gloo, root))
+    wall = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    check(rc == 0, f"eight ranks' run: ranks failed: {bad}")
+    arch, mesh, over, tol = UNEVEN_RUN
+    check_tp(arch, mesh, over, *tol, uneven[0])
+    emit(phase="sharded_train", arch=arch, mesh_shape=list(mesh), launch_wall_s=wall, **uneven[0])
+    return recs + uneven, rows
 
 
-def phase_sharded_train(torch) -> list:
+def process_search_kernel_rows(torch, process_train, recs) -> list:
+    """The search cell's kernel rows on a rank: K4 (1,024, 32, f32), K3
+    (1,024, 8, 32) over a rank's 503,808 rows, K1 (1,024, 32) on one of
+    the baseline's row tiles and K1 at the opt cell's overflow completion,
+    on rank 0's inputs (``process_train.search_inputs``, this process's
+    copy: the launcher's check drew it), each against its plain version;
+    launches: the ranks' first call of the step (``recs``: baseline, opt)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.simplex import apex_addition
+    from repro_torch.kernels import ops, ref
+    from repro_torch.search.distributed import _TILE_ELEMS, _bands
+
+    base, opt = sorted(recs, key=lambda r: "OPT" in r["note"])
+    cfg = get_arch("nsimplex-colors").model_cfg
+    sizes = {"n_objects": cfg.n_objects, "query_batch": cfg.query_batch, "n_pivots": cfg.n_pivots}
+    table, Linv, sq, sigma, qd, t = process_train.search_inputs(cfg, sizes, torch.device("cuda", 0))
+    Q_, n = qd.shape
+    local = table[:opt["rows_local"]]
+    check(base["rows_local"] == opt["rows_local"], "the two variants split the table alike")
+
+    def launched(rec, name, Q=None):
+        return sum(c for r in rec["ranks"] for cls, c in r["shape_launches"].get(name, [])
+                   if Q is None or cls[0] == Q)
+
+    def timed(run, plain, err, b, shape, lib=None, plain_reps=None):
+        big = b[0] > 1.0
+        return dict(shape=shape, max_abs_err=err, ms=time_ms(torch, run, reps=10 if big else 50),
+                    plain_ms=time_ms(torch, plain, reps=plain_reps or (2 if big else 10)), bound=b,
+                    library_ms=lib, device_ms=device_ms(torch, run))
+
+    rows = []
+    # K4: the opt cell's projection of the query block
+    proj = ops.apex_project(qd, Linv, sq)
+    h = n - 1
+    m = timed(lambda: ops.apex_project(qd, Linv, sq), lambda: ref.apex_project_ref(qd, Linv, sq),
+              check_k4(torch, proj, ref.apex_project_ref(qd, Linv, sq), K4_F32_TOL),
+              roofline(2 * Q_ * n * 4 + (h * h + h) * 4, Q_ * (2 * h * h + 4 * h + 4), F32_FLOPS),
+              [Q_, n, "float32"])
+    rows.append(kernel_row("apex_project", m, launched(opt, "apex_project"), None))
+    # K3: the opt cell's selection over a rank's rows, into 8 slots
+    t_hi = _bands(t, None, 1e-5, Q_, local.device)[0]
+    cap = 8
+    got = ops.apex_bounds_threshold(local, proj, t_hi, cap)
+    for lo in range(0, Q_, 64):
+        L, U = ops.apex_bounds_batch(local, proj[lo:lo + 64])
+        want = ref.threshold_from_bounds(L, U, t_hi[lo:lo + 64], cap)
+        check(all(torch.equal(g[lo:lo + 64], w) for g, w in zip(got, want)),
+              "K3 on a rank's rows differs from the plain selection over K1's bounds")
+    del L, U, want
+    counts = got[3].to(torch.int64)
+    kept = int(counts.clamp(max=cap).sum())
+    chunks = [(lo, min(lo + 256, Q_)) for lo in range(0, Q_, 256)]
+
+    def plain_k3():
+        for lo, hi in chunks:
+            ref.apex_threshold_ref(local, proj[lo:hi], t_hi[lo:hi], cap, n)
+
+    m = timed(lambda: ops.apex_bounds_threshold(local, proj, t_hi, cap), plain_k3, 0.0,
+              select_bound(Q_, local.shape[0], n, n, proj.numel(), Q_ * (cap * 12 + 4), kept),
+              [Q_, cap, n], plain_reps=2)
+    m["plain_in_chunks_of"] = 256
+    m["mean_count"] = float(counts.double().mean())
+    rows.append(kernel_row("apex_threshold", m, launched(opt, "apex_threshold"), None))
+    # K1: a row tile of the baseline's sort selection (Algorithm 2's
+    # queries), and the opt cell's completion for its overflowing queries
+    paper = apex_addition(sigma, qd)
+    over = torch.nonzero(counts > cap).flatten()
+    for rec, q in ((base, paper), (opt, proj[over])):
+        tile = local[:max(1, _TILE_ELEMS // max(1, q.shape[0]))]
+        if not q.shape[0]:
+            continue
+        lwb, upb = ops.apex_bounds_batch(tile, q)
+        w = ref.apex_bounds_batch_ref(tile, q, n)
+        err = max(max_err(torch, lwb, w[0], F32_TOL), max_err(torch, upb, w[1], F32_TOL))
+        del lwb, upb, w
+        S = torch.cat([tile, torch.cat([tile[:, :-1], -tile[:, -1:]], dim=1)]).contiguous()
+        lib = time_ms(torch, lambda: torch.cdist(q, S), reps=20)
+        del S
+        m = timed(lambda: ops.apex_bounds_batch(tile, q), lambda: ref.apex_bounds_batch_ref(tile, q, n), err,
+                  bound(q.shape[0], tile.shape[0], n, 4, 2 * q.shape[0] * tile.shape[0] * 4, F32_FLOPS),
+                  [q.shape[0], n], lib)
+        m["tile_rows"] = tile.shape[0]
+        rows.append(kernel_row("apex_bounds_batch", m, launched(rec, "apex_bounds_batch", q.shape[0]), None))
+    for row in rows:
+        row["launch_phase"] = "process_search"
+        row["rows_local"] = opt["rows_local"]
+    emit(phase="sharded_train", part="process_search_kernels", rows=rows)
+    return rows
+
+
+def phase_sharded_train(torch) -> tuple:
     """Phase 13: ``python -m repro_torch.launch.process_train`` with
     ``--check``: the NCCL world (``start_sharded_train_world``) in the
-    background beside the runs of two ranks on one card
-    (``sharded_train_tp``)."""
+    background beside the runs of two ranks, then eight, on one card
+    (``sharded_train_tp``).  Returns (the records, the search cell's kernel
+    rows)."""
     from repro_torch.launch import process_train
 
     src = str(Path(__file__).resolve().parent / "src")
     os.environ["PYTHONPATH"] = src + (os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else "")
     world = start_sharded_train_world(torch)
     try:
-        tp = sharded_train_tp(torch, process_train)
+        tp, rows = sharded_train_tp(torch, process_train)
     except BaseException:
         for _, proc in world:
             stop_group(proc)
         raise
-    return finish_sharded_train_world(world) + tp
+    recs = finish_sharded_train_world(world) + tp
+    process_train._search_inputs.cache_clear()
+    return recs, rows
 
 
 class Laps:
@@ -5062,7 +5278,7 @@ def run(argv=None) -> int:
         print(smi, flush=True)
         return 0
     if args.sharded_train_only:
-        phase_sharded_train(torch)
+        print(json.dumps({"process_search_kernels": phase_sharded_train(torch)[1]}), flush=True)
         emit(phase="host", host_yardstick_s=host_yardstick())
         print(smi, flush=True)
         return 0
@@ -5269,7 +5485,7 @@ def run(argv=None) -> int:
     train = phase_train(ops, torch, data_np)
     torch.cuda.empty_cache()
     lap("train")
-    phase_sharded_train(torch)
+    rows += phase_sharded_train(torch)[1]
     lap("sharded_train")
     rows += phase_tools(ops, torch, api, ref, log, train)["rows"]
     torch.cuda.empty_cache()

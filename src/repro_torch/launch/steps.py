@@ -16,7 +16,8 @@ Conventions:
     inputs and needs none of the mesh's.
   * the paper's own cell runs ``build_serve_step`` (K4 and K3 on the card
     with ``opt=True``) over the mesh's devices as the search half's
-    ``(replica, data)`` grid.
+    ``(replica, data)`` grid, or on a ``ProcessMesh`` on each rank over its
+    row slice of the table.
 
 The port's transformer parameters keep one tree per layer, so each layer
 spec is the reference's without its leading (n_layers,) entry.
@@ -34,9 +35,23 @@ layout.  Gradients are averaged over the batch axes and reduce-scattered
 to the moments' shards; under ``moe_local`` (the ``opt`` cells) the
 expert weights replicate over ``data`` while their moments stay sharded
 over it, and AdamW all-gathers each update into the replicated weight.
-The GCN and RecSys cells and the search serve cell (11c.4) refuse a
-ProcessMesh.  A mesh of several distinct devices in one process still
-refuses (``to_named_shardings``).
+A head count that ``|model|`` does not divide takes GSPMD's padded split
+of the heads (``models.layers``).
+
+The other families run on a ``ProcessMesh`` too.  RecSys: the tables'
+rows split over ``model`` and every read is a masked take of this rank's
+rows summed over ``model`` (``embeddings.rank_lookup``), the interaction
+weights replicate, the batch (and the retrieval cell's candidates) split
+over the batch axes, and the sequence models' in-batch negatives are the
+whole batch's targets, all-gathered.  GCN: the weights replicate; the full
+graphs' edge list splits over the batch axes, each rank's partial degrees
+and aggregates summed over them, the sampled and molecule batches split
+over them.  Their gradients are averaged over the batch axes.  The search
+serve cell: each rank projects the replicated query block and filters its
+row slice of the table (``search.distributed.build_process_filter``: the
+histograms all-reduced, the candidate slots all-gathered).  A mesh of
+several distinct devices in one process still refuses
+(``to_named_shardings``).
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.models import gcn as gcn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models.embeddings import rank_lookup
 from repro_torch.models.layers import TensorParallel
 from repro_torch.models.params import tree_leaves, tree_map, value_and_grad
 from repro_torch.sharding.rules import (
@@ -137,9 +153,18 @@ def _accumulated_grads(params, loss_of, microbatches):
     return grads, torch.mean(torch.stack(losses))
 
 
-def _process_refusal(mesh, what: str, item: str):
-    if isinstance(mesh, ProcessMesh):
-        raise NotImplementedError(f"{what} on a ProcessMesh is ROADMAP item {item}, not ported")
+def _sharded_update(opt_cfg, mesh, params, grads, opt_state, loss, shardings, mshardings):
+    """A rank's AdamW update of its shards: each gradient (this rank's
+    chunk over ``model``) averaged over the batch axes and reduce-scattered
+    to the moments' shards (``mshardings``), the loss averaged over the
+    batch axes."""
+    batch = _batch_axes(mesh)
+    grads = tree_map(lambda g, s: s.reduce_scatter(g, batch, local=("model",)), grads, mshardings)
+    if batch:
+        dist.all_reduce(loss, group=mesh.group(batch))
+        loss = loss / mesh.axis_size(batch)
+    params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state, shardings, mshardings)
+    return params, opt_state, {"loss": loss, **om}
 
 
 # ===========================================================================
@@ -206,12 +231,7 @@ def lm_train_step(cfg, opt_cfg: AdamWConfig, mesh: Optional[ProcessMesh] = None,
         grads, loss = _accumulated_grads(
             full, lambda p, mb: tf_mod.loss_fn(p, cfg, *mb, group=group, tp=tp)[0], zip(tokens, labels))
         del full
-        grads = tree_map(lambda g, s: s.reduce_scatter(g, batch, local=("model",)), grads, mshardings)
-        if batch:
-            dist.all_reduce(loss, group=group)
-            loss = loss / mesh.axis_size(batch)
-        params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state, shardings, mshardings)
-        return params, opt_state, {"loss": loss, **om}
+        return _sharded_update(opt_cfg, mesh, params, grads, opt_state, loss, shardings, mshardings)
 
     step.tensor_parallel = tp
     return step
@@ -390,22 +410,36 @@ def _lm_decode(arch: ArchSpec, shape: ShapeSpec, mesh, *, n_layers=None, unroll=
 # GNN cells
 # ===========================================================================
 
-def _train_step(opt_cfg, loss_of):
-    """(params, opt_state, *batch) -> (params, opt_state, metrics): one
-    gradient of ``loss_of(params, *batch)`` and one AdamW update."""
+def _process(mesh) -> Optional[ProcessMesh]:
+    return mesh if isinstance(mesh, ProcessMesh) else None
+
+
+def _train_step(opt_cfg, loss_of, microbatches=None, mesh: Optional[ProcessMesh] = None, param_specs=None):
+    """(params, opt_state, *batch) -> (params, opt_state, metrics): the
+    gradient of ``loss_of(params, *batch)`` (or, with ``microbatches``, a
+    function of the batch giving each microbatch's arguments, their mean)
+    and one AdamW update.  On ``mesh`` params and opt_state are this rank's
+    shards under ``param_specs`` and the batch its slice: the gradients
+    and the loss averaged over the batch axes (``_sharded_update``)."""
+    if microbatches is None:
+        microbatches = lambda *batch: [batch]  # noqa: E731
+    shardings = None if mesh is None else to_named_shardings(param_specs, mesh)
+
     def step(params, opt_state, *batch):
-        loss, g = value_and_grad(lambda p: loss_of(p, *batch), params)
-        params, opt_state, om = apply_updates(opt_cfg, params, g, opt_state)
-        return params, opt_state, {"loss": loss, **om}
+        grads, loss = _accumulated_grads(params, lambda p, mb: loss_of(p, *mb), microbatches(*batch))
+        if mesh is None:
+            params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state)
+            return params, opt_state, {"loss": loss, **om}
+        return _sharded_update(opt_cfg, mesh, params, grads, opt_state, loss, shardings, shardings)
 
     return step
 
 
 def _gcn_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPlan:
-    _process_refusal(mesh, "a GCN cell", "11c.4")
     base: gcn_mod.GCNConfig = arch.model_cfg
     s = shape.sizes
     edge_axes = _batch_axes(mesh)
+    process = _process(mesh)
     note = ""
 
     if shape.name in ("full_graph_sm", "ogb_products"):
@@ -417,8 +451,10 @@ def _gcn_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPlan:
                 _sds((N,), torch.int32), _sds((N,), torch.float32))
         specs = (P(None, None), P(None, edge_axes), P(edge_axes), P(None), P(None))
 
+        ep = TensorParallel.of(process, edge_axes) if process else None
+
         def loss_of(p, feats, edges, eweight, labels, mask):
-            return gcn_mod.loss_full(p, cfg, feats, edges, labels, mask, eweight)
+            return gcn_mod.loss_full(p, cfg, feats, edges, labels, mask, eweight, ep)
 
         dims = [cfg.d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
         flops = 3.0 * sum(2.0 * E * dims[i] + 2.0 * N * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
@@ -452,7 +488,8 @@ def _gcn_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPlan:
     pspecs = gcn_param_specs(params_abs, mesh)
     ospecs = _opt_state_specs(pspecs)
     return CellPlan(
-        arch.arch_id, shape.name, "train", _train_step(opt_cfg or _opt_cfg(), loss_of),
+        arch.arch_id, shape.name, "train", _train_step(opt_cfg or _opt_cfg(), loss_of, mesh=process,
+                                                       param_specs=pspecs),
         (params_abs, _opt_state_abstract(params_abs)) + args,
         (pspecs, ospecs) + specs,
         (pspecs, ospecs, P()),
@@ -476,11 +513,12 @@ def _recsys_batch_abstract(cfg: rec_mod.RecsysConfig, B: int) -> dict:
 
 
 def _recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPlan:
-    _process_refusal(mesh, "a RecSys cell", "11c.4")
     cfg: rec_mod.RecsysConfig = arch.model_cfg
     init_fn, fwd_fn, loss_fn = rec_mod.get_model_fns(cfg)
     params_abs = init_fn(cfg, device="meta")
     pspecs = recsys_param_specs(params_abs, mesh)
+    process = _process(mesh)
+    tp = TensorParallel.of(process) if process else None
     opt_cfg = opt_cfg or _opt_cfg()
     s = shape.sizes
     flops_per_row = _recsys_flops_per_row(cfg)
@@ -498,12 +536,13 @@ def _recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPl
         else:
             bspecs = tree_map(lambda l: batch_spec(mesh, len(l.shape) - 1), batch_abs)
 
-        def step(params, opt_state, batch):
-            micro = ({k: v[a] for k, v in batch.items()} for a in range(accum)) if accum > 1 else [batch]
-            grads, loss = _accumulated_grads(params, lambda p, mb: loss_fn(p, cfg, mb), micro)
-            params, opt_state, om = apply_updates(opt_cfg, params, grads, opt_state)
-            return params, opt_state, {"loss": loss, **om}
+        in_batch = TensorParallel.of(process, _batch_axes(mesh)) if process else None
 
+        def micro(batch):
+            return (({k: v[a] for k, v in batch.items()},) for a in range(accum)) if accum > 1 else [(batch,)]
+
+        step = _train_step(opt_cfg, lambda p, mb: loss_fn(p, cfg, mb, tp=tp, in_batch=in_batch), micro,
+                           process, pspecs)
         return CellPlan(
             arch.arch_id, shape.name, "train", step,
             (params_abs, _opt_state_abstract(params_abs), batch_abs),
@@ -520,7 +559,7 @@ def _recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPl
         bspecs = tree_map(lambda l: batch_spec(mesh, len(l.shape) - 1), batch_abs)
 
         def step(params, batch):
-            return fwd_fn(params, cfg, batch) if ctr else fwd_fn(params, cfg, batch["seqs"])
+            return fwd_fn(params, cfg, batch, tp) if ctr else fwd_fn(params, cfg, batch["seqs"], tp)
 
         out_spec = batch_spec(mesh, 0) if ctr else (
             batch_spec(mesh, 1) if cfg.interaction == "self-attn-seq" else batch_spec(mesh, 2))
@@ -539,12 +578,13 @@ def _recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPl
             CH = NC // n_chunks
 
             def step(params, batch, cand):
-                dense = batch["dense"].expand(CH, cfg.n_dense)
                 scores = []
-                for cand_c in cand.reshape(n_chunks, CH):
-                    sparse = batch["sparse"].expand(CH, cfg.n_sparse).clone()
+                for cand_c in cand.split(CH):      # a rank's candidates: its slice's chunks
+                    n = cand_c.shape[0]
+                    sparse = batch["sparse"].expand(n, cfg.n_sparse).clone()
                     sparse[:, 0] = cand_c
-                    scores.append(rec_mod.xdeepfm_forward(params, cfg, {"dense": dense, "sparse": sparse}))
+                    scores.append(rec_mod.xdeepfm_forward(
+                        params, cfg, {"dense": batch["dense"].expand(n, cfg.n_dense), "sparse": sparse}, tp))
                 return torch.cat(scores)
 
             return CellPlan(
@@ -559,8 +599,9 @@ def _recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPl
             batch_abs = {"sparse": _sds((1, cfg.n_sparse), torch.int32)}
 
             def step(params, batch, cand):
-                user = rec_mod.fm_user_embedding(params, cfg, batch)[0]   # (D,)
-                return params["table"][cand.long()] @ user                 # field-0 rows
+                user = rec_mod.fm_user_embedding(params, cfg, batch, tp)[0]         # (D,)
+                scores = rank_lookup(params["table"], cand, tp, reduce=False) @ user  # field-0 rows
+                return scores if tp is None else tp.reduce(scores)
 
             return CellPlan(arch.arch_id, shape.name, "retrieval", step,
                             (params_abs, batch_abs, cand), (pspecs, _replicated(batch_abs), cand_spec), cand_spec,
@@ -571,10 +612,10 @@ def _recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh, opt_cfg=None) -> CellPl
 
         def step(params, batch, cand):
             if cfg.interaction == "multi-interest":
-                u = rec_mod.mind_encode(params, cfg, batch["seqs"])[0]     # (K, D)
+                u = rec_mod.mind_encode(params, cfg, batch["seqs"], tp)[0]     # (K, D)
             else:
-                u = rec_mod.sasrec_encode(params, cfg, batch["seqs"])      # (1, D)
-            return rec_mod.score_candidates(params["items"], u, cand)
+                u = rec_mod.sasrec_encode(params, cfg, batch["seqs"], tp)      # (1, D)
+            return rec_mod.score_candidates(params["items"], u, cand, tp)
 
         return CellPlan(arch.arch_id, shape.name, "retrieval", step,
                         (params_abs, batch_abs, cand), (pspecs, _replicated(batch_abs), cand_spec), cand_spec,
@@ -628,9 +669,10 @@ def _nsimplex_cell(arch: ArchSpec, shape: ShapeSpec, mesh, *, opt=False) -> Cell
         axes = _batch_axes(mesh)
         projection, selection = "paper", "sort"
         note = "BASELINE: Algorithm-2 loop projection + argsort packing"
+    process = _process(mesh)
     serve = build_serve_step(
-        mesh.scaleout_grid(axes), n_pivots=n, max_candidates=8 if opt else cfg.max_candidates,
-        projection=projection, selection=selection,
+        process or mesh.scaleout_grid(axes), n_pivots=n, max_candidates=8 if opt else cfg.max_candidates,
+        projection=projection, selection=selection, table_axes=axes if process else ("data",),
     )
     # filter flops: fused two-sided bounds = one l2 per (q, row) = 3n flops
     flops = 3.0 * n * float(N) * Q + 2.0 * Q * n * n
@@ -648,15 +690,22 @@ def _nsimplex_cell(arch: ArchSpec, shape: ShapeSpec, mesh, *, opt=False) -> Cell
 # ===========================================================================
 
 def build_cell(arch_id: str, shape_name: str, mesh, *, n_layers=None, accum_override=None, unroll=False,
-               opt=False, opt_cfg: Optional[AdamWConfig] = None) -> CellPlan:
+               opt=False, opt_cfg: Optional[AdamWConfig] = None, model_cfg=None,
+               sizes: Optional[dict] = None) -> CellPlan:
     """The plan of one cell on ``mesh`` (a ``repro_torch.launch.mesh``
     mesh, or anything with ``axis_names`` and a ``shape`` dict for every
-    family but the paper's own, which needs the mesh's devices).
-    ``opt_cfg`` replaces a train cell's AdamW settings (the reference's
-    are fixed: ``AdamWConfig(moment_dtype="bfloat16")``, whose 100 warmup
-    steps leave a short run's bf16 weights where they are)."""
+    family but the paper's own, which needs the mesh's devices or a
+    ``ProcessMesh``).  ``opt_cfg`` replaces a train cell's AdamW settings
+    (the reference's are fixed: ``AdamWConfig(moment_dtype="bfloat16")``,
+    whose 100 warmup steps leave a short run's bf16 weights where they
+    are); ``model_cfg`` the arch's model config (a smoke config) and
+    ``sizes`` entries of the cell's sizes (a cut cell)."""
     arch = get_arch(arch_id)
     shape = arch.shapes[shape_name]
+    if model_cfg is not None:
+        arch = dataclasses.replace(arch, model_cfg=model_cfg)
+    if sizes:
+        shape = dataclasses.replace(shape, sizes={**shape.sizes, **sizes})
     if arch.family == "lm":
         if shape.kind == "train":
             return _lm_train(arch, shape, mesh, n_layers=n_layers, accum_override=accum_override, unroll=unroll,
@@ -670,7 +719,6 @@ def build_cell(arch_id: str, shape_name: str, mesh, *, n_layers=None, accum_over
     if arch.family == "recsys":
         return _recsys_cell(arch, shape, mesh, opt_cfg)
     if arch.family == "metricsearch":
-        _process_refusal(mesh, "the search serve cell", "11c.4")
         return _nsimplex_cell(arch, shape, mesh, opt=opt)
     raise KeyError((arch_id, shape_name))
 

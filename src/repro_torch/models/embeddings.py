@@ -6,7 +6,10 @@ row gathers; multi-hot bags reduce with ``index_add_`` (the JAX package's
 ``segment_sum``; on the card it adds with atomics, so a bag's summation
 order, and its last bits, vary between runs).  ``sharded_lookup`` reads a
 table whose rows are split over the device grid (``place_rows``): a masked
-take on each device, then a sum.
+take on each device, then a sum.  ``rank_lookup`` is the same read on a
+rank of a ``ProcessMesh`` whose table rows split over ``model`` (the
+reference's ``sharded_lookup`` body): a masked take of the rows this rank
+owns, summed over the ``model`` group, the gradient reaching only them.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ __all__ = [
     "flat_ids",
     "lookup",
     "padded_rows",
+    "rank_lookup",
     "sharded_lookup",
 ]
 
@@ -65,9 +69,28 @@ def flat_ids(spec: EmbeddingSpec, sparse_ids):
     return sparse_ids + offsets[None, :]
 
 
-def lookup(table, spec: EmbeddingSpec, sparse_ids):
-    """(B, n_fields) -> (B, n_fields, dim)."""
-    return table[flat_ids(spec, sparse_ids).long()]
+def rank_lookup(table_local, rows, tp=None, reduce: bool = True):
+    """``table[rows]`` for ``rows`` of any shape (global row ids).  Without
+    ``tp`` ``table_local`` is the whole table.  With ``tp`` (a
+    ``layers.TensorParallel`` over ``model``) it is this rank's chunk of a
+    table whose leading dim splits over ``model``: the rows it owns are
+    taken, the others read as zeros, and the ranks' parts are summed over
+    the group (``tp.reduce``: the gradient passes through to the owned
+    rows only); ``reduce=False`` returns this rank's part unsummed."""
+    if tp is None:
+        return table_local[rows.long()]
+    n = table_local.shape[0]
+    local = rows.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    vecs = table_local[torch.clamp(local, 0, n - 1)]
+    mine = mine.reshape(tuple(mine.shape) + (1,) * (vecs.ndim - mine.ndim))
+    part = torch.where(mine, vecs, torch.zeros((), dtype=vecs.dtype, device=vecs.device))
+    return tp.reduce(part) if reduce else part
+
+
+def lookup(table, spec: EmbeddingSpec, sparse_ids, tp=None):
+    """(B, n_fields) -> (B, n_fields, dim); ``tp``: ``rank_lookup``'s."""
+    return rank_lookup(table, flat_ids(spec, sparse_ids), tp)
 
 
 def embedding_bag(table, spec: EmbeddingSpec, ids, bag_ids, n_bags, mode="sum"):

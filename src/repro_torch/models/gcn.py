@@ -12,6 +12,14 @@ Execution shapes:
     ``repro_torch.data.NeighborSampler`` — SAGE-style mean per hop.
   * batched     (molecule): (B, N, F) padded small graphs, run as one
     disjoint graph of B·N nodes.
+
+On a ``ProcessMesh`` the full-batch forward takes ``ep``, the edge axes'
+``layers.TensorParallel``: each rank holds a slice of the edge list, its
+partial degrees and partial aggregates are summed over the edge axes
+(the aggregate with the conjugate pair: ``ep.copy`` where the replicated
+features enter the edge slice, ``ep.reduce`` where the sums leave it), so
+every rank computes the whole graph's layers and loss, and its gradients
+are the whole graph's.
 """
 
 from __future__ import annotations
@@ -69,37 +77,44 @@ def init_params(cfg: GCNConfig, generator=None, device="cuda") -> Params:
     })
 
 
-def _sym_norm_coeff(src, dst, n_nodes, edge_weight=None):
+def _sym_norm_coeff(src, dst, n_nodes, edge_weight=None, ep=None):
     w = torch.ones(src.shape, dtype=torch.float32, device=src.device) if edge_weight is None else edge_weight
-    deg = w.new_zeros((n_nodes,)).index_add_(0, dst, w) + 1.0   # + self-loop
+    deg = w.new_zeros((n_nodes,)).index_add_(0, dst, w)
+    if ep is not None:
+        deg = ep.all_reduce(deg)                                # the edge slices' degrees
+    deg = deg + 1.0                                             # + self-loop
     inv_sqrt = torch.rsqrt(torch.clamp_min(deg, 1.0))
     return inv_sqrt[src] * inv_sqrt[dst] * w, inv_sqrt
 
 
-def gcn_conv(x, src, dst, n_nodes, coeff, self_coeff):
-    """One Ã·X propagation: gather src rows, scale, scatter-add to dst."""
-    msgs = x[src] * coeff[:, None]
+def gcn_conv(x, src, dst, n_nodes, coeff, self_coeff, ep=None):
+    """One Ã·X propagation: gather src rows, scale, scatter-add to dst
+    (with ``ep``: this rank's edges, the aggregate summed over its group)."""
+    msgs = (x if ep is None else ep.copy(x))[src] * coeff[:, None]
     agg = msgs.new_zeros((n_nodes, msgs.shape[1])).index_add_(0, dst, msgs)
+    if ep is not None:
+        agg = ep.reduce(agg)
     return agg + x * (self_coeff**2)[:, None]  # self-loop term
 
 
-def _propagate(params, cfg: GCNConfig, x, src, dst, n, edge_weight=None):
-    coeff, inv_sqrt = _sym_norm_coeff(src, dst, n, edge_weight)
+def _propagate(params, cfg: GCNConfig, x, src, dst, n, edge_weight=None, ep=None):
+    coeff, inv_sqrt = _sym_norm_coeff(src, dst, n, edge_weight, ep)
     for i in range(cfg.n_layers):
         p = params[f"layer_{i}"]
-        x = gcn_conv(x, src, dst, n, coeff, inv_sqrt) @ p["w"] + p["b"]
+        x = gcn_conv(x, src, dst, n, coeff, inv_sqrt, ep) @ p["w"] + p["b"]
         if i < cfg.n_layers - 1:
             x = F.relu(x)
     return x
 
 
-def forward_full(params, cfg: GCNConfig, feats, edge_index, edge_weight=None):
+def forward_full(params, cfg: GCNConfig, feats, edge_index, edge_weight=None, ep=None):
     """Full-batch forward: feats (N, F), edge_index (2, E) -> logits (N, C).
 
     ``edge_weight`` (E,) supports padded edge lists (0.0 = padding edge).
+    ``ep``: edge_index and edge_weight are this rank's slice (the module).
     """
     src, dst = edge_index[0].long(), edge_index[1].long()
-    return _propagate(params, cfg, feats, src, dst, feats.shape[0], edge_weight)
+    return _propagate(params, cfg, feats, src, dst, feats.shape[0], edge_weight, ep)
 
 
 def _nll(logits, labels):
@@ -107,8 +122,8 @@ def _nll(logits, labels):
     return torch.gather(logp, -1, labels[:, None].long())[:, 0]
 
 
-def loss_full(params, cfg: GCNConfig, feats, edge_index, labels, mask, edge_weight=None):
-    ll = _nll(forward_full(params, cfg, feats, edge_index, edge_weight), labels)
+def loss_full(params, cfg: GCNConfig, feats, edge_index, labels, mask, edge_weight=None, ep=None):
+    ll = _nll(forward_full(params, cfg, feats, edge_index, edge_weight, ep), labels)
     denom = torch.clamp_min(torch.sum(mask), 1.0)
     return -torch.sum(ll * mask) / denom
 

@@ -23,6 +23,15 @@ gather's backward sums and cuts), RoPE on whole heads, then ``wo``'s row
 shard; SwiGLU splits ``d_ff``; MoE runs this rank's experts on every token
 when ``n_experts >= |model|``, else every expert's ``d_ff`` slice.
 ``tp=None`` is the one-process path, unchanged.
+
+Where ``|model|`` does not divide ``n_heads`` (qwen2-1.5b's 12 heads over
+8 ranks) the weights stay in their column split, which cuts a head, and
+the compute takes GSPMD's padded split of the heads: ceil(H / |model|)
+heads a rank in rank order (2 on ranks 0-5, none on 6-7), cut from
+``wq`` and ``wo`` gathered over ``model``; a rank without heads runs the
+same collectives on empty slices.  Decode gathers every head's q from
+the ranks' column chunks and hands ``wo`` this rank's columns of the
+output, whatever the split.
 """
 
 from __future__ import annotations
@@ -112,13 +121,18 @@ class TensorParallel:
         return self._group() if callable(self._group) else self._group
 
     @classmethod
-    def of(cls, mesh) -> Optional["TensorParallel"]:
-        """The ``model`` group of a ``ProcessMesh`` (looked up at the first
-        collective, so that a plan builds on a stand-in mesh); None when it
+    def of(cls, mesh, axes=("model",)) -> Optional["TensorParallel"]:
+        """The group of ``axes`` (those of them on the mesh; the ``model``
+        axis by default) of a ``ProcessMesh``, looked up at the first
+        collective, so that a plan builds on a stand-in mesh; None when it
         has one rank (the one-process layers)."""
-        if mesh.shape.get("model", 1) == 1:
+        axes = tuple(a for a in mesh.axis_names if a in tuple(axes))
+        size = 1
+        for a in axes:
+            size *= mesh.shape[a]
+        if size == 1:
             return None
-        return cls(lambda: mesh.group(("model",)), mesh.axis_size(("model",)), mesh.axis_index(("model",)))
+        return cls(lambda: mesh.group(axes), size, mesh.axis_index(axes))
 
     def chunk(self, n: int) -> tuple:
         """[start, stop) of this rank's chunk of ``n`` split ``size`` ways."""
@@ -188,14 +202,25 @@ class _GatherFromModel(torch.autograd.Function):
 
 
 def _local_heads(cfg, tp) -> tuple:
-    """[start, stop) of this rank's query heads (all of them without tp)."""
+    """[start, stop) of this rank's query heads (all of them without tp):
+    ceil(H / |model|) heads a rank in rank order, the last ranks' share cut
+    at H (GSPMD's padding; the weights' column chunk where |model| divides
+    H)."""
     if tp is None:
         return 0, cfg.n_heads
-    if cfg.n_heads % tp.size:
-        raise NotImplementedError(
-            f"{cfg.n_heads} heads over a model axis of {tp.size}: an uneven split (GSPMD's padding) is "
-            "ROADMAP item 11c.2b, not ported")
-    return tp.chunk(cfg.n_heads)
+    if (cfg.n_heads * cfg.d_head) % tp.size:
+        raise ValueError(
+            f"a model axis of {tp.size} divides neither {cfg.n_heads} heads nor their "
+            f"{cfg.n_heads * cfg.d_head} columns: the weights' column split has no place to cut")
+    per = -(-cfg.n_heads // tp.size)
+    h0 = min(tp.rank * per, cfg.n_heads)
+    return h0, min(h0 + per, cfg.n_heads)
+
+
+def _heads_split(cfg, tp) -> bool:
+    """Whether this rank's column chunk of ``wq`` (and row chunk of ``wo``)
+    is its heads: |model| divides ``n_heads``."""
+    return cfg.n_heads % tp.size == 0
 
 
 def _kv_split(cfg, tp) -> bool:
@@ -237,29 +262,36 @@ def attn_init(generator, cfg: AttnConfig, dtype=torch.float32, device="cuda") ->
     return Params(**p)
 
 
-def _qkv(params, x, cfg: AttnConfig, tp=None):
+def _qkv(params, x, cfg: AttnConfig, tp=None, heads: bool = True):
     """q, k, v of shape (B, S, heads, Dh): every head without ``tp``; with
-    it this rank's query heads, and its kv heads or (``_kv_split`` false)
-    every kv head from ``wk`` / ``wv`` gathered over ``model``."""
+    it this rank's query heads (``_local_heads``: from ``wq`` gathered over
+    ``model`` where its column chunk cuts a head), and its kv heads or
+    (``_kv_split`` false) every kv head from ``wk`` / ``wv`` gathered over
+    ``model``.  ``heads=False``: q is this rank's column chunk of
+    ``x @ wq``, (B, S, H·Dh / |model|), whatever the split."""
     B, S, _ = x.shape
     Dh = cfg.d_head
-    wk, wv = params["wk"], params["wv"]
-    bk, bv = (params["bk"], params["bv"]) if cfg.qkv_bias else (None, None)
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    bq, bk, bv = (params["bq"], params["bk"], params["bv"]) if cfg.qkv_bias else (None, None, None)
     if tp is not None:
-        _local_heads(cfg, tp)          # raises on a split inside a head
+        h0, h1 = _local_heads(cfg, tp)
         x = tp.copy(x)
+        if heads and not _heads_split(cfg, tp):
+            wq = tp.gather(wq, 1)[:, h0 * Dh:h1 * Dh]
+            if cfg.qkv_bias:
+                bq = tp.gather(bq, 0)[h0 * Dh:h1 * Dh]
         if not _kv_split(cfg, tp):
             wk, wv = tp.gather(wk, 1), tp.gather(wv, 1)
             if cfg.qkv_bias:
                 bk, bv = tp.gather(bk, 0), tp.gather(bv, 0)
-    q = x @ params["wq"]
+    q = x @ wq
     k = x @ wk
     v = x @ wv
     if cfg.qkv_bias:
-        q = q + params["bq"]
+        q = q + bq
         k = k + bk
         v = v + bv
-    return q.reshape(B, S, -1, Dh), k.reshape(B, S, -1, Dh), v.reshape(B, S, -1, Dh)
+    return q.reshape(B, S, -1, Dh) if heads else q, k.reshape(B, S, -1, Dh), v.reshape(B, S, -1, Dh)
 
 
 def _kv_for_heads(k, v, cfg: AttnConfig, tp):
@@ -273,18 +305,30 @@ def _kv_for_heads(k, v, cfg: AttnConfig, tp):
     return k[:, :, idx], v[:, :, idx]
 
 
-def _out_proj(params, out, tp):
-    """(B, S, heads · Dh) attention output through ``wo`` (its row shard
-    and the ``model`` sum with ``tp``)."""
-    h = out @ params["wo"]
+def _out_proj(params, out, cfg: AttnConfig, tp, heads: bool = True):
+    """(B, S, heads · Dh) attention output through ``wo`` (with ``tp``: the
+    rows of this rank's heads, from ``wo`` gathered over ``model`` where
+    its row chunk cuts a head, and the ``model`` sum).  ``heads=False``:
+    ``out`` is this rank's column chunk of every head's output, which
+    meets ``wo``'s own row chunk."""
+    wo = params["wo"]
+    if tp is not None and heads and not _heads_split(cfg, tp):
+        h0, h1 = _local_heads(cfg, tp)
+        wo = tp.gather(wo, 0)[h0 * cfg.d_head:h1 * cfg.d_head]
+    h = out @ wo
     return h if tp is None else tp.reduce(h)
+
+
+def _groups(H: int, Hk: int) -> int:
+    """Query heads per kv head (1 for a rank without heads)."""
+    return H // Hk if Hk else 1
 
 
 def _gqa_scores(q, k):
     """q: (B, S, H, Dh), k: (B, T, Hk, Dh) -> (B, H, S, T) with GQA grouping."""
     B, S, H, Dh = q.shape
     Hk = k.shape[2]
-    G = H // Hk
+    G = _groups(H, Hk)
     s = torch.einsum("bskgd,btkd->bkgst", q.reshape(B, S, Hk, G, Dh), k)
     return s.reshape(B, Hk * G, S, k.shape[1])
 
@@ -293,7 +337,7 @@ def _gqa_out(w, v):
     """w: (B, H, S, T), v: (B, T, Hk, Dh) -> (B, S, H, Dh)."""
     B, H, S, T = w.shape
     Hk = v.shape[2]
-    G = H // Hk
+    G = _groups(H, Hk)
     o = torch.einsum("bkgst,btkd->bskgd", w.reshape(B, Hk, G, S, T), v)
     return o.reshape(B, S, H, v.shape[3])
 
@@ -317,7 +361,7 @@ def attention(params, x, cfg: AttnConfig, positions=None, tp=None):
     scores = torch.where(mask[None, None], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _gqa_out(w, vq)
-    return _out_proj(params, out.reshape(B, S, -1), tp), (k, v)
+    return _out_proj(params, out.reshape(B, S, -1), cfg, tp), (k, v)
 
 
 def chunked_attention(params, x, cfg: AttnConfig, positions=None, *, chunk_kv: int = 1024, tp=None):
@@ -337,7 +381,7 @@ def chunked_attention(params, x, cfg: AttnConfig, positions=None, *, chunk_kv: i
     k = apply_rope(k, positions, cfg.rope_theta)
     kq, vq = _kv_for_heads(k, v, cfg, tp)
     H, Dh, Hk = q.shape[2], cfg.d_head, kq.shape[2]
-    G = H // Hk
+    G = _groups(H, Hk)
     scale = Dh**-0.5
     n_chunks = (S + chunk_kv - 1) // chunk_kv
     Sp = n_chunks * chunk_kv
@@ -368,7 +412,7 @@ def chunked_attention(params, x, cfg: AttnConfig, positions=None, *, chunk_kv: i
         m = m_new
     out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(x.dtype)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * Dh)
-    return _out_proj(params, out, tp), (k, v)
+    return _out_proj(params, out, cfg, tp), (k, v)
 
 
 def cache_heads(k, cfg: AttnConfig, tp):
@@ -398,14 +442,18 @@ def decode_attention(params, x, cfg: AttnConfig, cache_k, cache_v, cache_pos, po
     place, and they are returned.
 
     With ``tp`` the cache is this rank's ``d_head`` chunk of every kv head
-    (``cache_heads``): the step's q is all-gathered over ``model``, the
-    scores of every head summed over the ranks' ``d_head`` chunks (an
-    all-reduce of (B, H, 1, C) f32), and the ranks' chunks of the output
-    all-gathered before this rank's heads go through ``wo``.
+    (``cache_heads``): every head's q is all-gathered over ``model`` from
+    the ranks' column chunks of ``x @ wq`` (RoPE after, on whole heads),
+    the scores of every head summed over the ranks' ``d_head`` chunks (an
+    all-reduce of (B, H, 1, C) f32), the ranks' chunks of the output
+    all-gathered, and this rank's columns of it go through ``wo``'s row
+    chunk.
     """
     B = x.shape[0]
     C = cache_k.shape[1]
-    q, k, v = _qkv(params, x, cfg, tp)
+    q, k, v = _qkv(params, x, cfg, tp, heads=tp is None)
+    if tp is not None:
+        q = tp.all_gather(q, 2).reshape(B, 1, cfg.n_heads, cfg.d_head)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     k, v = cache_heads(k, cfg, tp), cache_heads(v, cfg, tp)
@@ -416,11 +464,9 @@ def decode_attention(params, x, cfg: AttnConfig, cache_k, cache_v, cache_pos, po
     cache_pos[b, slot] = pos.to(cache_pos.dtype)
 
     dh_split = tp is not None and cfg.d_head % tp.size == 0
-    if tp is not None:
-        q = tp.all_gather(q, 2)
-        if dh_split:
-            d0, d1 = tp.chunk(cfg.d_head)
-            q = q[..., d0:d1]
+    if dh_split:
+        d0, d1 = tp.chunk(cfg.d_head)
+        q = q[..., d0:d1]
     scores = _gqa_scores(q, cache_k).to(torch.float32)
     if dh_split:
         scores = tp.all_reduce(scores.contiguous())
@@ -431,12 +477,13 @@ def decode_attention(params, x, cfg: AttnConfig, cache_k, cache_v, cache_pos, po
     scores = torch.where(valid[:, None, None, :], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _gqa_out(w, cache_v)
+    if dh_split:
+        out = tp.all_gather(out, 3)
+    out = out.reshape(B, 1, -1)
     if tp is not None:
-        if dh_split:
-            out = tp.all_gather(out, 3)
-        h0, h1 = _local_heads(cfg, tp)
-        out = out[:, :, h0:h1]
-    out = _out_proj(params, out.reshape(B, 1, -1), tp)
+        c0, c1 = tp.chunk(out.shape[-1])
+        out = out[..., c0:c1]
+    out = _out_proj(params, out, cfg, tp, heads=False)
     return out, (cache_k, cache_v, cache_pos)
 
 

@@ -7,6 +7,15 @@ Every model exposes:
   forward(params, cfg, batch)           -> logits / user encodings
   loss(params, cfg, batch)              -> scalar (forward value)
   score_candidates(item_table, user_emb, cand_ids)  — the retrieval cell
+
+On a rank of a ``ProcessMesh`` (``recsys_param_specs``: the tables' rows
+over ``model``, the interaction weights replicated) every function takes
+``tp``, the ``model`` group's ``layers.TensorParallel``: each table read
+goes through ``embeddings.rank_lookup`` (the rows this rank owns, summed
+over ``model``).  The sequence models' losses take ``in_batch``, the batch
+axes' ``TensorParallel`` where the batch splits over ranks: the in-batch
+negatives are the whole batch's targets, all-gathered (the gradient of a
+rank's targets summed back from every rank's loss).
 """
 
 from __future__ import annotations
@@ -18,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.data.synthetic import default_vocab_sizes
-from repro_torch.models.embeddings import EmbeddingSpec, embedding_init, lookup, padded_rows
+from repro_torch.models.embeddings import EmbeddingSpec, embedding_init, lookup, padded_rows, rank_lookup
 from repro_torch.models.params import Params, generator_for, model_device, normal
 
 __all__ = [
@@ -100,10 +109,10 @@ def _setup(cfg: RecsysConfig, generator, device):
     return generator_for(generator, dev), dev, cfg.torch_dtype
 
 
-def _gather_linear(params, spec: EmbeddingSpec, sparse):
+def _gather_linear(params, spec: EmbeddingSpec, sparse, tp=None):
     """Σ over fields of the linear term's unified-table rows: (B,)."""
     offsets = torch.as_tensor(spec.offsets, dtype=sparse.dtype, device=sparse.device)
-    return params["linear"][(sparse + offsets[None, :]).long()].sum(-1)
+    return rank_lookup(params["linear"], sparse + offsets[None, :], tp).sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -121,19 +130,19 @@ def fm_init(cfg: RecsysConfig, generator=None, device="cuda") -> Params:
     )
 
 
-def fm_forward(params, cfg: RecsysConfig, batch):
+def fm_forward(params, cfg: RecsysConfig, batch, tp=None):
     """batch: {dense (B, n_dense), sparse (B, n_sparse)} -> logits (B,)."""
     spec = cfg.spec
-    v = lookup(params["table"], spec, batch["sparse"])          # (B, F, D)
-    lin = _gather_linear(params, spec, batch["sparse"])
+    v = lookup(params["table"], spec, batch["sparse"], tp)      # (B, F, D)
+    lin = _gather_linear(params, spec, batch["sparse"], tp)
     s = v.sum(dim=1)                                            # Σ v_i
     pair = 0.5 * (s * s - (v * v).sum(dim=1)).sum(dim=-1)       # O(nk) trick
     return params["bias"] + lin + batch["dense"] @ params["dense_w"] + pair
 
 
-def fm_user_embedding(params, cfg: RecsysConfig, batch):
+def fm_user_embedding(params, cfg: RecsysConfig, batch, tp=None):
     """Σ v_i over the user's fields — the FM dot-product retrieval form."""
-    return lookup(params["table"], cfg.spec, batch["sparse"]).sum(dim=1)
+    return lookup(params["table"], cfg.spec, batch["sparse"], tp).sum(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -163,10 +172,10 @@ def xdeepfm_init(cfg: RecsysConfig, generator=None, device="cuda") -> Params:
     return Params(**p)
 
 
-def xdeepfm_forward(params, cfg: RecsysConfig, batch):
+def xdeepfm_forward(params, cfg: RecsysConfig, batch, tp=None):
     spec = cfg.spec
-    x0 = lookup(params["table"], spec, batch["sparse"])          # (B, F0, D)
-    lin = _gather_linear(params, spec, batch["sparse"])
+    x0 = lookup(params["table"], spec, batch["sparse"], tp)      # (B, F0, D)
+    lin = _gather_linear(params, spec, batch["sparse"], tp)
 
     # CIN: x_{k+1} = conv1x1(outer(x_k, x_0))
     xk = x0
@@ -237,10 +246,10 @@ def _ln(x, w):
     return (x - mu) * torch.rsqrt(var + 1e-6) * w
 
 
-def sasrec_encode(params, cfg: RecsysConfig, seqs):
+def sasrec_encode(params, cfg: RecsysConfig, seqs, tp=None):
     """seqs: (B, S) item ids (0 = pad) -> (B, D) user embedding."""
     B, S = seqs.shape
-    x = params["items"][seqs.long()] + params["pos"][None, :, :]
+    x = rank_lookup(params["items"], seqs, tp) + params["pos"][None, :, :]
     pad = seqs == 0
     i = torch.arange(S, device=seqs.device)[:, None]
     j = torch.arange(S, device=seqs.device)[None, :]
@@ -259,17 +268,27 @@ def sasrec_encode(params, cfg: RecsysConfig, seqs):
     return x[:, -1]  # last position = user state
 
 
-def _in_batch_softmax_loss(logits):
-    """-mean log p(target i | row i) over an in-batch (B, B) logit block."""
+def _in_batch_softmax_loss(logits, first: int = 0):
+    """-mean log p(target i | row i) over an in-batch (B, B) logit block,
+    or this rank's rows of it, (B_local, B), the first row ``first``."""
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-    return -torch.mean(torch.diagonal(logp))
+    return -torch.mean(torch.diagonal(logp, offset=first))
 
 
-def sasrec_loss(params, cfg: RecsysConfig, batch):
+def _in_batch_targets(params, batch, tp, in_batch):
+    """(this rank's targets' rows (B_local, D), every target's (B, D), the
+    first row of this rank's slice of the batch)."""
+    pos = rank_lookup(params["items"], batch["targets"], tp)
+    if in_batch is None:
+        return pos, pos, 0
+    return pos, in_batch.gather(pos, 0), in_batch.rank * pos.shape[0]
+
+
+def sasrec_loss(params, cfg: RecsysConfig, batch, tp=None, in_batch=None):
     """In-batch sampled softmax: positives = targets, negatives = other rows."""
-    u = sasrec_encode(params, cfg, batch["seqs"])               # (B, D)
-    pos = params["items"][batch["targets"].long()]              # (B, D)
-    return _in_batch_softmax_loss(u @ pos.T)
+    u = sasrec_encode(params, cfg, batch["seqs"], tp)           # (B, D)
+    _, every, first = _in_batch_targets(params, batch, tp, in_batch)
+    return _in_batch_softmax_loss(u @ every.T, first)
 
 
 # ---- MIND (arXiv:1904.08030) -----------------------------------------------
@@ -287,11 +306,11 @@ def _squash(v, dim=-1):
     return (n2 / (1.0 + n2)) * v * torch.rsqrt(torch.clamp_min(n2, 1e-9))
 
 
-def mind_encode(params, cfg: RecsysConfig, seqs):
+def mind_encode(params, cfg: RecsysConfig, seqs, tp=None):
     """Dynamic-routing multi-interest extraction: (B, S) -> (B, K, D)."""
     B, S = seqs.shape
     K = cfg.n_interests
-    x = params["items"][seqs.long()]                            # (B, S, D)
+    x = rank_lookup(params["items"], seqs, tp)                  # (B, S, D)
     valid = (seqs != 0).to(torch.float32)
     xm = x @ params["routing_map"]                              # behaviour caps
     logits = torch.zeros((B, K, S), dtype=torch.float32, device=seqs.device)
@@ -303,18 +322,18 @@ def mind_encode(params, cfg: RecsysConfig, seqs):
     return _squash(torch.einsum("bks,bsd->bkd", w, xm))        # (B, K, D)
 
 
-def mind_loss(params, cfg: RecsysConfig, batch):
+def mind_loss(params, cfg: RecsysConfig, batch, tp=None, in_batch=None):
     """Label-aware attention (p=2) + in-batch softmax."""
-    interests = mind_encode(params, cfg, batch["seqs"])         # (B, K, D)
-    pos = params["items"][batch["targets"].long()]              # (B, D)
+    interests = mind_encode(params, cfg, batch["seqs"], tp)     # (B, K, D)
+    _, pos, first = _in_batch_targets(params, batch, tp, in_batch)   # (C, D)
     att = torch.softmax((torch.einsum("bkd,cd->bkc", interests, pos) ** 2).to(torch.float32), dim=1)
     u = torch.einsum("bkc,bkd->bcd", att, interests)            # (B, C, D) per-candidate user vec
-    return _in_batch_softmax_loss(torch.einsum("bcd,cd->bc", u, pos))
+    return _in_batch_softmax_loss(torch.einsum("bcd,cd->bc", u, pos), first)
 
 
-def mind_user_embedding(params, cfg: RecsysConfig, batch):
+def mind_user_embedding(params, cfg: RecsysConfig, batch, tp=None):
     """Serving form: the user's interests concatenated, (B, K·D)."""
-    interests = mind_encode(params, cfg, batch["seqs"])
+    interests = mind_encode(params, cfg, batch["seqs"], tp)
     return interests.reshape(interests.shape[0], -1)
 
 
@@ -322,12 +341,15 @@ def mind_user_embedding(params, cfg: RecsysConfig, batch):
 # retrieval scoring (retrieval_cand cells) — batched dot, no loop
 # ---------------------------------------------------------------------------
 
-def score_candidates(item_table, user_emb, cand_ids):
+def score_candidates(item_table, user_emb, cand_ids, tp=None):
     """user_emb (D,) or (K, D); cand_ids (N,) -> scores (N,), the max over
-    interests."""
-    cands = item_table[cand_ids.long()]                         # (N, D)
+    interests.  With ``tp`` each rank scores the candidates whose rows it
+    owns (0 for the others) and the (N,) scores are summed over
+    ``model``."""
+    cands = rank_lookup(item_table, cand_ids, tp, reduce=False)  # (N, D)
     ue = torch.atleast_2d(user_emb)
-    return torch.amax(ue @ cands.T, dim=0)
+    scores = torch.amax(ue @ cands.T, dim=0)
+    return scores if tp is None else tp.reduce(scores)
 
 
 # ---------------------------------------------------------------------------
@@ -335,14 +357,16 @@ def score_candidates(item_table, user_emb, cand_ids):
 # ---------------------------------------------------------------------------
 
 def get_model_fns(cfg: RecsysConfig):
-    """(init, forward, loss) of ``cfg.interaction``."""
+    """(init, forward, loss) of ``cfg.interaction``; forward takes ``tp``,
+    loss ``tp`` and ``in_batch`` (the module's)."""
     if cfg.interaction == "fm-2way":
-        return fm_init, fm_forward, lambda p, c, b: bce_loss(fm_forward(p, c, b), b["labels"])
+        return fm_init, fm_forward, lambda p, c, b, tp=None, in_batch=None: bce_loss(fm_forward(p, c, b, tp),
+                                                                                     b["labels"])
     if cfg.interaction == "cin":
         return (
             xdeepfm_init,
             xdeepfm_forward,
-            lambda p, c, b: bce_loss(xdeepfm_forward(p, c, b), b["labels"]),
+            lambda p, c, b, tp=None, in_batch=None: bce_loss(xdeepfm_forward(p, c, b, tp), b["labels"]),
         )
     if cfg.interaction == "multi-interest":
         return mind_init, mind_encode, mind_loss

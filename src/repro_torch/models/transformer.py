@@ -44,6 +44,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.embeddings import rank_lookup
 from repro_torch.models.layers import (
     AttnConfig,
     MoEConfig,
@@ -242,15 +243,8 @@ def _remat(cfg: TransformerConfig) -> bool:
 def _embed(params, tokens, tp=None):
     """Rows of the embedding table; with ``tp`` this rank's vocabulary rows
     looked up where a token falls in them (zeros elsewhere), summed over
-    ``model``."""
-    table = params["embed"]
-    if tp is None:
-        return table[tokens]
-    v0 = tp.rank * table.shape[0]
-    local = tokens.long() - v0
-    mine = (local >= 0) & (local < table.shape[0])
-    rows = table[torch.clamp(local, 0, table.shape[0] - 1)]
-    return tp.reduce(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)))
+    ``model`` (``embeddings.rank_lookup``)."""
+    return rank_lookup(params["embed"], tokens, tp)
 
 
 def forward(params, cfg: TransformerConfig, tokens, positions=None, group=None, tp=None):

@@ -22,6 +22,14 @@ from one controller: the ``psum`` of the histograms is a sum and the
 ``all_gather`` of the candidate slots a concatenation, both onto the grid's
 first device.
 
+On a ``ProcessMesh`` (one process per rank, ``make_process_mesh``) the
+same body runs on each rank's card over its row slice of the table under
+``P(table_axes, None)``: the histograms are all-reduced over the
+``table_axes`` group and the globalised slots all-gathered in the
+reference's row-major shard order, so every rank holds the step's whole
+result; a rank on an axis outside ``table_axes`` holds its peers' rows and
+computes their result.
+
 ``build_serve_step`` is the serving step of ``python -m
 repro_torch.launch.serve``: it projects a block of query pivot distances
 (K4, or Algorithm 2 as the ``"paper"`` baseline) and runs the filter.  The
@@ -42,9 +50,9 @@ from repro_torch.kernels import (
     apex_bounds_threshold,
     apex_project,
 )
-from repro_torch.sharding.rules import DeviceGrid, place_rows
+from repro_torch.sharding.rules import DeviceGrid, ProcessMesh, place_rows, staged
 
-__all__ = ["build_distributed_filter", "build_serve_step"]
+__all__ = ["build_distributed_filter", "build_process_filter", "build_serve_step"]
 
 #: elements of one (Q, rows) bound block of K1's row tiles: no (Q, N)
 #: block is held (at 64 queries x 1M rows it would be 512 MB)
@@ -144,6 +152,23 @@ def _local_filter(table, query, t_hi, t_lo, max_candidates: int, selection: str 
     return hist, idx, code
 
 
+def _bands(threshold, threshold_lo, eps: float, Q: int, device=None):
+    """(t_hi, t_lo), each (Q,) float32 (on ``device`` when given): explicit
+    bands, or t·(1±eps) ∓ 1e-9 from one threshold."""
+    t = torch.as_tensor(threshold, dtype=torch.float32).reshape(-1)
+    if threshold_lo is None:
+        t_hi, t_lo = t * (1.0 + eps) + 1e-9, t * (1.0 - eps) - 1e-9
+    else:
+        t_hi, t_lo = t, torch.as_tensor(threshold_lo, dtype=torch.float32).reshape(-1)
+    t_hi, t_lo = t_hi.expand(Q).contiguous(), t_lo.expand(Q).contiguous()
+    return (t_hi, t_lo) if device is None else (t_hi.to(device), t_lo.to(device))
+
+
+def _check_selection(selection: str) -> None:
+    if selection not in ("topk", "sort"):
+        raise ValueError(f"selection must be 'topk' or 'sort'; got {selection!r}")
+
+
 def build_distributed_filter(
     mesh: DeviceGrid,
     *,
@@ -173,8 +198,7 @@ def build_distributed_filter(
     axes = tuple(table_axes) if isinstance(table_axes, (tuple, list)) else (table_axes,)
     if axes != ("data",):
         raise ValueError(f"the grid splits table rows over ('data',) only; got {axes}")
-    if selection not in ("topk", "sort"):
-        raise ValueError(f"selection must be 'topk' or 'sort'; got {selection!r}")
+    _check_selection(selection)
     K = int(max_candidates)
     out_dev = mesh.devices[0][0]
 
@@ -184,12 +208,7 @@ def build_distributed_filter(
         Q = queries.shape[0]
         if Q % R:
             raise ValueError(f"{Q} queries do not split over {R} replica groups; pad them")
-        t = torch.as_tensor(threshold, dtype=torch.float32).reshape(-1)
-        if threshold_lo is None:
-            t_hi, t_lo = t * (1.0 + eps) + 1e-9, t * (1.0 - eps) - 1e-9
-        else:
-            t_hi, t_lo = t, torch.as_tensor(threshold_lo, dtype=torch.float32).reshape(-1)
-        t_hi, t_lo = t_hi.expand(Q).contiguous(), t_lo.expand(Q).contiguous()
+        t_hi, t_lo = _bands(threshold, threshold_lo, eps, Q)
         qr = Q // R
         hist_parts, idx_parts, code_parts = [], [], []
         for r, group in enumerate(mesh.devices):
@@ -215,6 +234,57 @@ def build_distributed_filter(
     return filter_fn
 
 
+def build_process_filter(
+    mesh: ProcessMesh,
+    *,
+    table_axes=("data",),
+    eps: float = 1e-5,
+    max_candidates: int = 128,
+    selection: str = "topk",
+):
+    """Returns filter_fn(table, queries, threshold[, threshold_lo]) on this
+    rank of ``mesh``, the reference's ``_shard_fn`` on its own card.
+
+    table     : (N / n_shards, n) float32, this rank's slice of the table
+                under ``P(table_axes, None)`` (``NamedSharding.place``),
+                on the rank's device
+    queries   : (Q, n) float32 query apexes, replicated
+    threshold : as ``build_distributed_filter``'s
+    output    : hist (Q, 3) summed over the ``table_axes`` group; cand_idx,
+                cand_code (n_shards, Q, K): the shards' GLOBAL row ids
+                (-1 = empty slot) and codes in the reference's row-major
+                shard order; the same on every rank of the group.
+
+    A collective: every rank of the ``table_axes`` group calls it with the
+    same queries and thresholds."""
+    table_axes = (table_axes,) if isinstance(table_axes, str) else tuple(table_axes)
+    axes = tuple(a for a in mesh.axis_names if a in table_axes)
+    if not axes or set(axes) != set(table_axes):
+        raise ValueError(f"table_axes {tuple(table_axes)} are not all in the mesh's {mesh.axis_names}")
+    _check_selection(selection)
+    K = int(max_candidates)
+
+    def filter_fn(table, queries, threshold, threshold_lo=None):
+        dev = mesh.device
+        t_hi, t_lo = _bands(threshold, threshold_lo, eps, queries.shape[0], dev)
+        with on_device(dev):
+            hist, idx, code = _local_filter(table, queries.to(dev), t_hi, t_lo, K, selection)
+        # globalise local row ids: offset by this shard's first row
+        idx = torch.where(idx >= 0, idx + mesh.axis_index(axes) * table.shape[0], -1)
+        # the collectives run over a group of one too (a world of one on one
+        # card takes the same path as many)
+        n, group = mesh.axis_size(axes), mesh.group(axes)
+        torch.distributed.all_reduce(hist, group=group)
+        gathered = []
+        for part in (idx, code):
+            out = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
+            out = staged(torch.distributed.all_gather_into_tensor, out, part.contiguous(), group)
+            gathered.append(out.reshape((n,) + tuple(part.shape)))
+        return (hist, *gathered)
+
+    return filter_fn
+
+
 
 def build_serve_step(
     mesh: DeviceGrid,
@@ -229,7 +299,10 @@ def build_serve_step(
     """Serving step for the paper's own configuration: returns
     ``serve_step(table, Linv, sq_norms, sigma, qdists, threshold)`` ->
     ``(hist (Q, 3), cand_idx, cand_code (n_data, Q, K))`` on the grid's
-    first device, as ``build_distributed_filter`` gives them.
+    first device, as ``build_distributed_filter`` gives them.  On a
+    ``ProcessMesh`` every rank projects the replicated query block on its
+    card and runs ``build_process_filter`` over its slice of the table
+    (rows over ``table_axes``).
 
     table    : (N, n) float32 apexes (or their ``place_rows`` slices)
     Linv, sq_norms, sigma : the fitted projector's (n-1, n-1), (n-1,) and
@@ -242,9 +315,8 @@ def build_serve_step(
     selection: ``"topk"`` (K3) or ``"sort"`` (K1 and a stable sort)."""
     if projection not in ("gemm", "paper"):
         raise ValueError(f"projection must be 'gemm' or 'paper'; got {projection!r}")
-    filter_fn = build_distributed_filter(
-        mesh, eps=eps, max_candidates=max_candidates, table_axes=table_axes, selection=selection
-    )
+    build = build_process_filter if isinstance(mesh, ProcessMesh) else build_distributed_filter
+    filter_fn = build(mesh, eps=eps, max_candidates=max_candidates, table_axes=table_axes, selection=selection)
 
     def serve_step(table, Linv, sq_norms, sigma, qdists, threshold):
         if qdists.ndim != 2 or qdists.shape[1] != n_pivots:

@@ -174,10 +174,16 @@ def test_place_refuses_a_dim_that_does_not_split():
     ("fm", None, "11c.4"),
 ])
 def test_other_cells_refuse_a_process_mesh(arch, shape, item):
+    """A GCN or RecSys cell builds on a ProcessMesh with the host mesh's
+    arguments and specs (the process groups are looked up only when the
+    step runs; the runs themselves are
+    tests/test_torch_process_recsys_gcn.py's)."""
     mesh = _rank_meshes(2, 2)[0]
     shape = shape or next(iter(get_arch(arch).shapes))
-    with pytest.raises(NotImplementedError, match=item):
-        steps.build_cell(arch, shape, mesh)
+    plan = steps.build_cell(arch, shape, mesh)
+    one = steps.build_cell(arch, shape, make_host_mesh(2, 2, devices=[torch.device("cpu")] * 4))
+    assert plan.kind == one.kind == "train" and callable(plan.fn) and plan.in_specs == one.in_specs
+    assert [tuple(a.shape) for a in tree_leaves(plan.args)] == [tuple(a.shape) for a in tree_leaves(one.args)]
 
 
 @pytest.mark.parametrize("opt", [False, True])

@@ -7,7 +7,9 @@ runs gloo ranks on (1, 2), (2, 2) and (1, 4) ``(data, model)`` meshes; on
 (1, 4) the 2 kv heads do not split over 4 ranks, so k / v come from the
 weights gathered over ``model``; (1, 4) again with ``--d-head 6``, which 4
 ranks do not divide: the cache stays whole on every rank and decode
-attends without the head_dim exchange.  Held:
+attends without the head_dim exchange; on (1, 8) the 4 heads do not split
+over 8 ranks (the weights' column chunk of 8 is half a head): ranks 0-3
+take a head each, ranks 4-7 none (GSPMD's padded split).  Held:
 
 * every leaf's shards gathered back equal the leaf, a split leaf holds 1 /
   its split, and each rank's parameter bytes are its ``lm_param_specs``
@@ -50,7 +52,7 @@ from repro_torch.train import AdamWConfig, init_state
 
 ARCH, B, S, DEC = "qwen2-1.5b", 8, 32, 4
 #: (data, model, --d-head or the config's 16)
-MESHES = [(1, 2, None), (2, 2, None), (1, 4, None), (1, 4, 6)]
+MESHES = [(1, 2, None), (2, 2, None), (1, 4, None), (1, 4, 6), (1, 8, None)]
 
 
 @pytest.fixture(scope="module")
@@ -191,14 +193,21 @@ def test_serve_matches_one_process_and_jax(run, reference):
 
 
 def test_uneven_head_split_names_its_item():
-    """12 heads over a model axis of 8 cut inside a head: GSPMD pads, the
-    port refuses with the queued item's name."""
+    """Whole heads a rank where |model| divides them; else GSPMD's padded
+    split (12 heads over 8 ranks: 2 on ranks 0-5, none on 6-7); a model
+    axis that divides neither the heads nor their columns raises with a
+    message that says so."""
     attn = get_arch(ARCH).model_cfg.attn
-    with pytest.raises(NotImplementedError, match="11c.2b"):
-        layers._local_heads(attn, layers.TensorParallel(None, 8, 0))
     assert layers._local_heads(attn, layers.TensorParallel(None, 4, 1)) == (3, 6)
+    assert layers._heads_split(attn, layers.TensorParallel(None, 4, 1))
     assert not layers._kv_split(attn, layers.TensorParallel(None, 4, 1))
     assert layers.TensorParallel.of(_stand_in(2, 1)) is None
+    got = [layers._local_heads(attn, layers.TensorParallel(None, 8, r)) for r in range(8)]
+    assert got == [(0, 2), (2, 4), (4, 6), (6, 8), (8, 10), (10, 12), (12, 12), (12, 12)]
+    assert not layers._heads_split(attn, layers.TensorParallel(None, 8, 0))
+    odd = dataclasses.replace(attn, d_head=3)
+    with pytest.raises(ValueError, match="divides neither"):
+        layers._local_heads(odd, layers.TensorParallel(None, 8, 0))
 
 
 def test_several_ranks_on_one_card_need_gloo_and_a_card(monkeypatch):
