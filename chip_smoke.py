@@ -184,7 +184,7 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 (500,000 rows, seed-1 pivots) and ``colors_durable`` (a
                 112,682-row JSD durable directory under build/serving_smoke/
                 with 4 WAL records past its checkpoint, added by path, removed
-                at the end, on failure too): 384 round-robin requests at half
+                at the end, on failure too): 192 round-robin requests at half
                 ``colors``'s sequential QPS with deadlines of 4x each tenant's
                 single-request wall, a burst of 8 threads x 64 concurrent
                 ``mode="auto"`` requests (shed and degraded), an HTTP upsert
@@ -329,12 +329,20 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 to the port's on the CPU over the same pairs within 1e-9
                 relative; whether n-simplex beats JL printed.  The
                 projector's gemm (K4), paper and solve modes on 4,096 rows at
-                n = 20 within 1e-10 (altitudes squared).  The dry run of the
-                train phase's two cells on meta tensors (qwen2-1.5b's
-                train_4k at full config, 8 microbatches; mixtral-8x7b's at 2
-                layers, 2 microbatches): counted FLOPs against
-                ``model_flops``, the dominant roofline term and the bound
-                seconds beside the train phase's measured step.  Then
+                n = 20 within 1e-10 (altitudes squared).  The dry run, one
+                ``python -m repro_torch.launch.dryrun`` process a cell
+                (host work, started at the phase's start and waited for
+                before anything timed runs; the seconds printed): the
+                train phase's two cells on one card (qwen2-1.5b's train_4k
+                at full config, 8 microbatches; mixtral-8x7b's at 2 layers,
+                2 microbatches), counted FLOPs against ``model_flops``, the
+                dominant roofline term and the bound seconds beside the
+                train phase's measured step; and qwen2-1.5b's train_4k and
+                decode_32k and mixtral-8x7b's train_4k on the reference's
+                production meshes (single (16, 16), multi (2, 16, 16))
+                through ``--calibrate``'s shallow variants, each record ok
+                with a collective term above 0 (hard), its collective bytes
+                by kind, terms and walk seconds printed.  Then
                 ``{"tools_kernels": [...]}``: each K4 and K5 class with >= 10%
                 of the phase's launches (``launch_phase="tools"``), timed and
                 held to its plain version on a JSD n-simplex index of 50
@@ -349,7 +357,8 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 default plan's ms and the winner printed; the default in the
                 space and valid, no invalid winner, and with no cache file
                 every ``lookup`` the default (hard).  No cache is written;
-                the memo is reset at the end;
+                the memo is reset at the end.  Each problem's bound (and
+                K1's ``torch.cdist`` ms) as the kernel rows compute them;
  12. select — K2/K3 over their whole contract (``phase_select``; the full
                 run drives it right after the approx phase, on the e2e
                 euclidean index, the launch counts set to 0 before and read
@@ -405,7 +414,12 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 the search cell's opt variant after its train run; then
                 eight ranks for qwen2-1.5b's 12 heads over a model axis of
                 8 (1 of 28 layers, f32, 2 steps, a prefill at B 2 x S 512,
-                8 decode steps); the search cell's K4 (1,024, 32), K3
+                8 decode steps); one more untimed decode step of qwen2 and
+                call of the search cell under ``op_walk.CollectiveCounter``
+                (``--count-collectives``), printed beside
+                ``TensorParallel.moved``, the decode step's bytes equal by
+                kind to the dry run's meta walk of that cell on (1, 2)
+                (hard); the search cell's K4 (1,024, 32), K3
                 (1,024, 8, 32) and K1 classes timed on rank 0's inputs in
                 this process join the kernels line; after the train phase;
 then the full run's seconds (and each phase's, ``phase_seconds``), the
@@ -444,6 +458,7 @@ prints the registers, spills and stack of apex_project.cu's kernels from
 
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import os
@@ -466,13 +481,14 @@ Q, K, CAP = 64, 10, 4096
 #: the approximate phase's truncation and re-rank budget
 APPROX_DIMS, REFINE = 10, 64
 #: the mechanisms phase's engine: the paper's colors size (SISAP colors,
-#: 112,682 rows), 6 queries per task and 2 1-D requests (16 queries until
+#: 112,682 rows), 4 queries per task and 2 1-D requests (16 queries until
 #: the tools and tune phases joined the run, 8 until phase 13 ran every
-#: family on a ProcessMesh and took 115 s where it had taken 59: the tree
-#: mechanisms' host path takes 0.3-2.6 s a query, ~13 s a query over the
-#: engine's tasks, and the full run must stay well inside its time limit),
-#: range at a 1e-3 selectivity
-ENGINE_ROWS, ENGINE_Q, ENGINE_1D, ENGINE_SELECTIVITY = 112_682, 6, 2, 1e-3
+#: family on a ProcessMesh and took 115 s where it had taken 59, 6 until a
+#: host 29% slower by the yardstick ran the whole run in 1,206.6 s with the
+#: mechanisms phase at 176.4 s: the tree mechanisms' host path takes
+#: 0.3-2.6 s a query, ~13 s a query over the engine's tasks, and the full
+#: run must stay well inside its time limit), range at a 1e-3 selectivity
+ENGINE_ROWS, ENGINE_Q, ENGINE_1D, ENGINE_SELECTIVITY = 112_682, 4, 2, 1e-3
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 / f64
 #: FLOP/s outside the tensor cores and dense bf16 FLOP/s; bound in main()
 #: from their one home, ``repro_torch.launch.roofline``
@@ -2088,8 +2104,9 @@ def verify_online(torch, ref, metrics_mod, rec, phase="online"):
 #: the durable phase: colors-1M behind a WAL (``build_index(durable=True)``);
 #: per round 16 add records of 128 rows with attributes, 8 remove records of
 #: 128 ids and 2 upsert records of 128 rows, then the query batches; 2
-#: euclidean rounds (3 until phase 13's tensor-parallel runs joined the run:
-#: a round and its share of the two crash copies' replay cost ~20 s)
+#: euclidean rounds (3 until phase 13's tensor-parallel runs joined the
+#: run), so the second mutates and checks an index on top of a checked
+#: round; each round's seconds printed
 DURABLE_RECORD, DURABLE_ADDS, DURABLE_REMOVES, DURABLE_UPSERTS = 128, 16, 8, 2
 DURABLE_ROUNDS = {"euclidean": 2, "jensen_shannon": 1}
 DURABLE_FSYNC_EVERY, DURABLE_DRIFT = 8, 0.25
@@ -2334,7 +2351,7 @@ def phase_durable(ops, torch, api, filter_mod, store_mod, ref, metrics_mod, data
             del brute
             checked, cursor, mut = [], 0, {"add": [], "remove": [], "upsert": []}
             for r in range(rounds):
-                out = {"round": r}
+                out, t_round = {"round": r}, time.perf_counter()
                 for op, count in (("add", DURABLE_ADDS), ("remove", DURABLE_REMOVES), ("upsert", DURABLE_UPSERTS)):
                     for _ in range(count):
                         t0 = time.perf_counter()
@@ -2352,7 +2369,8 @@ def phase_durable(ops, torch, api, filter_mod, store_mod, ref, metrics_mod, data
                     tasks.append(("knn_1d", Query.knn(K), qs[:8], res))
                 st = index.stats()
                 out.update(delta_rows=st["delta_rows"], tombstones=st["tombstones"], live_rows=st["n_objects"],
-                           wal_records=st["wal_records"], wal_bytes=st["wal_bytes"])
+                           wal_records=st["wal_records"], wal_bytes=st["wal_bytes"],
+                           round_s=time.perf_counter() - t_round)
                 report(**out)
                 checked.append(dict(snap=snap, tasks=tasks, store_match=index.attributes.match(pred)))
             report(task="mutations", **{f"{op}_ms": percentiles_ms(s) for op, s in mut.items()}, wal=probe.report())
@@ -2907,12 +2925,13 @@ def sharded_kernel_rows(torch, ops, ref, rec, data_np, queries_np, log) -> list:
 SERVE_CLI = ["--n-objects", str(N_ROWS), "--queries", str(Q), "--batches", "4", "--metric", "jensen_shannon",
              "--selectivity", "1e-4"]
 SERVE_REQUESTS = 256
-#: the front end: 384 round-robin k-NN requests at half the sequential QPS
+#: the front end: 192 round-robin k-NN requests (384 until a run took
+#: 1,101.8 s with them at 31.9 s) at half the sequential QPS
 #: of ``colors`` with a deadline of 4x each tenant's single-request wall; a
 #: burst of 8 client threads x 64 concurrent ``mode="auto"`` requests to
 #: ``colors`` (its queue bound 64, degradation at a quarter of it); 128 rows
 #: upserted and 64 ids removed on the durable tenant
-FRONTEND_REQUESTS, FRONTEND_RATE_SHARE, FRONTEND_DEADLINE_X = 384, 0.5, 4.0
+FRONTEND_REQUESTS, FRONTEND_RATE_SHARE, FRONTEND_DEADLINE_X = 192, 0.5, 4.0
 BURST_THREADS, BURST_PER_THREAD, BURST_MAX_QUEUE = 8, 64, 64
 SERVE_UPSERTS, SERVE_REMOVES = 128, 64
 #: the durable tenant: the paper's colors size behind a WAL, 4 records past
@@ -4388,6 +4407,11 @@ MODES_ROWS, MODES_TOL = 4096, 1e-10
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", dict(accum=TRAIN_SIZES.qwen_batch)),
                 ("mixtral-8x7b", "train_4k", dict(accum=TRAIN_SIZES.mixtral_batch,
                                                   n_layers=TRAIN_SIZES.mixtral_layers)))
+#: the dry run on the production meshes (ROADMAP item 11c.5): these cells
+#: through --calibrate's shallow variants on single and multi, one
+#: subprocess a cell, within this many seconds
+DRYRUN_MESH_CELLS = (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "decode_32k"), ("mixtral-8x7b", "train_4k"))
+DRYRUN_MESH_CHIPS, DRYRUN_MESH_TIMEOUT = {"single": 256, "multi": 512}, 240
 #: the tune phase's problems on the e2e phase's 1M-row n = 20 table: K1 at
 #: (Q, dims 20), K2 at (Q, k 10, upb, 20), K3 at (Q, cap 512, 20) under
 #: k-NN pass B's thresholds (the K-th smallest upb: the serving bucket's)
@@ -4395,19 +4419,17 @@ TUNE_QS, TUNE_KEY, TUNE_CAP = (1, 64), "upb", 512
 
 
 def tools_modules():
-    """The port's Fig. 2 pieces, dry run and roofline (no JAX)."""
+    """The port's Fig. 2 pieces (no JAX)."""
     from repro_torch.baselines import LandmarkMDS, jl_project, pca_project
     from repro_torch.core import NSimplexProjector, distortion_from_ratios, measure_distortion, select_pivots
     from repro_torch.core.distortion import pair_distances, sample_pairs
     from repro_torch.data import colors_like
-    from repro_torch.launch import dryrun
     from repro_torch.metrics import get_metric
 
     return SimpleNamespace(colors_like=colors_like, LandmarkMDS=LandmarkMDS, jl_project=jl_project, pca_project=pca_project,
                            NSimplexProjector=NSimplexProjector, distortion_from_ratios=distortion_from_ratios,
                            measure_distortion=measure_distortion, select_pivots=select_pivots,
-                           pair_distances=pair_distances, sample_pairs=sample_pairs, dryrun=dryrun,
-                           get_metric=get_metric)
+                           pair_distances=pair_distances, sample_pairs=sample_pairs, get_metric=get_metric)
 
 
 def fig2_maps(t, metric, X_np, X, method, k, seed=0):
@@ -4511,37 +4533,106 @@ def tools_modes(torch, t) -> dict:
     return dict(rows=MODES_ROWS, n_pivots=N_PIVOTS, max_rel_err_vs_gemm=err, ms=ms)
 
 
-def tools_dryrun(t, train=None) -> list:
-    """The dry run of the train phase's two cells on meta tensors: counted
-    FLOPs against model_flops, the dominant roofline term and the bound
-    seconds (beside the train phase's measured step where it ran)."""
+def start_dryruns() -> tuple:
+    """``python -m repro_torch.launch.dryrun`` in the background, one
+    process a cell (host work): ``DRYRUN_CELLS`` on one card at their cuts,
+    ``DRYRUN_MESH_CELLS`` on both production meshes through
+    ``--calibrate``; records under a fresh temporary directory, stopped and
+    removed by ``finish_dryruns`` or at exit.  Returns (the directory,
+    [(arch, shape, cut or None, out directory, start, process)])."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src + (os.pathsep + os.environ["PYTHONPATH"]
+                                             if os.environ.get("PYTHONPATH") else ""))
+    jobs = list(DRYRUN_CELLS) + [(arch, shape, None) for arch, shape in DRYRUN_MESH_CELLS]
+    procs = []
+    for arch, shape, cut in jobs:
+        out = root / f"{arch}__{shape}__{'card' if cut else 'mesh'}"
+        argv = ["--arch", arch, "--shape", shape, "--out", str(out)]
+        if cut is None:
+            argv += ["--mesh", "both", "--calibrate"]
+        else:
+            argv += ["--mesh", "card", "--accum", str(cut["accum"])]
+            argv += ["--layers", str(cut["n_layers"])] if "n_layers" in cut else []
+        procs.append((arch, shape, cut, out, time.perf_counter(),
+                      subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv], env=env,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                       start_new_session=True)))
+    atexit.register(stop_dryruns, root, procs)
+    return root, procs
+
+
+def stop_dryruns(root: Path, procs) -> None:
+    for *_, proc in procs:
+        stop_group(proc)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def finish_dryruns(started, train=None) -> tuple:
+    """Waits for ``start_dryruns``' processes (stopping any past their
+    limit) and holds each record: status ok; on one card the counted FLOPs
+    against model_flops, the dominant roofline term and the bound seconds
+    (beside the train phase's measured step where it ran); on the
+    production meshes ``n_chips`` the mesh's and a collective term above 0,
+    each cell's collective bytes by kind (extrapolated to the full depth
+    and accumulation), its roofline terms and walk seconds.  Prints the
+    seconds the phase waited.  Returns (card rows, mesh rows)."""
     measured = {"qwen2-1.5b": (train or {}).get("qwen", {}).get("step_s"),
                 "mixtral-8x7b": (train or {}).get("mixtral", {}).get("step_s")}
-    rows = []
-    for arch, shape, cut in DRYRUN_CELLS:
-        rec = t.dryrun.run_cell(arch, shape, "single", None, verbose=False, **cut)
-        check(rec["status"] == "ok", f"dry run {arch}/{shape}: {rec.get('error')}")
-        r = rec["roofline"]
-        row = dict(arch=arch, shape=shape, cut=cut, counted_flops=rec["op_walk"]["flops"],
-                   model_flops=rec["model_flops"], counted_over_model=rec["op_walk"]["flops"] / rec["model_flops"],
-                   bytes_hbm=rec["op_walk"]["bytes_hbm"], ops=rec["op_walk"]["ops"], dominant=r["dominant"],
-                   compute_s=r["compute_s"], memory_s=r["memory_s"], bound_s=max(r["compute_s"], r["memory_s"]),
-                   memory=rec["memory"], walk_s=rec["walk_s"], measured_step_s=measured.get(arch))
-        emit(phase="tools", task="dryrun", **row)
-        rows.append(row)
-    return rows
+    root, procs = started
+    card, mesh_rows, t0 = [], [], time.perf_counter()
+    try:
+        for arch, shape, cut, out, start, proc in procs:
+            _, stderr = proc.communicate(timeout=DRYRUN_MESH_TIMEOUT)
+            process_s = time.perf_counter() - start
+            check(proc.returncode == 0, f"dry run of {arch}/{shape} ({cut or 'production meshes'}) exited "
+                                        f"{proc.returncode}:\n{stderr[-4000:]}")
+            if cut is not None:
+                rec = json.loads((out / f"{arch}__{shape}__card.json").read_text())
+                check(rec["status"] == "ok", f"dry run {arch}/{shape}: {rec.get('error')}")
+                r = rec["roofline"]
+                row = dict(arch=arch, shape=shape, cut=cut, counted_flops=rec["op_walk"]["flops"],
+                           model_flops=rec["model_flops"],
+                           counted_over_model=rec["op_walk"]["flops"] / rec["model_flops"],
+                           bytes_hbm=rec["op_walk"]["bytes_hbm"], ops=rec["op_walk"]["ops"], dominant=r["dominant"],
+                           compute_s=r["compute_s"], memory_s=r["memory_s"], bound_s=max(r["compute_s"], r["memory_s"]),
+                           memory=rec["memory"], walk_s=rec["walk_s"], process_s=process_s,
+                           measured_step_s=measured.get(arch))
+                emit(phase="tools", task="dryrun", **row)
+                card.append(row)
+                continue
+            for mesh, chips in DRYRUN_MESH_CHIPS.items():
+                rec = json.loads((out / f"{arch}__{shape}__{mesh}__calib.json").read_text())
+                check(rec["status"] == "ok", f"dry run {arch}/{shape}/{mesh}: {rec.get('error')}")
+                v3 = rec["roofline_v3"]
+                coll = {k[len("coll_"):]: v for k, v in rec["extrapolated"].items() if k.startswith("coll_")}
+                check(rec["n_chips"] == chips and coll["total"] > 0 and v3["collective_s"] > 0,
+                      f"dry run {arch}/{shape}/{mesh}: {rec['n_chips']} chips, collective bytes {coll}")
+                row = dict(arch=arch, shape=shape, mesh=mesh, n_chips=chips, collective_bytes=coll,
+                           collective_s=v3["collective_s"], compute_s=v3["compute_s"], memory_s=v3["memory_s"],
+                           dominant=v3["dominant"], roofline_fraction=v3["roofline_fraction"],
+                           model_flops=rec["model_flops"], walk_s=rec["total_s"], process_s=process_s)
+                emit(phase="tools", task="dryrun_mesh", **row)
+                mesh_rows.append(row)
+    finally:
+        stop_dryruns(root, procs)
+    emit(phase="tools", task="dryrun_wait", seconds=time.perf_counter() - t0)
+    return card, mesh_rows
 
 
 def phase_tools(ops, torch, api, ref, log, train=None) -> dict:
-    """The tooling slice (ROADMAP item 12): the paper's Fig. 2 on the card
-    (K4 and K5 through the projector and LMDS), the projector's three modes,
-    the dry run of the train phase's cells; the launch counts set to 0
-    before and read after (K4 and K5 must launch).  Then its kernel rows:
-    each K4 and K5 class with >= 10% of the phase's launches, timed on a
-    JSD n-simplex index of 50 pivots over the Fig. 2 corpus (the widest k;
-    narrower classes on its prefix projectors)."""
+    """The tooling slice (ROADMAP item 12): first the dry run of the train
+    phase's cells and of the production meshes' cells (host processes,
+    waited for before anything timed runs: nothing timed runs beside
+    them); then the paper's Fig. 2 on the card (K4 and K5 through the
+    projector and LMDS), the projector's three modes; the launch counts set
+    to 0 before and read after (K4 and K5 must launch).  Then its kernel
+    rows: each K4 and K5 class with >= 10% of the phase's launches, timed
+    on a JSD n-simplex index of 50 pivots over the Fig. 2 corpus (the
+    widest k; narrower classes on its prefix projectors)."""
     t = tools_modules()
     t_phase = time.perf_counter()
+    dry, mesh_dry = finish_dryruns(start_dryruns(), train)
     X_np = t.colors_like(n=FIG2_ROWS, dim=DIM, seed=SEED).astype(np.float64)
     ops.reset_launches()
     fig2 = tools_fig2(torch, t, X_np)
@@ -4555,7 +4646,6 @@ def phase_tools(ops, torch, api, ref, log, train=None) -> dict:
         emit(phase="launch_shapes", launch_phase="tools", kernel=KERNEL_INFO[name][0], name=name,
              launches=launches[name], classes=[[list(cls), n, share] for cls, n, share in hist[name]])
     torch.cuda.empty_cache()
-    dry = tools_dryrun(t, train)
     index = api.build_index(X_np, "jensen_shannon", n_pivots=max(FIG2_KS), seed=0, device=DEVICE)
     inputs = ShapeInputs(torch, ops, ref, index, X_np[:256], log)
     rows = kernel_rows(torch, ops, inputs, hist, "tools")
@@ -4564,12 +4654,32 @@ def phase_tools(ops, torch, api, ref, log, train=None) -> dict:
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
     emit(phase="tools", task="done", seconds=seconds)
-    return dict(fig2=fig2, modes=modes, dryrun=dry, rows=rows, seconds=seconds)
+    return dict(fig2=fig2, modes=modes, dryrun=dry, dryrun_mesh=mesh_dry, rows=rows, seconds=seconds)
 
 
 def tune_row(r) -> list:
     return [r["plan"], r["max_group"], r["waves"], r["slice_rows"], r["launch"], r["valid"],
             r["us_per_call"] / 1e3]
+
+
+def tune_bound(torch, ops, ref, tab, q, kernel, kw) -> tuple:
+    """(bound, library ms or None) of a tune problem, as the kernel rows
+    compute them: K1 against ``torch.cdist`` on the table stacked over its
+    copy with the altitude negated; K2 and K3 by ``select_bound`` (K3's
+    kept rows from one call at the problem's thresholds)."""
+    (Q_, dims), (N_, n_) = q.shape, tab.shape
+    if kernel == "apex_bounds_batch":
+        T = truncated(torch, ref, tab, dims)
+        S = torch.cat([T, torch.cat([T[:, :-1], -T[:, -1:]], dim=1)]).contiguous()
+        lib = time_ms(torch, lambda: torch.cdist(q, S), reps=20)
+        del S, T
+        return roofline(N_ * n_ * 4 + q.numel() * 4 + 2 * Q_ * N_ * 4, Q_ * N_ * (2 * (dims - 1) + 12),
+                        F32_FLOPS), lib
+    if kernel == "apex_topk":
+        return select_bound(Q_, N_, n_, dims, q.numel(), Q_ * kw["k"] * 12, Q_ * kw["k"]), None
+    counts = ops.apex_bounds_threshold(tab, q, kw["thresholds"], kw["cap"], dims=dims)[3]
+    kept = int(counts.clamp(max=kw["cap"]).sum())
+    return select_bound(Q_, N_, n_, dims, q.numel(), Q_ * (kw["cap"] * 12 + 4), kept), None
 
 
 def phase_tune(ops, torch, api, ref, data_np, queries_np) -> dict:
@@ -4578,7 +4688,8 @@ def phase_tune(ops, torch, api, ref, data_np, queries_np) -> dict:
     candidate validated against the plain version, then timed with CUDA
     events; the default plan's ms and the winner printed.  With no cache
     file every lookup is the default; no cache is written; the memo is
-    reset at the end."""
+    reset at the end.  Each problem's bound and library ms as the kernel
+    rows'."""
     from dataclasses import asdict
 
     from repro_torch.kernels import tuning
@@ -4622,6 +4733,7 @@ def phase_tune(ops, torch, api, ref, data_np, queries_np) -> dict:
                        default_ms=default["us_per_call"] / 1e3, winner=asdict(winner),
                        winner_launch=by_config[winner]["launch"], winner_ms=by_config[winner]["us_per_call"] / 1e3,
                        sweep_s=sweep_s, **{k_: v for k_, v in kw.items() if k_ != "thresholds"})
+            (out["bound_ms"], out["bound_by"]), out["library_ms"] = tune_bound(torch, ops, ref, tab, q, kernel, kw)
             emit(phase="tune", task="sweep", **out,
                  rows_fields=["plan", "max_group", "waves", "slice_rows", "launch", "valid", "ms"],
                  rows=[tune_row(r) for r in rows])
@@ -4821,7 +4933,7 @@ SHARDED_TRAIN_TOL, SHARDED_TRAIN_TIMEOUT = 1e-5, 300
 #: checked by the launcher after the ranks exit; logits within 1e-4.
 TP_RUNS = [
     ("qwen2-1.5b", (1, 2), ["--n-layers", "2", "--dtype", "float32", "--mode", "train,decode", "--batch", "2",
-                            "--seq", "2048", "--decode-steps", "16"], ("max_param_diff", 1e-5)),
+                            "--seq", "2048", "--decode-steps", "16", "--count-collectives"], ("max_param_diff", 1e-5)),
     ("mixtral-8x7b", (1, 2), ["--n-layers", "1", "--dtype", "float32", "--batch", "4", "--seq", "256"],
      ("max_param_rel_diff", 1e-4)),
     ("mixtral-8x7b", (2, 1), ["--smoke", "--d-model", "64", "--d-ff", "128", "--vocab", "512", "--opt"],
@@ -4840,8 +4952,8 @@ TP_LOSS_TOL, TP_LOGIT_TOL = 1e-5, 1e-4
 #: each leaf's largest magnitude of the one-process port on the card (GCN's
 #: sums add with atomics there), outputs within 1e-4; the search cell exact
 CELL_RUNS = [
-    ("nsimplex-colors", (2, 1), ["--mode", "search", "--steps", "3"]),
-    ("nsimplex-colors", (2, 1), ["--mode", "search", "--opt", "--steps", "3"]),
+    ("nsimplex-colors", (2, 1), ["--mode", "search", "--steps", "3", "--count-collectives"]),
+    ("nsimplex-colors", (2, 1), ["--mode", "search", "--opt", "--steps", "3", "--count-collectives"]),
     ("fm", (1, 2), ["--mode", "train,serve", "--size", "batch=512", "--steps", "2"]),
     ("sasrec", (1, 2), ["--mode", "retrieval"]),
     ("gcn-cora", (2, 1), ["--shape", "ogb_products", "--steps", "1"]),
@@ -4995,6 +5107,51 @@ def check_cell(arch, mesh, over, rec) -> None:
         check(all(r["param_bytes"] < r["whole_param_bytes"] for r in rec["ranks"]), f"{what}: a rank holds it all")
 
 
+def dryrun_decode_bytes(seq: int, batch: int) -> dict:
+    """The dry run's meta walk of qwen2-1.5b's decode step at full width, 2
+    layers, f32, B ``batch`` over a ``seq``-token cache on a (1, 2) mesh:
+    its collective bytes by kind on rank 0 (a fake process group in this
+    process, destroyed on return)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import meta_process_mesh
+    from repro_torch.launch.op_walk import walk
+    from repro_torch.launch.steps import build_cell
+
+    cfg = dataclasses.replace(get_arch("qwen2-1.5b").model_cfg, n_layers=2, dtype="float32")
+    with meta_process_mesh(("data", "model"), (1, 2)) as mesh:
+        plan = build_cell("qwen2-1.5b", "decode_32k", mesh, model_cfg=cfg,
+                          sizes={"seq_len": seq, "global_batch": batch})
+        return walk(plan.fn, *dryrun.rank_args(plan, mesh)).collective_bytes
+
+
+def check_counted(runs, recs) -> None:
+    """The runs under ``--count-collectives``: each rank's counted bytes of
+    every mode printed beside ``TensorParallel.moved``; qwen2's counted
+    decode step on (1, 2) equal by kind to the dry run's walk of the cell
+    (B 2, cache S + 16 = 2,064)."""
+    t0 = time.perf_counter()
+    for (arch, mesh, over, *_), rec in zip(runs, recs):
+        if "--count-collectives" not in over:
+            continue
+        for r in rec["ranks"]:
+            check(bool(r.get("collectives")), f"{arch} {mesh}: rank {r['rank']} counted no collective")
+            emit(phase="sharded_train", part="collectives", arch=arch, mesh_shape=list(mesh), rank=r["rank"],
+                 note=rec.get("note"), collectives=r["collectives"],
+                 moved_per_decode_step=rec.get("model_collective_bytes_per_decode_step"))
+        if arch == "qwen2-1.5b":
+            seq = int(over[over.index("--seq") + 1]) + int(over[over.index("--decode-steps") + 1])
+            dry = dryrun_decode_bytes(seq, int(over[over.index("--batch") + 1]))
+            for r in rec["ranks"]:
+                live = r["collectives"]["decode"]["counted"]
+                check(live == dry, f"{arch} {mesh} rank {r['rank']}: a decode step counted {live}, the dry run {dry}")
+            emit(phase="sharded_train", part="collectives_vs_dryrun", arch=arch, mesh_shape=list(mesh), seq=seq,
+                 dryrun=dry, equal=True)
+    emit(phase="sharded_train", part="collectives_check", seconds=time.perf_counter() - t0)
+
+
 def sharded_train_tp(torch, process_train) -> tuple:
     """Phase 13's runs on one card: two ranks on card 0 (``--backend gloo
     --device cuda``), started once, for ``TP_RUNS`` and ``CELL_RUNS``; then
@@ -5020,6 +5177,7 @@ def sharded_train_tp(torch, process_train) -> tuple:
         emit(phase="sharded_train", arch=arch, mesh_shape=list(mesh), launch_wall_s=wall, **rec)
     emit(phase="sharded_train", part="tp_launch", runs=len(recs), wall_s=wall,
          chip_smoke_peak=torch.cuda.max_memory_allocated())
+    check_counted(TP_RUNS + CELL_RUNS, recs)
     search = [rec for (arch, *_), rec in zip(CELL_RUNS, recs[len(TP_RUNS):]) if arch == "nsimplex-colors"]
     rows = process_search_kernel_rows(torch, process_train, search)
     fresh_peak(torch)

@@ -1,9 +1,13 @@
 """Device meshes of the model half.
 
 Single pod: (data=16, model=16) = 256 devices; multi-pod: (pod=2, data=16,
-model=16) = 512, the ``pod`` axis carrying pure data parallelism.  The
-production meshes are abstract (they list the meta device): ``build_cell``
-and the sharding rules read only their axis names and sizes.
+model=16) = 512, the ``pod`` axis carrying pure data parallelism.
+``make_production_mesh`` is abstract (it lists the meta device):
+``build_cell`` and the sharding rules read only its axis names and sizes.
+``production_process_mesh`` makes this process rank 0 (or another rank) of
+a production mesh of processes that exist only on paper
+(``meta_process_mesh``: a fake process group), on which a cell's real
+sharded step runs on meta tensors: the dry run's collective term.
 ``make_host_mesh`` builds a small mesh over real devices, one process;
 ``make_process_mesh`` a mesh of processes, one per rank under
 ``torch.distributed`` (gloo on the CPU, NCCL with one card per rank, or
@@ -12,24 +16,70 @@ gloo with several ranks on one card), which the sharded steps run on.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.sharding.rules import DeviceMesh, ProcessMesh, process_groups
 
-__all__ = ["make_production_mesh", "make_host_mesh", "make_process_mesh"]
+__all__ = ["make_host_mesh", "make_process_mesh", "make_production_mesh", "meta_process_mesh",
+           "production_process_mesh"]
+
+
+def _production_layout(multi_pod: bool) -> tuple:
+    """(axis names, sizes) of the single-pod or multi-pod mesh."""
+    return (("pod", "data", "model"), (2, 16, 16)) if multi_pod else (("data", "model"), (16, 16))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    axes, shape = _production_layout(multi_pod)
     n = 1
     for s in shape:
         n *= s
     return DeviceMesh(axes, shape, (torch.device("meta"),) * n)
+
+
+@contextlib.contextmanager
+def meta_process_mesh(axis_names: Sequence[str], sizes: Sequence[int], rank: int = 0) -> Iterator[ProcessMesh]:
+    """This process as rank ``rank`` of a ``ProcessMesh`` of
+    ``prod(sizes)`` ranks on the meta device, the other ranks absent: the
+    default process group is a fake one of that world size, whose
+    collectives return at once and touch no data, so a sharded step runs
+    here on meta tensors, rank ``rank``'s shapes, and every collective it
+    calls is dispatched (and counted by ``launch.op_walk``).  The group is
+    destroyed on exit, on an error too; a process that already has a
+    default group raises.
+
+    The backend is ``torch.testing._internal.distributed.fake_pg``: its
+    import registers the ``"fake"`` backend (``FakeProcessGroup``, built
+    into ``torch.distributed``) with a store that holds nothing.  Where it
+    is missing the import raises, and the caller records the error: no
+    path falls back to another mesh."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    names, sizes = tuple(axis_names), tuple(int(s) for s in sizes)
+    world = 1
+    for s in sizes:
+        world *= s
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not on a {sizes} mesh")
+    if dist.is_initialized():
+        raise RuntimeError("this process already has a default process group; a meta mesh needs its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield ProcessMesh(names, sizes, (torch.device("meta"),) * world, rank=rank,
+                          groups=process_groups(names, sizes, rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def production_process_mesh(*, multi_pod: bool = False, rank: int = 0):
+    """``meta_process_mesh`` of the single-pod (16, 16) or multi-pod
+    (2, 16, 16) mesh, with the reference's axis names: a context manager."""
+    return meta_process_mesh(*_production_layout(multi_pod), rank=rank)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, devices: Optional[Sequence] = None) -> DeviceMesh:

@@ -23,6 +23,12 @@ per run: rank 0's record with every rank's own figures under ``"ranks"``.
 ``--then`` separates runs that one start of the ranks takes in turn (each
 with its own arguments and mesh, of one world size, backend and device;
 the launch's limit is the sum of their ``--timeout``).
+``--count-collectives``: after each mode's timed steps or calls, one more
+runs under ``launch.op_walk.CollectiveCounter`` (untimed, on copies of what
+it updates, its memory left out of the peak), and the record's ``collectives``
+gives, per mode, the bytes of every collective's result on the rank by kind
+(``"counted"``: what the dry run's meta walk counts for the cell) beside
+what the step's ``TensorParallel`` counted (``"moved"``).
 
 Each rank joins the process mesh (``make_process_mesh``: gloo on the CPU,
 NCCL with one card per rank, or ``--backend gloo --device cuda`` for
@@ -262,6 +268,13 @@ def _leaves(tree, cls=None):
     return tree_leaves(tree) if cls is None else tree_leaves(tree, is_leaf=lambda x: isinstance(x, cls))
 
 
+def _copy(tree):
+    """A copy of a tree of tensors, each leaf's ``requires_grad`` kept."""
+    from repro_torch.models.params import tree_map
+
+    return tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad), tree)
+
+
 def _diff(pairs) -> tuple:
     """(largest |a - b|, largest |a - b| over max |b| of its leaf) over
     (got, want) pairs of tensors."""
@@ -284,7 +297,34 @@ class _Rank:
         self.split = args.batch % shards == 0 and args.batch >= shards
         self.rec = {"rank": mesh.rank, "coords": list(mesh.coords), "device": str(self.dev),
                     "transport": mesh.transport}
-        self.saved, self.rebuilt = {}, set()
+        self.saved, self.rebuilt, self.counted, self.peak = {}, set(), {}, 0
+
+    def _count(self, mode: str, fn, args) -> None:
+        """With ``--count-collectives``, one more call ``fn(*args())`` after
+        the mode's timed calls, under ``op_walk.CollectiveCounter``:
+        ``counted[mode]`` gets its collective bytes by kind (``"counted"``)
+        beside the bytes its ``TensorParallel`` counted over the call
+        (``"moved"``).  ``args`` makes the arguments (copies of what the
+        call updates in place) after the device's peak so far is kept; the
+        outputs are dropped and the peak is reset after the call, so the
+        counted call enters neither a timed figure nor
+        ``max_memory_allocated``."""
+        if not self.args.count_collectives:
+            return
+        from repro_torch.launch.op_walk import CollectiveCounter
+
+        cuda = self.dev.type == "cuda"
+        if cuda:
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
+        tp = getattr(fn, "tensor_parallel", None)
+        before = dict(tp.moved) if tp else {}
+        with CollectiveCounter() as counter:
+            fn(*args())
+        self.counted[mode] = {"counted": counter.bytes,
+                              "moved": {k: v - before.get(k, 0) for k, v in tp.moved.items()} if tp else {}}
+        if cuda:
+            _sync(self.dev)
+            torch.cuda.reset_peak_memory_stats(self.dev)
 
     def _place(self, whole, specs):
         """This rank's shards of the whole seeded parameters and their
@@ -354,6 +394,7 @@ class _Rank:
             norms.append(float(m["grad_norm"]))
             ms.append(1e3 * (time.perf_counter() - t0))
         self.rec.update(losses=losses, grad_norms=norms, step_ms=ms)
+        self._count("train", step, lambda: (_copy(shards), _copy(opt), tokens, labels))
         if args.out:
             self.saved["train"] = {k: v.detach().cpu() for k, v in _paths(shards).items()}
         if args.check:
@@ -396,6 +437,7 @@ class _Rank:
         logits, cache = prefill(shards, toks[:, :S])
         _sync(self.dev)
         self.rec["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        self._count("prefill", prefill, lambda: (shards, toks[:, :S]))
         out = {"prefill_logits": self._batch(1).gather(logits).cpu()}
         dcfg = steps.lm_cell_cfg(self.cfg, "decode", mesh, opt=args.opt)
         if n_dec:
@@ -418,6 +460,8 @@ class _Rank:
                 moved = decode.tensor_parallel.moved
                 self.rec["model_collective_bytes_per_decode_step"] = {
                     k: (moved[k] - moved0.get(k, 0)) / n_dec for k in moved}
+            pos = torch.full((toks.shape[0],), S, dtype=torch.int32, device=self.dev)
+            self._count("decode", decode, lambda: (shards, toks[:, S].contiguous(), pos, _copy(cache)))
         whole = tf.init_cache(dcfg, B, cache["pos"].shape[-1], device="meta")
         cshd = to_named_shardings(kv_cache_specs(whole, mesh, batch=B), mesh)
         self.rec["cache_shard_shapes"] = {k: list(v.shape) for k, v in cache.items()}
@@ -453,6 +497,7 @@ class _Rank:
                 norms.append(float(m["grad_norm"]))
                 ms.append(1e3 * (time.perf_counter() - t0))
             self.rec.update(losses=losses, grad_norms=norms, step_ms=ms)
+            self._count("train", plan.fn, lambda: (_copy(shards), _copy(opt), *placed))
             if args.out:
                 self.saved["train"] = {k: v.detach().cpu() for k, v in _paths(shards).items()}
             return
@@ -461,7 +506,8 @@ class _Rank:
             t0 = time.perf_counter()
             out = plan.fn(shards, *placed)
             _sync(self.dev)
-        self.rec[f"{mode}_ms"] = 1e3 * (time.perf_counter() - t0)
+            self.rec[f"{mode}_ms"] = 1e3 * (time.perf_counter() - t0)
+            self._count(mode, plan.fn, lambda: (shards, *placed))
         whole = NamedSharding(mesh, plan.out_specs).gather(out)
         self.rec[f"{mode}_shape"] = list(whole.shape)
         if args.out:
@@ -497,6 +543,7 @@ class _Rank:
             _sync(self.dev)
             ms.append(1e3 * (time.perf_counter() - t0))
         self.rec["serve_ms"] = ms
+        self._count("search", plan.fn, lambda: (local, *consts, qd, t))
         self.rec["kernel_checks"] = _search_kernel_checks(args.opt, local, consts, qd, t)
         if args.out:
             self.saved["search"] = {"hist": hist.cpu(), "idx": idx.cpu(), "code": code.cpu()}
@@ -797,8 +844,10 @@ def _rank_record(args, mesh) -> dict:
         if "prefill" in modes or "decode" in modes:
             run.serve(modes)
     if mesh.device.type == "cuda":
-        run.rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(mesh.device)
+        run.rec["max_memory_allocated"] = max(run.peak, torch.cuda.max_memory_allocated(mesh.device))
     rec = run.rec
+    if run.counted:
+        rec["collectives"] = run.counted
     if args.out:
         t0 = time.perf_counter()
         torch.save(run.saved, os.path.join(args.out, f"rank{mesh.rank}.pt"))
@@ -956,7 +1005,7 @@ def launch(argv) -> tuple:
             rec["ranks"] = [{k: r[k] for k in ("rank", "coords", "transport", "param_bytes", "whole_param_bytes",
                                                "table_bytes", "max_memory_allocated", "step_ms", "prefill_ms",
                                                "decode_ms", "serve_ms", "retrieval_ms", "first_call_ms",
-                                               "launches", "shape_launches", "kernel_checks")
+                                               "launches", "shape_launches", "kernel_checks", "collectives")
                              if k in r} for r in ranks]
             recs.append(rec)
     return 0, recs, []
@@ -996,6 +1045,9 @@ def _parser():
                     help="the launcher compares the ranks' saved shards with the one-process port's")
     ap.add_argument("--out", help="directory for every rank's shards and results (rank{r}.pt)")
     ap.add_argument("--timeout", type=float, default=600.0, help="the launcher's limit for this run, seconds")
+    ap.add_argument("--count-collectives", action="store_true",
+                    help="one more untimed step or call of each mode under op_walk.CollectiveCounter: the "
+                         "record's collectives[mode] holds its collective bytes by kind beside TensorParallel.moved")
     return ap
 
 

@@ -13,9 +13,12 @@ search kernels, which compute in those types (``chip_smoke.py``'s bounds).
 ``collective_bytes`` applies the ring convention to a dict of per-op
 buffer bytes: all-reduce counts twice (reduce-scatter then all-gather),
 the rest once.  The JAX package parses those bytes out of compiled HLO
-text; eager PyTorch produces no HLO, so the port has no such parser: a
-caller sums the buffers of its own ``torch.distributed`` calls (the
-sharded step's: ROADMAP item 11c.5, not yet counted).
+text; eager PyTorch produces no HLO, so the port counts them where they
+are dispatched: ``launch.op_walk`` adds the bytes of each ``c10d``
+collective's result on this rank, by kind, as a sharded step runs (on
+meta tensors as rank 0 of a production mesh in the dry run,
+``launch.dryrun``; or live on a rank, ``op_walk.CollectiveCounter``).  A
+chip's collective term is those bytes over one direction of its NVLink.
 """
 
 from __future__ import annotations

@@ -165,8 +165,9 @@ class TensorParallel:
         return out
 
     def _scatter(self, x, dim):
-        self.moved["reduce_scatter"] += x.numel() * x.element_size()
-        return scatter_dim(x, dim, self.group, self.size)
+        out = scatter_dim(x, dim, self.group, self.size)
+        self.moved["reduce_scatter"] += out.numel() * out.element_size()
+        return out
 
 
 class _CopyToModel(torch.autograd.Function):

@@ -1,6 +1,8 @@
-"""The port's dry run (``python -m repro_torch.launch.dryrun``) on the CPU:
-cells of a smoke arch (the registry arch with its ``smoke_cfg`` and its
-shapes cut to 256 tokens and 4 sequences) walked on meta tensors.
+"""The port's dry run (``python -m repro_torch.launch.dryrun``) on the CPU,
+on one card (``--mesh card``): cells of a smoke arch (the registry arch
+with its ``smoke_cfg`` and its shapes cut to 256 tokens and 4 sequences)
+walked on meta tensors.  The production meshes are
+``tests/test_torch_dryrun_mesh.py``'s.
 
 * Train, prefill and decode cells of qwen2-1.5b (dense) and mixtral-8x7b
   (MoE) give ``status="ok"`` records with the argument, output and
@@ -13,9 +15,8 @@ shapes cut to 256 tokens and 4 sequences) walked on meta tensors.
 * The shallow-variant extrapolation (``calibrate_cell``, the reference's
   roofline v3) equals a direct walk of the full cell: the cost is linear in
   layers and microbatches, and an eager walk is exact.
-* ``--mesh multi`` (and ``both``) is refused with a message naming ROADMAP
-  item 11c; the paper's serve cell, whose step launches K4 and K3, cannot
-  run on meta tensors and is recorded as an error with its reason.
+* The paper's serve cell, whose step launches K4 and K3, cannot run on
+  meta tensors and is recorded as an error with its reason.
 """
 
 import dataclasses
@@ -60,7 +61,7 @@ def smoke(monkeypatch):
 @pytest.mark.parametrize("shape,kind", [("train_4k", "train"), ("prefill_32k", "prefill"),
                                         ("decode_32k", "decode")])
 def test_smoke_cell_record(smoke, tmp_path, arch, shape, kind):
-    rec = dryrun.run_cell(arch, shape, "single", str(tmp_path), verbose=False, accum=1)
+    rec = dryrun.run_cell(arch, shape, "card", str(tmp_path), verbose=False, accum=1)
     assert rec["status"] == "ok", rec.get("error")
     assert rec["kind"] == kind and rec["n_chips"] == 1
     flops, model = rec["op_walk"]["flops"], rec["model_flops"]
@@ -71,7 +72,8 @@ def test_smoke_cell_record(smoke, tmp_path, arch, shape, kind):
     assert roof["compute_s"] == pytest.approx(flops / 989e12)
     assert roof["memory_s"] == pytest.approx(rec["op_walk"]["bytes_hbm"] / 3.35e12)
     assert roof["collective_s"] == 0.0 and roof["dominant"] in ("compute", "memory")
-    on_disk = json.loads((tmp_path / f"{arch}__{shape}__single.json").read_text())
+    assert rec["op_walk"]["collective_bytes"]["total"] == 0.0
+    on_disk = json.loads((tmp_path / f"{arch}__{shape}__card.json").read_text())
     assert on_disk["op_walk"] == rec["op_walk"]
 
 
@@ -87,24 +89,14 @@ def test_calibration_equals_the_full_walk(monkeypatch, tmp_path):
     get = _smoke_arch(configs_mod.get_arch, layers=6)
     monkeypatch.setattr(steps_mod, "get_arch", get)
     monkeypatch.setattr(configs_mod, "get_arch", get)
-    cal = dryrun.calibrate_cell("qwen2-1.5b", "train_4k", "single", str(tmp_path))
+    cal = dryrun.calibrate_cell("qwen2-1.5b", "train_4k", "card", str(tmp_path))
     full = dryrun.run_cell("qwen2-1.5b", "train_4k", verbose=False)
     assert cal["status"] == "ok" and full["status"] == "ok"
     assert cal["accum_full"] == SMOKE_BATCH
     assert cal["extrapolated"]["flops"] == pytest.approx(full["op_walk"]["flops"], rel=1e-9)
     assert cal["extrapolated"]["bytes"] == pytest.approx(full["op_walk"]["bytes_hbm"], rel=1e-9)
     assert cal["roofline_v3"]["model_flops"] == full["model_flops"]
-    assert (tmp_path / "qwen2-1.5b__train_4k__single__calib.json").exists()
-
-
-@pytest.mark.parametrize("mesh", ["multi", "both"])
-def test_multi_card_mesh_refused(mesh, capsys):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--mesh", mesh, "--arch", "qwen2-1.5b"])
-    assert e.value.code == 2
-    assert "item 11c" in capsys.readouterr().err
-    rec = dryrun.run_cell("qwen2-1.5b", "decode_32k", "multi", verbose=False)
-    assert rec["status"] == "error" and "item 11c" in rec["error"]
+    assert (tmp_path / "qwen2-1.5b__train_4k__card__calib.json").exists()
 
 
 def test_serve_cell_needs_the_card(smoke):
@@ -113,7 +105,7 @@ def test_serve_cell_needs_the_card(smoke):
 
 
 def test_main_walks_the_selected_cells(smoke, tmp_path, capsys):
-    rc = dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k", "--out", str(tmp_path)])
+    rc = dryrun.main(["--mesh", "card", "--arch", "qwen2-1.5b", "--shape", "decode_32k", "--out", str(tmp_path)])
     assert rc == 0
     out = capsys.readouterr().out
-    assert "[dryrun] OK qwen2-1.5b/decode_32k/single" in out and "0 failures" in out
+    assert "[dryrun] OK qwen2-1.5b/decode_32k/card" in out and "0 failures" in out

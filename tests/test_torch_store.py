@@ -1207,8 +1207,23 @@ def _inspect_lines(tool, wal_dir, verify=False):
     return rc, buf.getvalue()
 
 
+def _reference_wal_inspect():
+    """The reference's ``tools/wal_inspect.py`` loaded under a name of its
+    own: its ``inspect(..., out=sys.stdout)`` binds the stream current at
+    import, so importing the shared ``tools.wal_inspect`` here would leave
+    ``tests/test_store.py``'s run of it in the same process printing into
+    this test's capture."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "wal_inspect.py"
+    spec = importlib.util.spec_from_file_location("_reference_wal_inspect", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_wal_inspect_lines_equal_the_reference_tool_both_ways(tmp_path):
-    from tools import wal_inspect as rtool
+    rtool = _reference_wal_inspect()
 
     port = _write_port(tmp_path, "euclidean")
     ref = _write_ref(tmp_path, "euclidean")
