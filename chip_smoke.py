@@ -17,6 +17,7 @@
     python3 chip_smoke.py --tune-only
     python3 chip_smoke.py --select-only
     python3 chip_smoke.py --sharded-train-only
+    python3 chip_smoke.py --examples-only
     python3 chip_smoke.py --launch-path
     python3 chip_smoke.py --ptxas
 
@@ -207,10 +208,11 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 refine=64``) and 8 timed 1-D exact k-NN requests; then
                 ``ExactSearchEngine`` over the first 112,682 rows (the
                 paper's colors size) with all five mechanisms, per
-                mechanism an 8-query range batch (query 0's 1e-3 distance
-                quantile), an 8-query k-NN batch and two 1-D requests of
-                each, printing calls per query (the paper's Table 3), wall
-                ms per query (batched and 1-D) and build seconds.  After
+                mechanism an ``ENGINE_Q``-query (4) range batch (query 0's
+                1e-3 distance quantile), a k-NN batch of as many queries
+                and ``ENGINE_1D`` (1) 1-D request of each, printing calls
+                per query (the paper's Table 3), wall ms per query
+                (batched and 1-D) and build seconds.  After
                 the counts are read: the card's LAESA ``bounds_batch`` bit-equal
                 to a host numpy scan for 8 queries (full and dims=10),
                 exact answers equal to the brute force (all engine answers,
@@ -422,6 +424,19 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and fails (exit code not
                 (hard); the search cell's K4 (1,024, 32), K3
                 (1,024, 8, 32) and K1 classes timed on rank 0's inputs in
                 this process join the kernels line; after the train phase;
+ 14. examples — every walkthrough of ``repro_torch.examples`` (the JAX
+                package's ``examples/``, one module each) called in-process
+                on the card under its reference run's flags, then
+                ``train_lm --full-100m`` (lm-100m, 10 steps), each in a fresh
+                temporary directory: its own assertions (exact against brute
+                force, bit-identical bursts, recoveries and grids, training
+                reduces the loss), its summary held to
+                ``src/repro_torch/examples/reference_summaries.json`` (the
+                CPU tests keep that file equal to a fresh run of the JAX
+                package's scripts; counts within the run's own margins),
+                each walkthrough's seconds and kernel launches (the delta of
+                ``ops.LAUNCHES``) printed, K1-K6 each launched by some
+                walkthrough; after the tune phase;
 then the full run's seconds (and each phase's, ``phase_seconds``), the
 ``kernels`` line, the card's ``nvidia-smi`` line, and last the device
 contract line.  The run points the tuning cache
@@ -448,7 +463,8 @@ the 1M-row JSD exact index, the serve step's K3 (64, 256, 20) always among
 them).
 ``--models-only`` runs phase 8 alone, with its checks; ``--train-only``
 phase 9; ``--tools-only`` phase 10; ``--tune-only`` phase 11;
-``--select-only`` phase 12; ``--sharded-train-only`` phase 13.
+``--select-only`` phase 12; ``--sharded-train-only`` phase 13;
+``--examples-only`` phase 14.
 ``--launch-path`` times each step of K4's query path at (1, 20, f64),
 and K1's and K5's small calls, alone on the host clock (``launch_path``;
 copied into an older checkout it times that checkout's path).  ``--ptxas``
@@ -481,14 +497,17 @@ Q, K, CAP = 64, 10, 4096
 #: the approximate phase's truncation and re-rank budget
 APPROX_DIMS, REFINE = 10, 64
 #: the mechanisms phase's engine: the paper's colors size (SISAP colors,
-#: 112,682 rows), 4 queries per task and 2 1-D requests (16 queries until
+#: 112,682 rows), 4 queries per task and 1 1-D request (16 queries until
 #: the tools and tune phases joined the run, 8 until phase 13 ran every
 #: family on a ProcessMesh and took 115 s where it had taken 59, 6 until a
 #: host 29% slower by the yardstick ran the whole run in 1,206.6 s with the
 #: mechanisms phase at 176.4 s: the tree mechanisms' host path takes
 #: 0.3-2.6 s a query, ~13 s a query over the engine's tasks, and the full
-#: run must stay well inside its time limit), range at a 1e-3 selectivity
-ENGINE_ROWS, ENGINE_Q, ENGINE_1D, ENGINE_SELECTIVITY = 112_682, 4, 2, 1e-3
+#: run must stay well inside its time limit; 2 1-D requests until the
+#: examples phase joined the run and took 7.40 s of it, where the second
+#: request took 9.05 s over the engine's mechanisms and tasks), range at a
+#: 1e-3 selectivity
+ENGINE_ROWS, ENGINE_Q, ENGINE_1D, ENGINE_SELECTIVITY = 112_682, 4, 1, 1e-3
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 / f64
 #: FLOP/s outside the tensor cores and dense bf16 FLOP/s; bound in main()
 #: from their one home, ``repro_torch.launch.roofline``
@@ -5304,6 +5323,122 @@ def phase_sharded_train(torch) -> tuple:
     return recs, rows
 
 
+#: ``train_lm --full-100m`` (lm-100m, 12 layers, d_model 768: the
+#: walkthrough's full width) on the card: steps
+EXAMPLES_FULL_100M_STEPS = 10
+#: the examples phase's kernel rows are timed on a sqrt-JSD colors table of
+#: this many rows (quickstart's; the walkthroughs' tables hold 2,000-20,000)
+EXAMPLES_TABLE_ROWS = 9_000
+#: the position in a launch class of the pivots a table needs to serve it:
+#: K6's and K4's own width, K1-K3's bound width (dims); K5's need none
+CLASS_PIVOTS = {"apex_bounds": 0, "apex_project": 1, "apex_bounds_batch": 1, "apex_topk": 3, "apex_threshold": 2}
+
+
+def examples_runs(reference) -> list:
+    """(walkthrough, flags) of the examples phase: each walkthrough under
+    the flags of its reference run, then train_lm at full width."""
+    from repro_torch.examples import WALKTHROUGHS
+
+    runs = [(name, list(reference[name]["reference_run"]["argv"])) for name in WALKTHROUGHS]
+    return runs + [("train_lm", ["--full-100m", "--steps", str(EXAMPLES_FULL_100M_STEPS)])]
+
+
+def examples_kernel_rows(torch, ops, api, ref, hist, log) -> list:
+    """The kernels line's rows of the examples phase: each kernel's most
+    launched class there, held to its plain version and timed
+    (``kernel_rows``) on an ``EXAMPLES_TABLE_ROWS``-row sqrt-JSD colors
+    index with as many pivots as the class needs (``CLASS_PIVOTS``; 20 for
+    K5), its corpus 20,256 rows, a 6.27% row mask (filtered_search's
+    predicate's share) for a masked class."""
+    from repro_torch.data import colors_like
+
+    X = colors_like(n=20_256, dim=DIM, seed=SEED)
+    corpus = torch.as_tensor(X, device="cuda")
+    top = {name: hist[name][0] for name in KERNEL_INFO if hist.get(name)}
+    by_pivots = {}
+    for name, (cls, _, _) in top.items():
+        by_pivots.setdefault(cls[CLASS_PIVOTS[name]] if name in CLASS_PIVOTS else N_PIVOTS, []).append(name)
+    rows = []
+    for n_piv, names in sorted(by_pivots.items()):
+        index = api.build_index(X[:EXAMPLES_TABLE_ROWS], "jensen_shannon", n_pivots=n_piv, seed=SEED % 1000,
+                                device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        mask = (torch.rand(EXAMPLES_TABLE_ROWS, generator=gen, device="cuda") < 0.0627).to(torch.uint8)
+        inputs = ShapeInputs(torch, ops, ref, index, X[EXAMPLES_TABLE_ROWS:EXAMPLES_TABLE_ROWS + 256], log,
+                             corpus, mask)
+        rows += kernel_rows(torch, ops, inputs, {name: [top[name]] for name in names}, "examples")
+        del inputs, index
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_examples(ops, torch, api, ref, log) -> list:
+    """Phase 14: every walkthrough of ``repro_torch.examples`` in-process on
+    the card, each in a fresh temporary directory (train_lm's checkpoints):
+    its own assertions (exactness against brute force, bit-identical
+    bursts and recoveries, training reduces the loss) raise; its summary
+    held to ``reference_summaries.json`` (``summary.compare``: exact fields
+    equal, f64 values within their relative tolerance, each count within
+    the run's margin: the decisions whose f64 bound lies in the f32 slack
+    band of its threshold, ``summary.f32_band``; a ``BRIDGED`` walkthrough,
+    on its own random parameters, by its exact fields alone); each
+    walkthrough's seconds and kernel launches (the delta of
+    ``ops.LAUNCHES`` around its ``main``) printed; K1-K6 each launched by
+    some walkthrough, K3 by mesh_scaleout's device filter on its four grid
+    positions of the card; the phase's launches by shape class printed
+    (``launch_shapes``) and its kernel rows returned
+    (``examples_kernel_rows``)."""
+    import importlib
+
+    from repro_torch.examples import summary as S
+
+    reference = S.load_reference()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    totals = dict.fromkeys(KERNEL_INFO, 0)
+    shapes_before = {name: dict(by) for name, by in ops.SHAPE_LAUNCHES.items()}
+    out = {}
+    try:
+        for i, (name, argv) in enumerate(examples_runs(reference)):
+            flags = ["--device", "cuda", *argv]
+            if name == "train_lm":
+                flags += ["--ckpt-dir", str(root / f"ckpt_{i}")]
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            got = importlib.import_module(f"repro_torch.examples.{name}").main(flags)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {KERNEL_INFO[k][0]: ops.LAUNCHES[k] - before[k] for k in KERNEL_INFO}
+            for k in KERNEL_INFO:
+                totals[k] += ops.LAUNCHES[k] - before[k]
+            held = []
+            if "--full-100m" not in argv:
+                held = ["exact"] if name in S.BRIDGED else ["exact", "close", "counts"]
+                bad = S.compare(got, reference[name], sections=held)
+                check(not bad, f"examples: {name} differs from reference_summaries.json: {bad}")
+            emit(phase="examples", walkthrough=name, argv=argv, seconds=seconds, launches=launches, held=held,
+                 counts=got["counts"], margins=got["margins"], walls=got["seconds"],
+                 losses=got["close"].get("losses"))
+            out[name if "--full-100m" not in argv else "train_lm_full_100m"] = dict(seconds=seconds,
+                                                                                   launches=launches)
+        check(out["mesh_scaleout"]["launches"]["K3"] > 0, "examples: mesh_scaleout's device filter launched no K3")
+        for name, (kid, _, _) in KERNEL_INFO.items():
+            check(totals[name] > 0, f"examples: no walkthrough launched {kid} ({name})")
+        emit(phase="examples", total_launches={KERNEL_INFO[k][0]: v for k, v in totals.items()},
+             seconds=sum(r["seconds"] for r in out.values()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    hist = launch_histogram({name: {cls: n - shapes_before[name].get(cls, 0) for cls, n in by.items()
+                                    if n > shapes_before[name].get(cls, 0)}
+                             for name, by in ops.SHAPE_LAUNCHES.items()})
+    for name, (kid, _, _) in KERNEL_INFO.items():
+        emit(phase="launch_shapes", launch_phase="examples", kernel=kid, name=name, launches=totals[name],
+             classes=[[list(cls), n, share] for cls, n, share in hist[name]])
+    rows = examples_kernel_rows(torch, ops, api, ref, hist, log)
+    emit(phase="examples", kernel_rows_seconds=time.perf_counter() - t0)
+    return rows
+
+
 class Laps:
     """Seconds between successive calls, by the name given at each call."""
 
@@ -5386,6 +5521,9 @@ def run(argv=None) -> int:
     parser.add_argument("--sharded-train-only", action="store_true",
                         help="only run the sharded train phase (one NCCL process per visible card on a (cards, 1) "
                              "mesh against the one-process step on the card)")
+    parser.add_argument("--examples-only", action="store_true",
+                        help="only run the examples phase (every walkthrough of repro_torch.examples on the card, "
+                             "held to reference_summaries.json) and its checks")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the attribute columns and of the online phase's rows and mutations")
     args = parser.parse_args(argv)
@@ -5442,6 +5580,11 @@ def run(argv=None) -> int:
         return 0
     log = log_cost(build)
     emit(phase="build", log_fp64=log)
+    if args.examples_only:
+        print(json.dumps({"examples_kernels": phase_examples(ops, torch, api, ref, log)}), flush=True)
+        emit(phase="host", host_yardstick_s=host_yardstick())
+        print(smi, flush=True)
+        return 0
     if args.tools_only:
         phase_tools(ops, torch, api, ref, log)
         emit(phase="host", host_yardstick_s=host_yardstick())
@@ -5650,6 +5793,11 @@ def run(argv=None) -> int:
     lap("tools")
     phase_tune(ops, torch, api, ref, data_np, queries_np)
     lap("tune")
+    examples_rows = phase_examples(ops, torch, api, ref, log)
+    print(json.dumps({"examples_kernels": examples_rows}), flush=True)
+    rows += examples_rows
+    torch.cuda.empty_cache()
+    lap("examples")
     emit(phase="run", seconds=time.perf_counter() - t_run, phase_seconds=lap.laps,
          host_yardstick_s=host_yardstick())
     print(json.dumps({"kernels": rows}), flush=True)

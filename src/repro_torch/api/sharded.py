@@ -122,15 +122,27 @@ class ShardedIndex(QuerySurface):
         self._placed = None          # (version, table slices on the grid)
         self._filter_fn = None       # distributed filter (lazy)
         self._pool_cache = None      # (workers, ThreadPoolExecutor) private pool
-        #: the filter's devices: None = every visible card for an index on
-        #: the card, the index's own device on the CPU; the CPU tests set a
-        #: list such as ``[torch.device("cpu")] * 4`` before the first query
+        #: the filter's devices (``configure_grid``)
         self._grid_devices = None
         self._mesh_replicas = 1      # set when the device filter is built
         self._mesh_data = 1
         #: device-filter queries whose slots overflowed on some device (each
         #: answered by the host fan-out instead)
         self.filter_overflow_queries = 0
+
+    # -- device grid -------------------------------------------------------------
+    def configure_grid(self, devices: Optional[List[torch.device]]) -> None:
+        """Name the distributed filter's devices, one per grid position:
+        ``None`` (the default) takes every visible card for an index on the
+        card and the index's own device on the CPU.  A list may name one
+        device more than once, such as ``[torch.device("cuda")] * 4`` (four
+        positions on one card) or ``[torch.device("cpu")] * 4``: the
+        counterpart of the JAX package's forced host device count
+        (``--xla_force_host_platform_device_count``).  The filter is rebuilt
+        on its next query."""
+        self._grid_devices = None if devices is None else [torch.device(d) for d in devices]
+        self._filter_fn = None
+        self._placed = None
 
     # -- fan-out plumbing ------------------------------------------------------
     def configure_fanout(self, workers: Optional[int]) -> None:

@@ -177,7 +177,7 @@ def composite(request, pair):
     # the device filter on as many CPU positions as the reference's mesh has
     # devices (four when a module forcing a 4-device host platform was
     # imported first): slot overflows, so the counts, follow them
-    port._grid_devices = [torch.device("cpu")] * jax.device_count()
+    port.configure_grid([torch.device("cpu")] * jax.device_count())
     return port, ref, data, queries
 
 
@@ -201,7 +201,7 @@ def test_composite_cross_load_both_ways(composite, tmp_path):
     ref.save(tmp_path / "ref")
     port.save(tmp_path / "port")
     from_ref = load_index(tmp_path / "ref", device="cpu")
-    from_ref._grid_devices = port._grid_devices
+    from_ref.configure_grid([torch.device("cpu")] * jax.device_count())
     with enable_x64(True):
         from_port = rapi.load_index(tmp_path / "port")
     assert from_ref.stats()["n_shards"] == 3 and from_port.stats()["n_shards"] == 3

@@ -101,7 +101,7 @@ def _build_pair(X, kind, ids, **kw):
         # the device filter on as many CPU positions as the reference's mesh
         # has devices (one, or four when a module forcing a 4-device host
         # platform was imported first): slot overflows follow them
-        port._grid_devices = [torch.device("cpu")] * jax.device_count()
+        port.configure_grid([torch.device("cpu")] * jax.device_count())
     with enable_x64(True):
         ref = rbuild(X, kind=kind, n_pivots=PIVOTS, seed=3, attributes=ref_store, use_kernel=True, **kw)
     return port, ref
@@ -592,7 +592,7 @@ def test_sharded_save_load_with_attributes_both_ways(sharded, tmp_path):
     port.save(tmp_path / "port")
     ref.save(tmp_path / "ref")
     from_ref = load_index(tmp_path / "ref", device="cpu")
-    from_ref._grid_devices = port._grid_devices
+    from_ref.configure_grid([torch.device("cpu")] * jax.device_count())
     with enable_x64(True):
         from_port = rload(tmp_path / "port")
     assert from_ref.attributes is not None and from_port.attributes is not None

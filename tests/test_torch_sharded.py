@@ -70,7 +70,7 @@ def same_grid(port):
     mesh has devices: jax may run on one host device or, when a module that
     forces a 4-device host platform was imported first, on four, and the
     slot overflows (so the counts) follow the per-device rows."""
-    port._grid_devices = [CPU] * jax.device_count()
+    port.configure_grid([CPU] * jax.device_count())
     return port
 
 
@@ -645,7 +645,7 @@ def mesh_corpus():
 def test_layouts_on_four_devices_equal_reference_and_brute_force(mesh_corpus, layout):
     data, queries = mesh_corpus
     port, ref = pair(data, shards=4, layout=layout)
-    port._grid_devices = [CPU] * 4
+    port.configure_grid([CPU] * 4)
     t = quantile_t(data, queries[0], 0.03)
     assert port._use_device_filter(np.full(len(queries), t))
     assert_device_bands_separated(port, queries, t)
