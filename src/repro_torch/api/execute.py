@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.api.planner import QueryPlan, plan as make_plan
 from repro_torch.api.query import Query
 from repro_torch.api.types import BatchQueryResult, QueryResult, QueryStats
@@ -239,7 +240,8 @@ def execute(index, q, spec: Query, *, plan: Optional[QueryPlan] = None, telemetr
         # observe
         return BatchQueryResult(results=[], elapsed_s=0.0)
     t0 = time.perf_counter()
-    out = _dispatch(index, q, queries, single, spec, qp)
+    with tracing.span("api.execute", rows=queries.shape[0], mechanism=qp.mechanism, task=qp.task, mode=qp.mode):
+        out = _dispatch(index, q, queries, single, spec, qp)
     if telemetry is None:
         telemetry = getattr(index, "telemetry", None)
     if telemetry is not None:

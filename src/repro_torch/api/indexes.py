@@ -184,6 +184,21 @@ class SimplexTableIndex(_TableIndex):
 
     kind = "nsimplex"
 
+    #: overflow-route queries of the structures ``fit`` replaced
+    _overflow_before_fit = 0
+
+    @property
+    def overflow_queries(self) -> int:
+        """Queries this index answered by the per-query K1 route because
+        their K3 count exceeded its capacity (k-NN pass B, range search);
+        the count survives ``fit``.  It stays out of ``stats()``, which
+        holds the JAX package's keys."""
+        return self._overflow_before_fit + self._inner.overflow_queries
+
+    def fit(self, data) -> "SimplexTableIndex":
+        self._overflow_before_fit = self.overflow_queries
+        return super().fit(data)
+
     @classmethod
     def build(cls, data, metric: Metric, *, pivots, eps: float = 1e-6, use_kernel: bool = True,
               approx: Optional[dict] = None, device="cuda") -> "SimplexTableIndex":

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import NSimplexProjector
 from repro_torch.device import resolve_device
 from repro_torch.index.approx import approx_knn_from_pairs, approx_search_decide
@@ -413,7 +414,9 @@ class NSimplexIndex(DeviceRows):
         Returns a list of Q (ids, distances, QueryStats) triples.
         """
         q_t = torch.atleast_2d(self._tensor(queries))
-        apexes = self.query_apex_batch(q_t, qpd=qpd)
+        with tracing.span("nsimplex.project", Q=q_t.shape[0]):
+            apexes = self.query_apex_batch(q_t, qpd=qpd)
+            apexes_np = apexes.cpu().numpy()
         pivot_calls = self.n_pivots if qpd is None else 0
         N = self.n_rows
         mask = self._mask_of(rowmask)
@@ -427,16 +430,16 @@ class NSimplexIndex(DeviceRows):
                 )
                 for _ in range(q_t.shape[0])
             ]
-        return self._knn_batch_kernel(q_t, apexes, k, pivot_calls, radius_hint, mask=mask)
+        return self._knn_batch_kernel(q_t, apexes, apexes_np, k, pivot_calls, radius_hint, mask=mask)
 
-    def _knn_batch_kernel(self, q_t, apexes: torch.Tensor, k: int, pivot_calls: int, radius_hint=None, mask=None):
+    def _knn_batch_kernel(self, q_t, apexes: torch.Tensor, apexes_np: np.ndarray, k: int, pivot_calls: int,
+                          radius_hint=None, mask=None):
         N = self.n_rows
         Q = q_t.shape[0]
         n_live = N if mask is None else int(mask.sum())
         sel = None if mask is None else np.flatnonzero(mask)
         k_eff = min(int(k), n_live)
         hint = np.full(Q, np.inf) if radius_hint is None else np.asarray(radius_hint, dtype=np.float64)
-        apexes_np = apexes.cpu().numpy()
         cap = int(min(N, max(512, 16 * k_eff)))
         tab = self._kernel_table()
         ap32 = apexes.to(torch.float32)
@@ -445,8 +448,9 @@ class NSimplexIndex(DeviceRows):
         # pass A: the k-th smallest upper bound seeds each query's radius; the
         # widening sqrt(x² + err) is monotone, so the k-th widened upb is the
         # widened k-th raw upb.  Masked rows never enter the selection.
-        _, _, upb_k = apex_bounds_topk(tab, ap32, k_eff, key="upb", rowmask=mask_t)
-        kth = upb_k[:, -1].cpu().numpy().astype(np.float64)
+        with tracing.span("nsimplex.pass_a", Q=Q, k=k_eff):
+            _, _, upb_k = apex_bounds_topk(tab, ap32, k_eff, key="upb", rowmask=mask_t)
+            kth = upb_k[:, -1].cpu().numpy().astype(np.float64)
         # an external radius hint may only shrink the radius; the slack keeps
         # the hint boundary (d == hint) inclusive
         r0 = np.minimum(np.sqrt(kth**2 + err_sq), hint)
@@ -457,17 +461,19 @@ class NSimplexIndex(DeviceRows):
         # rounded UP one ulp (a superset), re-filtered exactly below
         t_cand = np.sqrt(radius**2 + err_sq)
         t32 = np.nextafter(t_cand.astype(np.float32), np.float32(np.inf))
-        ids_k, lwb_k, _, counts = self._host(
-            *apex_bounds_threshold(tab, ap32, self._tensor(t32), cap, rowmask=mask_t)
-        )
+        with tracing.span("nsimplex.pass_b", Q=Q, cap=cap):
+            ids_k, lwb_k, _, counts = self._host(
+                *apex_bounds_threshold(tab, ap32, self._tensor(t32), cap, rowmask=mask_t)
+            )
         lwb_k = lwb_k.astype(np.float64)
 
         out = []
         for qi in range(Q):
             if counts[qi] > cap:
-                out.append(
-                    self._knn_overflow(q_t[qi], apexes[qi], apexes_np[qi], k, pivot_calls, hint[qi], sel)
-                )
+                with tracing.span("nsimplex.overflow", count=int(counts[qi]), cap=cap):
+                    out.append(
+                        self._knn_overflow(q_t[qi], apexes[qi], apexes_np[qi], k, pivot_calls, hint[qi], sel)
+                    )
                 continue
             stats = QueryStats(original_calls=pivot_calls, surrogate_calls=N)
             m = int(counts[qi])
@@ -491,9 +497,11 @@ class NSimplexIndex(DeviceRows):
         refinement of ``_knn_one``."""
         self.overflow_queries += 1
         stats = QueryStats(original_calls=pivot_calls, surrogate_calls=self.n_rows)
-        lwb, upb = self._host(*self.bounds_batch(apex[None, :]))
+        with tracing.span("nsimplex.overflow.bounds"):
+            lwb, upb = self._host(*self.bounds_batch(apex[None, :]))
         cap_q = float(hint) if np.isfinite(hint) else None
-        return self._knn_one(q, apex_np, lwb[0], upb[0], k, stats, radius_cap=cap_q, sel=sel)
+        with tracing.span("nsimplex.overflow.select"):
+            return self._knn_one(q, apex_np, lwb[0], upb[0], k, stats, radius_cap=cap_q, sel=sel)
 
     # -- approximate paths (truncated-apex surrogate) --------------------------
     def truncated_table(self, dims: int) -> torch.Tensor:

@@ -8,6 +8,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
+
 __all__ = ["DeviceRows", "device_rows", "row_mask"]
 
 
@@ -62,10 +64,12 @@ class DeviceRows:
 
     def _dist_fn(self, q: torch.Tensor):
         """rows (numpy ids) -> host distances from ``q``, evaluated on the
-        device with the metric's own dtype rule."""
+        device with the metric's own dtype rule, each call under a
+        ``metric.refine`` span."""
 
         def dist(rows):
-            idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
-            return self.metric.one_to_many(q, self.data[idx]).cpu().numpy()
+            with tracing.span("metric.refine", rows=len(rows)):
+                idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
+                return self.metric.one_to_many(q, self.data[idx]).cpu().numpy()
 
         return dist

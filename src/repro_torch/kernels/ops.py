@@ -28,6 +28,7 @@ import threading
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ref, tuning
 from repro_torch.kernels.ref import SENTINEL_ID, TOPK_KEYS
 from repro_torch.kernels.tuning import DEFAULT_CONFIG, KernelConfig
@@ -128,15 +129,17 @@ def _dtype_name(t: torch.Tensor) -> str:
     return _DTYPE_NAMES[t.dtype]
 
 
-def _count(name: str, cls: tuple) -> None:
+def _count(name: str, cls: tuple) -> tuple:
+    """Count one launch of ``name`` in shape class ``cls``; returns ``cls``."""
     with _launch_lock:
         LAUNCHES[name] += 1
         by = SHAPE_LAUNCHES[name]
         by[cls] = by.get(cls, 0) + 1
+    return cls
 
 
-def _counted(name: str, **shape) -> None:
-    _count(name, shape_class(name, **shape))
+def _counted(name: str, **shape) -> tuple:
+    return _count(name, shape_class(name, **shape))
 
 
 def _on_cuda(*tensors) -> bool:
@@ -340,22 +343,23 @@ def _check_plan(plan, valid: bool, what: str):
 
 def apex_bounds(table: torch.Tensor, query: torch.Tensor):
     """K6: (lwb, upb), each (N,), of one (n,) query apex against an (N, n) table."""
-    if table.ndim != 2 or query.shape != (table.shape[1],):
-        raise ValueError(f"need an (N, n) table and an (n,) query; got {tuple(table.shape)}, {tuple(query.shape)}")
-    if table.dtype not in (torch.float32, torch.float64) or query.dtype != table.dtype:
-        raise TypeError(f"table and query must share float32 or float64; got {table.dtype}, {query.dtype}")
-    if not _on_cuda(table, query):
-        return ref.apex_bounds_ref(table, query)
-    from repro_torch.kernels.build import library
+    with tracing.span("kernel.K6") as sp:
+        if table.ndim != 2 or query.shape != (table.shape[1],):
+            raise ValueError(f"need an (N, n) table and an (n,) query; got {tuple(table.shape)}, {tuple(query.shape)}")
+        if table.dtype not in (torch.float32, torch.float64) or query.dtype != table.dtype:
+            raise TypeError(f"table and query must share float32 or float64; got {table.dtype}, {query.dtype}")
+        if not _on_cuda(table, query):
+            return ref.apex_bounds_ref(table, query)
+        from repro_torch.kernels.build import library
 
-    table, query = table.contiguous(), query.contiguous()
-    N, n = table.shape
-    lwb = torch.empty(N, dtype=table.dtype, device=table.device)
-    upb = torch.empty_like(lwb)
-    fn = library().repro_apex_bounds_f32 if table.dtype == torch.float32 else library().repro_apex_bounds_f64
-    _check(fn(table.data_ptr(), N, n, query.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device)), "apex_bounds")
-    _counted("apex_bounds", n=n, dtype=_dtype_name(table))
-    return lwb, upb
+        table, query = table.contiguous(), query.contiguous()
+        N, n = table.shape
+        lwb = torch.empty(N, dtype=table.dtype, device=table.device)
+        upb = torch.empty_like(lwb)
+        fn = library().repro_apex_bounds_f32 if table.dtype == torch.float32 else library().repro_apex_bounds_f64
+        _check(fn(table.data_ptr(), N, n, query.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device)), "apex_bounds")
+        sp.set(cls=_counted("apex_bounds", n=n, dtype=_dtype_name(table)))
+        return lwb, upb
 
 
 def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int = None, _plan: str = None):
@@ -364,29 +368,30 @@ def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int =
     card the plan is the tuning cache's for (n, dims, dtype)
     (``tuning.lookup``; ``"stream"`` without a cache); the private ``_plan``
     forces one (``"tile"`` is the first design); both give the same bits."""
-    if queries.ndim == 1:   # cheaper than torch.atleast_2d on this per-query path
-        queries = queries[None]
-    dims = _check_table(table, queries, dims)
-    _check_plan(_plan, _plan in _K1_PLANS, "apex_bounds_batch")
-    if not _on_cuda(table, queries):
-        return ref.apex_bounds_batch_ref(table, queries, dims)
-    from repro_torch.kernels.build import library
+    with tracing.span("kernel.K1") as sp:
+        if queries.ndim == 1:   # cheaper than torch.atleast_2d on this per-query path
+            queries = queries[None]
+        dims = _check_table(table, queries, dims)
+        _check_plan(_plan, _plan in _K1_PLANS, "apex_bounds_batch")
+        if not _on_cuda(table, queries):
+            return ref.apex_bounds_batch_ref(table, queries, dims)
+        from repro_torch.kernels.build import library
 
-    table, queries = table.contiguous(), queries.contiguous()
-    (N, n), (Q, qw) = table.shape, queries.shape
-    lwb, upb = torch.empty((2, Q, N), dtype=table.dtype, device=table.device)   # one allocation
-    lib = library()
-    fn = lib.repro_apex_bounds_batch_f32 if table.dtype == torch.float32 else lib.repro_apex_bounds_batch_f64
-    if _plan is None:
-        _plan = tuning.lookup("apex_bounds_batch", n, dims, table.dtype).plan
-    code = _K1_PLANS[_plan]
-    _check(
-        fn(table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, code, lwb.data_ptr(), upb.data_ptr(),
-           _stream(table.device)),
-        "apex_bounds_batch",
-    )
-    _counted("apex_bounds_batch", Q=Q, dims=dims)
-    return lwb, upb
+        table, queries = table.contiguous(), queries.contiguous()
+        (N, n), (Q, qw) = table.shape, queries.shape
+        lwb, upb = torch.empty((2, Q, N), dtype=table.dtype, device=table.device)   # one allocation
+        lib = library()
+        fn = lib.repro_apex_bounds_batch_f32 if table.dtype == torch.float32 else lib.repro_apex_bounds_batch_f64
+        if _plan is None:
+            _plan = tuning.lookup("apex_bounds_batch", n, dims, table.dtype).plan
+        code = _K1_PLANS[_plan]
+        _check(
+            fn(table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, code, lwb.data_ptr(), upb.data_ptr(),
+               _stream(table.device)),
+            "apex_bounds_batch",
+        )
+        sp.set(cls=_counted("apex_bounds_batch", Q=Q, dims=dims))
+        return lwb, upb
 
 
 def _check_select(table, queries, dims, width: int, what: str):
@@ -496,34 +501,35 @@ def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = No
     the tuning cache's config for (n, dims, dtype) (``DEFAULT_CONFIG``
     without a cache); the private ``_plan`` forces a launch plan ``(G, S)``
     (timing, tuning and tests); every plan gives the same result."""
-    queries = torch.atleast_2d(queries)
-    if key not in TOPK_KEYS:
-        raise ValueError(f"key must be one of {TOPK_KEYS}; got {key!r}")
-    k = int(min(k, table.shape[0]))
-    dims = _check_select(table, queries, dims, k, "apex_bounds_topk")
-    kb = _KEY_BYTES[table.dtype]
-    _check_plan(_plan, _valid_plan(_plan, k, kb, topk=True), "apex_bounds_topk")
-    mask = _mask_operand(rowmask, table.shape[0], table.device)
-    if not _on_cuda(table, queries):
-        return ref.apex_topk_ref(table, queries, k, key, dims, mask)
-    table, queries = table.contiguous(), queries.contiguous()
-    (N, n), (Q, qw) = table.shape, queries.shape
-    ids, lwb, upb = _select_outputs(Q, k, table.device, table.dtype)
-    if k > MAX_SELECT_WIDTH:
-        _run_wide(_KEY_MODE[key], table, queries, None, k, dims, mask, _plan, ids, lwb, upb, None)
-    else:
-        G, S = _plan or topk_plan(k, Q, N, _sm_count(table.device.index or 0),
-                                  tuning.lookup("apex_topk", n, dims, table.dtype), key_bytes=kb)
-        part = _scratch(Q, S, k, table.device, table.dtype)
-        _check(
-            _select_fn("repro_apex_topk", table.dtype)(
-                table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), _KEY_MODE[key], k, G, S,
-                part.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device),
-            ),
-            "apex_bounds_topk",
-        )
-    _counted("apex_topk", Q=Q, k=k, key=key, dims=dims, masked=mask is not None, dtype=_dtype_name(table))
-    return ids, lwb, upb
+    with tracing.span("kernel.K2") as sp:
+        queries = torch.atleast_2d(queries)
+        if key not in TOPK_KEYS:
+            raise ValueError(f"key must be one of {TOPK_KEYS}; got {key!r}")
+        k = int(min(k, table.shape[0]))
+        dims = _check_select(table, queries, dims, k, "apex_bounds_topk")
+        kb = _KEY_BYTES[table.dtype]
+        _check_plan(_plan, _valid_plan(_plan, k, kb, topk=True), "apex_bounds_topk")
+        mask = _mask_operand(rowmask, table.shape[0], table.device)
+        if not _on_cuda(table, queries):
+            return ref.apex_topk_ref(table, queries, k, key, dims, mask)
+        table, queries = table.contiguous(), queries.contiguous()
+        (N, n), (Q, qw) = table.shape, queries.shape
+        ids, lwb, upb = _select_outputs(Q, k, table.device, table.dtype)
+        if k > MAX_SELECT_WIDTH:
+            _run_wide(_KEY_MODE[key], table, queries, None, k, dims, mask, _plan, ids, lwb, upb, None)
+        else:
+            G, S = _plan or topk_plan(k, Q, N, _sm_count(table.device.index or 0),
+                                      tuning.lookup("apex_topk", n, dims, table.dtype), key_bytes=kb)
+            part = _scratch(Q, S, k, table.device, table.dtype)
+            _check(
+                _select_fn("repro_apex_topk", table.dtype)(
+                    table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), _KEY_MODE[key], k, G, S,
+                    part.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device),
+                ),
+                "apex_bounds_topk",
+            )
+        sp.set(cls=_counted("apex_topk", Q=Q, k=k, key=key, dims=dims, masked=mask is not None, dtype=_dtype_name(table)))
+        return ids, lwb, upb
 
 
 def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = None, rowmask=None,
@@ -537,38 +543,39 @@ def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = N
     ``(G, S)`` on the card (timing and tests; G = 0 is the first design, one
     query per block, at widths up to ``MAX_SELECT_WIDTH``); every plan gives
     the same result."""
-    queries = torch.atleast_2d(queries)
-    cap = int(min(cap, table.shape[0]))
-    dims = _check_select(table, queries, dims, cap, "apex_bounds_threshold")
-    kb = _KEY_BYTES[table.dtype]
-    _check_plan(_plan, _valid_plan(_plan, cap, kb, topk=False), "apex_bounds_threshold")
-    thresholds = torch.as_tensor(thresholds, dtype=table.dtype, device=table.device).reshape(-1)
-    if thresholds.shape[0] != queries.shape[0]:
-        raise ValueError(f"need one threshold per query; got {thresholds.shape[0]} for {queries.shape[0]}")
-    mask = _mask_operand(rowmask, table.shape[0], table.device)
-    if not _on_cuda(table, queries):
-        return ref.apex_threshold_ref(table, queries, thresholds, cap, dims, mask)
-    table, queries, thresholds = table.contiguous(), queries.contiguous(), thresholds.contiguous()
-    (N, n), (Q, qw) = table.shape, queries.shape
-    ids, lwb, upb = _select_outputs(Q, cap, table.device, table.dtype)
-    counts = torch.empty(Q, dtype=torch.int32, device=table.device)
-    if cap > MAX_SELECT_WIDTH:
-        _run_wide(3, table, queries, thresholds, cap, dims, mask, _plan, ids, lwb, upb, counts)
-    else:
-        G, S = _plan or threshold_plan(cap, Q, N, _sm_count(table.device.index or 0),
-                                       tuning.lookup("apex_threshold", n, dims, table.dtype), key_bytes=kb)
-        part = _threshold_scratch(Q, S, cap, table.device, table.dtype)
-        part_counts = torch.empty((Q, S), dtype=torch.int32, device=table.device)
-        _check(
-            _select_fn("repro_apex_threshold", table.dtype)(
-                table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), thresholds.data_ptr(), cap,
-                G, S, part.data_ptr(), part_counts.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(),
-                counts.data_ptr(), _stream(table.device),
-            ),
-            "apex_bounds_threshold",
-        )
-    _counted("apex_threshold", Q=Q, cap=cap, dims=dims, masked=mask is not None, dtype=_dtype_name(table))
-    return ids, lwb, upb, counts
+    with tracing.span("kernel.K3") as sp:
+        queries = torch.atleast_2d(queries)
+        cap = int(min(cap, table.shape[0]))
+        dims = _check_select(table, queries, dims, cap, "apex_bounds_threshold")
+        kb = _KEY_BYTES[table.dtype]
+        _check_plan(_plan, _valid_plan(_plan, cap, kb, topk=False), "apex_bounds_threshold")
+        thresholds = torch.as_tensor(thresholds, dtype=table.dtype, device=table.device).reshape(-1)
+        if thresholds.shape[0] != queries.shape[0]:
+            raise ValueError(f"need one threshold per query; got {thresholds.shape[0]} for {queries.shape[0]}")
+        mask = _mask_operand(rowmask, table.shape[0], table.device)
+        if not _on_cuda(table, queries):
+            return ref.apex_threshold_ref(table, queries, thresholds, cap, dims, mask)
+        table, queries, thresholds = table.contiguous(), queries.contiguous(), thresholds.contiguous()
+        (N, n), (Q, qw) = table.shape, queries.shape
+        ids, lwb, upb = _select_outputs(Q, cap, table.device, table.dtype)
+        counts = torch.empty(Q, dtype=torch.int32, device=table.device)
+        if cap > MAX_SELECT_WIDTH:
+            _run_wide(3, table, queries, thresholds, cap, dims, mask, _plan, ids, lwb, upb, counts)
+        else:
+            G, S = _plan or threshold_plan(cap, Q, N, _sm_count(table.device.index or 0),
+                                           tuning.lookup("apex_threshold", n, dims, table.dtype), key_bytes=kb)
+            part = _threshold_scratch(Q, S, cap, table.device, table.dtype)
+            part_counts = torch.empty((Q, S), dtype=torch.int32, device=table.device)
+            _check(
+                _select_fn("repro_apex_threshold", table.dtype)(
+                    table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), thresholds.data_ptr(), cap,
+                    G, S, part.data_ptr(), part_counts.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(),
+                    counts.data_ptr(), _stream(table.device),
+                ),
+                "apex_bounds_threshold",
+            )
+        sp.set(cls=_counted("apex_threshold", Q=Q, cap=cap, dims=dims, masked=mask is not None, dtype=_dtype_name(table)))
+        return ids, lwb, upb, counts
 
 
 def _check_float(*tensors, what: str):
@@ -637,45 +644,46 @@ def _project(distances, B: int, n: int, Linv, sq_norms, plan):
     """``apex_project`` on ``distances`` read as (B, n) rows; the output
     takes the distances' shape.  Its checks read attributes directly rather
     than through the shared helpers: this runs once per query."""
-    h = n - 1
-    if Linv.shape != (h, h) or sq_norms.shape != (h,):
-        raise ValueError(
-            f"need a ({h}, {h}) Linv and ({h},) sq_norms for n = {n}; "
-            f"got {tuple(Linv.shape)}, {tuple(sq_norms.shape)}"
+    with tracing.span("kernel.K4") as sp:
+        h = n - 1
+        if Linv.shape != (h, h) or sq_norms.shape != (h,):
+            raise ValueError(
+                f"need a ({h}, {h}) Linv and ({h},) sq_norms for n = {n}; "
+                f"got {tuple(Linv.shape)}, {tuple(sq_norms.shape)}"
+            )
+        dt = distances.dtype
+        if dt not in _DTYPE_NAMES or Linv.dtype is not dt or sq_norms.dtype is not dt:
+            raise TypeError(
+                f"apex_project operands must share float32 or float64; got {[dt, Linv.dtype, sq_norms.dtype]}"
+            )
+        if plan is not None:
+            _check_plan(plan, plan in _K4_PLANS and (plan == "row" or h <= _K4_MAX_HEAD), "apex_project")
+        dev = distances.get_device()
+        if Linv.get_device() != dev or sq_norms.get_device() != dev:
+            raise ValueError(
+                "operands must all lie on one CPU or CUDA device; got "
+                f"{[str(t.device) for t in (distances, Linv, sq_norms)]}"
+            )
+        if dev < 0:
+            return ref.apex_project_ref(distances.reshape(B, n), Linv, sq_norms).reshape(distances.shape)
+        if not distances.is_contiguous():
+            distances = distances.contiguous()
+        if not Linv.is_contiguous():
+            Linv = Linv.contiguous()
+        if not sq_norms.is_contiguous():
+            sq_norms = sq_norms.contiguous()
+        out = torch.empty_like(distances)
+        if B == 0:
+            return out
+        sms = _sm_count(dev)
+        fn = _K4_FN.get(dt) or _k4_fn(dt)
+        _check(
+            fn(distances.data_ptr(), B, n, Linv.data_ptr(), sq_norms.data_ptr(), out.data_ptr(),
+               _K4_PLANS[plan or apex_project_plan(B, n, sms)], sms, _stream(dev)),
+            "apex_project",
         )
-    dt = distances.dtype
-    if dt not in _DTYPE_NAMES or Linv.dtype is not dt or sq_norms.dtype is not dt:
-        raise TypeError(
-            f"apex_project operands must share float32 or float64; got {[dt, Linv.dtype, sq_norms.dtype]}"
-        )
-    if plan is not None:
-        _check_plan(plan, plan in _K4_PLANS and (plan == "row" or h <= _K4_MAX_HEAD), "apex_project")
-    dev = distances.get_device()
-    if Linv.get_device() != dev or sq_norms.get_device() != dev:
-        raise ValueError(
-            "operands must all lie on one CPU or CUDA device; got "
-            f"{[str(t.device) for t in (distances, Linv, sq_norms)]}"
-        )
-    if dev < 0:
-        return ref.apex_project_ref(distances.reshape(B, n), Linv, sq_norms).reshape(distances.shape)
-    if not distances.is_contiguous():
-        distances = distances.contiguous()
-    if not Linv.is_contiguous():
-        Linv = Linv.contiguous()
-    if not sq_norms.is_contiguous():
-        sq_norms = sq_norms.contiguous()
-    out = torch.empty_like(distances)
-    if B == 0:
+        sp.set(cls=_count("apex_project", (B, n, _DTYPE_NAMES[dt])))
         return out
-    sms = _sm_count(dev)
-    fn = _K4_FN.get(dt) or _k4_fn(dt)
-    _check(
-        fn(distances.data_ptr(), B, n, Linv.data_ptr(), sq_norms.data_ptr(), out.data_ptr(),
-           _K4_PLANS[plan or apex_project_plan(B, n, sms)], sms, _stream(dev)),
-        "apex_project",
-    )
-    _count("apex_project", (B, n, _DTYPE_NAMES[dt]))
-    return out
 
 
 #: K5's split plan serves a call whose pairs, ``lanes`` threads each, would
@@ -709,26 +717,27 @@ def jsd_pairwise(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     ``max(sum, 1e-12)``, as the JAX package's wrapper does.  On the card the
     kernel normalises inside its one launch: the wrapper only allocates the
     output (for contiguous operands of one dtype, as the index passes)."""
-    if X.ndim != 2 or Y.ndim != 2 or X.shape[1] != Y.shape[1]:
-        raise ValueError(f"need (Q, d) and (P, d) operands; got {tuple(X.shape)}, {tuple(Y.shape)}")
-    if Y.dtype != X.dtype:
-        Y = Y.to(X.dtype)
-    _check_float(X, Y, what="jsd_pairwise")
-    if not _on_cuda(X, Y):
-        return ref.jsd_pairwise_ref(ref.l1_normalise(X), ref.l1_normalise(Y))
-    from repro_torch.kernels.build import library
+    with tracing.span("kernel.K5") as sp:
+        if X.ndim != 2 or Y.ndim != 2 or X.shape[1] != Y.shape[1]:
+            raise ValueError(f"need (Q, d) and (P, d) operands; got {tuple(X.shape)}, {tuple(Y.shape)}")
+        if Y.dtype != X.dtype:
+            Y = Y.to(X.dtype)
+        _check_float(X, Y, what="jsd_pairwise")
+        if not _on_cuda(X, Y):
+            return ref.jsd_pairwise_ref(ref.l1_normalise(X), ref.l1_normalise(Y))
+        from repro_torch.kernels.build import library
 
-    if not X.is_contiguous():
-        X = X.contiguous()
-    if not Y.is_contiguous():
-        Y = Y.contiguous()
-    (Q, d), P = X.shape, Y.shape[0]
-    out = torch.empty((Q, P), dtype=X.dtype, device=X.device)
-    lanes, bq, bp = jsd_plan(Q, P, d, _sm_count(X.device.index or 0))
-    fn = library().repro_jsd_pairwise_f32 if X.dtype == torch.float32 else library().repro_jsd_pairwise_f64
-    _check(
-        fn(X.data_ptr(), Q, Y.data_ptr(), P, d, lanes, bq, bp, out.data_ptr(), _stream(X.device)),
-        "jsd_pairwise",
-    )
-    _counted("jsd_pairwise", Q=Q, P=P, d=d, dtype=_dtype_name(X))
-    return out
+        if not X.is_contiguous():
+            X = X.contiguous()
+        if not Y.is_contiguous():
+            Y = Y.contiguous()
+        (Q, d), P = X.shape, Y.shape[0]
+        out = torch.empty((Q, P), dtype=X.dtype, device=X.device)
+        lanes, bq, bp = jsd_plan(Q, P, d, _sm_count(X.device.index or 0))
+        fn = library().repro_jsd_pairwise_f32 if X.dtype == torch.float32 else library().repro_jsd_pairwise_f64
+        _check(
+            fn(X.data_ptr(), Q, Y.data_ptr(), P, d, lanes, bq, bp, out.data_ptr(), _stream(X.device)),
+            "jsd_pairwise",
+        )
+        sp.set(cls=_counted("jsd_pairwise", Q=Q, P=P, d=d, dtype=_dtype_name(X)))
+        return out

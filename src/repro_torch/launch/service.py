@@ -20,6 +20,9 @@ turns an open stream of independent requests into fused micro-batches:
   * Per-request deadlines (``deadline_s``) and ``close(drain=...)`` behave
     as in the JAX package's service; ``stats()`` reports latency
     percentiles, throughput, expiries and batch occupancy.
+  * Each batch runs under a ``service.batch`` span (``repro_torch.tracing``)
+    with one ``service.queue`` span per request under it: the request's wait
+    from ``submit`` to the moment the dispatcher took its batch.
   * ``max_queue`` bounds the pending queue: ``submit`` raises
     ``ServiceOverloaded`` (counted as ``rejected``) instead of queueing
     past it; ``queue_depth()`` and ``estimated_wait_s()`` (EWMAs of batch
@@ -46,6 +49,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.api.planner import plan as make_plan
 from repro_torch.api.query import Query
 from repro_torch.device import on_device
@@ -276,7 +280,6 @@ class SearchService:
                 "qps": (st.n_requests / span) if span > 0 else 0.0,
                 "mean_batch_occupancy": float(np.mean(occ)) if occ else 0.0,
                 "max_batch_occupancy": int(max(occ)) if occ else 0,
-                "coalesced_fraction": float(np.mean([o > 1 for o in occ])) if occ else 0.0,
                 "queue_depth": len(self._pending),
                 "rejected": st.rejected,
                 "expired": st.expired_queued + st.expired_in_flight,
@@ -376,12 +379,19 @@ class SearchService:
         return plan
 
     def _execute(self, batch: List[_Request]) -> None:
-        spec = batch[0].spec
         t_start = time.perf_counter()
+        padded = self._bucket(len(batch))
+        with tracing.span("service.batch", requests=len(batch), padded=padded) as sb:
+            if sb:
+                for req in batch:
+                    tracing.record("service.queue", req.t_enqueue, t_start, parent=sb)
+            self._execute_batch(batch, t_start, padded)
+
+    def _execute_batch(self, batch: List[_Request], t_start: float, padded: int) -> None:
+        spec = batch[0].spec
         try:
             plan = self._plan_for(spec)
             fused = np.stack([r.q for r in batch])
-            padded = self._bucket(len(batch))
             if padded > len(batch):
                 # pad with copies of the last row: every path is row-independent
                 fused = np.concatenate([fused, np.repeat(fused[-1:], padded - len(batch), axis=0)])
