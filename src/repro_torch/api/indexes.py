@@ -189,9 +189,9 @@ class SimplexTableIndex(_TableIndex):
 
     @property
     def overflow_queries(self) -> int:
-        """Queries this index answered by the per-query K1 route because
-        their K3 count exceeded its capacity (k-NN pass B, range search);
-        the count survives ``fit``.  It stays out of ``stats()``, which
+        """Queries whose K3 count exceeded its capacity (k-NN pass B, then
+        K3 again at a width that holds them; range search, then K1 per
+        query); the count survives ``fit``.  It stays out of ``stats()``, which
         holds the JAX package's keys."""
         return self._overflow_before_fit + self._inner.overflow_queries
 

@@ -30,6 +30,8 @@ keeps both sound bound sides through K3 and decides the straddlers as
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -47,6 +49,7 @@ from repro_torch.kernels import (
     apex_bounds_threshold,
     apex_bounds_topk,
 )
+from repro_torch.kernels.ops import threshold_chunk
 from repro_torch.kernels.ref import split_trunc
 from repro_torch.metrics import Metric
 
@@ -92,8 +95,8 @@ class NSimplexIndex(DeviceRows):
         self._table_f32 = None      # float32 twin of the table (kernel operand)
         self._row_sq_max = None     # max squared row norm (slack bound)
         self._trunc = {}            # dims -> prefix projector
-        #: queries answered by the per-query K1 route: those whose K3 count
-        #: exceeds its capacity (k-NN pass B, range)
+        #: queries whose K3 count exceeds its capacity: k-NN pass B's (then
+        #: K3 again at a width that holds them), range's (then K1 per query)
         self.overflow_queries = 0
 
     @property
@@ -437,7 +440,6 @@ class NSimplexIndex(DeviceRows):
         N = self.n_rows
         Q = q_t.shape[0]
         n_live = N if mask is None else int(mask.sum())
-        sel = None if mask is None else np.flatnonzero(mask)
         k_eff = min(int(k), n_live)
         hint = np.full(Q, np.inf) if radius_hint is None else np.asarray(radius_hint, dtype=np.float64)
         cap = int(min(N, max(512, 16 * k_eff)))
@@ -461,47 +463,85 @@ class NSimplexIndex(DeviceRows):
         # rounded UP one ulp (a superset), re-filtered exactly below
         t_cand = np.sqrt(radius**2 + err_sq)
         t32 = np.nextafter(t_cand.astype(np.float32), np.float32(np.inf))
+        t32_t = self._tensor(t32)
         with tracing.span("nsimplex.pass_b", Q=Q, cap=cap):
-            ids_k, lwb_k, _, counts = self._host(
-                *apex_bounds_threshold(tab, ap32, self._tensor(t32), cap, rowmask=mask_t)
-            )
-        lwb_k = lwb_k.astype(np.float64)
+            ids_k, lwb_k, _, counts = self._host(*apex_bounds_threshold(tab, ap32, t32_t, cap, rowmask=mask_t))
 
-        out = []
-        for qi in range(Q):
-            if counts[qi] > cap:
-                with tracing.span("nsimplex.overflow", count=int(counts[qi]), cap=cap):
-                    out.append(
-                        self._knn_overflow(q_t[qi], apexes[qi], apexes_np[qi], k, pivot_calls, hint[qi], sel)
-                    )
-                continue
+        def refine(qi, idq, lwb_q, err, radius_q, slack_q, dense=False):
             stats = QueryStats(original_calls=pivot_calls, surrogate_calls=N)
-            m = int(counts[qi])
-            idq, lwb_q = ids_k[qi, :m], lwb_k[qi, :m]
-            live = idq != SENTINEL_ID
-            idq, lwb_q = idq[live], lwb_q[live]
-            # exact widened-f64 re-filter; widening keeps the ascending order
-            lwb_w = np.sqrt(np.maximum(lwb_q**2 - err_sq, 0.0))
-            keep = lwb_w <= radius[qi]
-            idq, lwb_w = idq[keep], lwb_w[keep]
+            # exact widened-f64 re-filter: K3's output ascends by (lwb, id)
+            # with its empty slots (SENTINEL_ID, +inf) last, and widening is
+            # monotone, so the rows kept are the prefix up to a finite radius
+            lwb_w = np.sqrt(np.maximum(lwb_q.astype(np.float64) ** 2 - err, 0.0))
+            n = int(np.searchsorted(lwb_w, radius_q, side="right"))
+            idq, lwb_w = idq[:n], lwb_w[:n]
+            if dense:
+                # widening clamps every lwb under sqrt(err) to 0; the dense
+                # route orders that prefix by id, K3 by raw lwb
+                idq[:int(np.searchsorted(lwb_w, 0.0, side="right"))].sort()
             stats.candidates = int(idq.shape[0])
             ids, d, n_eval = knn_refine_candidates(
-                self._dist_fn(q_t[qi]), idq, lwb_w, k_eff, float(radius[qi]), float(slack[qi])
+                self._dist_fn(q_t[qi]), idq, lwb_w, k_eff, float(radius_q), float(slack_q)
             )
             stats.original_calls += n_eval
-            out.append((ids, d, stats))
+            return ids, d, stats
+
+        out = [None] * Q
+        for qi in np.flatnonzero(counts <= cap):
+            m = int(counts[qi])
+            out[qi] = refine(qi, ids_k[qi, :m], lwb_k[qi, :m], err_sq, radius[qi], slack[qi])
+        over = np.flatnonzero(counts > cap)
+        if over.size:
+            self.overflow_queries += int(over.size)
+            prefixes = self._overflow_prefixes(tab, ap32, t32_t, counts[over], over, mask_t)
+            spans = []
+            with tracing.span("nsimplex.overflow.select", Q=int(over.size)):
+                for qi, (idq, lwb_q) in zip(over, prefixes):
+                    t0 = time.perf_counter()
+                    # the dense route's widening, radius and slack: this query's
+                    # own error bound, not the batch's (smaller, so the prefix
+                    # holds every candidate)
+                    err = self._kernel_err_sq(apexes_np[qi][None, :])
+                    r0 = min(float(np.sqrt(kth[qi] ** 2 + err)), hint[qi])
+                    slack_q = 1e-12 + self.eps * r0
+                    out[qi] = refine(qi, idq, lwb_q, err, r0 + slack_q, slack_q, dense=True)
+                    spans.append((t0, time.perf_counter()))
+            # one record a query, beside the select span: its self time stays whole
+            for qi, (t0, t1) in zip(over, spans):
+                tracing.record("nsimplex.overflow", t0, t1, count=int(counts[qi]), cap=cap)
         return out
 
-    def _knn_overflow(self, q, apex: torch.Tensor, apex_np: np.ndarray, k: int, pivot_calls: int, hint: float, sel):
-        """Dense per-query route: K1 bounds for one query, then the exact
-        refinement of ``_knn_one``."""
-        self.overflow_queries += 1
-        stats = QueryStats(original_calls=pivot_calls, surrogate_calls=self.n_rows)
-        with tracing.span("nsimplex.overflow.bounds"):
-            lwb, upb = self._host(*self.bounds_batch(apex[None, :]))
-        cap_q = float(hint) if np.isfinite(hint) else None
-        with tracing.span("nsimplex.overflow.select"):
-            return self._knn_one(q, apex_np, lwb[0], upb[0], k, stats, radius_cap=cap_q, sel=sel)
+    def _overflow_prefixes(self, tab, ap32, t32_t, want: np.ndarray, over: np.ndarray, mask_t):
+        """The k-NN overflow route's bounds: K3 once more over just the
+        queries ``over``, whose pass-B counts ``want`` exceed its capacity,
+        with pass B's thresholds and mask, at ``W = min(N, next power of two
+        >= max(want))``, which holds every count.  The queries go
+        ``threshold_chunk`` at a time, so a chunk's outputs and scratch stay
+        within the selection budget, and each chunk's counts and its queries'
+        (id, f32 lwb) prefixes come to the host in one packed int32 copy.
+        Returns per query its (ids int32, lwb float32) prefix, sorted by
+        (lwb, id): pass B's candidates, uncut."""
+        N = self.n_rows
+        want = want.astype(np.int64)
+        width = int(min(N, 1 << (int(want.max()) - 1).bit_length()))
+        chunk = threshold_chunk(width, len(over), N, tab.dtype)
+        rows = torch.as_tensor(over, device=self.device)
+        cols = torch.arange(width, device=self.device)
+        out = []
+        with tracing.span("nsimplex.overflow.bounds", Q=int(over.size), width=width):
+            for lo in range(0, len(over), chunk):
+                part = rows[lo:lo + chunk]
+                ids, lwb, _, got = apex_bounds_threshold(tab, ap32[part], t32_t[part], width, rowmask=mask_t)
+                pairs = torch.stack((ids, lwb.view(torch.int32)), dim=-1)[cols < got[:, None]]
+                packed = torch.cat((got, pairs.reshape(-1))).cpu().numpy()
+                n_q, c = len(part), want[lo:lo + len(part)]
+                if not np.array_equal(packed[:n_q], c):
+                    raise RuntimeError(f"K3 re-run counts {packed[:n_q]} differ from pass B's {c}")
+                pairs = packed[n_q:].reshape(-1, 2)
+                bits = pairs.view(np.float32)
+                ends = np.cumsum(c)
+                out.extend((pairs[a:b, 0], bits[a:b, 1]) for a, b in zip(ends - c, ends))
+        return out
 
     # -- approximate paths (truncated-apex surrogate) --------------------------
     def truncated_table(self, dims: int) -> torch.Tensor:

@@ -48,6 +48,7 @@ __all__ = [
     "jsd_plan",
     "reset_launches",
     "shape_class",
+    "threshold_chunk",
     "threshold_plan",
     "topk_plan",
     "wide_plan",
@@ -155,6 +156,21 @@ def _on_cuda(*tensors) -> bool:
 def _check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+#: held around each library call that sets its kernels' dynamic shared
+#: memory size and launches them (K1, K2, K3, K4): the size is an attribute
+#: of the kernel function, shared by every host thread, so two threads
+#: launching one kernel at different sizes (a sharded fan-out's segments at
+#: different widths) would launch under each other's setting and fail
+_smem_lock = threading.Lock()
+
+
+def _launch(name: str, fn, *args) -> None:
+    """One library call under ``_smem_lock``; raises on its error."""
+    with _smem_lock:
+        err = fn(*args)
+    _check(err, name)
 
 
 #: the current stream's raw handle without building a ``torch.cuda.Stream``
@@ -329,6 +345,24 @@ def wide_plan(width: int, Q: int, N: int, sms: int, config: KernelConfig = DEFAU
     return min(G, chunk), S, chunk
 
 
+def threshold_chunk(width: int, Q: int, N: int, dtype=torch.float32) -> int:
+    """The most of Q queries (at least one) that one K3 launch at ``width``
+    over N rows takes so that its outputs and its plan's scratch together
+    stay within ``_WIDE_SCRATCH_BYTES`` (1 GiB).  A query's scratch is taken
+    at ``_MAX_SLICES``, the most slices any plan launches, which bounds it
+    from above whatever the card and the tuning cache choose."""
+    kb = _KEY_BYTES[dtype]
+    width = int(min(width, N))
+    if width > MAX_SELECT_WIDTH:
+        scratch = _wide_query_bytes(width, N, _MAX_SLICES, kb)
+    else:     # _threshold_scratch and part_counts
+        wp = 1 << (width - 1).bit_length()
+        scratch = (_MAX_SLICES * (wp + max(wp, _THR_CAND)) + -(-_MAX_SLICES // _THR_GATHER) * wp) * kb
+        scratch += _MAX_SLICES * 4
+    outputs = width * (4 + kb) + 4        # ids, lwb and upb in the table's dtype, the count
+    return int(max(1, min(Q, _WIDE_SCRATCH_BYTES // (outputs + scratch))))
+
+
 #: K1's launch plans: ``"stream"`` (one thread per row, row in registers,
 #: 64-query chunks), which the wrapper runs at every Q by default, and
 #: ``"tile"`` (table tile x 16-query tile, the first design), which a tuned
@@ -385,11 +419,8 @@ def apex_bounds_batch(table: torch.Tensor, queries: torch.Tensor, *, dims: int =
         if _plan is None:
             _plan = tuning.lookup("apex_bounds_batch", n, dims, table.dtype).plan
         code = _K1_PLANS[_plan]
-        _check(
-            fn(table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, code, lwb.data_ptr(), upb.data_ptr(),
-               _stream(table.device)),
-            "apex_bounds_batch",
-        )
+        _launch("apex_bounds_batch", fn, table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, code,
+                lwb.data_ptr(), upb.data_ptr(), _stream(table.device))
         sp.set(cls=_counted("apex_bounds_batch", Q=Q, dims=dims))
         return lwb, upb
 
@@ -467,14 +498,12 @@ def _run_wide(mode: int, table, queries, thresholds, width: int, dims: int, mask
     stream = _stream(table.device)
     for lo in range(0, Q, Qc):
         hi = min(Q, lo + Qc)
-        _check(
-            fn(mode, table.data_ptr(), N, n, queries[lo].data_ptr(), hi - lo, qw, dims, _ptr(mask),
-               None if thresholds is None else thresholds[lo].data_ptr(), width, G, S, slot,
-               part_keys, buf_a, buf_b, part_counts, gcount, nsel,
-               ids[lo].data_ptr(), lwb[lo].data_ptr(), upb[lo].data_ptr(),
-               None if counts is None else counts[lo].data_ptr(), stream),
-            "apex_bounds_threshold" if mode == 3 else "apex_bounds_topk",
-        )
+        _launch("apex_bounds_threshold" if mode == 3 else "apex_bounds_topk", fn,
+                mode, table.data_ptr(), N, n, queries[lo].data_ptr(), hi - lo, qw, dims, _ptr(mask),
+                None if thresholds is None else thresholds[lo].data_ptr(), width, G, S, slot,
+                part_keys, buf_a, buf_b, part_counts, gcount, nsel,
+                ids[lo].data_ptr(), lwb[lo].data_ptr(), upb[lo].data_ptr(),
+                None if counts is None else counts[lo].data_ptr(), stream)
 
 
 def _valid_plan(plan, width: int, key_bytes: int, topk: bool) -> bool:
@@ -521,12 +550,10 @@ def apex_bounds_topk(table, queries, k: int, *, key: str = "mid", dims: int = No
             G, S = _plan or topk_plan(k, Q, N, _sm_count(table.device.index or 0),
                                       tuning.lookup("apex_topk", n, dims, table.dtype), key_bytes=kb)
             part = _scratch(Q, S, k, table.device, table.dtype)
-            _check(
-                _select_fn("repro_apex_topk", table.dtype)(
-                    table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), _KEY_MODE[key], k, G, S,
-                    part.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device),
-                ),
-                "apex_bounds_topk",
+            _launch(
+                "apex_bounds_topk", _select_fn("repro_apex_topk", table.dtype),
+                table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), _KEY_MODE[key], k, G, S,
+                part.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(), _stream(table.device),
             )
         sp.set(cls=_counted("apex_topk", Q=Q, k=k, key=key, dims=dims, masked=mask is not None, dtype=_dtype_name(table)))
         return ids, lwb, upb
@@ -566,13 +593,11 @@ def apex_bounds_threshold(table, queries, thresholds, cap: int, *, dims: int = N
                                            tuning.lookup("apex_threshold", n, dims, table.dtype), key_bytes=kb)
             part = _threshold_scratch(Q, S, cap, table.device, table.dtype)
             part_counts = torch.empty((Q, S), dtype=torch.int32, device=table.device)
-            _check(
-                _select_fn("repro_apex_threshold", table.dtype)(
-                    table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), thresholds.data_ptr(), cap,
-                    G, S, part.data_ptr(), part_counts.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(),
-                    counts.data_ptr(), _stream(table.device),
-                ),
-                "apex_bounds_threshold",
+            _launch(
+                "apex_bounds_threshold", _select_fn("repro_apex_threshold", table.dtype),
+                table.data_ptr(), N, n, queries.data_ptr(), Q, qw, dims, _ptr(mask), thresholds.data_ptr(), cap,
+                G, S, part.data_ptr(), part_counts.data_ptr(), ids.data_ptr(), lwb.data_ptr(), upb.data_ptr(),
+                counts.data_ptr(), _stream(table.device),
             )
         sp.set(cls=_counted("apex_threshold", Q=Q, cap=cap, dims=dims, masked=mask is not None, dtype=_dtype_name(table)))
         return ids, lwb, upb, counts
@@ -677,11 +702,8 @@ def _project(distances, B: int, n: int, Linv, sq_norms, plan):
             return out
         sms = _sm_count(dev)
         fn = _K4_FN.get(dt) or _k4_fn(dt)
-        _check(
-            fn(distances.data_ptr(), B, n, Linv.data_ptr(), sq_norms.data_ptr(), out.data_ptr(),
-               _K4_PLANS[plan or apex_project_plan(B, n, sms)], sms, _stream(dev)),
-            "apex_project",
-        )
+        _launch("apex_project", fn, distances.data_ptr(), B, n, Linv.data_ptr(), sq_norms.data_ptr(), out.data_ptr(),
+                _K4_PLANS[plan or apex_project_plan(B, n, sms)], sms, _stream(dev))
         sp.set(cls=_count("apex_project", (B, n, _DTYPE_NAMES[dt])))
         return out
 

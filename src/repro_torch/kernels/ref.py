@@ -61,7 +61,11 @@ def apex_bounds_batch_ref(table: torch.Tensor, queries: torch.Tensor, dims: int)
     qh, qa = split_trunc(queries, dims)
     q2 = (qh * qh).sum(dim=1, keepdim=True)
     x2 = (th * th).sum(dim=1)[None, :]
-    head = torch.clamp_min(q2 + x2 - 2.0 * (qh @ th.T), 0.0)
+    # a (1, n) block would take a GEMV, which rounds otherwise than the GEMM
+    # of a larger block: one query runs as two, so that a query's bounds never
+    # depend on its batch (as on the card)
+    cross = ((qh.expand(2, -1) if qh.shape[0] == 1 else qh) @ th.T)[: qh.shape[0]]
+    head = torch.clamp_min(q2 + x2 - 2.0 * cross, 0.0)
     dm = (qa[:, None] - ta[None, :]) ** 2
     dp = (qa[:, None] + ta[None, :]) ** 2
     return torch.sqrt(torch.clamp_min(head + dm, 0.0)), torch.sqrt(torch.clamp_min(head + dp, 0.0))

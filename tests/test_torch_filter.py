@@ -421,9 +421,8 @@ def _masked_knn_300(n_pivots, allowed_share):
 def test_masked_overflow_route_equals_reference():
     """A masked exact k-NN batch at k = 300 (pass B's cap 16k = 4,800, past
     4,096): K3 runs at that cap, as the reference's, and exactly the queries
-    whose masked count exceeds it take the per-query K1 route (the name is
-    that of the route every query once took; here, 30% of the rows allowed,
-    none does); the row mask is applied before the k-th upper bound and the
+    whose masked count exceeds it take the overflow route (K3 again at a
+    width that holds them; here, 30% of the rows allowed, none does); the row mask is applied before the k-th upper bound and the
     candidate filter, so a masked row never sets the radius.  Ids,
     distances and ``original_calls`` equal the reference's; ``candidates``
     may differ by a boundary row, since the reference's interpret-mode
@@ -434,7 +433,7 @@ def test_masked_overflow_route_equals_reference():
 
 def test_masked_overflow_route_past_the_cap():
     """The same with 4 pivots and 98% of the rows allowed: some queries'
-    masked counts exceed 4,800 and take the per-query K1 route with the
+    masked counts exceed 4,800 and take the overflow route with the
     mask, the others stay on K3's selection, in both packages alike."""
     dense, n = _masked_knn_300(4, 0.98)
     assert 0 < dense < n

@@ -9,7 +9,8 @@ tests).  Run on a card with:
 Tolerances: rtol = atol = 2e-5 in float32, 1e-12 in float64 for K1 and K6
 (and K1's two launch plans bit-equal to each other); K2 and K3 must equal a
 selection over K1's own matrices exactly, in f32 and f64 and on both sides
-of 4,096 (the global-memory plan above it);
+of 4,096 (the global-memory plan above it), and at the k-NN overflow
+route's widths over 112,682 rows;
 K4's plans bit-equal to its first design, and at 3e-4 in float32 (``tests/test_kernels.py::TestApexProject``) and K5 at
 1e-4 (``TestJsdPairwise``, here squared, before the final sqrt), both at
 1e-12 in float64.
@@ -766,3 +767,108 @@ def test_k4_add_burst_equals_apex_gemm_np(cuda, B):
     np.testing.assert_allclose(got[:, :-1], want[:, :-1], rtol=0, atol=2.8e-16)
     np.testing.assert_allclose(got[:, -1] ** 2, want[:, -1] ** 2, rtol=0, atol=2.8e-16)
     assert torch.equal(ext.table[:20_000], idx.table)
+
+
+#: the benchmark cells' table size: the exact k-NN overflow route re-runs K3
+#: over a batch's overflowing queries at the next power of two of their
+#: largest count, up to N
+OVERFLOW_N = 112_682
+
+
+@pytest.fixture(scope="module")
+def overflow_table():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with -m gpu")
+    return _apexes(OVERFLOW_N, 20, 21, torch.float32, "cuda"), _apexes(64, 20, 22, torch.float32, "cuda")
+
+
+@pytest.mark.parametrize("width", [16_384, 65_536, OVERFLOW_N])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k3_at_the_overflow_route_widths(cuda, overflow_table, width, masked):
+    """K3 at Q = 64 over 112,682 rows, at the widths the overflow route asks
+    for, with counts from a quarter of the width up to the width itself:
+    bit-equal to a selection over K1's own matrices, with exact counts."""
+    table, queries = overflow_table
+    Q, N = queries.shape[0], table.shape[0]
+    mask = torch.rand(N, generator=torch.Generator().manual_seed(9)).lt(0.6).to(cuda) if masked else None
+    L, U = ops.apex_bounds_batch(table, queries)
+    live = torch.ones_like(L, dtype=torch.bool) if mask is None else mask[None].expand_as(L)
+    srt = torch.sort(torch.where(live, L, float("inf")), dim=1).values
+    n_live = int(live[0].sum())
+    ranks = torch.linspace(width // 4, width - 1, Q).long().clamp_max(n_live - 1).to(cuda)
+    thr = srt[torch.arange(Q, device=cuda), ranks].contiguous()
+    before = LAUNCHES["apex_threshold"]
+    ids, lwb, upb, counts = ops.apex_bounds_threshold(table, queries, thr, width, rowmask=mask)
+    assert LAUNCHES["apex_threshold"] == before + 1
+    hit = live & (L <= thr[:, None])
+    assert torch.equal(counts, hit.sum(dim=1).to(torch.int32))
+    assert int(counts.max()) <= width and int(counts.max()) > width // 2
+    want = _selection(ref.pack_keys(L, hit), L, U, width)
+    for g, w in zip((ids, lwb, upb), want):
+        assert torch.equal(g, w)
+
+
+def test_k3_from_threads_at_different_widths(cuda, k2_table):
+    """Host threads launching K3 at once, each at its own width (a sharded
+    fan-out's segments re-running their overflowing queries): every launch
+    succeeds and equals the same launch made alone.  The kernels' dynamic
+    shared memory size is set per kernel function before each launch, which
+    threads would otherwise overwrite for each other."""
+    import threading
+
+    table, queries = k2_table[0], k2_table[1][:19]
+    L, _ = ops.apex_bounds_batch(table, queries)
+    srt = torch.sort(L, dim=1).values
+    widths = [512, 1024, 2048, 4096, 16_384]
+    thr = {w: srt[:, w - 1].contiguous() for w in widths}
+    want = {w: ops.apex_bounds_threshold(table, queries, thr[w], w) for w in widths}
+    got, errors = {}, []
+
+    def work(w):
+        try:
+            for _ in range(25):
+                got[w] = ops.apex_bounds_threshold(table, queries, thr[w], w)
+        except RuntimeError as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(w,)) for w in widths]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    torch.cuda.synchronize()
+    for w in widths:
+        for g, x in zip(got[w], want[w]):
+            assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("name", ["euclidean", "jensen_shannon"])
+def test_knn_overflow_route_on_card(cuda, name):
+    """Exact k-NN where every query of a 64-query batch overflows pass B:
+    one K2 and two K3 launches (pass B, then the route's re-run), no K1; the
+    answers equal a float64 scan on the card, and ids and ``QueryStats``
+    equal the CPU twin's (the same state, the plain kernels)."""
+    from repro_torch.data import colors_like
+    from repro_torch.index import NSimplexIndex
+    from repro_torch.metrics import get_metric
+
+    X = colors_like(n=20_000 + 64, seed=23).astype(np.float64)
+    data, queries = X[:20_000], X[20_000:]
+    pivots = data[np.random.default_rng(3).choice(20_000, 8, replace=False)]
+    host = NSimplexIndex(data, pivots, get_metric(name), device="cpu")
+    card = NSimplexIndex.from_state(host.state_arrays(), get_metric(name), device=cuda)
+    before = dict(LAUNCHES)
+    got = card.knn_batch(queries, 10)
+    assert card.overflow_queries == len(queries)
+    grew = {k: LAUNCHES[k] - before[k] for k in ("apex_topk", "apex_threshold", "apex_bounds_batch")}
+    assert grew == {"apex_topk": 1, "apex_threshold": 2, "apex_bounds_batch": 0}
+    want = host.knn_batch(queries, 10)
+    for q, (gi, gd, gs), (wi, _, ws) in zip(queries, got, want):
+        d = card.metric.one_to_many(torch.as_tensor(q, device=cuda), card.data).cpu().numpy()
+        oracle = np.lexsort((np.arange(d.shape[0]), d))[:10]
+        np.testing.assert_array_equal(gi, oracle)
+        np.testing.assert_allclose(gd, d[oracle], rtol=1e-12, atol=1e-12)
+        np.testing.assert_array_equal(gi, wi)
+        assert (gs.original_calls, gs.surrogate_calls, gs.candidates) == (ws.original_calls, ws.surrogate_calls,
+                                                                          ws.candidates)

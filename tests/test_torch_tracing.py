@@ -178,13 +178,22 @@ def test_service_spans_queue_overflow_and_refinement(spans_on):
     overflow = by.get("nsimplex.overflow", [])
     assert len(overflow) == index.overflow_queries - over0 > 0
     assert all(s.attrs["count"] > s.attrs["cap"] for s in overflow)
-    assert len(by["nsimplex.overflow.bounds"]) == len(by["nsimplex.overflow.select"]) == len(overflow)
+    # one bounds span (the K3 re-run) and one select span per batch that
+    # overflows, over just its overflowing queries, at a width that holds them
+    bounds, select = by["nsimplex.overflow.bounds"], by["nsimplex.overflow.select"]
+    assert len(bounds) == len(select) <= len(batches)
+    assert sum(s.attrs["Q"] for s in bounds) == sum(s.attrs["Q"] for s in select) == len(overflow)
+    for s in bounds:
+        counts = [o.attrs["count"] for o in overflow if o.trace == s.trace]
+        assert len(counts) == s.attrs["Q"] and max(counts) <= s.attrs["width"] < 2 * max(counts)
     # the refinement's rows are the answers' true-metric calls less the pivots
     calls = sum(r.stats.original_calls for r in results) - len(queries) * index.n_pivots
     assert sum(s.attrs["rows"] for s in by["metric.refine"]) == calls
-    # the kernels' wrappers ran under the passes and the overflow route
+    # the kernels' wrappers ran under the passes and the overflow route: K3
+    # in pass B and again in the route, no K1
     names = {s.name for s in spans}
-    assert {"kernel.K1", "kernel.K2", "kernel.K3", "kernel.K4"} <= names
+    assert {"kernel.K2", "kernel.K3", "kernel.K4"} <= names and "kernel.K1" not in names
+    assert len(by["kernel.K3"]) == len(by["nsimplex.pass_b"]) + len(bounds) >= 2
 
 
 def test_overflow_counter_is_public_and_survives_fit():
